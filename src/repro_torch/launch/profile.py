@@ -1,0 +1,117 @@
+"""Where the serving time goes: trace one prefill and one decode step.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch granite_3_8b
+
+Builds the model with random weights on the card (``use_kernels=True``),
+warms it up, then, at batch 4 x prompt 128, traces one prefill and one decode step with
+``torch.profiler`` (CPU and CUDA activity).  For each it prints the host
+wall time, the device busy time (union of kernel intervals), the device's
+idle share of the span between its first and last kernel, and device time
+by kernel group (the port's three kernels, matrix products, the rest).  The
+chrome traces go to ``--out`` (default ``chiprun_out/profile``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ..configs import registry
+from ..models import lm, steps
+from ..models.modules import require_device
+
+BATCH, PROMPT = 4, 128          # chip_smoke.py's serving shape
+
+GROUPS = (("flash_attention", ("flash_fwd",)), ("decode_attention", ("decode_fwd",)),
+          ("rmsnorm", ("_rmsnorm_kernel",)),
+          ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma", "cublas", "nvjet")))
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k.lower() in low for k in keys):
+            return group
+    return "other"
+
+
+def trace(fn, out: Path, label: str) -> dict:
+    """Run ``fn`` once under the profiler; summarise its device activity."""
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    out.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(out / f"{label}.json"))
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError(f"{label}: the profiler recorded no device activity")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s, e in spans[1:]:
+        if s > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    busy += cur_e - cur_s
+    span = spans[-1][1] - spans[0][0]
+    by_group: dict = defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        g = by_group[_group(e.name)]
+        g[0] += e.time_range.elapsed_us() / 1e3
+        g[1] += 1
+    return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3, "device_span_ms": span / 1e3,
+            "idle_share_of_span": 1.0 - busy / span if span else 0.0,
+            "kernels": len(kernels),
+            "by_group_ms": {k: {"ms": v[0], "n": v[1]}
+                            for k, v in sorted(by_group.items(), key=lambda kv: -kv[1][0])}}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite_3_8b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--out", default="chiprun_out/profile")
+    args = ap.parse_args(argv)
+
+    dev = require_device("cuda")
+    cfg = (registry.get_smoke_config if args.smoke else registry.get_config)(args.arch)
+    cfg = cfg.replace(use_kernels=True)
+    params = lm.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device=dev,
+                           generator=gen, dtype=torch.int32)
+    cache_len = PROMPT + 2
+    pos = torch.full((BATCH,), PROMPT, dtype=torch.int32, device=dev)
+    state = {}
+
+    def run_prefill():
+        last, state["cache"] = steps.prefill(params, {"tokens": tokens}, cfg=cfg,
+                                             cache_len=cache_len)
+        state["tok"] = torch.argmax(last, -1).to(torch.int32)[:, None]
+
+    def run_decode():
+        lm.decode_step(params, cfg, state["tok"], pos, state["cache"])
+
+    with torch.inference_mode():
+        for _ in range(2):                      # warm-up: kernel builds, allocator
+            run_prefill()
+            run_decode()
+        out = Path(args.out)
+        res = {"arch": cfg.name, "batch": BATCH, "prompt": PROMPT,
+               "device": torch.cuda.get_device_name(dev),
+               "prefill": trace(run_prefill, out, "prefill"),
+               "decode_step": trace(run_decode, out, "decode_step")}
+    print(json.dumps(res, indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,173 @@
+"""Decoder-only language model: counterpart of ``repro.models.lm`` for the
+dense GQA archs.
+
+Entry points, as in the reference:
+  init_params(cfg, ...)                          -> params tree
+  forward(params, cfg, batch, collect_cache)     -> (logits, aux, cache|None)
+  decode_step(params, cfg, tokens, positions, cache) -> (logits, cache)
+  prefill_chunk(params, cfg, tokens, positions, cache) -> (logits, cache)
+  init_cache(cfg, batch, length, ...)            -> zeroed decode cache
+
+Parameters and caches are nested dicts of tensors with the reference's key
+paths; every ``phase*`` leaf carries the stacked ``n_groups`` dim, and where
+the reference runs ``lax.scan`` over it the port loops over the group index.
+The reference casts its fp32 parameters to the compute dtype on every call;
+the port holds them in the compute dtype from load on, which gives the same
+numbers.  ``decode_step`` and ``prefill_chunk`` update the cache in place.
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..configs.base import ArchConfig
+from . import blocks
+from .modules import dense_init, require_device
+
+
+def _check_supported(cfg: ArchConfig) -> None:
+    if cfg.tie_embeddings or cfg.scale_embed or cfg.use_mrope or not cfg.use_rope:
+        raise NotImplementedError(
+            f"{cfg.name}: tied / scaled embeddings, M-RoPE and rope-less archs "
+            "are not ported yet (ROADMAP.md queue 1 items 1.2, 1.9)")
+    blocks.build_plan(cfg)
+
+
+def _at(tree: dict, g: int) -> dict:
+    """Group ``g`` of a stacked tree (views, no copy)."""
+    return {k: (_at(v, g) if isinstance(v, dict) else v[g]) for k, v in tree.items()}
+
+
+def _stack(n: int, make: Callable[[int], dict]) -> dict:
+    """Stack ``make(0..n-1)`` on a new leading dim, one group at a time (a
+    full-width layer stack never exists twice in memory)."""
+    def alloc(t):
+        return {k: alloc(v) for k, v in t.items()} if isinstance(t, dict) else \
+            torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=t.device)
+
+    def put(dst, src, g):
+        for k, v in src.items():
+            if isinstance(v, dict):
+                put(dst[k], v, g)
+            else:
+                dst[k][g].copy_(v)
+
+    first = make(0)
+    out = alloc(first)
+    put(out, first, 0)
+    for g in range(1, n):
+        put(out, make(g), g)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> dict:
+    """Random parameters from a seeded ``torch.Generator`` on ``device``, in
+    the compute dtype."""
+    _check_supported(cfg)
+    dev = require_device(device)
+    dtype = cfg.compute_dtype
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    kw = dict(generator=gen, device=dev)
+    p: dict = {
+        "embed": dense_init((cfg.vocab_size, cfg.d_model), fan_in=cfg.d_model,
+                            dtype=dtype, **kw),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
+        "lm_head": dense_init((cfg.d_model, cfg.vocab_size), fan_in=cfg.d_model,
+                              dtype=dtype, **kw),
+    }
+    for pi, phase in enumerate(blocks.build_plan(cfg)):
+        p[f"phase{pi}"] = _stack(phase.n_groups, lambda g, phase=phase: {
+            f"slot{j}": blocks.slot_init(cfg, kind, ffn, dtype, **kw)
+            for j, (kind, ffn) in enumerate(zip(phase.kinds, phase.ffns))})
+    return p
+
+
+def init_cache(cfg: ArchConfig, batch: int, length: int, *, device="cuda") -> dict:
+    """Zeroed decode caches (structure mirrors forward(collect_cache))."""
+    dev = require_device(device)
+    cache: dict = {}
+    for pi, phase in enumerate(blocks.build_plan(cfg)):
+        cache[f"phase{pi}"] = {
+            f"slot{j}": {k: torch.zeros((phase.n_groups,) + shp,
+                                        dtype=blocks.cache_dtypes(kind, cfg.compute_dtype),
+                                        device=dev)
+                         for k, shp in blocks.slot_cache_shape(cfg, kind, batch, length).items()}
+            for j, kind in enumerate(phase.kinds)}
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# Shared pieces
+# ---------------------------------------------------------------------------
+def _embed(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embed"][tokens.long()].to(cfg.compute_dtype)
+
+
+def _head(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    x = blocks.norm(x, params["final_norm"], cfg)
+    return x @ params["lm_head"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Forward (prefill)
+# ---------------------------------------------------------------------------
+def forward(params: dict, cfg: ArchConfig, batch: dict, *, collect_cache: bool = False,
+            cache_len: int = 0):
+    """batch {"tokens": (B,S)} -> (logits (B,S,V), aux, cache or None).
+
+    With ``collect_cache`` the KV caches come back padded with zeros to
+    ``max(cache_len, S)`` rows, so decode can continue from the prefill."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
+    x = _embed(params, cfg, tokens)
+    cache = init_cache(cfg, b, max(cache_len, s), device=tokens.device) \
+        if collect_cache else None
+    for pi, phase in enumerate(blocks.build_plan(cfg)):
+        for g in range(phase.n_groups):
+            gp = _at(params[f"phase{pi}"], g)
+            for j, (kind, ffn) in enumerate(zip(phase.kinds, phase.ffns)):
+                x, c = blocks.slot_forward(gp[f"slot{j}"], x, positions, cfg, kind, ffn,
+                                           collect_cache=collect_cache)
+                if collect_cache:
+                    for name, kv in c.items():
+                        cache[f"phase{pi}"][f"slot{j}"][name][g, :, :s] = kv
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)  # MoE only
+    return _head(params, cfg, x), aux, cache
+
+
+# ---------------------------------------------------------------------------
+# Decode and chunked prefill
+# ---------------------------------------------------------------------------
+def _run_cached(params: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
+                cache: dict, slot_fn) -> torch.Tensor:
+    for pi, phase in enumerate(blocks.build_plan(cfg)):
+        pcache = cache[f"phase{pi}"]
+        for g in range(phase.n_groups):
+            gp, gc = _at(params[f"phase{pi}"], g), _at(pcache, g)
+            for j, (kind, ffn) in enumerate(zip(phase.kinds, phase.ffns)):
+                x, _ = slot_fn(gp[f"slot{j}"], x, gc[f"slot{j}"], positions, cfg, kind, ffn)
+    return x
+
+
+def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                positions: torch.Tensor, cache: dict):
+    """tokens (B,1); positions (B,) absolute position of the new token.
+    Returns (logits (B,V), cache) with the cache updated in place."""
+    x = _run_cached(params, cfg, _embed(params, cfg, tokens), positions, cache,
+                    blocks.slot_decode)
+    return _head(params, cfg, x[:, 0]), cache
+
+
+def prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
+                  positions: torch.Tensor, cache: dict):
+    """C prompt tokens at once against the decode cache: tokens (B,C);
+    positions (B,C) absolute, contiguous ascending per row.  Returns
+    (logits (B,C,V), cache) with the cache updated in place."""
+    x = _run_cached(params, cfg, _embed(params, cfg, tokens), positions, cache,
+                    blocks.slot_prefill)
+    return _head(params, cfg, x), cache

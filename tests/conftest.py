@@ -21,6 +21,12 @@ except ImportError:                      # dev dep; suites importorskip/skip
     pass
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU (the port's CUDA / Triton kernels); "
+        "skips without one")
+
+
 @pytest.fixture(autouse=True)
 def _no_global_log_leaks():
     """GLOBAL_LOG is a retired legacy sink (telemetry/events.py): every

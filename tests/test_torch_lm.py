@@ -1,0 +1,142 @@
+"""Whole-slice parity of the PyTorch port with the JAX reference.
+
+The reference builds granite_3_8b's smoke parameters
+(``lm.init_params(PRNGKey(0), cfg)``); ``transplant`` loads them into the
+port.  Both packages then run the same token ids, drawn with numpy from a
+seed: the reference with ``use_kernels=True`` (Pallas in interpret mode),
+the port on its plain CPU path.  Tolerance: rel < 2e-3
+(tests/test_archs.py:66-67), generated tokens identical.
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.configs import registry as jreg  # noqa: E402
+from repro.models import lm as jlm  # noqa: E402
+from repro.models import steps as jsteps  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.models import lm, steps  # noqa: E402
+from repro_torch.models.transplant import transplant  # noqa: E402
+
+ARCH = "granite_3_8b"
+B, S, GEN = 2, 12, 4
+REL = 2e-3
+
+
+def rel_err(got, want) -> float:
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    return float(np.max(np.abs(got - want)) / (np.max(np.abs(want)) + 1e-9))
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+@pytest.fixture(scope="module")
+def models():
+    cfg_j = jreg.get_smoke_config(ARCH).replace(use_kernels=True)
+    cfg_t = registry.get_smoke_config(ARCH)
+    params_j = jlm.init_params(jax.random.PRNGKey(0), cfg_j)
+    params_t = transplant(jax.tree_util.tree_map(np.asarray, params_j), device="cpu",
+                          dtype=cfg_t.compute_dtype)
+    tokens = np.random.default_rng(0).integers(0, cfg_t.vocab_size, (B, S), dtype=np.int32)
+    return cfg_j, params_j, cfg_t, params_t, tokens
+
+
+def test_transplant_keeps_paths_and_layouts(models):
+    _, params_j, cfg_t, params_t, _ = models
+    want = dict(_leaves(jax.tree_util.tree_map(np.asarray, params_j)))
+    got = dict(_leaves(params_t))
+    assert got.keys() == want.keys()
+    for path, leaf in got.items():
+        assert tuple(leaf.shape) == want[path].shape, path
+        np.testing.assert_array_equal(leaf.numpy(), want[path], err_msg=path)
+    assert got["phase0/slot0/mixer/wq"].shape == (cfg_t.n_layers, cfg_t.d_model,
+                                                   cfg_t.n_heads, cfg_t.head_dim)
+
+
+def test_forward_logits_match_reference(models):
+    cfg_j, params_j, cfg_t, params_t, tokens = models
+    want, _, _ = jlm.forward(params_j, cfg_j, {"tokens": jnp.asarray(tokens)})
+    got, aux, _ = lm.forward(params_t, cfg_t, {"tokens": torch.from_numpy(tokens)})
+    assert got.shape == (B, S, cfg_t.vocab_size) and float(aux) == 0.0
+    assert rel_err(got, want) < REL
+
+
+def test_prefill_and_greedy_decode_match_reference(models):
+    cfg_j, params_j, cfg_t, params_t, tokens = models
+    cache_len = S + GEN + 1
+    last_j, cache_j = jsteps.prefill(params_j, {"tokens": jnp.asarray(tokens)}, cfg=cfg_j,
+                                     cache_len=cache_len)
+    last_t, cache_t = steps.prefill(params_t, {"tokens": torch.from_numpy(tokens)}, cfg=cfg_t,
+                                    cache_len=cache_len)
+    assert rel_err(last_t, last_j) < REL
+    for path, leaf in _leaves(cache_t):
+        assert rel_err(leaf, dict(_leaves(cache_j))[path]) < REL, path
+    first_j = jnp.argmax(last_j, -1).astype(jnp.int32)[:, None]
+    first_t = torch.argmax(last_t, -1).to(torch.int32)[:, None]
+    np.testing.assert_array_equal(first_t.numpy(), np.asarray(first_j))
+    toks_j, cache_j = jsteps.greedy_decode_loop(params_j, cache_j, first_j,
+                                                jnp.full((B,), S, jnp.int32), GEN, cfg=cfg_j)
+    toks_t, cache_t = steps.greedy_decode_loop(params_t, cache_t, first_t,
+                                               torch.full((B,), S, dtype=torch.int32), GEN,
+                                               cfg=cfg_t)
+    assert toks_t.shape == (B, GEN)
+    np.testing.assert_array_equal(toks_t.numpy(), np.asarray(toks_j))
+    want = dict(_leaves(cache_j))
+    for path, leaf in _leaves(cache_t):
+        assert rel_err(leaf, want[path]) < REL, path
+
+
+def test_decode_step_matches_reference_and_forward(models):
+    """Prefill S-1 tokens, decode the last: the logits match the reference's
+    decode_step and the port's own full forward."""
+    cfg_j, params_j, cfg_t, params_t, tokens = models
+    pos = np.full((B,), S - 1, np.int32)
+    _, cache_j = jsteps.prefill(params_j, {"tokens": jnp.asarray(tokens[:, :-1])},
+                                cfg=cfg_j, cache_len=S + 4)
+    want, _ = jlm.decode_step(params_j, cfg_j, jnp.asarray(tokens[:, -1:]),
+                              jnp.asarray(pos), cache_j)
+    _, cache_t = steps.prefill(params_t, {"tokens": torch.from_numpy(tokens[:, :-1])},
+                               cfg=cfg_t, cache_len=S + 4)
+    got, _ = lm.decode_step(params_t, cfg_t, torch.from_numpy(tokens[:, -1:]),
+                            torch.from_numpy(pos), cache_t)
+    assert rel_err(got, want) < REL
+    full, _, _ = lm.forward(params_t, cfg_t, {"tokens": torch.from_numpy(tokens)})
+    assert rel_err(got, full[:, -1]) < REL
+
+
+@pytest.mark.parametrize("chunk", [4, S])
+def test_prefill_chunk_matches_reference(models, chunk):
+    cfg_j, params_j, cfg_t, params_t, tokens = models
+    cache_j = jlm.init_cache(cfg_j, B, S + 4)
+    cache_t = lm.init_cache(cfg_t, B, S + 4, device="cpu")
+    for c0 in range(0, S, chunk):
+        pos = np.broadcast_to(np.arange(c0, c0 + chunk, dtype=np.int32), (B, chunk))
+        want, cache_j = jlm.prefill_chunk(params_j, cfg_j, jnp.asarray(tokens[:, c0:c0 + chunk]),
+                                          jnp.asarray(pos), cache_j)
+        got, cache_t = lm.prefill_chunk(params_t, cfg_t,
+                                        torch.from_numpy(tokens[:, c0:c0 + chunk]),
+                                        torch.from_numpy(pos.copy()), cache_t)
+        assert rel_err(got, want) < REL, c0
+    want = dict(_leaves(cache_j))
+    for path, leaf in _leaves(cache_t):
+        assert rel_err(leaf, want[path]) < REL, path
+
+
+def test_kernel_switch_is_the_plain_path_on_cpu(models):
+    """use_kernels=True on CPU tensors runs the twins: same logits bit for bit."""
+    _, _, cfg_t, params_t, tokens = models
+    batch = {"tokens": torch.from_numpy(tokens)}
+    a, _, _ = lm.forward(params_t, cfg_t, batch)
+    b, _, _ = lm.forward(params_t, cfg_t.replace(use_kernels=True), batch)
+    assert torch.equal(a, b)

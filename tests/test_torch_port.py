@@ -1,0 +1,123 @@
+"""The PyTorch port's boundaries: it stands alone, it never falls back from
+the card to the host, and its serving entry points answer on the CPU."""
+import ast
+import json
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
+
+from repro_torch.clouds.profiles import get_profile  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.transplant import transplant  # noqa: E402
+from repro_torch.serving.kserve import InferenceService  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden_imports(path: Path) -> list:
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [n for n in names
+                if n.split(".")[0] in ("jax", "jaxlib", "repro")]
+    return bad
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    assert path.is_file(), path
+    assert _forbidden_imports(path) == []
+
+
+def test_isolation_check_catches_forbidden_imports(tmp_path):
+    f = tmp_path / "m.py"
+    f.write_text("import jax.numpy as jnp\nfrom repro.models import lm\n"
+                 "from repro_torch.models import lm as ok\nimport repro\n")
+    assert _forbidden_imports(f) == ["jax.numpy", "repro.models", "repro"]
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour on a host without a card")
+
+
+@pytest.mark.parametrize("entry", [
+    lambda cfg: lm.init_params(cfg, device="cuda"),
+    lambda cfg: lm.init_cache(cfg, 1, 8, device="cuda"),
+    lambda cfg: serve.make_lm_predictor(cfg, device="cuda"),
+    lambda cfg: transplant({"w": np.zeros(2, np.float32)}, device="cuda"),
+    lambda cfg: serve.main(["--arch", "granite_3_8b", "--smoke", "--requests", "1"]),
+], ids=["init_params", "init_cache", "make_lm_predictor", "transplant", "serve_main"])
+def test_cuda_entry_points_raise_without_a_card(no_cuda, entry):
+    """No silent CPU fallback: asking for the card where there is none raises."""
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        entry(registry.get_smoke_config("granite_3_8b"))
+
+
+def test_registry_names_the_roadmap_item_for_unported_archs():
+    assert registry.list_archs() == ["granite_3_8b"]
+    assert registry.get_config("granite-3-8b").d_model == 4096
+    with pytest.raises(KeyError, match="ROADMAP.md queue 1 item 1.2"):
+        registry.get_config("h2o_danube_3_4b")
+    with pytest.raises(KeyError, match="unknown arch"):
+        registry.get_config("nope")
+
+
+@pytest.fixture(scope="module")
+def predictor():
+    cfg = registry.get_smoke_config("granite_3_8b").replace(use_kernels=True)
+    return serve.make_lm_predictor(cfg, gen_tokens=3, prompt_len=6, device="cpu"), cfg
+
+
+def test_predictor_generates_in_vocab(predictor):
+    pred, cfg = predictor
+    toks = pred.predict(np.arange(12, dtype=np.int32).reshape(2, 6))
+    assert toks.shape == (2, 3) and toks.dtype == torch.int32
+    assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab_size
+
+
+@pytest.mark.parametrize("strategy", ["baremetal", "k8s"])
+def test_inference_service_sequential_strategies(predictor, strategy):
+    pred, _ = predictor
+    res = InferenceService(pred, get_profile("gcp"), strategy).stress_test(4)
+    s = res.summary()
+    assert s["strategy"] == strategy and s["n"] == 4 and len(res.latencies_s) == 4
+    assert s["p50_s"] > 0 and s["total_s"] == pytest.approx(sum(res.latencies_s), abs=1e-3)
+    # baremetal pays the model reload on every request
+    extra = get_profile("gcp").model_load_s if strategy == "baremetal" else 0.0
+    assert res.latencies_s[0] == pytest.approx(
+        0.0025 + 0.0004 + extra + pred.service_time(1))
+
+
+def test_kserve_strategy_names_its_roadmap_item(predictor):
+    pred, _ = predictor
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1.3"):
+        InferenceService(pred, get_profile("gcp"), "kserve").stress_test(2)
+
+
+def test_serve_main_rejects_the_kserve_batch_cap():
+    """--max-batch only caps the gateway strategy, which is not ported: it is
+    refused rather than silently ignored."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1.3"):
+        serve.main(["--arch", "granite_3_8b", "--smoke", "--device", "cpu",
+                    "--max-batch", "4"])
+
+
+def test_serve_main_runs_the_smoke_config_on_cpu(capsys):
+    serve.main(["--arch", "granite_3_8b", "--smoke", "--device", "cpu", "--requests", "2",
+                "--gen-tokens", "2"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["n"] == 2 and out["device"] == "cpu" and out["arch"] == "granite-3-8b"
