@@ -23,7 +23,7 @@ ARCH_IDS = (
     "zamba2_1_2b",
 )
 
-PORTED = ("granite_3_8b",)
+PORTED = ("granite_3_8b", "zamba2_1_2b", "xlstm_1_3b")
 
 # ROADMAP.md queue 1 item that brings each not-yet-ported arch over
 PENDING = {
@@ -32,8 +32,6 @@ PENDING = {
     "gemma3_4b": "1.2 (local+global, tied head)",
     "granite_moe_3b_a800m": "1.6 (MoE)",
     "deepseek_v2_lite_16b": "1.7 (MLA)",
-    "zamba2_1_2b": "1.8 (SSM family)",
-    "xlstm_1_3b": "1.8 (SSM family)",
     "whisper_base": "1.9 (enc-dec)",
     "qwen2_vl_7b": "1.9 (VLM)",
 }

@@ -24,11 +24,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / ".torch_ext_build"
-SOURCES = ("flash_attention.cu", "decode_attention.cu")
+SOURCES = ("flash_attention.cu", "decode_attention.cu", "ssm_scan.cu", "mlstm_scan.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
-LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
+LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0, "ssm_scan": 0,
+            "mlstm_scan": 0}
 
 _FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 

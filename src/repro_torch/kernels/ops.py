@@ -2,10 +2,15 @@
 
 Counterpart of ``repro.kernels.ops``.  ``use_kernel`` comes from
 ``ArchConfig.use_kernels``.  This is the one place that chooses between a
-kernel and its plain twin in ``ref``: the twin runs when ``use_kernel`` is
-false or the tensor lies on the CPU (where no kernel exists); otherwise the
-call goes to the kernel's wrapper and nothing else, which launches the
-kernel or raises.  No path catches a build or launch error.
+kernel and its plain twin: the twin runs when ``use_kernel`` is false or
+the tensor lies on the CPU (where no kernel exists); otherwise the call goes
+to the kernel's wrapper and nothing else, which launches the kernel or
+raises.  No path catches a build or launch error.
+
+The attention and norm twins live in ``ref``.  The two scans' twins are the
+chunked forms below (``ssd_chunked``, ``mlstm_chunked``), counterparts of
+the reference's ``ops.ssd_chunked_jnp`` and ``models/ssm._mlstm_chunked``;
+``ref`` holds their sequential oracles.
 """
 from __future__ import annotations
 
@@ -14,7 +19,11 @@ import torch
 from . import ref
 from .decode_attention import decode_attention as _decode_kernel
 from .flash_attention import flash_attention as _flash_kernel
+from .mlstm_scan import mlstm_scan as _mlstm_kernel
 from .rmsnorm import rmsnorm as _rmsnorm_kernel
+from .ssm_scan import ssm_scan as _ssm_kernel
+
+NEG_INF = ref.NEG_INF
 
 
 def _plain(use_kernel: bool, x: torch.Tensor) -> bool:
@@ -43,3 +52,122 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, scale: float | None = No
     if _plain(use_kernel, q):
         return ref.decode_attention_ref(q, k_cache, v_cache, cache_len, scale=scale)
     return _decode_kernel(q, k_cache, v_cache, cache_len, scale=scale)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD scan
+# ---------------------------------------------------------------------------
+def ssm_scan(x, dt, A, Bm, Cm, *, chunk: int = 256, use_kernel: bool = False):
+    """x (B,S,H,P); dt (B,S,H); A (H,); Bm, Cm (B,S,N) -> (y (B,S,H,P) in
+    x.dtype, h_final (B,H,P,N) fp32).  ``chunk`` is the twin's chunk length;
+    the kernel's result does not depend on it."""
+    if _plain(use_kernel, x):
+        return ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
+    return _ssm_kernel(x, dt, A, Bm, Cm)
+
+
+def _pad_seq(t: torch.Tensor, pad: int, value: float = 0.0) -> torch.Tensor:
+    """Pad dim 1 (the sequence) at its end."""
+    return torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, pad), value=value)
+
+
+def ssd_chunked(x, dt, A, Bm, Cm, *, chunk: int = 256):
+    """Chunked SSD, one loop step per chunk: within a chunk the recurrence is
+    dense (T,T) and (T,N) products, and the fp32 (P,N) state is carried
+    across chunks.  Padding uses dt = 0 (identity steps)."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    t = min(chunk, s)
+    pad = (-s) % t
+    if pad:
+        x, dt, Bm, Cm = (_pad_seq(a, pad) for a in (x, dt, Bm, Cm))
+    nc = x.shape[1] // t
+    xf = x.float().reshape(b, nc, t, h, p)
+    dtf = dt.float().reshape(b, nc, t, h)
+    bf = Bm.float().reshape(b, nc, t, n)
+    cf = Cm.float().reshape(b, nc, t, n)
+    af = A.float()
+    tri = torch.tril(torch.ones((t, t), dtype=torch.bool, device=x.device))
+    hprev = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):
+        xc, dtc, bc, cc = xf[:, c], dtf[:, c], bf[:, c], cf[:, c]
+        cum = torch.cumsum(af[None, None, :] * dtc, dim=1)                 # (B,t,H)
+        # mask the exponent BEFORE exp: the dead upper triangle would overflow
+        delta = torch.where(tri[None, :, :, None],
+                            cum[:, :, None, :] - cum[:, None, :, :], NEG_INF)
+        L = torch.exp(delta)
+        G = torch.einsum("btn,bsn->bts", cc, bc)
+        M = G[:, :, :, None] * L * dtc[:, None, :, :]                    # (B,t,s,H)
+        y_intra = torch.einsum("btsh,bshp->bthp", M, xc)
+        y_state = torch.exp(cum)[..., None] * torch.einsum("btn,bhpn->bthp", cc, hprev)
+        w = dtc * torch.exp(cum[:, -1:, :] - cum)                        # (B,t,H)
+        hprev = hprev * torch.exp(cum[:, -1])[:, :, None, None] + torch.einsum(
+            "bthp,btn,bth->bhpn", xc, bc, w)
+        ys.append(y_intra + y_state)
+    y = torch.stack(ys, dim=1).reshape(b, nc * t, h, p)[:, :s]
+    return y.to(x.dtype), hprev
+
+
+# ---------------------------------------------------------------------------
+# mLSTM scan
+# ---------------------------------------------------------------------------
+def mlstm_scan(q, k, v, logi, logf, *, chunk: int = 256, use_kernel: bool = False):
+    """q, k, v (B,S,H,D); logi, logf (B,S,H) log-space gates -> y (B,S,H,D)
+    in q.dtype.  ``chunk`` is the twin's chunk length.  Emits no state: a
+    caller that needs the carry calls ``mlstm_chunked``, as the
+    reference's ``mlstm_forward`` does."""
+    if _plain(use_kernel, q):
+        return mlstm_chunked(q, k, v, logi, logf, chunk)[0].to(q.dtype)
+    return _mlstm_kernel(q, k, v, logi, logf)
+
+
+def mlstm_chunked(q, k, v, logi, logf, chunk: int):
+    """Stabilised chunkwise mLSTM.  q, k, v (B,S,H,D); logi/logf (B,S,H) fp32.
+
+    Returns (y (B,S,H,D) fp32, state (C (B,H,D,D), n (B,H,D), m (B,H)), all
+    fp32).  Matches ``ref.mlstm_scan_ref`` (y is stabiliser-invariant)."""
+    b, s, h, d = q.shape
+    t = min(chunk, s)
+    pad = (-s) % t
+    if pad:
+        q, k, v, logf = (_pad_seq(a, pad) for a in (q, k, v, logf))
+        logi = _pad_seq(logi, pad, NEG_INF)
+    nc = q.shape[1] // t
+    qf = (q.float() * d ** -0.5).reshape(b, nc, t, h, d)
+    kf = k.float().reshape(b, nc, t, h, d)
+    vf = v.float().reshape(b, nc, t, h, d)
+    li = logi.float().reshape(b, nc, t, h)
+    lf = logf.float().reshape(b, nc, t, h)
+    tri = torch.tril(torch.ones((t, t), dtype=torch.bool, device=q.device))
+    C = torch.zeros((b, h, d, d), dtype=torch.float32, device=q.device)
+    nvec = torch.zeros((b, h, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h), NEG_INF, dtype=torch.float32, device=q.device)
+    ys = []
+    for c in range(nc):
+        qc, kc, vc, lic, lfc = qf[:, c], kf[:, c], vf[:, c], li[:, c], lf[:, c]
+        bcum = torch.cumsum(lfc, dim=1)                                  # (B,t,H)
+        # intra-chunk log weights w[t,s] = bcum_t - bcum_s + li_s  (s <= t)
+        wlog = bcum[:, :, None, :] - bcum[:, None, :, :] + lic[:, None, :, :]
+        wlog = torch.where(tri[None, :, :, None], wlog, -torch.inf)
+        glog = bcum + m[:, None, :]                                      # state decay
+        m_row = torch.maximum(wlog.amax(dim=2), glog).clamp_min(NEG_INF)  # (B,t,H)
+        wexp = torch.exp(wlog - m_row[:, :, None, :])                    # (B,t,s,H)
+        gexp = torch.exp(glog - m_row)
+        scores = torch.einsum("bthd,bshd->btsh", qc, kc) * wexp
+        y_intra = torch.einsum("btsh,bshd->bthd", scores, vc)
+        y_state = gexp[..., None] * torch.einsum("bhde,bthe->bthd", C, qc)
+        nq = (torch.einsum("btsh,bshd->bthd", wexp, kc) * qc).sum(-1) \
+            + gexp * torch.einsum("bthd,bhd->bth", qc, nvec)
+        denom = torch.maximum(nq.abs(), torch.exp(-m_row))
+        ys.append((y_intra + y_state) / denom[..., None])
+        # carry update (end of chunk), restabilised at m_new
+        tail = lic + (bcum[:, -1:] - bcum)                               # (B,t,H)
+        m_new = torch.maximum(bcum[:, -1] + m, tail.amax(dim=1))
+        c_decay = torch.exp(bcum[:, -1] + m - m_new)                     # (B,H)
+        inj = torch.exp(tail - m_new[:, None])
+        C = C * c_decay[..., None, None] + torch.einsum("bthd,bthe,bth->bhde", vc, kc, inj)
+        nvec = nvec * c_decay[..., None] + torch.einsum("bthd,bth->bhd", kc, inj)
+        m = m_new
+    y = torch.stack(ys, dim=1).reshape(b, nc * t, h, d)[:, :s]
+    return y, (C, nvec, m)

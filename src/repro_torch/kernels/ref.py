@@ -6,8 +6,10 @@ the reference): the operands are widened to fp32 first, which is exact for
 bf16.  Masks use the finite ``NEG_INF`` the reference uses, so a row whose
 keys are all masked averages uniformly instead of producing NaN.
 
-The CPU path runs these; on the card only ``chip_smoke.py`` calls them, to
-hold each kernel against its twin.
+The CPU path runs the attention and norm twins; on the card only
+``chip_smoke.py`` and the tests call them, to hold each kernel against its
+twin.  ``ssm_scan_ref`` and ``mlstm_scan_ref`` are the sequential oracles
+of the two scans, whose plain twins are the chunked forms in ``ops``.
 """
 from __future__ import annotations
 
@@ -68,3 +70,55 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhk,bkhd->bhd", probs.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                 Cm: torch.Tensor):
+    """Sequential Mamba2 / SSD oracle, one token at a time.
+
+    h_t = exp(A dt_t) h_{t-1} + dt_t (x_t outer B_t);  y_t = h_t . C_t
+    x (B,S,H,P); dt (B,S,H); A (H,); Bm, Cm (B,S,N); the state starts at zero.
+    Returns (y (B,S,H,P) in x.dtype, h_final (B,H,P,N) fp32)."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    xf, dtf, bf, cf, af = x.float(), dt.float(), Bm.float(), Cm.float(), A.float()
+    hs = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(af[None, :] * dtf[:, t])                          # (B,H)
+        inject = torch.einsum("bh,bhp,bn->bhpn", dtf[:, t], xf[:, t], bf[:, t])
+        hs = hs * decay[..., None, None] + inject
+        ys.append(torch.einsum("bhpn,bn->bhp", hs, cf[:, t]))
+    y = torch.stack(ys, dim=1) if ys else xf[:, :0]
+    return y.to(x.dtype), hs
+
+
+def mlstm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   i_gate: torch.Tensor, f_gate: torch.Tensor) -> torch.Tensor:
+    """Sequential stabilised mLSTM oracle (xLSTM matrix memory).
+
+    C_t = f_t C_{t-1} + i_t v_t k_t^T;  n_t = f_t n_{t-1} + i_t k_t;
+    y_t = C~_t q_t / max(|n~_t . q_t|, exp(-m_t)),  m_t = max(log f_t + m_{t-1}, log i_t).
+    q, k, v (B,S,H,D); i_gate (B,S,H) log-space input gate; f_gate (B,S,H)
+    forget-gate preactivation (log-sigmoid applied here).  Returns y in q.dtype."""
+    b, s, h, d = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    logf = torch.nn.functional.logsigmoid(f_gate.float())
+    logi = i_gate.float()
+    C = torch.zeros((b, h, d, d), dtype=torch.float32, device=q.device)
+    nv = torch.zeros((b, h, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, h), NEG_INF, dtype=torch.float32, device=q.device)
+    ys = []
+    for t in range(s):
+        m_new = torch.maximum(logf[:, t] + m, logi[:, t])
+        fe = torch.exp(logf[:, t] + m - m_new)
+        ie = torch.exp(logi[:, t] - m_new)
+        C = C * fe[..., None, None] + ie[..., None, None] * torch.einsum(
+            "bhd,bhe->bhde", vf[:, t], kf[:, t])
+        nv = nv * fe[..., None] + ie[..., None] * kf[:, t]
+        qt = qf[:, t] * d ** -0.5
+        denom = torch.maximum(torch.einsum("bhd,bhd->bh", nv, qt).abs(), torch.exp(-m_new))
+        ys.append(torch.einsum("bhde,bhe->bhd", C, qt) / denom[..., None])
+        m = m_new
+    y = torch.stack(ys, dim=1) if ys else qf[:, :0]
+    return y.to(q.dtype)

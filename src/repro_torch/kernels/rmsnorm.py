@@ -3,8 +3,8 @@
 Replaces the Pallas kernel ``repro/kernels/rmsnorm.py:rmsnorm``
 (``_rmsnorm_kernel``, pallas_call at :36).  The reference's models call the
 same math as plain code (``repro/models/modules.py:rms_norm``); the port
-sends its model norms (two per layer and one before the head) through this
-kernel when ``use_kernels`` is set.
+sends every model norm (the block norms, the one before the head, and the
+SSM blocks' inner norms) through this kernel when ``use_kernels`` is set.
 
 The kernel is Triton (``_rmsnorm_triton.py``): one program per row loads the
 whole row in fp32, reduces, scales and stores.  It is a single pass with no

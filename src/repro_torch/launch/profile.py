@@ -1,13 +1,14 @@
 """Where the serving time goes: trace one prefill and one decode step.
 
     PYTHONPATH=src python -m repro_torch.launch.profile --arch granite_3_8b
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch zamba2_1_2b
 
 Builds the model with random weights on the card (``use_kernels=True``),
 warms it up, then, at batch 4 x prompt 128, traces one prefill and one decode step with
 ``torch.profiler`` (CPU and CUDA activity).  For each it prints the host
 wall time, the device busy time (union of kernel intervals), the device's
 idle share of the span between its first and last kernel, and device time
-by kernel group (the port's three kernels, matrix products, the rest).  The
+by kernel group (the port's kernels, matrix products, the rest).  The
 chrome traces go to ``--out`` (default ``chiprun_out/profile``).
 """
 from __future__ import annotations
@@ -28,7 +29,8 @@ from ..models.modules import require_device
 BATCH, PROMPT = 4, 128          # chip_smoke.py's serving shape
 
 GROUPS = (("flash_attention", ("flash_fwd",)), ("decode_attention", ("decode_fwd",)),
-          ("rmsnorm", ("_rmsnorm_kernel",)),
+          ("rmsnorm", ("_rmsnorm_kernel",)), ("ssm_scan", ("ssd_scan",)),
+          ("mlstm_scan", ("mlstm_scan_kernel",)),
           ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma", "cublas", "nvjet")))
 
 

@@ -1,5 +1,6 @@
 """Decoder-only language model: counterpart of ``repro.models.lm`` for the
-dense GQA archs.
+dense GQA archs and the SSM family (xlstm; zamba2 with its weight-tied
+shared attention + MLP block after each group).
 
 Entry points, as in the reference:
   init_params(cfg, ...)                          -> params tree
@@ -14,6 +15,7 @@ the reference runs ``lax.scan`` over it the port loops over the group index.
 The reference casts its fp32 parameters to the compute dtype on every call;
 the port holds them in the compute dtype from load on, which gives the same
 numbers.  ``decode_step`` and ``prefill_chunk`` update the cache in place.
+The shared block's per-group KV caches sit under ``phase*/shared``.
 """
 from __future__ import annotations
 
@@ -83,21 +85,46 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> dict:
         p[f"phase{pi}"] = _stack(phase.n_groups, lambda g, phase=phase: {
             f"slot{j}": blocks.slot_init(cfg, kind, ffn, dtype, **kw)
             for j, (kind, ffn) in enumerate(zip(phase.kinds, phase.ffns))})
+    if cfg.family == "hybrid":          # zamba2's tied shared attention + MLP block
+        p["shared"] = blocks.slot_init(cfg, "global", "mlp", dtype, **kw)
     return p
 
 
 def init_cache(cfg: ArchConfig, batch: int, length: int, *, device="cuda") -> dict:
-    """Zeroed decode caches (structure mirrors forward(collect_cache))."""
+    """Zeroed decode caches (structure mirrors forward(collect_cache)): KV in
+    the compute dtype, recurrent states in fp32."""
     dev = require_device(device)
+
+    def zeros(n: int, shapes: dict, dtype) -> dict:
+        return {k: torch.zeros((n,) + shp, dtype=dtype, device=dev) for k, shp in shapes.items()}
+
     cache: dict = {}
     for pi, phase in enumerate(blocks.build_plan(cfg)):
-        cache[f"phase{pi}"] = {
-            f"slot{j}": {k: torch.zeros((phase.n_groups,) + shp,
-                                        dtype=blocks.cache_dtypes(kind, cfg.compute_dtype),
-                                        device=dev)
-                         for k, shp in blocks.slot_cache_shape(cfg, kind, batch, length).items()}
-            for j, kind in enumerate(phase.kinds)}
+        pc = {f"slot{j}": zeros(phase.n_groups,
+                                blocks.slot_cache_shape(cfg, kind, batch, length),
+                                blocks.cache_dtypes(kind, cfg.compute_dtype))
+              for j, kind in enumerate(phase.kinds)}
+        if phase.shared_attn:
+            kind = "local" if _shared_window(cfg, length) else "global"
+            pc["shared"] = zeros(phase.n_groups,
+                                 blocks.slot_cache_shape(cfg, kind, batch, length),
+                                 cfg.compute_dtype)
+        cache[f"phase{pi}"] = pc
     return cache
+
+
+def _shared_window(cfg: ArchConfig, cache_len: int) -> int:
+    """zamba2's long-context adaptation: the tied attention block is windowed
+    when the decode budget exceeds 64k (the reference's ``lm.py:187-192``)."""
+    if cfg.family == "hybrid" and cache_len and cache_len > 65536:
+        return cfg.sliding_window
+    return 0
+
+
+def _shared_kind(cfg: ArchConfig, shared_cache: dict) -> str:
+    """Decode and chunked prefill window the shared block iff its cache is
+    no longer than the window, as the reference decides (``lm.py:264-268``)."""
+    return "local" if shared_cache["k"].shape[1] <= cfg.sliding_window else "global"
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +148,10 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, collect_cache: bool =
 
     With ``collect_cache`` the KV caches come back padded with zeros to
     ``max(cache_len, S)`` rows, so decode can continue from the prefill."""
+    shared = "local" if _shared_window(cfg, cache_len) else "global"
+    if collect_cache and shared == "local":
+        raise NotImplementedError("a windowed shared block (decode budget > 65536) needs the "
+                                  "prefill-side ring placement: ROADMAP.md queue 1 item 1.2")
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
@@ -128,16 +159,32 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, collect_cache: bool =
     cache = init_cache(cfg, b, max(cache_len, s), device=tokens.device) \
         if collect_cache else None
     for pi, phase in enumerate(blocks.build_plan(cfg)):
+        pcache = cache[f"phase{pi}"] if collect_cache else None
         for g in range(phase.n_groups):
             gp = _at(params[f"phase{pi}"], g)
             for j, (kind, ffn) in enumerate(zip(phase.kinds, phase.ffns)):
                 x, c = blocks.slot_forward(gp[f"slot{j}"], x, positions, cfg, kind, ffn,
                                            collect_cache=collect_cache)
                 if collect_cache:
-                    for name, kv in c.items():
-                        cache[f"phase{pi}"][f"slot{j}"][name][g, :, :s] = kv
+                    _put(pcache[f"slot{j}"], g, c, kind)
+            if phase.shared_attn:
+                x, c = blocks.slot_forward(params["shared"], x, positions, cfg, shared, "mlp",
+                                           collect_cache=collect_cache)
+                if collect_cache:
+                    _put(pcache["shared"], g, c, shared)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)  # MoE only
     return _head(params, cfg, x), aux, cache
+
+
+def _put(cache: dict, g: int, c: dict, kind: str) -> None:
+    """Write slot ``c``'s prefill output into group ``g`` of its stacked
+    cache: K/V rows at the front (the rest stays zero padding), recurrent
+    states whole."""
+    for name, t in c.items():
+        if kind in blocks.KV_KINDS:
+            cache[name][g, :, :t.shape[1]] = t
+        else:
+            cache[name][g] = t
 
 
 # ---------------------------------------------------------------------------
@@ -151,6 +198,9 @@ def _run_cached(params: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch
             gp, gc = _at(params[f"phase{pi}"], g), _at(pcache, g)
             for j, (kind, ffn) in enumerate(zip(phase.kinds, phase.ffns)):
                 x, _ = slot_fn(gp[f"slot{j}"], x, gc[f"slot{j}"], positions, cfg, kind, ffn)
+            if phase.shared_attn:
+                x, _ = slot_fn(params["shared"], x, gc["shared"], positions, cfg,
+                               _shared_kind(cfg, gc["shared"]), "mlp")
     return x
 
 

@@ -1,11 +1,31 @@
-"""Serving entry points: counterpart of the serving half of
-``repro.models.steps`` (training waits for ROADMAP queue 1 item 1.5)."""
+"""Serving and scoring entry points: counterpart of ``repro.models.steps``
+without its training half (``train_step`` and AdamW wait for ROADMAP queue 1
+item 1.5).  ``loss_fn`` is the forward of a training step: it scores a
+batch, and for xlstm it is the one path that runs the mLSTM scan kernel
+(a full-sequence forward that asks for no state)."""
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ArchConfig
 from . import lm
+
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy in fp32; labels == -1 are masked out."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def loss_fn(params: dict, cfg: ArchConfig, batch: dict):
+    """batch {"tokens", "labels": (B,S)} -> (loss, {"ce", "aux"}): the
+    full-sequence forward with no cache, then the shifted cross entropy."""
+    logits, aux, _ = lm.forward(params, cfg, batch)
+    ce = softmax_xent(logits[:, :-1], batch["labels"][:, 1:])
+    return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params: dict, batch: dict, *, cfg: ArchConfig, cache_len: int = 0):

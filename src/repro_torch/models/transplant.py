@@ -5,8 +5,10 @@ takes that tree with every leaf already converted to a numpy array (the
 caller does ``jax.tree_util.tree_map(np.asarray, params)``; this module
 imports no JAX) and returns the same tree of torch tensors: the same key
 paths, the same einsum layouts (``wq (d,h,k)``, ``wo (h,k,d)``,
-``w_gate``/``w_up (d,f)``, ``w_down (f,d)``) and the same leading stacked
-``n_groups`` dimension on every ``phase*`` leaf.
+``w_gate``/``w_up (d,f)``, ``w_down (f,d)``; Mamba2's ``conv_w (k,C)``,
+sLSTM's per-head ``r_* (h,hd,hd)``) and the same leading stacked
+``n_groups`` dimension on every ``phase*`` leaf (zamba2's tied ``shared``
+block has none).
 """
 from __future__ import annotations
 

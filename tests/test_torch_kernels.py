@@ -12,15 +12,23 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
+from repro.kernels import ops as jops  # noqa: E402
+from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.decode_attention import decode_attention as jax_decode  # noqa: E402
 from repro.kernels.flash_attention import flash_attention as jax_flash  # noqa: E402
+from repro.kernels.mlstm_scan import mlstm_scan as jax_mlstm  # noqa: E402
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
+from repro.kernels.ssm_scan import ssm_scan as jax_ssm  # noqa: E402
 from repro_torch.kernels import native, ops, ref  # noqa: E402
-from test_torch_gpu import (DECODE_CASES, FLASH_CASES, RMSNORM_SHAPES,  # noqa: E402
-                            tol)
+from test_torch_gpu import (DECODE_CASES, FLASH_CASES, MLSTM_CASES,  # noqa: E402
+                            RMSNORM_SHAPES, SSM_CASES, extreme_decay_inputs,
+                            mlstm_inputs, ssm_inputs, tol)
+
+SCAN_TOL = dict(rtol=2e-4, atol=2e-4)   # tests/test_kernels.py:83-88, 144
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -81,6 +89,68 @@ def test_decode_attention_matches_reference(s, hq, hkv, d, block_k, dtype):
     np.testing.assert_allclose(_f32(got), _f32(want), **tol(dtype))
 
 
+@pytest.mark.parametrize("s,h,p,n,chunk", SSM_CASES)
+def test_ssm_scan_twins_match_reference(s, h, p, n, chunk):
+    """The sequential oracle and the chunked twin (ops' plain path) against
+    the reference's oracle, its Pallas kernel in interpret mode and its
+    chunked jnp twin, fp32."""
+    arrays = ssm_inputs(np.random.default_rng(4), 2, s, h, p, n)
+    jx = [jnp.asarray(a) for a in arrays]
+    tx = [torch.from_numpy(a) for a in arrays]
+    y_o, h_o = jref.ssm_scan_ref(*jx)
+    y_k, h_k = jax_ssm(*jx, chunk=chunk, interpret=True)
+    y_j, h_j = jops.ssd_chunked_jnp(*jx, chunk=chunk)
+    y_r, h_r = ref.ssm_scan_ref(*tx)
+    y_t, h_t = ops.ssm_scan(*tx, chunk=chunk, use_kernel=True)     # CPU: the chunked twin
+    for got_y, got_h in ((y_r, h_r), (y_t, h_t)):
+        assert got_h.dtype == torch.float32
+        np.testing.assert_allclose(_f32(got_y), _f32(y_o), **SCAN_TOL)
+        np.testing.assert_allclose(_f32(got_h), _f32(h_o), **SCAN_TOL)
+    for want_y, want_h in ((y_k, h_k), (y_j, h_j)):
+        np.testing.assert_allclose(_f32(y_t), _f32(want_y), **SCAN_TOL)
+        np.testing.assert_allclose(_f32(h_t), _f32(want_h), **SCAN_TOL)
+
+
+def test_ssm_scan_twins_extreme_decay_no_nan():
+    """tests/test_kernels.py:91-102: strong decay must not overflow."""
+    arrays = extreme_decay_inputs(np.random.default_rng(5))
+    tx = [torch.from_numpy(a) for a in arrays]
+    y_t, _ = ops.ssd_chunked(*tx, chunk=16)
+    assert bool(torch.isfinite(y_t).all())
+    y_k, _ = jax_ssm(*(jnp.asarray(a) for a in arrays), chunk=16, interpret=True)
+    np.testing.assert_allclose(_f32(y_t), _f32(y_k), **SCAN_TOL)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ssm_scan_twin_keeps_dtypes(dtype):
+    arrays = ssm_inputs(np.random.default_rng(7), 1, 20, 2, 8, 4)
+    pairs = [_pair(a, dtype) for a in arrays]
+    (xj, xt), (dj, dtt), (aj, at), (bj, bt), (cj, ct) = pairs
+    y_t, h_t = ops.ssm_scan(xt, dtt, at, bt, ct, chunk=8, use_kernel=True)
+    y_j, h_j = jops.ssd_chunked_jnp(xj, dj, aj, bj, cj, chunk=8)
+    assert y_t.dtype == xt.dtype and h_t.dtype == torch.float32
+    np.testing.assert_allclose(_f32(y_t), _f32(y_j), **tol(dtype))
+    np.testing.assert_allclose(_f32(h_t), _f32(h_j), **tol(dtype))
+
+
+@pytest.mark.parametrize("s,h,d,chunk", MLSTM_CASES)
+def test_mlstm_scan_twins_match_reference(s, h, d, chunk):
+    """The sequential oracle and the chunked twin against the reference's
+    oracle and its Pallas kernel in interpret mode, fp32."""
+    q, k, v, logi, fpre = mlstm_inputs(np.random.default_rng(6), 2, s, h, d)
+    jq, jk, jv, jli, jfp = (jnp.asarray(a) for a in (q, k, v, logi, fpre))
+    tq, tk, tv, tli, tfp = (torch.from_numpy(a) for a in (q, k, v, logi, fpre))
+    want = jref.mlstm_scan_ref(jq, jk, jv, jli, jfp)
+    got_k = jax_mlstm(jq, jk, jv, jli, jax.nn.log_sigmoid(jfp), chunk=chunk, interpret=True)
+    logf = torch.nn.functional.logsigmoid(tfp)
+    np.testing.assert_allclose(_f32(ref.mlstm_scan_ref(tq, tk, tv, tli, tfp)), _f32(want),
+                               **SCAN_TOL)
+    got = ops.mlstm_scan(tq, tk, tv, tli, logf, chunk=chunk, use_kernel=True)
+    assert got.dtype == tq.dtype
+    np.testing.assert_allclose(_f32(got), _f32(want), **SCAN_TOL)
+    np.testing.assert_allclose(_f32(got), _f32(got_k), **SCAN_TOL)
+
+
 def test_flash_attention_scale_argument():
     """``scale`` reaches the twin (the reference's ops lacks it; its MLA
     kernel path depends on it)."""
@@ -98,13 +168,24 @@ def test_cpu_wrappers_run_the_twin_and_count_nothing():
     x = torch.randn(3, 32)
     s = torch.zeros(32)
     assert torch.equal(ops.rmsnorm(x, s, use_kernel=True), ref.rmsnorm_ref(x, s))
-    assert native.LAUNCHES == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
+    y, _ = ops.ssm_scan(torch.randn(1, 4, 2, 8), torch.rand(1, 4, 2), -torch.rand(2),
+                        torch.randn(1, 4, 4), torch.randn(1, 4, 4), use_kernel=True)
+    q = torch.randn(1, 4, 2, 8)
+    ops.mlstm_scan(q, q, q, torch.zeros(1, 4, 2), torch.zeros(1, 4, 2), use_kernel=True)
+    assert native.LAUNCHES == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
+                               "ssm_scan": 0, "mlstm_scan": 0}
 
 
 @pytest.mark.parametrize("fn,args", [
     ("rmsnorm", lambda: (torch.empty(2, 8, device="meta"), torch.empty(8, device="meta"))),
     ("flash_attention", lambda: tuple(torch.empty(1, 4, 2, 8, device="meta")
                                       for _ in range(3))),
+    ("ssm_scan", lambda: (torch.empty(1, 4, 2, 8, device="meta"),
+                          torch.empty(1, 4, 2, device="meta"), torch.empty(2, device="meta"),
+                          torch.empty(1, 4, 4, device="meta"),
+                          torch.empty(1, 4, 4, device="meta"))),
+    ("mlstm_scan", lambda: tuple(torch.empty(1, 4, 2, 8, device="meta") for _ in range(3))
+     + tuple(torch.empty(1, 4, 2, device="meta") for _ in range(2))),
 ])
 def test_wrappers_refuse_other_devices(fn, args):
     """Only the CPU selects the twin: any other device launches or raises."""
@@ -117,6 +198,10 @@ def test_wrappers_refuse_other_devices(fn, args):
     ("flash_attention", lambda: tuple(torch.randn(1, 4, 2, 8) for _ in range(3))),
     ("decode_attention", lambda: (torch.randn(1, 2, 8), torch.randn(1, 4, 2, 8),
                                   torch.randn(1, 4, 2, 8), torch.full((1,), 4))),
+    ("ssm_scan", lambda: (torch.randn(1, 4, 2, 8), torch.rand(1, 4, 2), -torch.rand(2),
+                          torch.randn(1, 4, 4), torch.randn(1, 4, 4))),
+    ("mlstm_scan", lambda: tuple(torch.randn(1, 4, 2, 8) for _ in range(3))
+     + (torch.zeros(1, 4, 2), torch.zeros(1, 4, 2))),
 ])
 def test_kernel_wrappers_never_run_the_twin(module, args):
     """The choice of the twin is made once, in ``ops``: a kernel wrapper given

@@ -1,11 +1,15 @@
 """Whole-slice parity of the PyTorch port with the JAX reference.
 
-The reference builds granite_3_8b's smoke parameters
+For each ported arch the reference builds the smoke parameters
 (``lm.init_params(PRNGKey(0), cfg)``); ``transplant`` loads them into the
 port.  Both packages then run the same token ids, drawn with numpy from a
-seed: the reference with ``use_kernels=True`` (Pallas in interpret mode),
-the port on its plain CPU path.  Tolerance: rel < 2e-3
-(tests/test_archs.py:66-67), generated tokens identical.
+seed: the reference with ``use_kernels=True`` (Pallas in interpret mode:
+attention, decode attention, and zamba2's SSD scan and xlstm's mLSTM scan
+where its model code dispatches them), the port on its plain CPU path.
+Tolerance: rel < 2e-3 (tests/test_archs.py:66-67), generated tokens
+identical.  zamba2's smoke window is 16 rows, so its shared attention block
+runs the ring branches whenever a test's cache is 16 rows or fewer, and
+the global ones above that.
 """
 import pytest
 
@@ -22,7 +26,7 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.models import lm, steps  # noqa: E402
 from repro_torch.models.transplant import transplant  # noqa: E402
 
-ARCH = "granite_3_8b"
+ARCHS = ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b"]
 B, S, GEN = 2, 12, 4
 REL = 2e-3
 
@@ -41,10 +45,10 @@ def _leaves(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-@pytest.fixture(scope="module")
-def models():
-    cfg_j = jreg.get_smoke_config(ARCH).replace(use_kernels=True)
-    cfg_t = registry.get_smoke_config(ARCH)
+@pytest.fixture(scope="module", params=ARCHS)
+def models(request):
+    cfg_j = jreg.get_smoke_config(request.param).replace(use_kernels=True)
+    cfg_t = registry.get_smoke_config(request.param)
     params_j = jlm.init_params(jax.random.PRNGKey(0), cfg_j)
     params_t = transplant(jax.tree_util.tree_map(np.asarray, params_j), device="cpu",
                           dtype=cfg_t.compute_dtype)
@@ -60,8 +64,18 @@ def test_transplant_keeps_paths_and_layouts(models):
     for path, leaf in got.items():
         assert tuple(leaf.shape) == want[path].shape, path
         np.testing.assert_array_equal(leaf.numpy(), want[path], err_msg=path)
-    assert got["phase0/slot0/mixer/wq"].shape == (cfg_t.n_layers, cfg_t.d_model,
-                                                   cfg_t.n_heads, cfg_t.head_dim)
+    n_groups = cfg_t.n_layers // (cfg_t.shared_attn_every or cfg_t.slstm_every or 1)
+    if cfg_t.family == "dense":
+        assert got["phase0/slot0/mixer/wq"].shape == (cfg_t.n_layers, cfg_t.d_model,
+                                                       cfg_t.n_heads, cfg_t.head_dim)
+    elif cfg_t.family == "hybrid":
+        assert got["shared/mixer/wq"].shape == (cfg_t.d_model, cfg_t.n_heads, cfg_t.head_dim)
+        assert got["phase0/slot0/mixer/conv_w"].shape == (
+            n_groups, cfg_t.ssm_conv, cfg_t.d_inner + 2 * cfg_t.ssm_state)
+    else:
+        hd = cfg_t.d_model // cfg_t.n_heads
+        assert got[f"phase0/slot{cfg_t.slstm_every - 1}/mixer/r_i"].shape == (
+            n_groups, cfg_t.n_heads, hd, hd)
 
 
 def test_forward_logits_match_reference(models):
@@ -131,6 +145,64 @@ def test_prefill_chunk_matches_reference(models, chunk):
     want = dict(_leaves(cache_j))
     for path, leaf in _leaves(cache_t):
         assert rel_err(leaf, want[path]) < REL, path
+
+
+def test_loss_fn_matches_reference(models):
+    """The scoring forward (no cache; xlstm's route to the mLSTM scan)."""
+    cfg_j, params_j, cfg_t, params_t, tokens = models
+    labels = np.where(np.arange(S)[None] % 5 == 4, -1, tokens)      # some masked labels
+    want, mj = jsteps.loss_fn(params_j, cfg_j, {"tokens": jnp.asarray(tokens),
+                                                "labels": jnp.asarray(labels)})
+    got, mt = steps.loss_fn(params_t, cfg_t, {"tokens": torch.from_numpy(tokens),
+                                              "labels": torch.from_numpy(labels)})
+    assert abs(float(got) - float(want)) < REL * abs(float(want))
+    assert abs(float(mt["ce"]) - float(mj["ce"])) < REL * abs(float(mj["ce"]))
+
+
+def test_zamba2_ring_cache_wraps_like_reference():
+    """A shared-block cache of 16 rows (the smoke window) with 28 positions
+    through it: chunked prefill and decode wrap the ring exactly as the
+    reference does."""
+    cfg_j = jreg.get_smoke_config("zamba2_1_2b").replace(use_kernels=True)
+    cfg_t = registry.get_smoke_config("zamba2_1_2b")
+    params_j = jlm.init_params(jax.random.PRNGKey(0), cfg_j)
+    params_t = transplant(jax.tree_util.tree_map(np.asarray, params_j), device="cpu")
+    size, prompt, chunk = cfg_t.sliding_window, 24, 8
+    tokens = np.random.default_rng(1).integers(0, cfg_t.vocab_size, (B, prompt + 4),
+                                               dtype=np.int32)
+    cache_j = jlm.init_cache(cfg_j, B, size)
+    cache_t = lm.init_cache(cfg_t, B, size, device="cpu")
+    assert cache_t["phase0"]["shared"]["k"].shape[2] == size
+    for c0 in range(0, prompt, chunk):
+        pos = np.broadcast_to(np.arange(c0, c0 + chunk, dtype=np.int32), (B, chunk))
+        want, cache_j = jlm.prefill_chunk(params_j, cfg_j, jnp.asarray(tokens[:, c0:c0 + chunk]),
+                                          jnp.asarray(pos), cache_j)
+        got, cache_t = lm.prefill_chunk(params_t, cfg_t,
+                                        torch.from_numpy(tokens[:, c0:c0 + chunk]),
+                                        torch.from_numpy(pos.copy()), cache_t)
+        assert rel_err(got, want) < REL, c0
+    for t in range(prompt, prompt + 4):
+        pos = np.full((B,), t, np.int32)
+        want, cache_j = jlm.decode_step(params_j, cfg_j, jnp.asarray(tokens[:, t:t + 1]),
+                                        jnp.asarray(pos), cache_j)
+        got, cache_t = lm.decode_step(params_t, cfg_t, torch.from_numpy(tokens[:, t:t + 1]),
+                                      torch.from_numpy(pos), cache_t)
+        assert rel_err(got, want) < REL, t
+    want = dict(_leaves(cache_j))
+    for path, leaf in _leaves(cache_t):
+        assert rel_err(leaf, want[path]) < REL, path
+
+
+def test_zamba2_windowed_shared_block_prefill_names_its_item():
+    """A decode budget over 64k windows the shared block (the reference's
+    ``_shared_window``); its prefill-side ring placement is item 1.2."""
+    cfg = registry.get_smoke_config("zamba2_1_2b")
+    params = lm.init_params(cfg, device="cpu")
+    tokens = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1.2"):
+        steps.prefill(params, {"tokens": tokens}, cfg=cfg, cache_len=65537)
+    logits, _, _ = lm.forward(params, cfg, {"tokens": tokens}, cache_len=65537)
+    assert logits.shape == (1, 4, cfg.vocab_size)
 
 
 def test_kernel_switch_is_the_plain_path_on_cpu(models):

@@ -68,10 +68,15 @@ def test_cuda_entry_points_raise_without_a_card(no_cuda, entry):
 
 
 def test_registry_names_the_roadmap_item_for_unported_archs():
-    assert registry.list_archs() == ["granite_3_8b"]
+    assert registry.list_archs() == ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b"]
     assert registry.get_config("granite-3-8b").d_model == 4096
-    with pytest.raises(KeyError, match="ROADMAP.md queue 1 item 1.2"):
-        registry.get_config("h2o_danube_3_4b")
+    assert registry.get_config("zamba2-1.2b").n_layers == 38
+    assert registry.get_config("xlstm_1_3b").n_heads == 4
+    for arch, item in registry.PENDING.items():
+        assert arch not in registry.PORTED
+        with pytest.raises(KeyError, match=f"ROADMAP.md queue 1 item {item.split()[0]}"):
+            registry.get_config(arch)
+    assert set(registry.PENDING) | set(registry.PORTED) == set(registry.ARCH_IDS)
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get_config("nope")
 
@@ -116,8 +121,10 @@ def test_serve_main_rejects_the_kserve_batch_cap():
                     "--max-batch", "4"])
 
 
-def test_serve_main_runs_the_smoke_config_on_cpu(capsys):
-    serve.main(["--arch", "granite_3_8b", "--smoke", "--device", "cpu", "--requests", "2",
+@pytest.mark.parametrize("arch", ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b"])
+def test_serve_main_runs_the_smoke_config_on_cpu(capsys, arch):
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "2",
                 "--gen-tokens", "2"])
     out = json.loads(capsys.readouterr().out)
-    assert out["n"] == 2 and out["device"] == "cpu" and out["arch"] == "granite-3-8b"
+    assert out["n"] == 2 and out["device"] == "cpu"
+    assert out["arch"] == registry.get_config(arch).name
