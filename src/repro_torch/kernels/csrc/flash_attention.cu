@@ -8,26 +8,48 @@
 // Layout: q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D), o like q; contiguous, bf16 or
 // fp32; D <= 128.
 //
-// Design.  On the TPU the kv axis was the innermost, sequential grid axis
-// and the accumulators lived in VMEM scratch across grid steps.  Here blocks
-// run in parallel and in no order, so one block owns a (BQ query rows, one
-// q head, one batch row) tile for its whole life and loops over K/V tiles
-// itself, keeping acc/m/l in registers.  Grid = (ceil(Sq/BQ), Hq, B),
-// 256 threads as a 16x16 grid: thread (tx,ty) owns query rows ty+16i
-// (i<4), score columns tx+16c (c<4) and output columns tx+16c (c<8).  Q
-// (pre-scaled) and K are staged d-major in shared memory with a padded
-// stride, so the row/column reads of the inner product are conflict-free;
-// P goes through shared memory once per tile for the P.V product.  Causal
-// and window masks also skip whole K/V tiles outside the band.
+// On the TPU the kv axis was the innermost, sequential grid axis and the
+// accumulators lived in VMEM scratch across grid steps.  Here blocks run in
+// parallel and in no order, so one block owns a (query rows, one q head, one
+// batch row) tile for its whole life and loops over K/V tiles itself,
+// keeping acc/m/l in registers.  Causal and window masks also skip whole
+// K/V tiles outside the band.
 //
 // Bound: at the serving shapes (S up to a few thousand, D 128) attention
 // does ~4*S*S*D*H/2 flops on ~4*S*H*D bytes, far above the card's ridge,
-// so the bound is operations.  This first version multiplies on the CUDA
-// cores in fp32 (67 TFLOP/s peak, not the 989 of the bf16 tensor cores);
-// wgmma with TMA-fed tiles is the next step for this kernel.
+// so the bound is operations.  Two kernels:
+//
+// * bf16 (flash_fwd_tc): both products on the tensor cores with wgmma.  A
+//   block of 256 threads owns 128 query rows: two consumer warpgroups of 64
+//   rows each share the K/V tiles.  Q and a ring of two stages of 64-key K
+//   and V tiles sit in shared memory in the swizzled layout the wgmma
+//   descriptors read (rows cut into 128-byte, or for D 16 / 32, 32- and
+//   64-byte swizzle atoms), filled with 16-byte cp.async so tile i+1 loads
+//   while tile i is multiplied.  S = Q K^T reads both operands from shared
+//   memory (K-major); the fp32 scores stay in registers, are scaled in fp32
+//   (scale * log2 e, exp2), masked and folded into the running max and sum;
+//   P is rounded to bf16 in registers and fed as the register A operand of
+//   O += P V, V read from shared memory as the transposed (MN-major) B
+//   operand.  Accumulators, max and sum stay fp32.  Head dims take a
+//   compile-time tile of 16, 32, 64 or 128 columns; any other D is
+//   zero-padded in shared memory up to the next (zero columns add nothing to
+//   Q K^T).  Where D is not a whole number of 16-byte vectors or a pointer is
+//   not 16-byte aligned, the tiles are staged with plain loads (and the
+//   output written in 2-byte stores, not bf16 pairs) instead.  Blocks start
+//   longest first: under a causal mask a head's last query block sees the
+//   most keys, and launching every head's last block before any shorter
+//   one balances the SMs (20-26 % at S 1000-2048 on the H100).
+// * fp32 (flash_fwd): the exact CUDA-core kernel (TF32 tensor cores would
+//   round the inputs to 10 bits).  256 threads as a 16x16 grid own 64 query
+//   rows: thread (tx,ty) owns query rows ty+16i (i<4), score columns tx+16c
+//   (c<4) and output columns tx+16c (c<8).  Q (pre-scaled) and K are staged
+//   d-major in shared memory with a padded stride, so the row/column reads
+//   of the inner product are conflict-free; P goes through shared memory
+//   once per tile for the P.V product.
 #include "common.cuh"
 
 namespace {
+namespace f32 {
 
 constexpr int BQ = 64;          // query rows per block
 constexpr int BK = 64;          // keys per tile
@@ -177,8 +199,9 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
            int kv_len, void* stream) {
   if (D < 1 || D > DMAX || Hkv < 1 || Hq % Hkv != 0) return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBytes));
+  static std::atomic<unsigned> smem_set{0};
+  cudaError_t err =
+      rt::smem_limit_once(flash_fwd<T>, static_cast<int>(kSmemBytes), smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
   flash_fwd<T><<<grid, NT, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
@@ -187,22 +210,457 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   return cudaGetLastError();
 }
 
+}  // namespace f32
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int NWG = 2;           // consumer warpgroups per block, 64 query rows each
+constexpr int BQ = 64 * NWG;     // query rows per block
+constexpr int NT = 128 * NWG;    // threads per block
+constexpr int BK = 64;           // keys per tile
+constexpr int NSTAGE = 2;        // K/V ring: tile i+1 loads while tile i is used
+constexpr int DMAX = 128;
+
+// Per padded head dim DP (16, 32, 64 or 128): a tile row of DP bf16 is cut
+// into sub-rows of RB bytes, one swizzle atom wide (32, 64 or 128 bytes),
+// and the tile is stored as NSUB sub-tiles [rows][RB].  Within each 8-row
+// group the 16-byte chunk c of row r sits at chunk c ^ (address bits 7+),
+// the layout wgmma's 32/64/128-byte swizzle modes read.
+template <int DP> struct Cfg {
+  static constexpr int RB = DP * 2 < 128 ? DP * 2 : 128;
+  static constexpr int NSUB = DP * 2 / RB;
+  static constexpr uint32_t MODE = RB == 128 ? 1 : (RB == 64 ? 2 : 3);  // descriptor swizzle
+  static constexpr int NV = RB / 2;                  // output columns per sub-tile
+  static constexpr int Q_BYTES = BQ * DP * 2;
+  static constexpr int KV_BYTES = BK * DP * 2;
+  static constexpr int SMEM = Q_BYTES + NSTAGE * 2 * KV_BYTES + 1024;  // + alignment slack
+};
+
+// byte offset of 16-byte chunk c of row r in a swizzled tile of ROWS rows
+template <int DP, int ROWS>
+__device__ __forceinline__ uint32_t chunk_offset(int r, int c) {
+  constexpr int RB = Cfg<DP>::RB, CPS = RB / 16;     // chunks per sub-row
+  const uint32_t o = (c / CPS) * ROWS * RB + r * RB + (c % CPS) * 16;
+  return o ^ (((o >> 7) & (CPS - 1)) << 4);
+}
+
+// Stage rows [r0, r0 + ROWS) of a row-strided bf16 matrix in a swizzled
+// tile; rows at or past n_rows and columns at or past D are zero.  VEC: one
+// 16-byte cp.async per chunk (D % 8 == 0, aligned source); otherwise plain
+// loads and a 16-byte shared store.
+template <int DP, int ROWS, bool VEC>
+__device__ __forceinline__ void load_tile(unsigned char* tile, const bf16* src, size_t row_stride,
+                                          int r0, int n_rows, int D, int tid) {
+  constexpr int CPR = DP / 8;                        // 16-byte chunks per row
+#pragma unroll
+  for (int e = tid; e < ROWS * CPR; e += NT) {
+    const int r = e / CPR, c = e % CPR;
+    const bool row_ok = r0 + r < n_rows;
+    unsigned char* dst = tile + chunk_offset<DP, ROWS>(r, c);
+    if constexpr (VEC) {
+      const bool ok = row_ok && c * 8 < D;
+      rt::cp_async16(dst, src + (ok ? static_cast<size_t>(r0 + r) * row_stride + c * 8 : 0),
+                     ok ? 16 : 0);
+    } else {
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      bf16* part = reinterpret_cast<bf16*>(&val);
+      if (row_ok) {
+        const bf16* row = src + static_cast<size_t>(r0 + r) * row_stride;
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+          if (c * 8 + u < D) part[u] = row[c * 8 + u];
+      }
+      *reinterpret_cast<uint4*>(dst) = val;
+    }
+  }
+}
+
+// wgmma shared-memory matrix descriptor of a swizzled tile: start address,
+// the stride between 8-row groups (8 RB bytes) and the swizzle mode.  Every
+// operand here spans one swizzle atom in its contiguous dimension (a 16-deep
+// K slice of Q or K; a V sub-tile of NV columns), so the other stride is
+// never used; it is set equal.
+template <int DP>
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  constexpr uint64_t stride = (8 * Cfg<DP>::RB) >> 4;
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (stride << 16) | (stride << 32) |
+         (static_cast<uint64_t>(Cfg<DP>::MODE) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// make generic-proxy writes to shared memory visible to wgmma's reads
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// the compiler must not move reads of wgmma results above the wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// 2^x (ex2.approx: ~2 ulp; 0 for the -1e30 masks)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D (64 x 64, fp32) (+)= A (64 x 16, shared) * B (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// D (64 x 16, fp32) += A (64 x 16, registers) * B (16 x 16, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 32, fp32) += A (64 x 16, registers) * B (16 x 32, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// Issue S = Q K^T for one warpgroup (64 rows x BK keys, fp32) as one wgmma
+// group, not waited for.  q_addr: the warpgroup's first Q row; k_addr: the
+// K tile.
+template <int DP>
+__device__ __forceinline__ void issue_scores(float (&sc)[BK / 2], uint32_t q_addr,
+                                             uint32_t k_addr) {
+  using C = Cfg<DP>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const uint32_t sub = kk * 32 / C::RB, off = kk * 32 % C::RB;
+    wgmma_ss(sc, desc<DP>(q_addr + sub * BQ * C::RB + off),
+             desc<DP>(k_addr + sub * BK * C::RB + off), kk > 0);
+  }
+  wgmma_commit();
+}
+
+// One block: query rows [q0, q0 + BQ) of q head blockIdx.x, batch row
+// blockIdx.z; warpgroup wg owns rows q0 + 64 wg + [0, 64).  Accumulator
+// layout (per warpgroup, as mma.sync's per warp): warp w, lane (g = lane/4,
+// t = lane%4) holds rows 16w + g + 8i and columns 8j + 2t + c in register
+// 4j + 2i + c.
+template <int DP, bool VEC>
+__global__ void __launch_bounds__(NT, 1)
+flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+             bf16* __restrict__ o, int Sq, int Skv, int Hq, int Hkv, int D, float scale,
+             int causal, int window, int q_offset, int kv_len) {
+  using C = Cfg<DP>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzle acts on shared-memory address bits: align the tiles to 1024
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t shift = (1024 - (raw & 1023)) & 1023;
+  unsigned char* smem = smem_raw + shift;
+  const uint32_t q_addr = raw + shift;
+
+  const int tid = threadIdx.x, wg = tid / 128, lane = tid % 32, warp = (tid % 128) / 32;
+  // blocks start in launch order, x fastest: every head's last (longest,
+  // under a causal mask) query block first, then the next longest
+  const int h = blockIdx.x, q0 = (gridDim.y - 1 - blockIdx.y) * BQ, b = blockIdx.z;
+  const int hk = h / (Hq / Hkv);
+  const size_t q_row = static_cast<size_t>(Hq) * D;
+  const size_t kv_row = static_cast<size_t>(Hkv) * D;
+  const bf16* qb = q + static_cast<size_t>(b) * Sq * q_row + static_cast<size_t>(h) * D;
+  const bf16* kb = k + static_cast<size_t>(b) * Skv * kv_row + static_cast<size_t>(hk) * D;
+  const bf16* vb = v + static_cast<size_t>(b) * Skv * kv_row + static_cast<size_t>(hk) * D;
+  bf16* ob = o + static_cast<size_t>(b) * Sq * q_row + static_cast<size_t>(h) * D;
+
+  // the band of keys any row of this block can see, in whole tiles
+  const int n_valid = min(Skv, kv_len);
+  int kv_end = n_valid;
+  if (causal) kv_end = min(kv_end, q_offset + min(q0 + BQ, Sq));
+  const int kv_begin = window > 0 ? max(0, q_offset + q0 - window + 1) / BK * BK : 0;
+  const int n_tiles = kv_end > kv_begin ? (kv_end - kv_begin + BK - 1) / BK : 0;
+
+  // K/V tile `it` goes to stage it % NSTAGE, NSTAGE - 1 tiles ahead of use;
+  // one cp.async group per tile (empty past the end, so the count of
+  // groups in flight stays NSTAGE - 1)
+  auto load_kv = [&](int it) {
+    if (it < n_tiles) {
+      unsigned char* ks = smem + C::Q_BYTES + (it % NSTAGE) * 2 * C::KV_BYTES;
+      load_tile<DP, BK, VEC>(ks, kb, kv_row, kv_begin + it * BK, n_valid, D, tid);
+      load_tile<DP, BK, VEC>(ks + C::KV_BYTES, vb, kv_row, kv_begin + it * BK, n_valid, D, tid);
+    }
+    if constexpr (VEC) rt::cp_async_commit();
+  };
+  load_tile<DP, BQ, VEC>(smem, qb, q_row, q0, Sq, D, tid);
+#pragma unroll
+  for (int it = 0; it < NSTAGE - 1; ++it) load_kv(it);
+
+  // this warpgroup's rows: positions lo..hi, and this thread's two rows
+  const int wr0 = q0 + 64 * wg;
+  const bool has_rows = wr0 < Sq;
+  const int lo = q_offset + wr0, hi = q_offset + min(wr0 + 63, Sq - 1);
+  const int g = lane / 4, t = lane % 4;
+  const int qpos[2] = {lo + 16 * warp + g, lo + 16 * warp + g + 8};
+  const float sl2 = scale * rt::kLog2e;
+
+  float acc[C::NSUB][C::NV / 2];
+#pragma unroll
+  for (int s = 0; s < C::NSUB; ++s)
+#pragma unroll
+    for (int i = 0; i < C::NV / 2; ++i) acc[s][i] = 0.f;
+  float m[2] = {rt::kNegInf, rt::kNegInf}, l[2] = {0.f, 0.f};
+
+  const uint32_t qw_addr = q_addr + 64 * wg * C::RB;   // this warpgroup's Q rows
+  for (int it = 0; it < n_tiles; ++it) {
+    if constexpr (VEC) rt::cp_async_wait<NSTAGE - 2>();
+    fence_async_shared();
+    __syncthreads();   // tile `it` (and Q) landed; tile it - 1's stage is free
+    load_kv(it + NSTAGE - 1);
+    const int n0 = kv_begin + it * BK;
+    // skip a tile none of this warpgroup's rows can see
+    if (!has_rows || (causal && n0 > hi) || (window > 0 && n0 + BK - 1 <= lo - window)) continue;
+    const uint32_t k_addr = q_addr + C::Q_BYTES + (it % NSTAGE) * 2 * C::KV_BYTES;
+    const uint32_t v_addr = k_addr + C::KV_BYTES;
+
+    float s[BK / 2];   // S = Q K^T: 64 rows x BK keys, fp32
+    issue_scores<DP>(s, qw_addr, k_addr);
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // scale in fp32 (log2 domain), mask, online softmax
+    const bool need_mask = n0 + BK > n_valid || (causal && n0 + BK - 1 > lo) ||
+                           (window > 0 && n0 <= hi - window);
+    float mx[2] = {rt::kNegInf, rt::kNegInf};
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = s[4 * j + 2 * i + c];
+          x *= sl2;
+          if (need_mask) {
+            const int kpos = n0 + 8 * j + 2 * t + c;
+            const bool ok = kpos < n_valid && (!causal || kpos <= qpos[i]) &&
+                            (window <= 0 || kpos > qpos[i] - window);
+            x = ok ? x : rt::kNegInf;
+          }
+          mx[i] = fmaxf(mx[i], x);
+        }
+    float alpha[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {   // the four threads of a quad share a row
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      alpha[i] = fast_exp2(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float& x = s[4 * j + 2 * i + c];
+          x = fast_exp2(x - m[i]);
+          rsum[i] += x;
+        }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rsum[i];
+#pragma unroll
+    for (int sb = 0; sb < C::NSUB; ++sb)
+#pragma unroll
+      for (int j = 0; j < C::NV / 8; ++j)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          acc[sb][4 * j + 2 * i] *= alpha[i];
+          acc[sb][4 * j + 2 * i + 1] *= alpha[i];
+        }
+    // P (bf16) as the A fragments of k-step kk: keys 16 kk .. 16 kk + 15
+    uint32_t pa[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const float* p = s + 8 * kk;
+      pa[kk][0] = pack_bf16(p[0], p[1]);
+      pa[kk][1] = pack_bf16(p[2], p[3]);
+      pa[kk][2] = pack_bf16(p[4], p[5]);
+      pa[kk][3] = pack_bf16(p[6], p[7]);
+    }
+
+    // O += P V (V the MN-major B operand)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int sb = 0; sb < C::NSUB; ++sb)
+        wgmma_rs(acc[sb], pa[kk], desc<DP>(v_addr + sb * BK * C::RB + kk * 16 * C::RB));
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int sb = 0; sb < C::NSUB; ++sb) fence_regs(acc[sb]);
+  }
+  if constexpr (VEC) rt::cp_async_wait<0>();   // no copy outlives the block
+  if (!has_rows) return;
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int r = wr0 + 16 * warp + g + 8 * i;
+    if (r >= Sq) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int sb = 0; sb < C::NSUB; ++sb)
+#pragma unroll
+      for (int j = 0; j < C::NV / 8; ++j) {
+        const int col = sb * C::NV + 8 * j + 2 * t;
+        const float x0 = acc[sb][4 * j + 2 * i] * inv, x1 = acc[sb][4 * j + 2 * i + 1] * inv;
+        bf16* dst = ob + r * q_row + col;
+        if (VEC) {   // D % 8 == 0, aligned: the pair is whole and 4-byte aligned
+          if (col < D) *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(x0, x1);
+        } else {
+          if (col < D) dst[0] = __float2bfloat16(x0);
+          if (col + 1 < D) dst[1] = __float2bfloat16(x1);
+        }
+      }
+  }
+}
+
+template <int DP, bool VEC>
+cudaError_t launch_tile(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int Sq,
+                        int Skv, int Hq, int Hkv, int D, float scale, int causal, int window,
+                        int q_offset, int kv_len, cudaStream_t stream) {
+  static std::atomic<unsigned> smem_set{0};
+  cudaError_t err = rt::smem_limit_once(flash_fwd_tc<DP, VEC>, Cfg<DP>::SMEM, smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(Hq, (Sq + BQ - 1) / BQ, B);
+  flash_fwd_tc<DP, VEC><<<grid, NT, Cfg<DP>::SMEM, stream>>>(
+      q, k, v, o, Sq, Skv, Hq, Hkv, D, scale, causal, window, q_offset, kv_len);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_dp(bool vec, const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
+                      int Sq, int Skv, int Hq, int Hkv, int D, float scale, int causal,
+                      int window, int q_offset, int kv_len, cudaStream_t stream) {
+  return vec ? launch_tile<DP, true>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
+                                     q_offset, kv_len, stream)
+             : launch_tile<DP, false>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
+                                      q_offset, kv_len, stream);
+}
+
+int launch(const void* q_, const void* k_, const void* v_, void* o_, int B, int Sq, int Skv,
+           int Hq, int Hkv, int D, float scale, int causal, int window, int q_offset, int kv_len,
+           void* stream_) {
+  if (D < 1 || D > DMAX || Hkv < 1 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  if (B == 0 || Sq == 0) return cudaSuccess;
+  const auto q = static_cast<const bf16*>(q_);
+  const auto k = static_cast<const bf16*>(k_);
+  const auto v = static_cast<const bf16*>(v_);
+  const auto o = static_cast<bf16*>(o_);
+  const auto stream = static_cast<cudaStream_t>(stream_);
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q_) | reinterpret_cast<uintptr_t>(k_) |
+                         reinterpret_cast<uintptr_t>(v_) | reinterpret_cast<uintptr_t>(o_);
+  const bool vec = D % 8 == 0 && ptrs % 16 == 0;
+  if (D <= 16)
+    return launch_dp<16>(vec, q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
+                         q_offset, kv_len, stream);
+  if (D <= 32)
+    return launch_dp<32>(vec, q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
+                         q_offset, kv_len, stream);
+  if (D <= 64)
+    return launch_dp<64>(vec, q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
+                         q_offset, kv_len, stream);
+  return launch_dp<128>(vec, q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
+                        q_offset, kv_len, stream);
+}
+
+}  // namespace tc
 }  // namespace
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* o, int B,
                                     int Sq, int Skv, int Hq, int Hkv, int D, float scale,
                                     int causal, int window, int q_offset, int kv_len,
                                     void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
-                               q_offset, kv_len, stream);
+  return tc::launch(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window, q_offset, kv_len,
+                    stream);
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B,
                                    int Sq, int Skv, int Hq, int Hkv, int D, float scale,
                                    int causal, int window, int q_offset, int kv_len,
                                    void* stream) {
-  return launch<float>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window, q_offset,
-                       kv_len, stream);
+  return f32::launch<float>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window, q_offset,
+                            kv_len, stream);
 }
 
 RT_EXPORT_ERROR_STRING(flash_attention)

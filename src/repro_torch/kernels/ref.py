@@ -9,7 +9,9 @@ keys are all masked averages uniformly instead of producing NaN.
 The CPU path runs the attention and norm twins; on the card only
 ``chip_smoke.py`` and the tests call them, to hold each kernel against its
 twin.  ``ssm_scan_ref`` and ``mlstm_scan_ref`` are the sequential oracles
-of the two scans, whose plain twins are the chunked forms in ``ops``.
+of the two scans, whose plain twins are the chunked forms in ``ops``;
+``decode_attention_split_ref`` is decode attention in the split-K form its
+CUDA kernel computes, for the tests.
 """
 from __future__ import annotations
 
@@ -70,6 +72,43 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhk,bkhd->bhd", probs.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def decode_attention_split_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                               v_cache: torch.Tensor, cache_len: torch.Tensor, *,
+                               split: int, scale: float | None = None) -> torch.Tensor:
+    """``decode_attention_ref`` computed as the CUDA kernel computes it: the
+    cache is cut into ``split``-key blocks; each block that holds keys of a
+    row gives a softmax state over its valid keys (max m, sum l,
+    unnormalised fp32 acc), and a row's states are merged by log-sum-exp.
+    Blocks at or past a row's length give none; a row of length 0 gets
+    zeros.  With a single block the probabilities are normalised and
+    rounded to the input dtype before P.V, as in ``decode_attention_ref``.
+    Used by no path: it holds the kernel's algorithm to the reference."""
+    b, hq, d = q.shape
+    s = k_cache.shape[1]
+    scale = scale if scale is not None else d ** -0.5
+    n = max(1, -(-s // split))
+    pad = n * split - s
+    k = torch.nn.functional.pad(_gqa_expand(k_cache, hq).float(), (0, 0, 0, 0, 0, pad))
+    v = torch.nn.functional.pad(_gqa_expand(v_cache, hq).float(), (0, 0, 0, 0, 0, pad))
+    lens = cache_len.to(q.device).clamp(0, s)
+    logits = torch.einsum("bhd,bkhd->bhk", q.float(), k) * scale
+    valid = torch.arange(n * split, device=q.device)[None, :] < lens[:, None]     # (B,K)
+    logits = torch.where(valid[:, None, :], logits, NEG_INF).reshape(b, hq, n, split)
+    m = logits.amax(dim=-1)                                                      # (B,H,n)
+    p = torch.exp(logits - m[..., None]) * valid.reshape(b, 1, n, split)
+    l = p.sum(dim=-1)
+    if n == 1:
+        p = (p / l[..., None].clamp_min(1e-30)).to(v_cache.dtype).float()
+        return torch.einsum("bhs,bshd->bhd", p[:, :, 0], v).to(q.dtype)
+    acc = torch.einsum("bhns,bnshd->bhnd", p, v.reshape(b, n, split, hq, d))
+    used = (torch.arange(n, device=q.device)[None, :] * split < lens[:, None])[:, None, :]
+    m_all = torch.where(used, m, NEG_INF).amax(dim=-1, keepdim=True)             # (B,H,1)
+    w = torch.exp(m - m_all) * used
+    num = torch.einsum("bhn,bhnd->bhd", w, acc)
+    den = (w * l).sum(dim=-1, keepdim=True)
+    return (num / den.clamp_min(1e-30)).to(q.dtype)
 
 
 def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,

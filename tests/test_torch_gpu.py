@@ -25,8 +25,31 @@ FLASH_CASES = [
     (64, 64, 8, 2, 64, 24),       # sliding window
     (33, 128, 4, 4, 32, 0),       # cross-length, q_offset 95
 ]
+# and on the card only: D 16 (the smoke configs), D 120 (h2o_danube, zero-
+# padded to the 128-column tile), D 17 (not a whole number of 16-byte
+# vectors: the plain-load staging), S 300 with a window and a q_offset
+FLASH_GPU_CASES = FLASH_CASES + [
+    (70, 70, 8, 2, 16, 0),
+    (50, 90, 4, 4, 120, 0),
+    (40, 40, 2, 1, 17, 0),
+    (300, 364, 4, 2, 128, 100),
+]
 # (s, hq, hkv, d, reference block_k); lengths [s, s//2, 1]
 DECODE_CASES = [(128, 4, 4, 32, 64), (200, 8, 2, 64, 64), (64, 4, 1, 128, 32)]
+# (lengths, s, hq, hkv, d) on the card, around the kernel's split of
+# SPLIT_KEYS = 512 keys: lengths at the split edges with S no multiple of
+# it; a 4096-row cache whose merge takes 8 splits; granite's serving shape
+# (one split, one launch); D 17, which takes the plain-load instantiation;
+# groups of 8 and 16 query heads per kv head (the kernel's widest
+# registers)
+DECODE_GPU_CASES = [
+    ([1, 511, 512, 513, 1300], 1300, 8, 2, 64),
+    ([4096, 3001], 4096, 32, 8, 128),
+    ([145, 130, 1, 145], 145, 32, 8, 128),
+    ([1, 100, 600, 1025], 1025, 4, 4, 17),
+    ([600, 5], 600, 16, 2, 128),
+    ([300, 77], 300, 16, 1, 64),
+]
 # (s, h, p, n, chunk): tests/test_kernels.py:70-72, then zamba2's P 128 and
 # N 64 with S not a multiple of the chunk
 SSM_CASES = [(64, 2, 8, 16, 16), (96, 3, 16, 8, 32), (50, 1, 4, 4, 16)]
@@ -86,7 +109,7 @@ def _close(got, want, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("sq,skv,hq,hkv,d,window", FLASH_CASES)
+@pytest.mark.parametrize("sq,skv,hq,hkv,d,window", FLASH_GPU_CASES)
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_flash_kernel_matches_twin_on_gpu(cuda, sq, skv, hq, hkv, d, window, dtype):
     g = torch.Generator(device=cuda).manual_seed(0)
@@ -113,6 +136,48 @@ def test_decode_kernel_matches_twin_on_gpu(cuda, s, hq, hkv, d, block_k, dtype):
     got = ops.decode_attention(q, kc, vc, lens, use_kernel=True)
     want = ref.decode_attention_ref(q, kc, vc, lens)
     _close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lens,s,hq,hkv,d", DECODE_GPU_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_kernel_split_edges_on_gpu(cuda, lens, s, hq, hkv, d, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    td = DTYPES[dtype]
+    b = len(lens)
+    q = torch.randn(b, hq, d, device=cuda, generator=g).to(td)
+    kc = torch.randn(b, s, hkv, d, device=cuda, generator=g).to(td)
+    vc = torch.randn(b, s, hkv, d, device=cuda, generator=g).to(td)
+    cl = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = ops.decode_attention(q, kc, vc, cl, use_kernel=True)
+    _close(got, ref.decode_attention_ref(q, kc, vc, cl), dtype)
+
+
+def _misaligned(shape, device, dtype, gen):
+    """A contiguous tensor whose data starts one element into its buffer, so
+    its pointer is not 16-byte aligned."""
+    n = int(np.prod(shape))
+    t = torch.randn(n + 1, device=device, generator=gen).to(dtype)[1:].view(shape)
+    assert t.data_ptr() % 16
+    return t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_attention_kernels_take_misaligned_pointers_on_gpu(cuda, dtype):
+    """A pointer that is not 16-byte aligned takes the kernels' plain-load
+    staging (16-byte copies need aligned rows) and gives the same result."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    td = DTYPES[dtype]
+    q, k, v = (_misaligned((2, 100, 4, 64), cuda, td, g) for _ in range(3))
+    kw = dict(causal=True, window=0, q_offset=0)
+    _close(ops.flash_attention(q, k, v, use_kernel=True, **kw),
+           ref.flash_attention_ref(q, k, v, **kw), dtype)
+    qd = torch.randn(2, 8, 64, device=cuda, generator=g).to(td)
+    kc, vc = (_misaligned((2, 300, 2, 64), cuda, td, g) for _ in range(2))
+    cl = torch.tensor([300, 7], dtype=torch.int32, device=cuda)
+    _close(ops.decode_attention(qd, kc, vc, cl, use_kernel=True),
+           ref.decode_attention_ref(qd, kc, vc, cl), dtype)
 
 
 @pytest.mark.gpu

@@ -89,6 +89,37 @@ def test_decode_attention_matches_reference(s, hq, hkv, d, block_k, dtype):
     np.testing.assert_allclose(_f32(got), _f32(want), **tol(dtype))
 
 
+@pytest.mark.parametrize("split", [16, 64, 256])
+@pytest.mark.parametrize("s,hq,hkv,d,block_k", DECODE_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_split_form_matches_reference(s, hq, hkv, d, block_k, split, dtype):
+    """The decode kernel's split-K algorithm (a partial softmax state per
+    split, merged by log-sum-exp) against the reference's Pallas kernel:
+    splits past a row's length (lengths s, s//2, 1), a last split cut short
+    by S, and one split longer than the cache."""
+    rng = np.random.default_rng(2)
+    qj, qt = _pair(rng.standard_normal((3, hq, d), dtype=np.float32), dtype)
+    kj, kt = _pair(rng.standard_normal((3, s, hkv, d), dtype=np.float32), dtype)
+    vj, vt = _pair(rng.standard_normal((3, s, hkv, d), dtype=np.float32), dtype)
+    lens = np.array([s, s // 2, 1], np.int32)
+    want = jax_decode(qj, kj, vj, jnp.asarray(lens), block_k=block_k, interpret=True)
+    got = ref.decode_attention_split_ref(qt, kt, vt, torch.from_numpy(lens), split=split)
+    assert got.dtype == qt.dtype
+    np.testing.assert_allclose(_f32(got), _f32(want), **tol(dtype))
+
+
+def test_decode_split_count_comes_from_the_cache_size_alone():
+    """The decode wrapper sizes its grid and scratch from S, never from the
+    row lengths, so a decode step reads nothing back from the card."""
+    import inspect
+
+    from repro_torch.kernels import decode_attention as dk
+    assert [dk.n_splits(s) for s in (0, 1, dk.SPLIT_KEYS, dk.SPLIT_KEYS + 1, 4096)] == \
+        [1, 1, 1, 2, -(-4096 // dk.SPLIT_KEYS)]
+    body = inspect.getsource(dk.decode_attention)
+    assert not any(f in body for f in (".item(", ".tolist(", ".cpu(", ".numpy(", "int(cache_len"))
+
+
 @pytest.mark.parametrize("s,h,p,n,chunk", SSM_CASES)
 def test_ssm_scan_twins_match_reference(s, h, p, n, chunk):
     """The sequential oracle and the chunked twin (ops' plain path) against
