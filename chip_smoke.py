@@ -117,16 +117,15 @@ def _cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters: int) -> tuple[float, str]:
+def _device_ms(fn, iters: int) -> tuple[float, str, float | None]:
     """Mean device time per call of ``fn``: the durations of the device
     activity (kernels, copies) a ``torch.profiler`` trace of ``iters`` calls
     records, summed, so host issue gaps between launches do not count.
     The median of three such traces: a trace that drops events reads low
     (seen on the H100).  Where the profiler records
     no device activity, the CUDA-event time of a CUDA graph that replays
-    the calls.  Returns (ms, which of the two)."""
-    import statistics
-
+    the calls.  Returns (ms, which of the two, device activities per call
+    in the median trace, None from a graph)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -140,9 +139,11 @@ def _device_ms(fn, iters: int) -> tuple[float, str]:
         device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         if not device:
             break
-        readings.append(sum(e.time_range.elapsed_us() for e in device) / 1e3 / iters)
+        readings.append((sum(e.time_range.elapsed_us() for e in device) / 1e3 / iters,
+                         len(device) / iters))
     if readings:
-        return statistics.median(readings), "profiler"
+        ms, per_call = sorted(readings)[len(readings) // 2]
+        return ms, "profiler", per_call
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -152,7 +153,7 @@ def _device_ms(fn, iters: int) -> tuple[float, str]:
     with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
-    return _cuda_ms(graph.replay, 3, warmup=1) / iters, "cuda graph"
+    return _cuda_ms(graph.replay, 3, warmup=1) / iters, "cuda graph", None
 
 
 def _check(name: str, got, want) -> tuple[float, float]:
@@ -244,8 +245,10 @@ def _decode_case(lens: list, s: int, hq: int, hkv: int, d: int, gen):
 def _ssm_case(b: int, s: int, h: int, p: int, n: int, chunk: int, gen):
     """zamba2's scan inputs: A = -exp(A_log) with A_log = log(linspace(1, 16))
     as initialised, dt a softplus, bf16 activations.  The bound counts the
-    sequential recurrence's fp32 state work, ~5 P N flops per token and head
-    (decay, inject, read-out), and each input and output once."""
+    sequential recurrence's state work, ~5 P N flops per token and head
+    (decay, inject, read-out), at the bf16 tensor-core rate (the least time
+    any design could take: a chunked form moves it onto the tensor cores),
+    and each input and output once."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -260,13 +263,14 @@ def _ssm_case(b: int, s: int, h: int, p: int, n: int, chunk: int, gen):
         twin=lambda: ops.ssd_chunked(x, dt, A, bm, cm, chunk=chunk),
         library=None,           # no single PyTorch call computes the scan
         nbytes=2 * (2 * b * s * h * p + b * s * h + 2 * b * s * n) + 4 * h + 4 * b * h * p * n,
-        flops=5 * b * s * h * p * n, peak=FP32_FLOPS)
+        flops=5 * b * s * h * p * n, peak=BF16_FLOPS)
 
 
 def _mlstm_case(b: int, s: int, h: int, d: int, chunk: int, gen):
     """xlstm's scan inputs (bf16 q/k/v, fp32 log gates, forget bias 3).  The
-    bound counts the carried state's fp32 work, ~4 D^2 flops per token and
-    head (q C^T and the rank-1 update), and each input and output once."""
+    bound counts the carried state's work, ~4 D^2 flops per token and head
+    (q C^T and the rank-1 update), at the bf16 tensor-core rate (the least
+    time any design could take), and each input and output once."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops
@@ -280,7 +284,7 @@ def _mlstm_case(b: int, s: int, h: int, d: int, chunk: int, gen):
         twin=lambda: ops.mlstm_scan(q, k, v, li, lf, chunk=chunk, use_kernel=False),
         library=None,           # no single PyTorch call computes the scan
         nbytes=2 * 4 * b * s * h * d + 4 * 2 * b * s * h,
-        flops=4 * b * s * h * d * d, peak=FP32_FLOPS)
+        flops=4 * b * s * h * d * d, peak=BF16_FLOPS)
 
 
 def _run_case(name: str, case: dict, iters: int) -> dict:
@@ -290,14 +294,49 @@ def _run_case(name: str, case: dict, iters: int) -> dict:
     checks = [_check(f"{name} output {i}", g, w) for i, (g, w) in enumerate(zip(got, want))]
     bound, by = _bound_ms(case["nbytes"], case["flops"], case["peak"])
     lib = case["library"]
-    device_ms, source = _device_ms(case["kernel"], iters)
-    return {"kernel": name, "shape": case["shape"],
+    device_ms, source, per_call = _device_ms(case["kernel"], iters)
+    return {"kernel": name, "shape": case["shape"], "device_kernels_per_call": per_call,
             "max_abs_err": max(e for e, _ in checks), "tol_share": max(t for _, t in checks),
             "ms": _cuda_ms(case["kernel"], iters), "device_ms": device_ms,
             "plain_ms": _cuda_ms(case["twin"], max(iters // 4, 2)),
             "library_ms": _cuda_ms(lib, iters) if lib is not None else None,
             "library_device_ms": _device_ms(lib, iters)[0] if lib is not None else None,
             "device_ms_from": source, "bound_ms": bound, "bound_by": by}
+
+
+def _kernel_name(mangled: str) -> str:
+    """The innermost identifier of an Itanium-mangled (nested) name."""
+    i, names = (3 if mangled.startswith("_ZN") else 2), []
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        names.append(mangled[j:j + int(mangled[i:j])])
+        i = j + int(mangled[i:j])
+    return names[-1] if names else mangled
+
+
+def _mma_counts(lib: Path) -> dict | None:
+    """Tensor-core instructions (HMMA, HGMMA) and ldmatrix (LDSM) per kernel
+    in a built library's SASS, from ``cuobjdump -sass``; None without it."""
+    import re
+    from repro_torch.kernels import native
+    tool = Path(native._nvcc()).with_name("cuobjdump")
+    if not tool.is_file():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts: dict = {}
+    kernel = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = _kernel_name(m.group(1))
+            continue
+        for ins in re.findall(r"\b((?:HMMA|HGMMA|LDSM)\.[0-9A-Z.]+)", line):
+            counts.setdefault(kernel, {}).setdefault(ins, 0)
+            counts[kernel][ins] += 1
+    return counts
 
 
 def _fmt_ms(t) -> str:
@@ -334,6 +373,12 @@ def main() -> int:
     for src, (s, log) in built.items():
         usage = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         print(f"built {src} in {s:.1f} s: " + " | ".join(usage))
+    report["sass"] = {src: _mma_counts(native.library_path(src)) for src in native.SOURCES}
+    for src, counts in report["sass"].items():
+        print(f"tensor-core and ldmatrix instructions in {src}: " + (
+            "not counted (no cuobjdump)" if counts is None else "; ".join(
+                f"{k} " + ", ".join(f"{i} x{n}" for i, n in sorted(c.items()))
+                for k, c in sorted(counts.items())) or "none"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     warm = _rmsnorm_case(8, 4096, gen)
     t0 = time.perf_counter()
@@ -393,7 +438,8 @@ def main() -> int:
     for r in cases + [r for per in path.values() for r in per.values()]:
         print(f"{r['kernel']:<17} {r['shape']}: err {r['max_abs_err']:.3g} "
               f"({r['tol_share']:.3g} of its tolerance) kernel "
-              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms), twin {r['plain_ms']:.4f} ms, "
+              f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms, "
+              f"{r['device_kernels_per_call']} device kernels a call), twin {r['plain_ms']:.4f} ms, "
               f"library {_fmt_ms(r['library_ms'])} (device {_fmt_ms(r['library_device_ms'])}), "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  [{card}]")
     report["cases"], report["path_cases"] = cases, path

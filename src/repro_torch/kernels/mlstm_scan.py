@@ -2,7 +2,9 @@
 
 Wrapper of the CUDA kernel in ``csrc/mlstm_scan.cu``, which replaces the
 Pallas kernel ``repro/kernels/mlstm_scan.py:mlstm_scan``.  The source's
-header says how it is laid out and what bounds it.  Like the TPU kernel it
+header says how it is laid out and what bounds it: bf16 inputs take the
+tensor-core path (three launches, with scratch this wrapper allocates),
+fp32 inputs the CUDA-core kernel.  Like the TPU kernel it
 returns y only, no carried state.  The wrapper launches the kernel on CUDA
 tensors and raises on anything else; ``ops.mlstm_scan`` chooses the plain
 twin (``ops.mlstm_chunked``) where no kernel runs.
@@ -18,7 +20,10 @@ from . import native
 SOURCE = "mlstm_scan.cu"
 MAX_HEAD_DIM = 1024
 _ENTRY = {torch.bfloat16: "mlstm_scan_bf16", torch.float32: "mlstm_scan_f32"}
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = {torch.float32: [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+             + [ctypes.c_float, ctypes.c_void_p],
+             torch.bfloat16: [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+             + [ctypes.c_float, ctypes.c_void_p]}
 
 
 def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logi: torch.Tensor,
@@ -26,7 +31,7 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logi: torch.Te
     """q, k, v (B,S,H,D); logi, logf (B,S,H) log-space gates (taken in fp32,
     as the reference casts them) -> y (B,S,H,D) in q.dtype.
 
-    The kernel takes no chunk length: it steps 64 rows at a time, and y is
+    The kernels take no chunk length: they use their own (64 rows), and y is
     exact for every chunk length and invariant to the stabiliser (the
     config's chunk is a TPU tile size that only the twin uses)."""
     if q.device.type != "cuda":
@@ -50,11 +55,15 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logi: torch.Te
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     li, lf = logi.float().contiguous(), logf.float().contiguous()
     y = torch.empty_like(q)
-    fn = native.function(SOURCE, _ENTRY[q.dtype], _ARGTYPES)
+    fn = native.function(SOURCE, _ENTRY[q.dtype], _ARGTYPES[q.dtype])
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(), lf.data_ptr(), y.data_ptr()]
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(), lf.data_ptr(),
-                 y.data_ptr(), b, s, h, d, d ** -0.5,
-                 torch.cuda.current_stream().cuda_stream)
+        if q.dtype == torch.bfloat16:
+            size = native.function(SOURCE, "mlstm_scan_bf16_scratch", [ctypes.c_int] * 3,
+                                   ctypes.c_longlong)(b, s, h)
+            scratch = torch.empty(size, dtype=torch.float32, device=q.device)
+            ptrs.append(scratch.data_ptr())
+        err = fn(*ptrs, b, s, h, d, d ** -0.5, torch.cuda.current_stream().cuda_stream)
     native.check(SOURCE, err, "mlstm_scan")
     native.count_launch("mlstm_scan")
     return y

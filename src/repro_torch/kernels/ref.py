@@ -10,8 +10,9 @@ The CPU path runs the attention and norm twins; on the card only
 ``chip_smoke.py`` and the tests call them, to hold each kernel against its
 twin.  ``ssm_scan_ref`` and ``mlstm_scan_ref`` are the sequential oracles
 of the two scans, whose plain twins are the chunked forms in ``ops``;
-``decode_attention_split_ref`` is decode attention in the split-K form its
-CUDA kernel computes, for the tests.
+``decode_attention_split_ref``, ``ssd_chunk_parallel_ref`` and
+``mlstm_chunk_parallel_ref`` compute decode attention and the two scans in
+the order their CUDA kernels do, for the tests (no path calls them).
 """
 from __future__ import annotations
 
@@ -161,3 +162,98 @@ def mlstm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     y = torch.stack(ys, dim=1) if ys else qf[:, :0]
     return y.to(q.dtype)
+
+
+def _pad_chunks(t: torch.Tensor, chunk: int, value: float = 0.0) -> torch.Tensor:
+    """Pad dim 1 (the sequence) to a whole number of chunks, at least one."""
+    pad = max(1, -(-t.shape[1] // chunk)) * chunk - t.shape[1]
+    return torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, pad), value=value)
+
+
+def ssd_chunk_parallel_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                           Bm: torch.Tensor, Cm: torch.Tensor, *, chunk: int = 64):
+    """The SSD scan in the order the bf16 CUDA kernel computes it.
+
+    G = C B^T once per (batch row, chunk), shared by every head; every
+    chunk's own state S_c = sum_s dt_s exp(cum_T - cum_s) x_s outer B_s and
+    its y_intra = (G o L o dt) x at once; then the one sequential pass,
+    h_c = exp(cum_T) h_{c-1} + S_c, elementwise; then y += exp(cum) C h_{c-1}^T.
+    Same arguments and results as ``ssm_scan_ref``; rows past S are
+    identity steps (dt = 0)."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    xf, dtf, bf, cf = (_pad_chunks(a.float(), chunk) for a in (x, dt, Bm, Cm))
+    nc = xf.shape[1] // chunk
+    xf = xf.reshape(b, nc, chunk, h, p)
+    dtf = dtf.reshape(b, nc, chunk, h)
+    bf = bf.reshape(b, nc, chunk, n)
+    cf = cf.reshape(b, nc, chunk, n)
+    G = torch.einsum("bctn,bcsn->bcts", cf, bf)                           # once per chunk
+    cum = torch.cumsum(A.float() * dtf, dim=2)                            # (B,nc,T,H)
+    last = cum[:, :, -1]                                                  # (B,nc,H)
+    w = dtf * torch.exp(last[:, :, None] - cum)
+    states = torch.einsum("bcthp,bcth,bctn->bchpn", xf, w, bf)            # every chunk's own
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    L = torch.exp(torch.where(tri[None, None, :, :, None],
+                              cum[:, :, :, None] - cum[:, :, None], NEG_INF))
+    y = torch.einsum("bcts,bctsh,bcsh,bcshp->bcthp", G, L, dtf, xf)
+    h_in = torch.empty_like(states)
+    hc = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    for c in range(nc):                                                   # the carry alone
+        h_in[:, c] = hc
+        hc = hc * torch.exp(last[:, c])[..., None, None] + states[:, c]
+    y = y + torch.exp(cum)[..., None] * torch.einsum("bctn,bchpn->bcthp", cf, h_in)
+    return y.reshape(b, nc * chunk, h, p)[:, :s].to(x.dtype), hc
+
+
+def mlstm_chunk_parallel_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             logi: torch.Tensor, logf: torch.Tensor, *,
+                             chunk: int = 64) -> torch.Tensor:
+    """The mLSTM scan in the order the bf16 CUDA kernel computes it.
+
+    logi, logf (B,S,H) are log-space gates (fp32).  A gates-only pre-pass
+    gives the stabiliser entering every chunk, m_{c+1} = max(F_c + m_c,
+    max_s(li_s + F_c - bcum_s)), F_c the chunk's sum of logf; every chunk's
+    scores (q k^T) D^-1/2 o exp(w - m_row) (scaled after the product), their
+    row sums and scores v at once; then the one sequential pass, the (C, n)
+    carry, restabilised at the pre-pass's m.  Returns y in q.dtype, as
+    ``mlstm_scan_ref``; rows past S enter with logi = -1e30, logf = 0."""
+    b, s, h, d = q.shape
+    scale = d ** -0.5
+    qf, kf, vf = (_pad_chunks(a.float(), chunk).reshape(b, -1, chunk, h, d) for a in (q, k, v))
+    li = _pad_chunks(logi.float(), chunk, NEG_INF).reshape(b, -1, chunk, h)
+    lf = _pad_chunks(logf.float(), chunk).reshape(b, -1, chunk, h)
+    nc = qf.shape[1]
+    bcum = torch.cumsum(lf, dim=2)                                        # (B,nc,T,H)
+    F = bcum[:, :, -1]                                                    # (B,nc,H)
+    tail = (li + (F[:, :, None] - bcum)).amax(dim=2)
+    m_in = torch.empty_like(F)
+    m = torch.full((b, h), NEG_INF, dtype=torch.float32, device=q.device)
+    for c in range(nc):                                                   # gates only
+        m_in[:, c] = m
+        m = torch.maximum(F[:, c] + m, tail[:, c])
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
+    wlog = torch.where(tri[None, None, :, :, None],
+                       bcum[:, :, :, None] - bcum[:, :, None] + li[:, :, None], -torch.inf)
+    m_row = torch.maximum(wlog.amax(dim=3), bcum + m_in[:, :, None]).clamp_min(NEG_INF)
+    scores = torch.einsum("bcthd,bcshd->bctsh", qf, kf) * scale \
+        * torch.exp(wlog - m_row[:, :, :, None])
+    rowsum = scores.sum(dim=3)                                            # (B,nc,T,H)
+    y_intra = torch.einsum("bctsh,bcshd->bcthd", scores, vf)
+    gexp = torch.exp(bcum + m_in[:, :, None] - m_row)
+    m_out = torch.cat([m_in[:, 1:], m[:, None]], dim=1)                   # m leaving chunk c
+    C = torch.zeros((b, h, d, d), dtype=torch.float32, device=q.device)
+    nvec = torch.zeros((b, h, d), dtype=torch.float32, device=q.device)
+    state = torch.empty_like(y_intra)
+    qn = torch.empty_like(rowsum)
+    for c in range(nc):                                                   # the carry alone
+        state[:, c] = torch.einsum("bhde,bthe->bthd", C, qf[:, c]) * scale
+        qn[:, c] = torch.einsum("bthd,bhd->bth", qf[:, c], nvec) * scale
+        inj = torch.exp(li[:, c] + (F[:, c, None] - bcum[:, c]) - m_out[:, c, None])
+        decay = torch.exp(F[:, c] + m_in[:, c] - m_out[:, c])
+        C = C * decay[..., None, None] + torch.einsum("bthd,bthe,bth->bhde", vf[:, c], kf[:, c],
+                                                      inj)
+        nvec = nvec * decay[..., None] + torch.einsum("bthd,bth->bhd", kf[:, c], inj)
+    denom = torch.maximum((rowsum + gexp * qn).abs(), torch.exp(-m_row))
+    y = (y_intra + gexp[..., None] * state) / denom[..., None]
+    return y.reshape(b, nc * chunk, h, d)[:, :s].to(q.dtype)

@@ -1,10 +1,13 @@
-"""Where the serving time goes: trace one prefill and one decode step.
+"""Where the time goes: trace one prefill and one decode step, or one
+scoring forward.
 
     PYTHONPATH=src python -m repro_torch.launch.profile --arch granite_3_8b
     PYTHONPATH=src python -m repro_torch.launch.profile --arch zamba2_1_2b
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch xlstm_1_3b --score
 
 Builds the model with random weights on the card (``use_kernels=True``),
-warms it up, then, at batch 4 x prompt 128, traces one prefill and one decode step with
+warms it up, then, at batch 4 x prompt 128, traces one prefill and one decode step
+(with ``--score``: one full-sequence forward of ``steps.loss_fn``, no cache) with
 ``torch.profiler`` (CPU and CUDA activity).  For each it prints the host
 wall time, the device busy time (union of kernel intervals), the device's
 idle share of the span between its first and last kernel, and device time
@@ -29,8 +32,9 @@ from ..models.modules import require_device
 BATCH, PROMPT = 4, 128          # chip_smoke.py's serving shape
 
 GROUPS = (("flash_attention", ("flash_fwd",)), ("decode_attention", ("decode_fwd",)),
-          ("rmsnorm", ("_rmsnorm_kernel",)), ("ssm_scan", ("ssd_scan",)),
-          ("mlstm_scan", ("mlstm_scan_kernel",)),
+          ("rmsnorm", ("_rmsnorm_kernel",)),
+          ("ssm_scan", ("ssd_scan", "ssd_states", "ssd_carry", "ssd_output", "ssd_fused")),
+          ("mlstm_scan", ("mlstm_scan_kernel", "mlstm_gates", "mlstm_scores", "mlstm_walk")),
           ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma", "cublas", "nvjet")))
 
 
@@ -81,6 +85,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="granite_3_8b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--score", action="store_true",
+                    help="trace the scoring forward instead of prefill and decode")
     ap.add_argument("--out", default="chiprun_out/profile")
     args = ap.parse_args(argv)
 
@@ -103,15 +109,19 @@ def main(argv=None):
     def run_decode():
         lm.decode_step(params, cfg, state["tok"], pos, state["cache"])
 
+    def run_score():
+        lm.forward(params, cfg, {"tokens": tokens})
+
     with torch.inference_mode():
+        runs = {"forward": run_score} if args.score else \
+            {"prefill": run_prefill, "decode_step": run_decode}
         for _ in range(2):                      # warm-up: kernel builds, allocator
-            run_prefill()
-            run_decode()
+            for fn in runs.values():
+                fn()
         out = Path(args.out)
         res = {"arch": cfg.name, "batch": BATCH, "prompt": PROMPT,
                "device": torch.cuda.get_device_name(dev),
-               "prefill": trace(run_prefill, out, "prefill"),
-               "decode_step": trace(run_decode, out, "decode_step")}
+               **{label: trace(fn, out, label) for label, fn in runs.items()}}
     print(json.dumps(res, indent=1))
 
 

@@ -9,6 +9,8 @@ The shapes are those of tests/test_kernels.py, which test_torch_kernels.py
 also uses to hold the twins to the JAX reference; the tolerances are the
 reference's (tests/test_kernels.py:17-19): 3e-4 in fp32, 2e-2 in bf16.
 """
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -57,6 +59,21 @@ SSM_GPU_CASES = SSM_CASES + [(300, 4, 128, 64, 256)]
 # (s, h, d, chunk): tests/test_kernels.py:131-132, then xlstm's D 512
 MLSTM_CASES = [(37, 3, 8, 8), (64, 2, 16, 16), (50, 1, 32, 37)]
 MLSTM_GPU_CASES = MLSTM_CASES + [(300, 2, 512, 256)]
+# (b, s, h, p, n) for the scans' own chunk (64 rows): zamba2's serving shape
+# and an S no chunk divides at full width (H 32, P 128, N 64); the smoke
+# configs' N 16 with P 8 and 16; S below one chunk; a P that no 64-column
+# tile and no 16-byte vector divides
+SSM_TC_CASES = [(4, 128, 32, 128, 64), (1, 1000, 32, 128, 64), (2, 40, 4, 8, 16),
+                (2, 70, 4, 16, 16), (2, 20, 2, 64, 16), (1, 100, 2, 100, 12)]
+# (b, s, h, d, logi scale, forget-gate offset, q and k drawn positive) for
+# the mLSTM's own chunk: xlstm's D 512 with S no chunk divides; strongly
+# negative logf with large input gates, so the stabiliser drops and rises
+# within and across chunks (q and k positive: with a memory a few tokens
+# long, random signs let |n . q| cancel until fp32 summation order alone
+# parts kernel and twin by 1e-3); S below one chunk; a D that no 16-byte
+# vector divides
+MLSTM_TC_CASES = [(1, 300, 2, 512, 0.5, 2.0, False), (2, 200, 2, 64, 4.0, -4.0, True),
+                  (2, 30, 1, 128, 0.5, 2.0, False), (1, 150, 2, 36, 0.5, 2.0, False)]
 
 
 def tol(dtype_name):
@@ -231,6 +248,77 @@ def test_mlstm_scan_kernel_matches_twin_on_gpu(cuda, s, h, d, chunk, dtype):
     want = ops.mlstm_scan(q, k, v, logi, logf, chunk=chunk, use_kernel=False)
     assert got.dtype == q.dtype
     _close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,n", SSM_TC_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ssm_scan_kernel_chunk_edges_on_gpu(cuda, b, s, h, p, n, dtype):
+    """The bf16 tensor-core path (and the fp32 kernel) at full width, at S
+    below and across the kernels' chunk, and at widths no tile divides."""
+    x, dt, A, Bm, Cm = ssm_inputs(np.random.default_rng(8), b, s, h, p, n)
+    x, dt, Bm, Cm = _on((x, dt, Bm, Cm), cuda, DTYPES[dtype])
+    A = torch.from_numpy(A).to(cuda)
+    y, hf = ops.ssm_scan(x, dt, A, Bm, Cm, use_kernel=True)
+    y_t, hf_t = ops.ssd_chunked(x, dt, A, Bm, Cm, chunk=256)
+    _close(y, y_t, dtype)
+    _close(hf, hf_t, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,d,li_scale,f_offset,positive", MLSTM_TC_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_mlstm_scan_kernel_chunk_edges_on_gpu(cuda, b, s, h, d, li_scale, f_offset, positive,
+                                              dtype):
+    """The bf16 tensor-core path (and the fp32 kernel) at xlstm's D, with
+    strongly negative forget gates (the carry restabilised), at S below one
+    chunk and at a D no 16-byte vector divides."""
+    rng = np.random.default_rng(9)
+    q, k, v = (rng.standard_normal((b, s, h, d), dtype=np.float32) for _ in range(3))
+    if positive:
+        q, k = np.abs(q), np.abs(k)
+    logi = rng.standard_normal((b, s, h), dtype=np.float32) * li_scale
+    fpre = rng.standard_normal((b, s, h), dtype=np.float32) + f_offset
+    q, k, v = _on((q, k, v), cuda, DTYPES[dtype])
+    logi, fpre = _on((logi, fpre), cuda, torch.float32)
+    logf = torch.nn.functional.logsigmoid(fpre)
+    got = ops.mlstm_scan(q, k, v, logi, logf, use_kernel=True)
+    want = ops.mlstm_scan(q, k, v, logi, logf, chunk=256, use_kernel=False)
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_scans_take_their_dtype_entry_points_on_gpu(cuda, dtype, monkeypatch):
+    """fp32 inputs go to the CUDA-core kernels' entry points (``*_f32``, no
+    scratch), bf16 inputs to the tensor-core paths (``*_bf16`` with their
+    scratch), one counted launch a call either way."""
+    real = native.function
+    seen = []
+
+    def function(src, name, argtypes, restype=ctypes.c_int):
+        seen.append((name, len(argtypes)))
+        return real(src, name, argtypes, restype)
+
+    monkeypatch.setattr(native, "function", function)
+    td = DTYPES[dtype]
+    x, dt, A, Bm, Cm = ssm_inputs(np.random.default_rng(4), 1, 70, 2, 16, 8)
+    x, dt, Bm, Cm = _on((x, dt, Bm, Cm), cuda, td)
+    q = torch.randn(1, 70, 2, 32, device=cuda).to(td)
+    gates = torch.zeros(1, 70, 2, device=cuda)
+    native.reset_launches()
+    ops.ssm_scan(x, dt, torch.from_numpy(A).to(cuda), Bm, Cm, use_kernel=True)
+    ops.mlstm_scan(q, q, q, gates, gates, use_kernel=True)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["ssm_scan"] == 1 and native.LAUNCHES["mlstm_scan"] == 1
+    entries = [name for name, _ in seen if not name.endswith("_error_string")]
+    if dtype == "float32":
+        assert entries == ["ssm_scan_f32", "mlstm_scan_f32"]
+        assert [n for _, n in seen] == [13, 12]       # the kernels' unchanged signatures
+    else:
+        assert entries == ["ssm_scan_bf16", "ssm_scan_bf16_scratch", "mlstm_scan_bf16",
+                           "mlstm_scan_bf16_scratch"]
 
 
 @pytest.mark.gpu

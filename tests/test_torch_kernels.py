@@ -182,6 +182,93 @@ def test_mlstm_scan_twins_match_reference(s, h, d, chunk):
     np.testing.assert_allclose(_f32(got), _f32(got_k), **SCAN_TOL)
 
 
+# ---------------------------------------------------------------------------
+# the scan kernels' decompositions (the order the bf16 CUDA kernels compute
+# in) vs the reference's Pallas kernels and the port's chunked twins (CPU)
+# ---------------------------------------------------------------------------
+# kernel chunk lengths: 16 and 64 (the CUDA kernels' own), neither of them
+# the twin's chunk in every case, and no divisor of S = 50 or 37
+SCAN_KERNEL_CHUNKS = [16, 64]
+
+
+@pytest.mark.parametrize("kchunk", SCAN_KERNEL_CHUNKS)
+@pytest.mark.parametrize("s,h,p,n,chunk", SSM_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ssd_chunk_parallel_form_matches_reference(s, h, p, n, chunk, kchunk, dtype):
+    """G once per chunk, chunk-local states, then the inter-chunk pass: the
+    same y and h_final as the reference's Pallas kernel (interpret mode, at
+    the case's own chunk) and the port's chunked twin."""
+    arrays = ssm_inputs(np.random.default_rng(4), 2, s, h, p, n)
+    pairs = [_pair(a, dtype) for a in arrays]
+    jx, tx = [j for j, _ in pairs], [t for _, t in pairs]
+    y_k, h_k = jax_ssm(*jx, chunk=chunk, interpret=True)
+    y_t, h_t = ops.ssd_chunked(*tx, chunk=chunk)
+    y, hf = ref.ssd_chunk_parallel_ref(*tx, chunk=kchunk)
+    assert y.dtype == tx[0].dtype and hf.dtype == torch.float32
+    for want_y, want_h in ((y_k, h_k), (y_t, h_t)):
+        np.testing.assert_allclose(_f32(y), _f32(want_y), **tol(dtype))
+        np.testing.assert_allclose(_f32(hf), _f32(want_h), **tol(dtype))
+
+
+@pytest.mark.parametrize("kchunk", SCAN_KERNEL_CHUNKS)
+def test_ssd_chunk_parallel_form_extreme_decay_no_nan(kchunk):
+    """The masked exponent keeps extreme decay finite in the kernels' order."""
+    arrays = extreme_decay_inputs(np.random.default_rng(5))
+    y, hf = ref.ssd_chunk_parallel_ref(*(torch.from_numpy(a) for a in arrays), chunk=kchunk)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(hf).all())
+    y_k, h_k = jax_ssm(*(jnp.asarray(a) for a in arrays), chunk=16, interpret=True)
+    np.testing.assert_allclose(_f32(y), _f32(y_k), **SCAN_TOL)
+    np.testing.assert_allclose(_f32(hf), _f32(h_k), **SCAN_TOL)
+
+
+@pytest.mark.parametrize("kchunk", SCAN_KERNEL_CHUNKS)
+@pytest.mark.parametrize("s,h,d,chunk", MLSTM_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_mlstm_chunk_parallel_form_matches_reference(s, h, d, chunk, kchunk, dtype):
+    """m from a gates-only pre-pass, chunk-parallel scores, then the carry
+    walk: the same y as the reference's Pallas kernel (interpret mode) and
+    the port's chunked twin."""
+    q, k, v, logi, fpre = mlstm_inputs(np.random.default_rng(6), 2, s, h, d)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+    logf = np.array(jax.nn.log_sigmoid(jnp.asarray(fpre)))
+    want = jax_mlstm(jq, jk, jv, jnp.asarray(logi), jnp.asarray(logf), chunk=chunk,
+                     interpret=True)
+    tli, tlf = torch.from_numpy(logi), torch.from_numpy(logf)
+    twin = ops.mlstm_scan(tq, tk, tv, tli, tlf, chunk=chunk, use_kernel=False)
+    got = ref.mlstm_chunk_parallel_ref(tq, tk, tv, tli, tlf, chunk=kchunk)
+    assert got.dtype == tq.dtype
+    np.testing.assert_allclose(_f32(got), _f32(want), **tol(dtype))
+    np.testing.assert_allclose(_f32(got), _f32(twin), **tol(dtype))
+
+
+@pytest.mark.parametrize("kchunk", SCAN_KERNEL_CHUNKS)
+def test_mlstm_chunk_parallel_form_restabilises(kchunk):
+    """Strongly negative forget gates and large input gates move the
+    stabiliser by tens within and across chunks: the pre-pass's m keeps the
+    carry finite and y equal to the sequential oracle's, fp32."""
+    rng = np.random.default_rng(10)
+    q, k, v = (rng.standard_normal((2, 90, 2, 16), dtype=np.float32) for _ in range(3))
+    logi = rng.standard_normal((2, 90, 2), dtype=np.float32) * 4.0
+    fpre = rng.standard_normal((2, 90, 2), dtype=np.float32) - 4.0
+    tq, tk, tv, tli, tfp = (torch.from_numpy(a) for a in (q, k, v, logi, fpre))
+    want = jref.mlstm_scan_ref(*(jnp.asarray(a) for a in (q, k, v, logi, fpre)))
+    got = ref.mlstm_chunk_parallel_ref(tq, tk, tv, tli, torch.nn.functional.logsigmoid(tfp),
+                                       chunk=kchunk)
+    assert bool(torch.isfinite(got).all())
+    np.testing.assert_allclose(_f32(got), _f32(want), **SCAN_TOL)
+
+
+def test_kernel_order_oracles_stay_off_the_main_path():
+    """The kernels' order is a test oracle: no module of the port but ``ref``
+    names it."""
+    from pathlib import Path
+    root = Path(ref.__file__).resolve().parents[1]
+    names = ("ssd_chunk_parallel_ref", "mlstm_chunk_parallel_ref", "decode_attention_split_ref")
+    users = [str(f.relative_to(root)) for f in root.rglob("*.py")
+             if f.name != "ref.py" and any(n in f.read_text() for n in names)]
+    assert users == []
+
+
 def test_flash_attention_scale_argument():
     """``scale`` reaches the twin (the reference's ops lacks it; its MLA
     kernel path depends on it)."""

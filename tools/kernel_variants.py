@@ -2,6 +2,7 @@
 """Time variants of the port's CUDA kernels against each other on one card.
 
     python3 tools/kernel_variants.py tools/kernel_variants_attention.json
+    python3 tools/kernel_variants.py tools/kernel_variants_scans.json
 
 A spec names, per source in ``src/repro_torch/kernels/csrc``, a list of
 variants: each is a name and a list of ``[old, new]`` text substitutions
@@ -12,7 +13,8 @@ variant is built with the port's own nvcc flags into
 library, held against its plain twin (a variant whose result is wrong is
 marked so and still timed) and timed by device time per call
 (``chip_smoke._device_ms``) at the long and serving cases of
-``chip_smoke.py``.  The library call's device time is printed beside
+``chip_smoke.py`` (attention, and the two scans: their serving shapes and
+S 4096 and 1000).  The library call's device time is printed beside
 each case.  Run it on the machine with the card; compare variants only
 within one run.
 """
@@ -90,7 +92,17 @@ def load(path: Path, src: str):
 def cases(gen) -> dict:
     long_lens = [4096, 2048, 1, 3000, 17, 4095, 64, 1024]
     serve = [cs.PROMPT + 1] * cs.BATCH
+    ssm = dict(h=32, p=128, n=64, chunk=256)        # zamba2-1.2b
+    mlstm = dict(h=4, d=512, chunk=256)             # xlstm-1.3b
     return {
+        "ssm_scan.cu": [
+            ("x (4,128), zamba2", cs._ssm_case(cs.BATCH, cs.PROMPT, gen=gen, **ssm), 20),
+            ("x (1,4096)", cs._ssm_case(1, 4096, gen=gen, **ssm), 10),
+            ("x (1,1000)", cs._ssm_case(1, 1000, gen=gen, **ssm), 10)],
+        "mlstm_scan.cu": [
+            ("q (4,128), xlstm", cs._mlstm_case(cs.BATCH, cs.PROMPT, gen=gen, **mlstm), 20),
+            ("q (1,4096)", cs._mlstm_case(1, 4096, gen=gen, **mlstm), 5),
+            ("q (1,1000)", cs._mlstm_case(1, 1000, gen=gen, **mlstm), 5)],
         "flash_attention.cu": [
             ("q 2048, D 128, 32/8 heads", cs._flash_case(1, 2048, 2048, 32, 8, 128, gen), 10),
             ("q 1000 / kv 1500, D 128", cs._flash_case(1, 1000, 1500, 32, 8, 128, gen), 10),
@@ -114,10 +126,12 @@ def main(argv: list[str]) -> int:
     print(card)
     runs = [(src, v[0], v[1], v[2] if len(v) > 2 else None) for src, vs in spec.items() for v in vs]
     build([make_variant(src, name, subs) for src, name, subs, _ in runs])
-    table = cases(torch.Generator(device="cuda").manual_seed(0))
+    table = {src: per for src, per in cases(torch.Generator(device="cuda").manual_seed(0)).items()
+             if src in spec}
     for src, per in table.items():
         for label, case, iters in per:
-            case["library_device_ms"] = cs._device_ms(case["library"], iters)[0]
+            case["library_device_ms"] = (cs._device_ms(case["library"], iters)[0]
+                                         if case["library"] is not None else None)
     split_default = decode_mod.SPLIT_KEYS
     for src, name, _, split_keys in runs:
         real = load(variant_dir(name) / src, src)
@@ -125,12 +139,14 @@ def main(argv: list[str]) -> int:
             decode_mod.SPLIT_KEYS = split_keys
         row = []
         for label, case, iters in table[src]:
+            got, want = case["kernel"](), case["twin"]()
+            pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
             try:
-                share = f"{cs._check(label, case['kernel'](), case['twin']())[1]:.2f}"
+                share = f"{max(cs._check(label, g, w)[1] for g, w in pairs):.2f}"
             except AssertionError:
                 share = "WRONG"
             ms = cs._device_ms(case["kernel"], iters)[0]
-            row.append(f"{label}: {ms:.4f} ms (library {case['library_device_ms']:.4f}, "
+            row.append(f"{label}: {ms:.4f} ms (library {cs._fmt_ms(case['library_device_ms'])}, "
                        f"tolerance share {share})")
         native.function = real
         decode_mod.SPLIT_KEYS = split_default
