@@ -18,29 +18,38 @@ Run from the root of a checkout.  It imports only the port
    calls (at small shapes that is the host's issue rate), and, for kernel
    and library call, ``device_ms``, the device time per call summed from
    the kernels a ``torch.profiler`` trace of such a loop records;
-3. drives four paths at full width, with random bf16 weights from a seeded
+3. drives seven paths at full width, with random bf16 weights from a seeded
    generator and ``use_kernels=True``, each through the entry points a user
    calls, freeing each path's weights before the next:
-   granite-3-8b serving (40 layers), zamba2-1.2b serving (38 Mamba2
-   layers and the shared attention block) and xlstm-1.3b serving, each
-   through ``make_lm_predictor`` and the k8s strategy of
-   ``InferenceService``; and xlstm-1.3b scoring through ``steps.loss_fn``
-   (its full-sequence forward is xlstm's one route to the mLSTM scan).
+   granite-3-8b serving (40 layers), h2o-danube-3-4b serving (24 sliding-
+   window layers, head dim 120), minitron-4b serving (32 layers, squared-
+   ReLU MLP), zamba2-1.2b serving (38 Mamba2 layers and the shared
+   attention block) and xlstm-1.3b serving, each through
+   ``make_lm_predictor`` and the k8s strategy of ``InferenceService``;
+   h2o-danube-3-4b continuous batching through ``ContinuousBatcher`` and
+   ``BatcherBackend`` (eight requests on four slots, one prompt of 4400
+   tokens past the 4096-row ring: ``_batch_path``); and xlstm-1.3b scoring
+   through ``steps.loss_fn`` (its full-sequence forward is xlstm's one route
+   to the mLSTM scan).
    Launch counts are zeroed just before each path's run and read just
    after: every kernel of the path's own set must have launched and no
    other.  Every kernel call of one kernel-path prefill and decode step
-   (or one scoring run) is recorded, inputs and output, and held against
-   its twin on those inputs under the phase-2 rule.  The path's logits
-   (prefill and one decode step, or the scoring forward) are compared
-   three ways, each gated where the path's readings allow (``PATHS``):
-   the bf16 kernel path against the bf16 plain path (granite: <= 2e-2);
-   with the same weights cast to fp32, the kernel path against the plain
-   path (granite <= 1e-4, zamba2 <= 1e-3); and the bf16 kernel path's
-   drift from the fp32 plain path, at most 1.5 times the bf16 plain
-   path's (every path).  Random-weight zamba2 and xlstm amplify bf16
-   rounding until the two bf16 paths differ by more than any kernel does
-   (the reference drifts as far: ``tests/test_torch_drift.py``), and xlstm
-   even in fp32, so those comparisons are reported, not gated;
+   (or one scoring run, or the batcher's first step) is recorded, inputs
+   and output, and held against its twin on those inputs under the phase-2
+   rule.  The path's logits (prefill and one decode step, or the scoring
+   forward) are compared three ways, each gated where the path's readings
+   allow (``PATHS``): the bf16 kernel path against the bf16 plain path
+   (granite, h2o, minitron: <= 2e-2); with the same weights cast to fp32,
+   the kernel path against the plain path (granite, h2o, minitron <= 1e-4,
+   zamba2 <= 1e-3); and the bf16 kernel path's drift from the fp32 plain
+   path, at most 1.5 times the bf16 plain path's (every path).
+   Random-weight zamba2 and xlstm amplify bf16 rounding until the two bf16
+   paths differ by more than any kernel does (the reference drifts as far:
+   ``tests/test_torch_drift.py``), and xlstm even in fp32, so those
+   comparisons are reported, not gated.  The batcher's run gates its fp32
+   tokens (equal to the non-batched path's for every request, and to the
+   teacher-forced batcher's for the short prompts) and the memory one
+   256-row prefill chunk adds on a wrapped ring (< 2 GB);
 4. prints the kernels' JSON line and, last, the device line.
 
 Any failure raises, and the script exits non-zero without the last line.
@@ -71,13 +80,28 @@ TOL = 2e-2                  # reference bf16 tolerance, tests/test_kernels.py:17
 DRIFT_RATIO = 1.5
 
 BATCH, PROMPT, GEN = 4, 128, 16
+# the continuous batcher's run: slots, cache rows, prefill chunk, the mix's
+# long prompt (it wraps h2o_danube's 4096-row ring in chunked prefill, and
+# its decode runs on the wrapped ring) and the longest prompt that also goes
+# through the teacher-forced batcher
+BATCH_SLOTS, BATCH_MAX_LEN, BATCH_CHUNK = 4, 4608, 256
+LONG_PROMPT, SHORT_PROMPT = 4400, 64
+RING_CHUNK_BYTES = 2e9      # the most one ring chunk may add to peak memory
 # (label, arch, run, the kernels that run must launch (no other may launch),
 # limits on the logits' rel error of kernel path vs plain path in bf16 and
 # with the weights in fp32; None reports without gating).  The fp32 limits
-# sit 10-40x above the H100 readings (granite 2.6e-6, zamba2 9.4e-5).
+# sit 10-40x above the H100 readings (granite 2.6e-6, zamba2 9.4e-5).  The
+# batcher's run gates its tokens instead (``_batch_path``): its prefill
+# runs no attention kernel, as in the reference.
 PATHS = (
     ("granite-3-8b serving", "granite_3_8b", "serve",
      ("rmsnorm", "flash_attention", "decode_attention"), TOL, 1e-4),
+    ("h2o-danube-3-4b serving", "h2o_danube_3_4b", "serve",
+     ("rmsnorm", "flash_attention", "decode_attention"), TOL, 1e-4),
+    ("minitron-4b serving", "minitron_4b", "serve",
+     ("rmsnorm", "flash_attention", "decode_attention"), TOL, 1e-4),
+    ("h2o-danube-3-4b continuous batching", "h2o_danube_3_4b", "batch",
+     ("rmsnorm", "decode_attention"), None, None),
     ("zamba2-1.2b serving", "zamba2_1_2b", "serve",
      ("rmsnorm", "flash_attention", "decode_attention", "ssm_scan"), None, 1e-3),
     ("xlstm-1.3b serving", "xlstm_1_3b", "serve", ("rmsnorm",), None, None),
@@ -199,7 +223,7 @@ def _rmsnorm_case(rows: int, d: int, gen):
         nbytes=2 * (2 * rows * d + d), flops=4 * rows * d, peak=FP32_FLOPS)
 
 
-def _flash_case(b: int, sq: int, skv: int, hq: int, hkv: int, d: int, gen):
+def _flash_case(b: int, sq: int, skv: int, hq: int, hkv: int, d: int, gen, window: int = 0):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -208,13 +232,18 @@ def _flash_case(b: int, sq: int, skv: int, hq: int, hkv: int, d: int, gen):
     v = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
     off = skv - sq
     qpos = torch.arange(sq, device="cuda")[:, None] + off
-    mask = torch.arange(skv, device="cuda")[None, :] <= qpos          # causal, offset
+    kpos = torch.arange(skv, device="cuda")[None, :]
+    mask = kpos <= qpos                                                # causal, offset
+    if window:
+        mask &= kpos > qpos - window
     visible = int(mask.sum())                                        # keys seen, all rows
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    kw = dict(causal=True, q_offset=off, window=window)
     return dict(
-        shape=f"q ({b},{sq},{hq},{d}) kv ({b},{skv},{hkv},{d}) causal q_offset {off} bf16",
-        kernel=lambda: ops.flash_attention(q, k, v, causal=True, q_offset=off, use_kernel=True),
-        twin=lambda: ref.flash_attention_ref(q, k, v, causal=True, q_offset=off),
+        shape=f"q ({b},{sq},{hq},{d}) kv ({b},{skv},{hkv},{d}) causal q_offset {off}"
+              + (f" window {window}" if window else "") + " bf16",
+        kernel=lambda: ops.flash_attention(q, k, v, use_kernel=True, **kw),
+        twin=lambda: ref.flash_attention_ref(q, k, v, **kw),
         library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                        enable_gqa=True),
         nbytes=2 * (2 * b * sq * hq * d + 2 * b * skv * hkv * d),
@@ -391,6 +420,8 @@ def main() -> int:
     g = registry.get_config("granite_3_8b")
     z = registry.get_config("zamba2_1_2b")
     xl = registry.get_config("xlstm_1_3b")
+    h = registry.get_config("h2o_danube_3_4b")
+    mt = registry.get_config("minitron_4b")
     cache_len = PROMPT + GEN + 1
     rows = BATCH * PROMPT
     zp, xhd = z.d_inner // z.n_heads, xl.d_model // xl.n_heads
@@ -411,6 +442,12 @@ def main() -> int:
         ("ssm_scan", _ssm_case(1, 1000, z.n_heads, zp, z.ssm_state, z.ssm_chunk, gen), 10),
         ("mlstm_scan", _mlstm_case(1, 4096, xl.n_heads, xhd, xl.ssm_chunk, gen), 5),
         ("mlstm_scan", _mlstm_case(1, 1000, xl.n_heads, xhd, xl.ssm_chunk, gen), 5),
+        # h2o_danube: D 120 (zero-padded to the 128 tile) under a window that
+        # binds, and decode over its 4096-row ring once wrapped (every row valid)
+        ("flash_attention", _flash_case(1, BATCH_MAX_LEN, BATCH_MAX_LEN, h.n_heads, h.n_kv_heads,
+                                        h.head_dim, gen, window=h.sliding_window), 5),
+        ("decode_attention", _decode_case([h.sliding_window] * BATCH_SLOTS, h.sliding_window,
+                                          h.n_heads, h.n_kv_heads, h.head_dim, gen), 20),
     ]
     # the shapes each path's run gives each kernel
     path_cases = {
@@ -428,6 +465,18 @@ def main() -> int:
                                               z.n_kv_heads, z.head_dim, gen), 50),
             "ssm_scan": (_ssm_case(BATCH, PROMPT, z.n_heads, zp, z.ssm_state, z.ssm_chunk,
                                    gen), 20)},
+        "h2o-danube-3-4b serving": {
+            "rmsnorm": (_rmsnorm_case(rows, h.d_model, gen), 50),
+            "flash_attention": (_flash_case(BATCH, PROMPT, PROMPT, h.n_heads, h.n_kv_heads,
+                                            h.head_dim, gen, window=h.sliding_window), 20),
+            "decode_attention": (_decode_case([PROMPT + 1] * BATCH, cache_len, h.n_heads,
+                                              h.n_kv_heads, h.head_dim, gen), 50)},
+        "minitron-4b serving": {
+            "rmsnorm": (_rmsnorm_case(rows, mt.d_model, gen), 50),
+            "flash_attention": (_flash_case(BATCH, PROMPT, PROMPT, mt.n_heads, mt.n_kv_heads,
+                                            mt.head_dim, gen), 20),
+            "decode_attention": (_decode_case([PROMPT + 1] * BATCH, cache_len, mt.n_heads,
+                                              mt.n_kv_heads, mt.head_dim, gen), 50)},
         "xlstm-1.3b scoring": {
             "rmsnorm": (_rmsnorm_case(rows, xl.d_model, gen), 50),
             "mlstm_scan": (_mlstm_case(BATCH, PROMPT, xl.n_heads, xhd, xl.ssm_chunk, gen), 20)},
@@ -451,8 +500,8 @@ def main() -> int:
     for label, arch, run, expected, bf16_limit, fp32_limit in PATHS:
         cfg = registry.get_config(arch).replace(use_kernels=True)
         limits = {"bf16_kernel_vs_plain": bf16_limit, "kernel_vs_plain": fp32_limit}
-        res = (_serve_path if run == "serve" else _score_path)(cfg, label, expected, limits,
-                                                               card)
+        run_path = {"serve": _serve_path, "score": _score_path, "batch": _batch_path}[run]
+        res = run_path(cfg, label, expected, limits, card)
         report["paths"][label] = res
         gc.collect()
         torch.cuda.empty_cache()
@@ -721,6 +770,178 @@ def _score_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> di
             "tokens": PROMPT, "forward_ms": forward_ms, "peak_gib": peak_gib, "rel": rel,
             "recorded": recorded, "loss": losses, "launches_run": launches,
             "launches_per": {"forward": launches}}
+
+
+def _batch_mix(cfg) -> list:
+    """Eight prompts from a seed: three of 16-64 tokens, four of 65-256 and,
+    second in the queue, one of 4400 (past the 4096-row ring)."""
+    import numpy as np
+    rng = np.random.default_rng(3)
+    lens = [int(n) for n in rng.integers(SHORT_PROMPT // 4, SHORT_PROMPT + 1, 3)] + \
+        [int(n) for n in rng.integers(SHORT_PROMPT + 1, 4 * SHORT_PROMPT + 1, 4)]
+    lens.insert(1, LONG_PROMPT)
+    return [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
+
+
+@contextlib.contextmanager
+def _first_step_logits(store: list):
+    """Keep a copy of the logits of the first ``lm.decode_step`` call made
+    inside the block (the batcher calls it through the module)."""
+    from repro_torch.models import lm
+    real = lm.decode_step
+
+    def spy(*args, **kw):
+        logits, cache = real(*args, **kw)
+        if not store:
+            store.append(logits.float().clone())
+        return logits, cache
+
+    lm.decode_step = spy
+    try:
+        yield
+    finally:
+        lm.decode_step = real
+
+
+def _batcher(cfg, params, prompts: list, chunk: int):
+    """A ContinuousBatcher with ``prompts`` queued (16 new tokens each)."""
+    from repro_torch.serving.continuous import ContinuousBatcher
+    cb = ContinuousBatcher(cfg, params, max_slots=BATCH_SLOTS, max_len=BATCH_MAX_LEN,
+                           prefill_chunk=chunk)
+    return cb, [cb.submit(p, GEN) for p in prompts]
+
+
+def _batch_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> dict:
+    """Serve a mix of eight requests through ``ContinuousBatcher`` (4 slots,
+    4608-row cache, prefill chunks of 256), more requests than slots, one
+    prompt past the ring.  In bf16: the timed kernel run (launches, tokens/s,
+    peak memory), token agreement and first-step logits against the plain
+    path (reported), every kernel call of the first step (admission
+    prefills, the long one included, then a decode on the wrapped ring) held
+    against its twin, the peak-memory rise of one 256-row chunk on a wrapped
+    ring (gated), and ``BatcherBackend``'s measured costs.  With the weights
+    in fp32, kernels on: every request's tokens equal the non-batched path's
+    (``steps.prefill`` at B 1, then ``greedy_decode_loop``), and the short
+    prompts' equal the teacher-forced batcher's (gated)."""
+    import torch
+    from repro_torch.kernels import native
+    from repro_torch.models import lm, steps
+    from repro_torch.serving.gateway import BatcherBackend
+
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    prompts = _batch_mix(cfg)
+    plain = cfg.replace(use_kernels=False)
+    with torch.inference_mode():
+        cb, reqs = _batcher(cfg, params, prompts, BATCH_CHUNK)
+        first_k, first_p = [], []
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_launches()
+        t0 = time.perf_counter()
+        with _first_step_logits(first_k):
+            done = cb.run()
+        wall = time.perf_counter() - t0
+        launches = dict(native.LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        _expect(label, launches, expected)
+        toks_k = [r.output for r in reqs]
+        n_tokens = sum(len(t) for t in toks_k)
+        if len(done) != len(prompts) or n_tokens != GEN * len(prompts):
+            raise AssertionError(f"{label}: {len(done)} requests finished, {n_tokens} tokens")
+        stats = dict(cb.prefill_stats)
+        del cb, reqs
+        cbp, reqs = _batcher(plain, params, prompts, BATCH_CHUNK)
+        with _first_step_logits(first_p):
+            cbp.run()
+        toks_p = [r.output for r in reqs]
+        del cbp, reqs
+        # every kernel call of the first step, held against its twin
+        cbr, _ = _batcher(cfg, params, prompts, BATCH_CHUNK)
+        with _recording(expected) as calls:
+            cbr.step()
+        del cbr
+        recorded = _hold_recorded(label, cfg, calls)
+        del calls
+        # one 256-row chunk on a wrapped ring (positions 4096..4351)
+        row = lm.init_cache(cfg, 1, BATCH_MAX_LEN, device="cuda")
+        tok = torch.tensor([prompts[1][:BATCH_CHUNK]], dtype=torch.int32, device="cuda")
+        pos = torch.arange(cfg.sliding_window, cfg.sliding_window + BATCH_CHUNK,
+                           dtype=torch.int32, device="cuda")[None]
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        lm.prefill_chunk(params, cfg, tok, pos, row)
+        torch.cuda.synchronize()
+        chunk_rise = torch.cuda.max_memory_allocated() - before
+        del row
+        if chunk_rise >= RING_CHUNK_BYTES:
+            raise AssertionError(f"{label}: one {BATCH_CHUNK}-row ring chunk raised peak memory "
+                                 f"by {chunk_rise / 1e9:.3f} GB (limit {RING_CHUNK_BYTES / 1e9} GB)")
+        be = BatcherBackend(cfg.name, _batcher(cfg, params, [], BATCH_CHUNK)[0],
+                            prompt_len=2 * BATCH_CHUNK, gen_tokens=GEN)
+        backend = {"chunk_ms": be.prefill_time(BATCH_CHUNK) * 1e3,
+                   "step_ms": be.decode_time(1) * 1e3,
+                   "service_time_1_s": be.service_time(1), "service_time_8_s": be.service_time(8)}
+        del be
+    agree = sum(a == b for tk, tp in zip(toks_k, toks_p) for a, b in zip(tk, tp)) / n_tokens
+    first_rel = _rel(first_k[0], first_p[0])
+    # the same weights in fp32, kernels on: the token gates
+    with torch.inference_mode():
+        params32 = _cast(params, torch.float32)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        c32 = cfg.replace(dtype="float32")
+        cb32, reqs = _batcher(c32, params32, prompts, BATCH_CHUNK)
+        cb32.run()
+        toks32 = [r.output for r in reqs]
+        del cb32, reqs
+        alone = []
+        for p in prompts:
+            last, cache = steps.prefill(params32, {"tokens": torch.tensor([p], device="cuda")},
+                                        cfg=c32, cache_len=BATCH_MAX_LEN)
+            first = torch.argmax(last, -1).to(torch.int32)[:, None]
+            rest, _ = steps.greedy_decode_loop(
+                params32, cache, first, torch.full((1,), len(p), dtype=torch.int32,
+                                                   device="cuda"), GEN - 1, cfg=c32)
+            alone.append([int(first[0, 0])] + rest[0].tolist())
+            del cache
+        short = [i for i, p in enumerate(prompts) if len(p) <= SHORT_PROMPT]
+        cbt, reqs = _batcher(c32, params32, [prompts[i] for i in short], 0)
+        cbt.run()
+        toks_tf = [r.output for r in reqs]
+        del cbt, reqs, params32
+    agree32 = sum(a == b for tk, t32 in zip(toks_k, toks32) for a, b in zip(tk, t32)) / n_tokens
+    off = [i for i in range(len(prompts)) if toks32[i] != alone[i]]
+    if off:
+        raise AssertionError(f"{label}: fp32 batcher tokens differ from the non-batched path for "
+                             f"requests {off} (prompt lengths {[len(prompts[i]) for i in off]})")
+    if toks_tf != [toks32[i] for i in short]:
+        raise AssertionError(f"{label}: fp32 prefill batcher differs from the teacher-forced "
+                             f"batcher on the short prompts {short}")
+    print(f"{label}, full width ({cfg.n_layers} layers, bf16): {len(prompts)} requests "
+          f"(prompts {[len(p) for p in prompts]}), {BATCH_SLOTS} slots, chunks of "
+          f"{BATCH_CHUNK}: drained in {wall:.3f} s, {n_tokens / wall:.2f} tokens/s, "
+          f"{stats['chunks']} prefill chunks, peak {peak_gib:.2f} GiB; launches {launches}  "
+          f"[{card}]")
+    print(f"{label}: fp32 tokens equal the non-batched path for all {len(prompts)} requests "
+          f"and the teacher-forced batcher for prompts {short}; bf16 kernel vs plain: token "
+          f"agreement {agree:.4f}, first step logits rel {first_rel:.4g} (report only); bf16 "
+          f"kernel vs fp32 tokens agreement {agree32:.4f}")
+    print(f"{label}: one {BATCH_CHUNK}-row chunk on a wrapped ring raises peak memory by "
+          f"{chunk_rise / 1e9:.4f} GB (limit {RING_CHUNK_BYTES / 1e9} GB); BatcherBackend: chunk "
+          f"{backend['chunk_ms']:.3f} ms, step {backend['step_ms']:.3f} ms, service_time(1) "
+          f"{backend['service_time_1_s']:.4f} s, service_time(8) "
+          f"{backend['service_time_8_s']:.4f} s  [{card}]")
+    return {"arch": cfg.name, "layers": cfg.n_layers, "prompts": [len(p) for p in prompts],
+            "slots": BATCH_SLOTS, "max_len": BATCH_MAX_LEN, "chunk": BATCH_CHUNK, "gen": GEN,
+            "drain_s": wall, "tokens_per_s": n_tokens / wall, "peak_gib": peak_gib,
+            "prefill_stats": stats, "bf16_token_agreement": agree,
+            "bf16_vs_fp32_token_agreement": agree32, "first_step_rel": first_rel,
+            "ring_chunk_peak_rise_bytes": chunk_rise, "backend": backend,
+            "recorded": recorded, "launches_run": launches, "launches_per": {"run": launches}}
 
 
 def _leaves(tree: dict):

@@ -23,13 +23,11 @@ ARCH_IDS = (
     "zamba2_1_2b",
 )
 
-PORTED = ("granite_3_8b", "zamba2_1_2b", "xlstm_1_3b")
+PORTED = ("granite_3_8b", "zamba2_1_2b", "xlstm_1_3b", "h2o_danube_3_4b", "minitron_4b")
 
 # ROADMAP.md queue 1 item that brings each not-yet-ported arch over
 PENDING = {
-    "h2o_danube_3_4b": "1.2 (local ring cache)",
-    "minitron_4b": "1.2 (squared_relu MLP)",
-    "gemma3_4b": "1.2 (local+global, tied head)",
+    "gemma3_4b": "1.2 (head dim 320: wider attention tiles; tied head, `scale_embed`)",
     "granite_moe_3b_a800m": "1.6 (MoE)",
     "deepseek_v2_lite_16b": "1.7 (MLA)",
     "whisper_base": "1.9 (enc-dec)",

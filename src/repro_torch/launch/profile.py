@@ -1,18 +1,25 @@
-"""Where the time goes: trace one prefill and one decode step, or one
-scoring forward.
+"""Where the time goes: trace one prefill and one decode step, one scoring
+forward, or a continuous batcher's prefill chunk and step.
 
     PYTHONPATH=src python -m repro_torch.launch.profile --arch granite_3_8b
     PYTHONPATH=src python -m repro_torch.launch.profile --arch zamba2_1_2b
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch h2o_danube_3_4b
     PYTHONPATH=src python -m repro_torch.launch.profile --arch xlstm_1_3b --score
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch h2o_danube_3_4b --batcher
 
 Builds the model with random weights on the card (``use_kernels=True``),
-warms it up, then, at batch 4 x prompt 128, traces one prefill and one decode step
-(with ``--score``: one full-sequence forward of ``steps.loss_fn``, no cache) with
-``torch.profiler`` (CPU and CUDA activity).  For each it prints the host
-wall time, the device busy time (union of kernel intervals), the device's
-idle share of the span between its first and last kernel, and device time
-by kernel group (the port's kernels, matrix products, the rest).  The
-chrome traces go to ``--out`` (default ``chiprun_out/profile``).
+warms it up, then, at batch 4 x prompt 128, traces one prefill and one
+decode step with ``torch.profiler`` (CPU and CUDA activity).  With
+``--score`` it traces one full-sequence forward of ``steps.loss_fn`` (no
+cache) instead; with ``--batcher``, for a ``ContinuousBatcher`` of 4
+slots over 4608 cache rows, one 256-row ``lm.prefill_chunk`` on a one-row
+cache at positions 4352-4607 (the last chunk the cache takes; a 4096-row
+ring has wrapped) and one engine step with all four slots decoding.  For
+each it prints the host wall time, the device busy time (union of kernel
+intervals), the device's idle share of the span between its first and
+last kernel, and device time by kernel group (the port's kernels, matrix
+products, the rest).  The chrome traces go to ``--out`` (default
+``chiprun_out/profile``).
 """
 from __future__ import annotations
 
@@ -28,8 +35,10 @@ from torch.profiler import ProfilerActivity, profile
 from ..configs import registry
 from ..models import lm, steps
 from ..models.modules import require_device
+from ..serving.continuous import ContinuousBatcher
 
 BATCH, PROMPT = 4, 128          # chip_smoke.py's serving shape
+MAX_LEN, CHUNK = 4608, 256      # chip_smoke.py's batcher
 
 GROUPS = (("flash_attention", ("flash_fwd",)), ("decode_attention", ("decode_fwd",)),
           ("rmsnorm", ("_rmsnorm_kernel",)),
@@ -87,6 +96,8 @@ def main(argv=None):
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--score", action="store_true",
                     help="trace the scoring forward instead of prefill and decode")
+    ap.add_argument("--batcher", action="store_true",
+                    help="trace a continuous batcher's prefill chunk and step instead")
     ap.add_argument("--out", default="chiprun_out/profile")
     args = ap.parse_args(argv)
 
@@ -112,9 +123,21 @@ def main(argv=None):
     def run_score():
         lm.forward(params, cfg, {"tokens": tokens})
 
+    def batcher_runs():
+        cb = ContinuousBatcher(cfg, params, max_slots=BATCH, max_len=MAX_LEN,
+                               prefill_chunk=CHUNK)
+        for row in tokens.tolist():
+            cb.submit(row, 1 << 20)
+        cb.step()                                  # admits (prefills) all four
+        row = lm.init_cache(cfg, 1, MAX_LEN, device=dev)
+        chunk = tokens.reshape(1, -1)[:, :CHUNK]
+        chunk_pos = torch.arange(MAX_LEN - CHUNK, MAX_LEN, dtype=torch.int32, device=dev)[None]
+        return {"prefill_chunk": lambda: lm.prefill_chunk(params, cfg, chunk, chunk_pos, row),
+                "batcher_step": cb.step}
+
     with torch.inference_mode():
-        runs = {"forward": run_score} if args.score else \
-            {"prefill": run_prefill, "decode_step": run_decode}
+        runs = {"forward": run_score} if args.score else batcher_runs() if args.batcher \
+            else {"prefill": run_prefill, "decode_step": run_decode}
         for _ in range(2):                      # warm-up: kernel builds, allocator
             for fn in runs.values():
                 fn()

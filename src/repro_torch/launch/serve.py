@@ -2,12 +2,13 @@
 
 `python -m repro_torch.launch.serve --arch zamba2_1_2b --strategy k8s
 --requests 4` builds the full config of a ported arch (granite_3_8b,
-zamba2_1_2b, xlstm_1_3b) with random weights from a seed on the card, wraps
-prefill + a greedy decode loop in a Predictor, and runs the paper's stress
-test against it.  `--smoke` selects the reduced config; `--device cpu` runs
-the plain path on the host.  The model runs with ``use_kernels=True``: on
-the card every kernel its path reaches (attention, norms, the SSD scan in
-zamba2's prefill) is the hand-written one.
+h2o_danube_3_4b, minitron_4b, zamba2_1_2b, xlstm_1_3b) with random weights
+from a seed on the card, wraps prefill + a greedy decode loop in a
+Predictor, and runs the paper's stress test against it.  `--smoke` selects
+the reduced config; `--device cpu` runs the plain path on the host.  The
+model runs with ``use_kernels=True``: on the card every kernel its path
+reaches (attention, norms, the SSD scan in zamba2's prefill) is the
+hand-written one.
 """
 from __future__ import annotations
 

@@ -7,10 +7,9 @@ write their new K/V rows into the cache tensors they are given, in place,
 and return them: the reference returns updated copies, which on the card
 would cost a cache copy per layer per step.  With ``window > 0`` decode
 and chunked prefill treat the cache as a ring of ``min(window, S)`` rows
-(post-RoPE attention does not care about key order): zamba2's shared block
-takes that branch whenever its cache is no longer than the window.  The
-prefill-side ring placement of ``local`` layers (``lm._pad_cache`` in the
-reference) is not ported yet (ROADMAP queue 1, item 1.2).
+(post-RoPE attention does not care about key order): ``local`` layers
+(h2o_danube) always, zamba2's shared block whenever its cache is no longer
+than the window.  ``lm.forward`` places a prefill's rows in the ring.
 """
 from __future__ import annotations
 
@@ -26,7 +25,7 @@ NEG_INF = -1e30
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
-def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
     half = head_dim // 2
     return theta ** (-torch.arange(0, half, dtype=torch.float32, device=device) / half)
 
@@ -96,15 +95,20 @@ def gqa_decode(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
 
 
 def _masked_softmax_attend(q: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
-                           valid: torch.Tensor, spec: str) -> torch.Tensor:
-    """The decode path's masked softmax for many queries at once, products
-    accumulated in fp32 (``spec`` names the key axis layout)."""
-    logits = torch.einsum(f"bqhd,{spec}->bqhk", q.to(keys.dtype).float(),
-                          keys.float()) * q.shape[-1] ** -0.5
-    logits = torch.where(valid[:, :, None, :], logits, NEG_INF)
+                           valid: torch.Tensor) -> torch.Tensor:
+    """The decode path's masked softmax for many queries at once, over one key
+    buffer per row that every query of the row shares, products accumulated
+    in fp32: q (B,C,Hq,hd); keys, vals (B,L,Hkv,hd); valid (B,C,L).  Query
+    heads are grouped onto their kv head rather than the keys repeated, so
+    the logits (Hq x C x L a row) are the largest intermediate."""
+    b, c, hq, hd = q.shape
+    hkv = keys.shape[2]
+    qg = q.to(keys.dtype).float().reshape(b, c, hkv, hq // hkv, hd)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, keys.float()) * hd ** -0.5
+    logits = torch.where(valid[:, None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
-    return torch.einsum(f"bqhk,{spec}->bqhd", probs.to(vals.dtype).float(),
-                        vals.float()).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(vals.dtype).float(), vals.float())
+    return out.reshape(b, c, hq, hd).to(q.dtype)
 
 
 def gqa_prefill(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
@@ -115,48 +119,46 @@ def gqa_prefill(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
     attends with the masked softmax of the one-token decode path, so its
     logits match decode's; the chunk's K/V rows land in the cache in place.
     Global: rows ``positions``, each query over the whole cache.  Ring
-    (``window > 0``): each query sees the ring as it stood at its own decode
-    step (slot s at time t holds position t - ((t - s) % size): a chunk row
-    if that lies in the chunk, else the pre-chunk ring), and the ring ends
-    holding, per slot, the last chunk position that maps there.  Plain
-    code: the reference runs no kernel here either.  Returns (out (B,C,D),
-    cache)."""
+    (``window > 0``): query t sees exactly what its decode step would, the
+    positions max(0, t - size + 1) .. t: those before the chunk from the
+    pre-chunk ring, the rest from the chunk.  The reference rebuilds the
+    ring per query (C copies of it); here every query of a row shares one
+    buffer, the pre-chunk ring unrolled into position order followed by the
+    chunk's rows, under a band mask, so memory is O((size + C) Hkv hd) a row
+    plus Hq x C x (size + C) logits.  The ring ends holding, per slot, the
+    last chunk position that maps there.  Plain code: the reference runs no
+    kernel here either.  Returns (out (B,C,D), cache)."""
     b, c, _ = x.shape
     q, k, v = _qkv(p, x, positions, cfg)
-    group = max(cfg.n_heads // k.shape[2], 1)
     k_cd, v_cd = k.to(cache["k"].dtype), v.to(cache["v"].dtype)
     pos = positions.long()
-
-    def expand(t, dim):
-        return t.repeat_interleave(group, dim=dim) if group > 1 else t
-
+    b2 = torch.arange(b, device=x.device)[:, None]
     if window > 0:
         size = min(window, cache["k"].shape[1])
         slots = torch.arange(size, device=x.device)
         start = pos[:, :1]                                               # chunk offset
-        cand = pos[:, :, None] - ((pos[:, :, None] - slots[None, None, :]) % size)
-        sel = (cand >= start[:, :, None])[..., None, None]               # (B,C,size,1,1)
-        idx = torch.clamp(cand - start[:, :, None], 0, c - 1)
-        b3 = torch.arange(b, device=x.device)[:, None, None]
-        keys = torch.where(sel, k_cd[b3, idx], cache["k"][:, None])     # (B,C,size,Hkv,hd)
-        vals = torch.where(sel, v_cd[b3, idx], cache["v"][:, None])
-        valid = slots[None, None, :] < torch.clamp_max(pos + 1, size)[:, :, None]
-        o = _masked_softmax_attend(q, expand(keys, 3), expand(vals, 3), valid, "bqkhd")
+        # one buffer per row, in position order: the pre-chunk ring unrolled
+        # (positions start - size .. start - 1, negative ones never written)
+        # then the chunk's rows; query t sees the band t - size < p <= t
+        ring = (start + slots[None, :]) % size                           # (B,size)
+        keys = torch.cat([cache["k"][b2, ring], k_cd], dim=1)           # (B,size+C,Hkv,hd)
+        vals = torch.cat([cache["v"][b2, ring], v_cd], dim=1)
+        kpos = start - size + torch.arange(size + c, device=x.device)[None, :]
+        valid = (kpos[:, None, :] <= pos[:, :, None]) & \
+            (kpos[:, None, :] > pos[:, :, None] - size) & (kpos[:, None, :] >= 0)
+        o = _masked_softmax_attend(q, keys, vals, valid)
         last = pos[:, -1:]
         cand_f = last - ((last - slots[None, :]) % size)                 # (B,size)
         sel_f = (cand_f >= start)[..., None, None]
         idx_f = torch.clamp(cand_f - start, 0, c - 1)
-        b2 = torch.arange(b, device=x.device)[:, None]
         cache["k"].copy_(torch.where(sel_f, k_cd[b2, idx_f], cache["k"]))
         cache["v"].copy_(torch.where(sel_f, v_cd[b2, idx_f], cache["v"]))
     else:
-        b2 = torch.arange(b, device=x.device)[:, None]
         cache["k"][b2, pos] = k_cd
         cache["v"][b2, pos] = v_cd
         rows = torch.arange(cache["k"].shape[1], device=x.device)
         valid = rows[None, None, :] < (pos[:, :, None] + 1)
-        o = _masked_softmax_attend(q, expand(cache["k"], 2), expand(cache["v"], 2), valid,
-                                   "bkhd")
+        o = _masked_softmax_attend(q, cache["k"], cache["v"], valid)
     return torch.einsum("bshk,hkd->bsd", o, p["wo"]), cache
 
 

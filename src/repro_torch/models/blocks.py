@@ -4,10 +4,12 @@ Counterpart of ``repro.models.blocks``.  Each layer is
     x = x + mixer(norm1(x));  x = x + ffn(norm2(x))      (ffn optional)
 and layers are grouped by the repeating block pattern; a phase's parameters
 are stacked on a leading ``n_groups`` dim, as in the reference.  Ported
-mixers: ``global`` GQA, ``mamba2``, ``mlstm`` and ``slstm``; ffns: ``mlp``
-and ``none``.  zamba2's weight-tied shared attention + MLP block runs after
-each group of a ``shared_attn`` phase, as a ``global`` slot in prefill and,
-in decode, as a ``local`` one (the ring branches of ``attention``) while its
+mixers: ``global`` and ``local`` (sliding-window, ring-buffer cache) GQA,
+``mamba2``, ``mlstm`` and ``slstm``; ffns: ``mlp`` (SwiGLU or a one-matrix
+activation such as minitron's squared ReLU) and ``none``.  zamba2's
+weight-tied shared attention + MLP block runs after each group of a
+``shared_attn`` phase, windowed when the decode budget exceeds 64k and, in
+decode, as a ``local`` one (the ring branches of ``attention``) while its
 cache is no longer than the window.  A block pattern that asks for another
 kind raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 The norm sites go through ``ops.rmsnorm`` (the kernel when
@@ -26,9 +28,8 @@ from . import attention as attn
 from . import ssm
 from .modules import ACTIVATIONS, dense_init, swiglu
 
-# block kinds not ported yet -> ROADMAP.md queue 1 item ("local" layers need
-# the prefill-side ring placement; the ring decode/prefill branches exist)
-PENDING_KINDS = {"local": "1.2", "mla": "1.7", "moe": "1.6"}
+# block kinds not ported yet -> ROADMAP.md queue 1 item
+PENDING_KINDS = {"mla": "1.7", "moe": "1.6"}
 KV_KINDS = ("global", "local")       # every other kind is a recurrent mixer in ``ssm``
 
 
@@ -139,7 +140,7 @@ def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, ffn: str) -> torch.Tensor:
     return x + mlp_forward(p["ffn"], norm(x, p["norm2"], cfg), cfg)
 
 
-def _window(cfg: ArchConfig, kind: str) -> int:
+def window_of(cfg: ArchConfig, kind: str) -> int:
     return cfg.sliding_window if kind == "local" else 0
 
 
@@ -156,7 +157,7 @@ def slot_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchCon
     recurrent mixers."""
     xn = norm(x, p["norm1"], cfg)
     if kind in KV_KINDS:
-        out = attn.gqa_forward(p["mixer"], xn, positions, cfg, window=_window(cfg, kind),
+        out = attn.gqa_forward(p["mixer"], xn, positions, cfg, window=window_of(cfg, kind),
                                return_kv=collect_cache)
         mix, cache = (out[0], {"k": out[1][0], "v": out[1][1]}) if collect_cache \
             else (out, None)
@@ -172,7 +173,7 @@ def slot_decode(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
     xn = norm(x, p["norm1"], cfg)
     if kind in KV_KINDS:
         mix, cache = attn.gqa_decode(p["mixer"], xn, cache, positions, cfg,
-                                     window=_window(cfg, kind))
+                                     window=window_of(cfg, kind))
     else:
         mix, new = _ssm(kind, "decode")(p["mixer"], xn, cache, cfg)
         _store(cache, new)
@@ -187,7 +188,7 @@ def slot_prefill(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
     xn = norm(x, p["norm1"], cfg)
     if kind in KV_KINDS:
         mix, cache = attn.gqa_prefill(p["mixer"], xn, cache, positions, cfg,
-                                      window=_window(cfg, kind))
+                                      window=window_of(cfg, kind))
     else:
         mix, new = _ssm(kind, "prefill")(p["mixer"], xn, cache, cfg)
         _store(cache, new)
@@ -196,7 +197,7 @@ def slot_prefill(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
 
 def slot_cache_shape(cfg: ArchConfig, kind: str, batch: int, length: int) -> dict:
     if kind in KV_KINDS:
-        return attn.gqa_cache_shape(cfg, batch, length, window=_window(cfg, kind))
+        return attn.gqa_cache_shape(cfg, batch, length, window=window_of(cfg, kind))
     return _ssm(kind, "cache_shape")(cfg, batch)
 
 

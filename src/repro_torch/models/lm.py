@@ -146,45 +146,62 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, collect_cache: bool =
             cache_len: int = 0):
     """batch {"tokens": (B,S)} -> (logits (B,S,V), aux, cache or None).
 
-    With ``collect_cache`` the KV caches come back padded with zeros to
-    ``max(cache_len, S)`` rows, so decode can continue from the prefill."""
+    With ``collect_cache`` the KV caches come back placed as the reference's
+    ``_pad_cache`` places them, so decode can continue from the prefill:
+    global slots padded with zeros to ``max(cache_len, S)`` rows; windowed
+    ones (``local`` layers, zamba2's shared block past a 64k budget) as a
+    ring of ``min(window, cache_len)`` rows holding the last positions at
+    slots ``p % size`` (S rows, unplaced, when ``cache_len`` is 0)."""
     shared = "local" if _shared_window(cfg, cache_len) else "global"
-    if collect_cache and shared == "local":
-        raise NotImplementedError("a windowed shared block (decode budget > 65536) needs the "
-                                  "prefill-side ring placement: ROADMAP.md queue 1 item 1.2")
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
     x = _embed(params, cfg, tokens)
-    cache = init_cache(cfg, b, max(cache_len, s), device=tokens.device) \
-        if collect_cache else None
+    cache: dict | None = {} if collect_cache else None
     for pi, phase in enumerate(blocks.build_plan(cfg)):
-        pcache = cache[f"phase{pi}"] if collect_cache else None
+        pcache: dict = {}
         for g in range(phase.n_groups):
             gp = _at(params[f"phase{pi}"], g)
             for j, (kind, ffn) in enumerate(zip(phase.kinds, phase.ffns)):
                 x, c = blocks.slot_forward(gp[f"slot{j}"], x, positions, cfg, kind, ffn,
                                            collect_cache=collect_cache)
                 if collect_cache:
-                    _put(pcache[f"slot{j}"], g, c, kind)
+                    _put(pcache, f"slot{j}", g, phase.n_groups, c, kind, cache_len, cfg)
             if phase.shared_attn:
                 x, c = blocks.slot_forward(params["shared"], x, positions, cfg, shared, "mlp",
                                            collect_cache=collect_cache)
                 if collect_cache:
-                    _put(pcache["shared"], g, c, shared)
+                    _put(pcache, "shared", g, phase.n_groups, c, shared, cache_len, cfg)
+        if collect_cache:
+            cache[f"phase{pi}"] = pcache
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)  # MoE only
     return _head(params, cfg, x), aux, cache
 
 
-def _put(cache: dict, g: int, c: dict, kind: str) -> None:
+def _put(pcache: dict, name: str, g: int, n_groups: int, c: dict, kind: str,
+         cache_len: int, cfg: ArchConfig) -> None:
     """Write slot ``c``'s prefill output into group ``g`` of its stacked
-    cache: K/V rows at the front (the rest stays zero padding), recurrent
-    states whole."""
-    for name, t in c.items():
-        if kind in blocks.KV_KINDS:
-            cache[name][g, :, :t.shape[1]] = t
+    cache ``pcache[name]``, allocated (zeroed) at the first group: K/V rows
+    placed as the reference's ``_pad_cache`` places them (see ``forward``),
+    recurrent states whole."""
+    window = blocks.window_of(cfg, kind)
+    s = c["k"].shape[1] if kind in blocks.KV_KINDS else 0
+    rows = (min(window, cache_len) if window else max(cache_len, s)) if cache_len else s
+    if name not in pcache:
+        def shape(t):
+            return (n_groups, t.shape[0], rows) + tuple(t.shape[2:]) if s else \
+                (n_groups,) + tuple(t.shape)
+        dtype = blocks.cache_dtypes(kind, cfg.compute_dtype)
+        pcache[name] = {k: torch.zeros(shape(t), dtype=dtype, device=t.device)
+                        for k, t in c.items()}
+    for k, t in c.items():
+        dst = pcache[name][k][g]
+        if not s:
+            dst.copy_(t)
+        elif window and s >= rows:        # the last ``rows`` positions at their ring slots
+            dst[:, torch.arange(s - rows, s, device=t.device) % rows] = t[:, s - rows:]
         else:
-            cache[name][g] = t
+            dst[:, :s] = t
 
 
 # ---------------------------------------------------------------------------

@@ -19,7 +19,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import native, ops, ref  # noqa: E402
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-RMSNORM_SHAPES = [(4, 64), (3, 17, 128), (2, 5, 7, 96)]
+# the last is h2o_danube's width (3840), which no power of two matches
+RMSNORM_SHAPES = [(4, 64), (3, 17, 128), (2, 5, 7, 96), (5, 3840)]
 # (sq, skv, hq, hkv, d, window); q_offset = skv - sq
 FLASH_CASES = [
     (64, 64, 4, 4, 32, 0),        # MHA causal
@@ -29,12 +30,14 @@ FLASH_CASES = [
 ]
 # and on the card only: D 16 (the smoke configs), D 120 (h2o_danube, zero-
 # padded to the 128-column tile), D 17 (not a whole number of 16-byte
-# vectors: the plain-load staging), S 300 with a window and a q_offset
+# vectors: the plain-load staging), S 300 with a window and a q_offset,
+# and h2o_danube's D 120 under a window that binds (kv longer than it)
 FLASH_GPU_CASES = FLASH_CASES + [
     (70, 70, 8, 2, 16, 0),
     (50, 90, 4, 4, 120, 0),
     (40, 40, 2, 1, 17, 0),
     (300, 364, 4, 2, 128, 100),
+    (600, 600, 4, 2, 120, 256),
 ]
 # (s, hq, hkv, d, reference block_k); lengths [s, s//2, 1]
 DECODE_CASES = [(128, 4, 4, 32, 64), (200, 8, 2, 64, 64), (64, 4, 1, 128, 32)]
@@ -43,8 +46,10 @@ DECODE_CASES = [(128, 4, 4, 32, 64), (200, 8, 2, 64, 64), (64, 4, 1, 128, 32)]
 # it; a 4096-row cache whose merge takes 8 splits; granite's serving shape
 # (one split, one launch); D 17, which takes the plain-load instantiation;
 # groups of 8 and 16 query heads per kv head (the kernel's widest
-# registers)
+# registers); h2o_danube's fully wrapped 4096-row ring at D 120 (every row
+# valid, as ``eff_len`` gives it once the ring has wrapped)
 DECODE_GPU_CASES = [
+    ([4096, 4096], 4096, 32, 8, 120),
     ([1, 511, 512, 513, 1300], 1300, 8, 2, 64),
     ([4096, 3001], 4096, 32, 8, 128),
     ([145, 130, 1, 145], 145, 32, 8, 128),
@@ -338,12 +343,15 @@ def test_wrappers_count_launches_and_reject_wide_heads(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b"])
+@pytest.mark.parametrize("arch", ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b",
+                                  "h2o_danube_3_4b", "minitron_4b"])
 def test_smoke_model_kernel_path_matches_plain_path_on_gpu(cuda, arch):
     """Smoke configs (fp32): prefill and a decode step through the kernels
-    agree with the plain path on the same weights (granite: attention and
-    norms; zamba2: the SSD scan and the shared attention block's kernels;
-    xlstm: norms, and below its scoring forward through the mLSTM scan)."""
+    agree with the plain path on the same weights (granite, minitron:
+    attention and norms; zamba2: the SSD scan and the shared attention
+    block's kernels; xlstm: norms, and below its scoring forward through the
+    mLSTM scan; h2o_danube: a window of 16 that binds in prefill, then decode
+    on the wrapped ring)."""
     from repro_torch.configs import registry
     from repro_torch.models import lm, steps
     cfg = registry.get_smoke_config(arch)
@@ -382,3 +390,34 @@ def test_xlstm_smoke_scoring_kernel_path_matches_plain_path_on_gpu(cuda):
     got, _, _ = lm.forward(params, cfg.replace(use_kernels=True), batch)
     want, _, _ = lm.forward(params, cfg, batch)
     assert float((got - want).abs().max() / want.abs().max()) < 2e-3
+
+
+@pytest.mark.gpu
+def test_h2o_smoke_batcher_kernel_path_matches_plain_path_on_gpu(cuda):
+    """The continuous batcher on the card (fp32, smoke h2o_danube, window
+    16): prompts past the window, more requests than slots, prefill chunks
+    of 5; the kernel path's tokens equal the plain path's, and its steps
+    launch only RMSNorm and decode attention (chunked prefill runs no
+    attention kernel)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm
+    from repro_torch.serving.continuous import ContinuousBatcher
+    cfg = registry.get_smoke_config("h2o_danube_3_4b")
+    params = lm.init_params(cfg, seed=0, device=cuda)
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in (3, 22, 9, 30, 17)]
+    outs = {}
+    for use in (True, False):
+        native.reset_launches()
+        cb = ContinuousBatcher(cfg.replace(use_kernels=use), params, max_slots=2, max_len=48,
+                               prefill_chunk=5)
+        reqs = [cb.submit(p, max_new=6) for p in prompts]
+        cb.run()
+        outs[use] = [r.output for r in reqs]
+        launches = dict(native.LAUNCHES)
+        if use:
+            assert launches["rmsnorm"] > 0 and launches["decode_attention"] > 0
+            assert launches["flash_attention"] == launches["ssm_scan"] == 0
+        else:
+            assert sum(launches.values()) == 0
+    assert outs[True] == outs[False]

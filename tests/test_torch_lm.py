@@ -9,7 +9,9 @@ where its model code dispatches them), the port on its plain CPU path.
 Tolerance: rel < 2e-3 (tests/test_archs.py:66-67), generated tokens
 identical.  zamba2's smoke window is 16 rows, so its shared attention block
 runs the ring branches whenever a test's cache is 16 rows or fewer, and
-the global ones above that.
+the global ones above that.  h2o_danube's layers are all ``local`` (smoke
+window 16): every cache of it is a ring of at most 16 rows, which the
+decode tests wrap.
 """
 import pytest
 
@@ -26,7 +28,7 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.models import lm, steps  # noqa: E402
 from repro_torch.models.transplant import transplant  # noqa: E402
 
-ARCHS = ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b"]
+ARCHS = ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b", "h2o_danube_3_4b", "minitron_4b"]
 B, S, GEN = 2, 12, 4
 REL = 2e-3
 
@@ -68,6 +70,10 @@ def test_transplant_keeps_paths_and_layouts(models):
     if cfg_t.family == "dense":
         assert got["phase0/slot0/mixer/wq"].shape == (cfg_t.n_layers, cfg_t.d_model,
                                                        cfg_t.n_heads, cfg_t.head_dim)
+        # SwiGLU's gate where the arch has one (minitron's squared ReLU has
+        # none), and an untied head
+        assert ("phase0/slot0/ffn/w_gate" in got) == (cfg_t.mlp_act == "swiglu")
+        assert got["lm_head"].shape == (cfg_t.d_model, cfg_t.vocab_size)
     elif cfg_t.family == "hybrid":
         assert got["shared/mixer/wq"].shape == (cfg_t.d_model, cfg_t.n_heads, cfg_t.head_dim)
         assert got["phase0/slot0/mixer/conv_w"].shape == (
@@ -195,14 +201,130 @@ def test_zamba2_ring_cache_wraps_like_reference():
 
 def test_zamba2_windowed_shared_block_prefill_names_its_item():
     """A decode budget over 64k windows the shared block (the reference's
-    ``_shared_window``); its prefill-side ring placement is item 1.2."""
-    cfg = registry.get_smoke_config("zamba2_1_2b")
+    ``_shared_window``).  Its prefill used to raise, naming ROADMAP item
+    1.2; it now places its rows in a ring of the window's size as the
+    reference does, and prefill, cache and the decode steps that follow
+    (the ring wraps) match the reference."""
+    cfg_j = jreg.get_smoke_config("zamba2_1_2b").replace(use_kernels=True)
+    cfg_t = registry.get_smoke_config("zamba2_1_2b")
+    params_j = jlm.init_params(jax.random.PRNGKey(0), cfg_j)
+    params_t = transplant(jax.tree_util.tree_map(np.asarray, params_j), device="cpu")
+    cache_len, prompt = 65537, 20
+    tokens = np.random.default_rng(2).integers(0, cfg_t.vocab_size, (B, prompt + 3),
+                                               dtype=np.int32)
+    last_j, cache_j = jsteps.prefill(params_j, {"tokens": jnp.asarray(tokens[:, :prompt])},
+                                     cfg=cfg_j, cache_len=cache_len)
+    last_t, cache_t = steps.prefill(params_t, {"tokens": torch.from_numpy(tokens[:, :prompt])},
+                                    cfg=cfg_t, cache_len=cache_len)
+    assert rel_err(last_t, last_j) < REL
+    assert cache_t["phase0"]["shared"]["k"].shape[2] == cfg_t.sliding_window
+    _assert_caches_match(cache_t, cache_j)
+    for t in range(prompt, prompt + 3):
+        pos = np.full((B,), t, np.int32)
+        want, cache_j = jlm.decode_step(params_j, cfg_j, jnp.asarray(tokens[:, t:t + 1]),
+                                        jnp.asarray(pos), cache_j)
+        got, cache_t = lm.decode_step(params_t, cfg_t, torch.from_numpy(tokens[:, t:t + 1]),
+                                      torch.from_numpy(pos), cache_t)
+        assert rel_err(got, want) < REL, t
+    _assert_caches_match(cache_t, cache_j)
+
+
+def _assert_caches_match(cache_t, cache_j):
+    want = dict(_leaves(cache_j))
+    got = dict(_leaves(cache_t))
+    assert got.keys() == want.keys()
+    for path, leaf in got.items():
+        assert tuple(leaf.shape) == want[path].shape, path
+        assert rel_err(leaf, want[path]) < REL, path
+
+
+@pytest.fixture(scope="module")
+def h2o():
+    cfg_j = jreg.get_smoke_config("h2o_danube_3_4b").replace(use_kernels=True)
+    cfg_t = registry.get_smoke_config("h2o_danube_3_4b")
+    params_j = jlm.init_params(jax.random.PRNGKey(0), cfg_j)
+    params_t = transplant(jax.tree_util.tree_map(np.asarray, params_j), device="cpu")
+    return cfg_j, params_j, cfg_t, params_t
+
+
+# (prompt S, cache_len) against the smoke window of 16: S below the ring's
+# size, equal to it, past it (the last 16 rows at slots p % 16), a cache_len
+# below S (a ring of cache_len rows), and cache_len 0 (rows unplaced)
+RING_PLACEMENTS = [(12, 64), (16, 64), (40, 64), (20, 8), (24, 0)]
+
+
+@pytest.mark.parametrize("s,cache_len", RING_PLACEMENTS)
+def test_local_prefill_places_rows_like_pad_cache(h2o, s, cache_len):
+    """``lm.forward``'s cache for ``local`` layers equals the reference's
+    ``_pad_cache`` placement, shape and rows."""
+    cfg_j, params_j, cfg_t, params_t = h2o
+    tokens = np.random.default_rng(s).integers(0, cfg_t.vocab_size, (B, s), dtype=np.int32)
+    logits_j, _, cache_j = jlm.forward(params_j, cfg_j, {"tokens": jnp.asarray(tokens)},
+                                       collect_cache=True, cache_len=cache_len)
+    logits_t, _, cache_t = lm.forward(params_t, cfg_t, {"tokens": torch.from_numpy(tokens)},
+                                      collect_cache=True, cache_len=cache_len)
+    assert rel_err(logits_t, logits_j) < REL
+    size = min(cfg_t.sliding_window, cache_len) if cache_len else s
+    assert cache_t["phase0"]["slot0"]["k"].shape[2] == size
+    _assert_caches_match(cache_t, cache_j)
+
+
+@pytest.mark.parametrize("chunk", [5, 16])
+def test_ring_prefill_across_the_wrap_matches_reference(h2o, chunk):
+    """A 40-token prompt through chunked prefill on a ring of the smoke
+    window (16 rows): chunks cross the wrap, so the shared per-row buffer
+    (pre-chunk ring unrolled, then the chunk) meets every case of the
+    reference's per-query ring; then decode continues on the ring."""
+    cfg_j, params_j, cfg_t, params_t = h2o
+    prompt = 40
+    tokens = np.random.default_rng(3).integers(0, cfg_t.vocab_size, (B, prompt + 4),
+                                               dtype=np.int32)
+    cache_j = jlm.init_cache(cfg_j, B, 64)
+    cache_t = lm.init_cache(cfg_t, B, 64, device="cpu")
+    assert cache_t["phase0"]["slot0"]["k"].shape[2] == cfg_t.sliding_window
+    for c0 in range(0, prompt, chunk):
+        c = min(chunk, prompt - c0)
+        pos = np.broadcast_to(np.arange(c0, c0 + c, dtype=np.int32), (B, c))
+        want, cache_j = jlm.prefill_chunk(params_j, cfg_j, jnp.asarray(tokens[:, c0:c0 + c]),
+                                          jnp.asarray(pos), cache_j)
+        got, cache_t = lm.prefill_chunk(params_t, cfg_t, torch.from_numpy(tokens[:, c0:c0 + c]),
+                                        torch.from_numpy(pos.copy()), cache_t)
+        assert rel_err(got, want) < REL, c0
+    _assert_caches_match(cache_t, cache_j)
+    for t in range(prompt, prompt + 4):
+        pos = np.full((B,), t, np.int32)
+        want, cache_j = jlm.decode_step(params_j, cfg_j, jnp.asarray(tokens[:, t:t + 1]),
+                                        jnp.asarray(pos), cache_j)
+        got, cache_t = lm.decode_step(params_t, cfg_t, torch.from_numpy(tokens[:, t:t + 1]),
+                                      torch.from_numpy(pos), cache_t)
+        assert rel_err(got, want) < REL, t
+    _assert_caches_match(cache_t, cache_j)
+
+
+def test_ring_prefill_buffer_is_linear_in_ring_and_chunk(monkeypatch):
+    """The ring branch of ``gqa_prefill`` holds one key buffer of size + C
+    rows per row, never C copies of the ring: the largest tensor it makes
+    is the Hq x C x (size + C) logits."""
+    from repro_torch.models import attention
+
+    cfg = registry.get_smoke_config("h2o_danube_3_4b").replace(sliding_window=64)
     params = lm.init_params(cfg, device="cpu")
-    tokens = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1.2"):
-        steps.prefill(params, {"tokens": tokens}, cfg=cfg, cache_len=65537)
-    logits, _, _ = lm.forward(params, cfg, {"tokens": tokens}, cache_len=65537)
-    assert logits.shape == (1, 4, cfg.vocab_size)
+    p = lm._at(params["phase0"], 0)["slot0"]["mixer"]
+    c, size = 32, cfg.sliding_window
+    cache = lm.init_cache(cfg, 1, size, device="cpu")
+    cache = lm._at(cache["phase0"], 0)["slot0"]
+    x = torch.randn(1, c, cfg.d_model)
+    pos = torch.arange(100, 100 + c, dtype=torch.int32)[None]
+    seen = []
+    real = attention._masked_softmax_attend
+
+    def spy(q, keys, vals, valid):
+        seen.append((tuple(keys.shape), tuple(valid.shape)))
+        return real(q, keys, vals, valid)
+
+    monkeypatch.setattr(attention, "_masked_softmax_attend", spy)
+    attention.gqa_prefill(p, x, cache, pos, cfg, window=size)
+    assert seen == [((1, size + c, cfg.n_kv_heads, cfg.head_dim), (1, c, size + c))]
 
 
 def test_kernel_switch_is_the_plain_path_on_cpu(models):
