@@ -30,10 +30,16 @@ Run from the root of a checkout.  It imports only the port
    ``BatcherBackend`` (eight requests on four slots, one prompt of 4400
    tokens past the 4096-row ring: ``_batch_path``); and xlstm-1.3b scoring
    through ``steps.loss_fn`` (its full-sequence forward is xlstm's one route
-   to the mLSTM scan).
-   Launch counts are zeroed just before each path's run and read just
-   after: every kernel of the path's own set must have launched and no
-   other.  Every kernel call of one kernel-path prefill and decode step
+   to the mLSTM scan).  Two legs serve through the gateway: granite's
+   Predictor under the paper's stress test (32 requests in a burst, the
+   baremetal, k8s and kserve strategies, ``_kserve_leg``: the order of their
+   total times and each request served once are gated), and h2o's measured
+   ``BatcherBackend`` deployed in the port's ``Gateway`` under a Poisson mix
+   of two SLO classes (``_gateway_leg``).  Every gateway latency is held at
+   or above the network path plus the least measured service time.
+   Launch counts are zeroed just before each path's run (and the kserve
+   leg) and read just after: every kernel of the path's own set must have
+   launched and no other.  Every kernel call of one kernel-path prefill and decode step
    (or one scoring run, or the batcher's first step) is recorded, inputs
    and output, and held against its twin on those inputs under the phase-2
    rule.  The path's logits (prefill and one decode step, or the scoring
@@ -87,6 +93,12 @@ BATCH, PROMPT, GEN = 4, 128, 16
 BATCH_SLOTS, BATCH_MAX_LEN, BATCH_CHUNK = 4, 4608, 256
 LONG_PROMPT, SHORT_PROMPT = 4400, 64
 RING_CHUNK_BYTES = 2e9      # the most one ring chunk may add to peak memory
+# the paper's stress test (Table 3) on granite's card-measured Predictor: a
+# burst of requests under each strategy, the kserve one batching up to
+# KSERVE_BATCH a predict; and the gateway leg's Poisson mix on h2o's
+# measured BatcherBackend
+KSERVE_PATH, KSERVE_REQUESTS, KSERVE_BATCH = "granite-3-8b serving", 32, 8
+GATEWAY_REQUESTS = 64
 # (label, arch, run, the kernels that run must launch (no other may launch),
 # limits on the logits' rel error of kernel path vs plain path in bf16 and
 # with the weights in fp32; None reports without gating).  The fp32 limits
@@ -624,7 +636,8 @@ def _prompts(cfg):
 
 
 def _serve_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> dict:
-    """Serve ``cfg`` through make_lm_predictor and the k8s strategy, time one
+    """Serve ``cfg`` through make_lm_predictor and the k8s strategy (on
+    KSERVE_PATH also the three strategies of ``_kserve_leg``), time one
     prefill and the greedy decode loop, hold the kernels' recorded calls
     against their twins and gate the logits."""
     import torch
@@ -655,6 +668,10 @@ def _serve_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> di
     summary = svc.summary()
     print(f"{label}: served {summary['n']} requests (k8s strategy): p50 {summary['p50_s']} s; "
           f"launches {launches}  [{card}]")
+    kserve = None
+    if label == KSERVE_PATH:
+        kserve = _kserve_leg(pred, label, expected, card)
+        launches = {k: n + kserve["launches"][k] for k, n in launches.items()}
 
     with torch.inference_mode():
         batch = {"tokens": torch.as_tensor(prompts, device="cuda")}
@@ -716,7 +733,94 @@ def _serve_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> di
             "prompt": PROMPT, "gen": GEN, "init_s": init_s, "prefill_ms": prefill_ms,
             "decode_ms_per_token": decode_ms, "peak_gib": peak_gib, "rel": rel,
             "recorded": recorded, "launches_run": launches, "launches_per": per,
-            "k8s": summary}
+            "k8s": summary, "kserve_leg": kserve}
+
+
+def _latency_floor(label: str, res, prof, least_service_s: float) -> None:
+    """No request is served faster than the network path (RTT + load
+    balancer) plus the least measured service time; a latency is
+    (t + rtt + lb + service) - arrival, exact up to rounding."""
+    floor = prof.network_rtt_s + prof.lb_overhead_s + least_service_s
+    if min(res.latencies_s) < floor - 1e-9:
+        raise AssertionError(f"{label}: latency {min(res.latencies_s)} s below the floor "
+                             f"{floor} s (RTT + LB + least service time)")
+
+
+def _kserve_leg(pred, label: str, expected: tuple, card: str) -> dict:
+    """The paper's stress test on the card-measured Predictor: a burst of
+    KSERVE_REQUESTS under baremetal (profile baremetal), k8s (k8s) and kserve
+    (gcp, batches of up to KSERVE_BATCH), the launches of the whole leg held
+    to the path's set.  Gated: every request served once, the paper's order
+    of total times (baremetal > k8s > kserve), the latency floor."""
+    import torch
+    from repro_torch.clouds.profiles import get_profile
+    from repro_torch.kernels import native
+    from repro_torch.serving.kserve import InferenceService
+
+    native.reset_launches()
+    res = {strat: InferenceService(pred, get_profile(prof), strat, max_batch=KSERVE_BATCH)
+           .stress_test(KSERVE_REQUESTS)
+           for strat, prof in (("baremetal", "baremetal"), ("k8s", "k8s"), ("kserve", "gcp"))}
+    torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+    _expect(f"{label} kserve leg", launches, expected)
+    svc = {b: pred.service_time(b) for b in (1, KSERVE_BATCH)}    # measured in the leg
+    for strat, r in res.items():
+        if len(r.latencies_s) != KSERVE_REQUESTS:
+            raise AssertionError(f"{label} {strat}: {len(r.latencies_s)} of {KSERVE_REQUESTS} "
+                                 f"requests served")
+        prof = get_profile("gcp" if strat == "kserve" else strat)
+        _latency_floor(f"{label} {strat}", r, prof, min(svc.values()))
+    if sum(res["kserve"].per_version.values()) != KSERVE_REQUESTS:
+        raise AssertionError(f"{label} kserve: per-version counts {res['kserve'].per_version}")
+    totals = {strat: r.total_time_s for strat, r in res.items()}
+    if not totals["baremetal"] > totals["k8s"] > totals["kserve"]:
+        raise AssertionError(f"{label}: total times {totals}, not baremetal > k8s > kserve")
+    ks = res["kserve"].summary()
+    print(f"{label} kserve leg, {KSERVE_REQUESTS} requests in a burst: total baremetal "
+          f"{totals['baremetal']:.4f} s, k8s {totals['k8s']:.4f} s, kserve {totals['kserve']:.4f} s "
+          f"(k8s / kserve {totals['k8s'] / totals['kserve']:.2f}); kserve p50 {ks['p50_s']} s, "
+          f"p99 {ks['p99_s']} s, replicas_max {ks['replicas_max']}; service_time(1) "
+          f"{svc[1]:.4f} s, service_time({KSERVE_BATCH}) {svc[KSERVE_BATCH]:.4f} s; launches "
+          f"{launches}  [{card}]")
+    return {"requests": KSERVE_REQUESTS, "max_batch": KSERVE_BATCH, "totals_s": totals,
+            "summaries": {strat: r.summary() for strat, r in res.items()},
+            "service_time_s": svc, "launches": launches}
+
+
+def _gateway_leg(be, label: str, card: str) -> dict:
+    """``BatcherBackend``, measured already (its estimates are cached, so
+    this costs no card time), deployed in the port's Gateway on gcp with a
+    batch of its slots and one warm replica: GATEWAY_REQUESTS Poisson
+    arrivals from a seed at one per service_time(1) in all, half standard
+    and half latency class.  Gated: every request served once, the latency
+    floor."""
+    from repro_torch.clouds.profiles import get_profile
+    from repro_torch.serving.gateway import AutoscalerConfig, Gateway, TrafficSpec
+
+    prof = get_profile("gcp")
+    svc1 = be.service_time(1)
+    gw = Gateway(record_batches=True)
+    gw.deploy(be.name, be, prof, max_batch=be.batcher.max_slots,
+              autoscaler=AutoscalerConfig(min_replicas=1))
+    traffic = [TrafficSpec(be.name, GATEWAY_REQUESTS // 2, arrival="poisson",
+                           rate=0.5 / svc1, slo=c) for c in ("standard", "latency")]
+    res = gw.run(traffic, seed=0).per_model[be.name]
+    served = sorted(i for rec in gw.batch_log if not rec["preempted"] for i in rec["idx"])
+    if (served != list(range(GATEWAY_REQUESTS)) or len(res.latencies_s) != GATEWAY_REQUESTS
+            or sum(res.per_version.values()) != GATEWAY_REQUESTS):
+        raise AssertionError(f"{label} gateway leg: {len(served)} batched, "
+                             f"{len(res.latencies_s)} latencies, versions {res.per_version}")
+    _latency_floor(f"{label} gateway leg", res, prof, svc1)
+    pc = res.per_class()
+    s = res.summary()
+    print(f"{label} gateway leg, {GATEWAY_REQUESTS} Poisson requests at {1 / svc1:.3f} req/s "
+          f"(BatcherBackend service_time(1) {svc1:.4f} s, batches of up to "
+          f"{be.batcher.max_slots}): " + "; ".join(
+              f"{c} p50 {v['p50_s']} s p99 {v['p99_s']} s miss rate {v['miss_rate']}"
+              for c, v in pc.items())
+          + f"; total {s['total_s']} s, replicas_max {s['replicas_max']}  [{card}]")
+    return {"requests": GATEWAY_REQUESTS, "rate_rps": 1 / svc1, "summary": s}
 
 
 def _score_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> dict:
@@ -884,6 +988,7 @@ def _batch_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> di
         backend = {"chunk_ms": be.prefill_time(BATCH_CHUNK) * 1e3,
                    "step_ms": be.decode_time(1) * 1e3,
                    "service_time_1_s": be.service_time(1), "service_time_8_s": be.service_time(8)}
+        gateway = _gateway_leg(be, label, card)
         del be
     agree = sum(a == b for tk, tp in zip(toks_k, toks_p) for a, b in zip(tk, tp)) / n_tokens
     first_rel = _rel(first_k[0], first_p[0])
@@ -940,7 +1045,7 @@ def _batch_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> di
             "drain_s": wall, "tokens_per_s": n_tokens / wall, "peak_gib": peak_gib,
             "prefill_stats": stats, "bf16_token_agreement": agree,
             "bf16_vs_fp32_token_agreement": agree32, "first_step_rel": first_rel,
-            "ring_chunk_peak_rise_bytes": chunk_rise, "backend": backend,
+            "ring_chunk_peak_rise_bytes": chunk_rise, "backend": backend, "gateway_leg": gateway,
             "recorded": recorded, "launches_run": launches, "launches_per": {"run": launches}}
 
 

@@ -1,10 +1,12 @@
 """Serving launcher: batched greedy generation through the KServe analog.
 
-`python -m repro_torch.launch.serve --arch zamba2_1_2b --strategy k8s
---requests 4` builds the full config of a ported arch (granite_3_8b,
-h2o_danube_3_4b, minitron_4b, zamba2_1_2b, xlstm_1_3b) with random weights
-from a seed on the card, wraps prefill + a greedy decode loop in a
-Predictor, and runs the paper's stress test against it.  `--smoke` selects
+`python -m repro_torch.launch.serve --arch granite_3_8b --strategy kserve
+--max-batch 8 --requests 32` builds the full config of a ported arch
+(granite_3_8b, h2o_danube_3_4b, minitron_4b, zamba2_1_2b, xlstm_1_3b) with
+random weights from a seed on the card, wraps prefill + a greedy decode loop
+in a Predictor, and runs the paper's stress test against it (the kserve
+strategy by default: the gateway batches up to --max-batch requests a
+predict; baremetal and k8s serve one at a time).  `--smoke` selects
 the reduced config; `--device cpu` runs the plain path on the host.  The
 model runs with ``use_kernels=True``: on the card every kernel its path
 reaches (attention, norms, the SSD scan in zamba2's prefill) is the
@@ -55,23 +57,19 @@ def main(argv=None):
     ap.add_argument("--arch", required=True)
     ap.add_argument("--requests", type=int, default=32)
     ap.add_argument("--profile", default="gcp")
-    ap.add_argument("--strategy", default="k8s", choices=STRATEGIES)
-    ap.add_argument("--max-batch", type=int, default=None,
-                    help="batch cap of the kserve strategy (not ported yet)")
+    ap.add_argument("--strategy", default="kserve", choices=STRATEGIES)
+    ap.add_argument("--max-batch", type=int, default=8,
+                    help="batch cap of the kserve strategy")
     ap.add_argument("--gen-tokens", type=int, default=8)
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.max_batch is not None:
-        raise NotImplementedError(
-            "--max-batch caps the kserve strategy's batches; that strategy needs "
-            "the multi-model gateway, which is not ported yet: ROADMAP.md queue 1 "
-            "item 1.3")
 
     cfg = (registry.get_smoke_config if args.smoke else registry.get_config)(args.arch)
     cfg = cfg.replace(use_kernels=True)
     pred = make_lm_predictor(cfg, gen_tokens=args.gen_tokens, device=args.device)
-    svc = InferenceService(pred, get_profile(args.profile), args.strategy, log=EventLog())
+    svc = InferenceService(pred, get_profile(args.profile), args.strategy,
+                           max_batch=args.max_batch, log=EventLog())
     res = svc.stress_test(args.requests)
     dev = pred.device
     print(json.dumps({**res.summary(), "arch": cfg.name, "device": str(dev),

@@ -1,129 +1,85 @@
-"""KServe analog: a model version behind an InferenceService.
+"""KServe analog: InferenceService with the paper's deployment strategies.
 
-Counterpart of ``repro.serving.kserve`` and of the ``Predictor`` /
-``ServeResult`` it re-exports from the gateway.  Two of the paper's
-deployment strategies are ported:
+Counterpart of ``repro.serving.kserve``.  Strategies (paper Table 3
+columns):
   baremetal -- model re-loaded on EVERY request, no batching, sequential
   k8s       -- persistent model behind a LoadBalancer, batch=1, sequential
-The ``kserve`` strategy runs the multi-model gateway, which is not ported
-yet (ROADMAP.md queue 1 item 1.3).
+  kserve    -- dynamic batching + queue-depth autoscaling + optional canary
+               traffic split, on a CloudProfile (gcp / ibm), through the
+               gateway (serving/gateway/router.py)
 
 Compute latencies are measured: ``Predictor.service_time`` times real
 predicts on the predictor's device and, on a CUDA device, waits for the
 card with ``torch.cuda.synchronize`` before it reads the clock.  Network,
 load-balancer and reload constants come from the CloudProfile (simulated).
+
+InferenceService is the gateway's single-model client: one Deployment,
+KPA knobs (min_replicas >= 1, no idle scale-down, warm scale-up).
+Predictor / ServeResult are re-exported from the router.
 """
 from __future__ import annotations
 
-import dataclasses
-import time
-from typing import Any, Callable, Optional
+import math
+from typing import Optional
 
 import numpy as np
-import torch
 
 from ..clouds.profiles import CloudProfile
 from ..telemetry.events import EventLog
+from .gateway.autoscaler import AutoscalerConfig
+from .gateway.router import (AdmissionConfig, Gateway,  # noqa: F401
+                             Predictor, ServeResult, TrafficSpec, _pow2)
 
 STRATEGIES = ("baremetal", "k8s", "kserve")
 
 
-def _pow2(b: int) -> int:
-    """Service times are measured on pow2 batch buckets."""
-    n = 1
-    while n < b:
-        n *= 2
-    return n
-
-
-class Predictor:
-    """A deployable model version: ``predict_fn`` maps a numpy batch of
-    inputs to a tensor on ``device``."""
-
-    def __init__(self, name: str, predict_fn: Callable, example_input: Any, *,
-                 device="cuda"):
-        self.name = name
-        self.predict_fn = predict_fn
-        self.example_input = example_input
-        self.device = torch.device(device)
-        self._lat_cache: dict[int, float] = {}
-
-    def _batch_of(self, b: int):
-        x = self.example_input
-        return np.tile(x[:1], [b] + [1] * (np.ndim(x) - 1))
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
-    def service_time(self, b: int) -> float:
-        """Measured wall latency of one predict at b rounded up to its pow2
-        bucket: one warm-up call, then the mean of three, each finished on
-        the device before the clock is read."""
-        b = _pow2(b)
-        if b not in self._lat_cache:
-            x = self._batch_of(b)
-            self.predict_fn(x)
-            self._sync()
-            t0 = time.perf_counter()
-            for _ in range(3):
-                self.predict_fn(x)
-                self._sync()
-            self._lat_cache[b] = (time.perf_counter() - t0) / 3
-        return self._lat_cache[b]
-
-    def predict(self, x):
-        return self.predict_fn(x)
-
-
-@dataclasses.dataclass
-class ServeResult:
-    strategy: str
-    n_requests: int
-    total_time_s: float
-    latencies_s: list
-    replica_trace: list = dataclasses.field(default_factory=list)
-    # SIMULATED dollars (CloudProfile.cost_per_s price sheet), never measured
-    cost_usd: float = 0.0
-    cost_by_cloud: dict = dataclasses.field(default_factory=dict)
-
-    @property
-    def p50(self) -> Optional[float]:
-        return float(np.percentile(self.latencies_s, 50)) if self.latencies_s else None
-
-    @property
-    def p99(self) -> Optional[float]:
-        return float(np.percentile(self.latencies_s, 99)) if self.latencies_s else None
-
-    def summary(self) -> dict:
-        p50, p99 = self.p50, self.p99
-        return {"strategy": self.strategy, "n": self.n_requests,
-                "total_s": round(self.total_time_s, 4),
-                "p50_s": round(p50, 4) if p50 is not None else None,
-                "p99_s": round(p99, 4) if p99 is not None else None,
-                "replicas_max": max([r for _, r in self.replica_trace], default=1),
-                **({"sim_cost_usd": round(self.cost_usd, 6)}
-                   if self.cost_by_cloud else {})}
-
-
 class InferenceService:
     def __init__(self, predictor: Predictor, profile: CloudProfile,
-                 strategy: str = "k8s", *, log: Optional[EventLog] = None):
+                 strategy: str = "kserve", *, max_batch: int = 32,
+                 min_replicas: int = 1, max_replicas: int = 4,
+                 target_queue: int = 16, scale_up_delay_s: float = 0.5,
+                 canary: Optional[Predictor] = None, canary_fraction: float = 0.0,
+                 admission: Optional[AdmissionConfig] = None,
+                 log: Optional[EventLog] = None):
         if strategy not in STRATEGIES:
             raise ValueError(f"strategy {strategy!r}; known: {STRATEGIES}")
         self.predictor = predictor
         self.profile = profile
         self.strategy = strategy
+        self.max_batch = max_batch
+        self.min_replicas = min_replicas
+        self.max_replicas = max_replicas
+        self.target_queue = target_queue
+        self.scale_up_delay_s = scale_up_delay_s
+        self.canary = canary
+        self.canary_fraction = canary_fraction
+        self.admission = admission       # pass-through: deadline-hopeless
+        # requests shed at the gateway (kserve strategy only; the
+        # sequential baselines admit everything by construction)
         self.log = log or EventLog()
 
-    def stress_test(self, n_requests: int) -> ServeResult:
-        """The paper's stress test: ``n_requests`` arrive at t=0."""
-        if self.strategy == "kserve":
-            raise NotImplementedError(
-                "the kserve strategy needs the multi-model gateway, which is not "
-                "ported yet: ROADMAP.md queue 1 item 1.3")
+    # -- the paper's stress test -------------------------------------------
+    def stress_test(self, n_requests: int, seed: int = 0, *,
+                    arrival: str = "burst", rate: float = 0.0,
+                    slo="standard") -> ServeResult:
+        """arrival="burst": all requests at t=0 (the paper's test).
+        arrival="poisson": open-loop Poisson arrivals at `rate` req/s
+        (measures queueing latency, not just throughput).
+        slo: SLO class (name or SLOClass) stamped on every request --
+        passed straight through to the gateway, so per-class percentiles
+        and deadline-miss rates come back in the result."""
         with self.log.stage(f"serve:{self.strategy}", n=n_requests):
-            return self._sequential(n_requests, reload_each=self.strategy == "baremetal")
+            if self.strategy == "baremetal":
+                return self._sequential(n_requests, reload_each=True)
+            if self.strategy == "k8s":
+                return self._sequential(n_requests, reload_each=False)
+            arrivals = None
+            if arrival == "poisson":
+                rng = np.random.default_rng(seed + 1)
+                gaps = rng.exponential(1.0 / max(rate, 1e-9), n_requests)
+                arrivals = np.cumsum(gaps)
+            return self._kserve_sim(n_requests, seed=seed, arrivals=arrivals,
+                                    slo=slo)
 
     def _sequential(self, n: int, *, reload_each: bool) -> ServeResult:
         p = self.profile
@@ -135,6 +91,37 @@ class InferenceService:
                 l += p.model_load_s
             clock += l
             lat.append(l)
+        # one always-on replica billed for the whole run (simulated $,
+        # profile price sheet -- DESIGN.md §1)
         cost = clock * p.cost_per_s
         return ServeResult(self.strategy, n, clock, lat, [(0.0, 1)],
                            cost_usd=cost, cost_by_cloud={p.name: cost})
+
+    def _kserve_sim(self, n: int, seed: int = 0, arrivals=None,
+                    slo="standard") -> ServeResult:
+        """One-model gateway run with the KPA semantics: replicas never
+        idle out (idle_window=inf) and scale-ups arrive warm (the scale-up
+        delay stands in for scheduling + load)."""
+        if n == 0:                       # untrafficked models report nothing
+            return ServeResult(self.strategy, 0, 0.0, [], [(0.0, 1)])
+        cfg = AutoscalerConfig(min_replicas=self.min_replicas,
+                               max_replicas=self.max_replicas,
+                               target_queue=self.target_queue,
+                               scale_up_delay_s=self.scale_up_delay_s,
+                               idle_window_s=math.inf, cold_scale_up=False)
+        gw = Gateway(log=self.log, admission=self.admission)
+        gw.deploy(self.predictor.name, self.predictor, self.profile,
+                  autoscaler=cfg, max_batch=self.max_batch,
+                  canary=self.canary, canary_fraction=self.canary_fraction)
+        res = gw.run([TrafficSpec(self.predictor.name, n, arrivals=arrivals,
+                                  slo=slo)],
+                     seed=seed).per_model[self.predictor.name]
+        return ServeResult(self.strategy, n, res.total_time_s,
+                           res.latencies_s, res.replica_trace,
+                           per_version=res.per_version,
+                           class_latencies=res.class_latencies,
+                           class_misses=res.class_misses,
+                           class_shed=res.class_shed,
+                           observed=res.observed,
+                           cost_usd=res.cost_usd,
+                           cost_by_cloud=res.cost_by_cloud)

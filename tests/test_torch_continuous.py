@@ -217,7 +217,8 @@ def _leaves(tree, prefix=""):
             yield f"{prefix}{k}", v
 
 
-@pytest.mark.parametrize("arch", ["h2o_danube_3_4b", "minitron_4b", "granite_3_8b"])
+@pytest.mark.parametrize("arch", ["h2o_danube_3_4b", "minitron_4b", "granite_3_8b",
+                                  "xlstm_1_3b", "zamba2_1_2b"])
 def test_prefill_tokenwise_oracle(arch):
     """Chunked prefill against one decode step per token: argmax equal at
     every position, logits allclose at 1e-4, caches at 1e-3 / 1e-4."""

@@ -421,3 +421,22 @@ def test_h2o_smoke_batcher_kernel_path_matches_plain_path_on_gpu(cuda):
         else:
             assert sum(launches.values()) == 0
     assert outs[True] == outs[False]
+
+
+@pytest.mark.gpu
+def test_kserve_strategy_serves_the_smoke_predictor_on_gpu(cuda):
+    """The gateway's kserve strategy over granite's smoke Predictor on the
+    card: 16 burst requests each served once, batched up to 4 a predict,
+    in less total time than the k8s strategy's one-at-a-time."""
+    from repro_torch.clouds.profiles import get_profile
+    from repro_torch.configs import registry
+    from repro_torch.launch.serve import make_lm_predictor
+    from repro_torch.serving.kserve import InferenceService
+    cfg = registry.get_smoke_config("granite_3_8b").replace(use_kernels=True)
+    pred = make_lm_predictor(cfg, gen_tokens=4, prompt_len=8, device=cuda)
+    native.reset_launches()
+    res = InferenceService(pred, get_profile("gcp"), "kserve", max_batch=4).stress_test(16)
+    assert native.LAUNCHES["decode_attention"] > 0 and native.LAUNCHES["flash_attention"] > 0
+    assert len(res.latencies_s) == 16 and sum(res.per_version.values()) == 16
+    k8s = InferenceService(pred, get_profile("k8s"), "k8s").stress_test(16)
+    assert res.total_time_s < k8s.total_time_s

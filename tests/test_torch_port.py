@@ -145,20 +145,6 @@ def test_inference_service_sequential_strategies(predictor, strategy):
         0.0025 + 0.0004 + extra + pred.service_time(1))
 
 
-def test_kserve_strategy_names_its_roadmap_item(predictor):
-    pred, _ = predictor
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1.3"):
-        InferenceService(pred, get_profile("gcp"), "kserve").stress_test(2)
-
-
-def test_serve_main_rejects_the_kserve_batch_cap():
-    """--max-batch only caps the gateway strategy, which is not ported: it is
-    refused rather than silently ignored."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1.3"):
-        serve.main(["--arch", "granite_3_8b", "--smoke", "--device", "cpu",
-                    "--max-batch", "4"])
-
-
 @pytest.mark.parametrize("arch", ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b",
                                   "h2o_danube_3_4b", "minitron_4b"])
 def test_serve_main_runs_the_smoke_config_on_cpu(capsys, arch):
