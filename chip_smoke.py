@@ -17,15 +17,22 @@ Run from the root of a checkout.  It imports only the port
    computes the same function: ``ms`` with CUDA events around a loop of
    calls (at small shapes that is the host's issue rate), and, for kernel
    and library call, ``device_ms``, the device time per call summed from
-   the kernels a ``torch.profiler`` trace of such a loop records;
-3. drives seven paths at full width, with random bf16 weights from a seeded
+   the kernels a ``torch.profiler`` trace of such a loop records (for the
+   library call also the backend its kernels' names show: SDPA has no
+   flash kernel past head dim 256, so at gemma3's 320 it falls back);
+3. drives eight paths at full width, with random bf16 weights from a seeded
    generator and ``use_kernels=True``, each through the entry points a user
    calls, freeing each path's weights before the next:
    granite-3-8b serving (40 layers), h2o-danube-3-4b serving (24 sliding-
    window layers, head dim 120), minitron-4b serving (32 layers, squared-
-   ReLU MLP), zamba2-1.2b serving (38 Mamba2 layers and the shared
-   attention block) and xlstm-1.3b serving, each through
-   ``make_lm_predictor`` and the k8s strategy of ``InferenceService``;
+   ReLU MLP), gemma3-4b serving (34 layers, 5:1 local:global with window
+   1024, head dim 320, tied and scaled embeddings), zamba2-1.2b serving
+   (38 Mamba2 layers and the shared attention block) and xlstm-1.3b
+   serving, each through ``make_lm_predictor`` and the k8s strategy of
+   ``InferenceService``; gemma3 also serves a long leg on the same weights
+   (batch 1, a 2048-token prompt, ``_long_leg``: the window binds in
+   prefill, decode wraps the 1024-row local rings and splits the global
+   layers' 2064-row caches five ways), gated like its main run;
    h2o-danube-3-4b continuous batching through ``ContinuousBatcher`` and
    ``BatcherBackend`` (eight requests on four slots, one prompt of 4400
    tokens past the 4096-row ring: ``_batch_path``); and xlstm-1.3b scoring
@@ -45,9 +52,9 @@ Run from the root of a checkout.  It imports only the port
    rule.  The path's logits (prefill and one decode step, or the scoring
    forward) are compared three ways, each gated where the path's readings
    allow (``PATHS``): the bf16 kernel path against the bf16 plain path
-   (granite, h2o, minitron: <= 2e-2); with the same weights cast to fp32,
-   the kernel path against the plain path (granite, h2o, minitron <= 1e-4,
-   zamba2 <= 1e-3); and the bf16 kernel path's drift from the fp32 plain
+   (granite, h2o, minitron, gemma3: <= 2e-2); with the same weights cast to fp32,
+   the kernel path against the plain path (granite, h2o, minitron, gemma3
+   <= 1e-4, zamba2 <= 1e-3); and the bf16 kernel path's drift from the fp32 plain
    path, at most 1.5 times the bf16 plain path's (every path).
    Random-weight zamba2 and xlstm amplify bf16 rounding until the two bf16
    paths differ by more than any kernel does (the reference drifts as far:
@@ -59,6 +66,7 @@ Run from the root of a checkout.  It imports only the port
 4. prints the kernels' JSON line and, last, the device line.
 
 Any failure raises, and the script exits non-zero without the last line.
+The build prints each kernel instantiation's registers and spills (ptxas).
 Details (every case, ptxas register reports) go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -99,10 +107,15 @@ RING_CHUNK_BYTES = 2e9      # the most one ring chunk may add to peak memory
 # measured BatcherBackend
 KSERVE_PATH, KSERVE_REQUESTS, KSERVE_BATCH = "granite-3-8b serving", 32, 8
 GATEWAY_REQUESTS = 64
+# gemma3's long leg on its serving weights: batch 1, a prompt of 2048, GEN
+# new tokens over a cache of 2048 + GEN rows (the local layers' rings hold
+# min(1024, that)); gated with the path's limits
+LONG_LEG_PATH, LONG_LEG_PROMPT = "gemma3-4b serving", 2048
 # (label, arch, run, the kernels that run must launch (no other may launch),
 # limits on the logits' rel error of kernel path vs plain path in bf16 and
 # with the weights in fp32; None reports without gating).  The fp32 limits
-# sit 10-40x above the H100 readings (granite 2.6e-6, zamba2 9.4e-5).  The
+# sit 10-40x above the H100 readings (granite 2.6e-6, zamba2 9.4e-5); gemma3
+# takes granite's gates.  The
 # batcher's run gates its tokens instead (``_batch_path``): its prefill
 # runs no attention kernel, as in the reference.
 PATHS = (
@@ -111,6 +124,8 @@ PATHS = (
     ("h2o-danube-3-4b serving", "h2o_danube_3_4b", "serve",
      ("rmsnorm", "flash_attention", "decode_attention"), TOL, 1e-4),
     ("minitron-4b serving", "minitron_4b", "serve",
+     ("rmsnorm", "flash_attention", "decode_attention"), TOL, 1e-4),
+    ("gemma3-4b serving", "gemma3_4b", "serve",
      ("rmsnorm", "flash_attention", "decode_attention"), TOL, 1e-4),
     ("h2o-danube-3-4b continuous batching", "h2o_danube_3_4b", "batch",
      ("rmsnorm", "decode_attention"), None, None),
@@ -153,7 +168,7 @@ def _cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters: int) -> tuple[float, str, float | None]:
+def _device_ms(fn, iters: int) -> tuple[float, str, float | None, list]:
     """Mean device time per call of ``fn``: the durations of the device
     activity (kernels, copies) a ``torch.profiler`` trace of ``iters`` calls
     records, summed, so host issue gaps between launches do not count.
@@ -161,7 +176,8 @@ def _device_ms(fn, iters: int) -> tuple[float, str, float | None]:
     (seen on the H100).  Where the profiler records
     no device activity, the CUDA-event time of a CUDA graph that replays
     the calls.  Returns (ms, which of the two, device activities per call
-    in the median trace, None from a graph)."""
+    in the median trace, None from a graph, the names of the device
+    activities in that trace, longest first; empty from a graph)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -175,11 +191,14 @@ def _device_ms(fn, iters: int) -> tuple[float, str, float | None]:
         device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         if not device:
             break
-        readings.append((sum(e.time_range.elapsed_us() for e in device) / 1e3 / iters,
-                         len(device) / iters))
+        by_name: dict = {}
+        for e in device:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        readings.append((sum(by_name.values()) / 1e3 / iters, len(device) / iters,
+                         sorted(by_name, key=by_name.get, reverse=True)))
     if readings:
-        ms, per_call = sorted(readings)[len(readings) // 2]
-        return ms, "profiler", per_call
+        ms, per_call, names = sorted(readings, key=lambda r: r[0])[len(readings) // 2]
+        return ms, "profiler", per_call, names
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -189,7 +208,17 @@ def _device_ms(fn, iters: int) -> tuple[float, str, float | None]:
     with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
-    return _cuda_ms(graph.replay, 3, warmup=1) / iters, "cuda graph", None
+    return _cuda_ms(graph.replay, 3, warmup=1) / iters, "cuda graph", None, []
+
+
+def _sdpa_backend(names: list) -> str:
+    """Which of SDPA's backends ran, from its device kernels' names."""
+    low = " ".join(names).lower()
+    for backend, keys in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
+                          ("memory-efficient", ("fmha", "efficient"))):
+        if any(k in low for k in keys):
+            return backend
+    return "math (plain products and softmax)"
 
 
 def _check(name: str, got, want) -> tuple[float, float]:
@@ -335,13 +364,19 @@ def _run_case(name: str, case: dict, iters: int) -> dict:
     checks = [_check(f"{name} output {i}", g, w) for i, (g, w) in enumerate(zip(got, want))]
     bound, by = _bound_ms(case["nbytes"], case["flops"], case["peak"])
     lib = case["library"]
-    device_ms, source, per_call = _device_ms(case["kernel"], iters)
+    device_ms, source, per_call, _ = _device_ms(case["kernel"], iters)
+    lib_dev = _device_ms(lib, iters) if lib is not None else None
+    backend = None
+    if lib is not None and name in ("flash_attention", "decode_attention"):
+        backend = _sdpa_backend(lib_dev[3])
     return {"kernel": name, "shape": case["shape"], "device_kernels_per_call": per_call,
             "max_abs_err": max(e for e, _ in checks), "tol_share": max(t for _, t in checks),
             "ms": _cuda_ms(case["kernel"], iters), "device_ms": device_ms,
             "plain_ms": _cuda_ms(case["twin"], max(iters // 4, 2)),
             "library_ms": _cuda_ms(lib, iters) if lib is not None else None,
-            "library_device_ms": _device_ms(lib, iters)[0] if lib is not None else None,
+            "library_device_ms": lib_dev[0] if lib is not None else None,
+            "library_backend": backend,
+            "library_kernels": lib_dev[3][:3] if lib is not None else None,
             "device_ms_from": source, "bound_ms": bound, "bound_by": by}
 
 
@@ -380,6 +415,33 @@ def _mma_counts(lib: Path) -> dict | None:
     return counts
 
 
+def _ptxas_usage(log: str) -> list:
+    """Each kernel instantiation's registers and spills from ``-Xptxas -v``:
+    (name, dtype, template integer and bool arguments, registers, spill
+    store and load bytes)."""
+    import re
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            cur = {"kernel": _kernel_name(mangled),
+                   "dtype": "bf16" if "nv_bfloat16" in mangled else "f32",
+                   "args": [int(a) for a in re.findall(r"L[ib](\d+)E", mangled)],
+                   "registers": None, "spill_stores": None, "spill_loads": None}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def _fmt_ms(t) -> str:
     return "none" if t is None else f"{t:.4f} ms"
 
@@ -410,10 +472,13 @@ def main() -> int:
     t0 = time.perf_counter()
     built = native.build(ptxas_verbose=True)
     build_s = time.perf_counter() - t0
-    report["build"] = {src: {"s": s, "ptxas": log} for src, (s, log) in built.items()}
-    for src, (s, log) in built.items():
-        usage = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        print(f"built {src} in {s:.1f} s: " + " | ".join(usage))
+    report["build"] = {src: {"s": s, "ptxas": log, "usage": _ptxas_usage(log)}
+                       for src, (s, log) in built.items()}
+    for src, b in report["build"].items():
+        print(f"built {src} in {b['s']:.1f} s: " + "; ".join(
+            f"{u['kernel']}<{u['dtype']},{','.join(map(str, u['args']))}> "
+            f"{u['registers']} registers, "
+            f"spills {u['spill_stores']}/{u['spill_loads']} B" for u in b["usage"]))
     report["sass"] = {src: _mma_counts(native.library_path(src)) for src in native.SOURCES}
     for src, counts in report["sass"].items():
         print(f"tensor-core and ldmatrix instructions in {src}: " + (
@@ -434,7 +499,9 @@ def main() -> int:
     xl = registry.get_config("xlstm_1_3b")
     h = registry.get_config("h2o_danube_3_4b")
     mt = registry.get_config("minitron_4b")
+    gm = registry.get_config("gemma3_4b")
     cache_len = PROMPT + GEN + 1
+    long_cache = LONG_LEG_PROMPT + GEN      # gemma3's long leg: its global caches' rows
     rows = BATCH * PROMPT
     zp, xhd = z.d_inner // z.n_heads, xl.d_model // xl.n_heads
     long_lens = [4096, 2048, 1, 3000, 17, 4095, 64, 1024]
@@ -460,6 +527,19 @@ def main() -> int:
                                         h.head_dim, gen, window=h.sliding_window), 5),
         ("decode_attention", _decode_case([h.sliding_window] * BATCH_SLOTS, h.sliding_window,
                                           h.n_heads, h.n_kv_heads, h.head_dim, gen), 20),
+        # gemma3's long leg at D 320: prefill over 2048 tokens, global and
+        # under the window of 1024; its first decode step over a global cache
+        # of 2064 rows (five splits and the merge) and the wrapped 1024-row
+        # local ring (every row valid; two splits)
+        ("flash_attention", _flash_case(1, LONG_LEG_PROMPT, LONG_LEG_PROMPT, gm.n_heads,
+                                        gm.n_kv_heads, gm.head_dim, gen), 10),
+        ("flash_attention", _flash_case(1, LONG_LEG_PROMPT, LONG_LEG_PROMPT, gm.n_heads,
+                                        gm.n_kv_heads, gm.head_dim, gen,
+                                        window=gm.sliding_window), 10),
+        ("decode_attention", _decode_case([LONG_LEG_PROMPT + 1], long_cache, gm.n_heads,
+                                          gm.n_kv_heads, gm.head_dim, gen), 20),
+        ("decode_attention", _decode_case([gm.sliding_window], gm.sliding_window, gm.n_heads,
+                                          gm.n_kv_heads, gm.head_dim, gen), 20),
     ]
     # the shapes each path's run gives each kernel
     path_cases = {
@@ -489,6 +569,12 @@ def main() -> int:
                                             mt.head_dim, gen), 20),
             "decode_attention": (_decode_case([PROMPT + 1] * BATCH, cache_len, mt.n_heads,
                                               mt.n_kv_heads, mt.head_dim, gen), 50)},
+        "gemma3-4b serving": {
+            "rmsnorm": (_rmsnorm_case(rows, gm.d_model, gen), 50),
+            "flash_attention": (_flash_case(BATCH, PROMPT, PROMPT, gm.n_heads, gm.n_kv_heads,
+                                            gm.head_dim, gen, window=gm.sliding_window), 20),
+            "decode_attention": (_decode_case([PROMPT + 1] * BATCH, cache_len, gm.n_heads,
+                                              gm.n_kv_heads, gm.head_dim, gen), 50)},
         "xlstm-1.3b scoring": {
             "rmsnorm": (_rmsnorm_case(rows, xl.d_model, gen), 50),
             "mlstm_scan": (_mlstm_case(BATCH, PROMPT, xl.n_heads, xhd, xl.ssm_chunk, gen), 20)},
@@ -501,8 +587,9 @@ def main() -> int:
               f"({r['tol_share']:.3g} of its tolerance) kernel "
               f"{r['ms']:.4f} ms (device {r['device_ms']:.4f} ms, "
               f"{r['device_kernels_per_call']} device kernels a call), twin {r['plain_ms']:.4f} ms, "
-              f"library {_fmt_ms(r['library_ms'])} (device {_fmt_ms(r['library_device_ms'])}), "
-              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  [{card}]")
+              f"library {_fmt_ms(r['library_ms'])} (device {_fmt_ms(r['library_device_ms'])}"
+              + (f", SDPA backend {r['library_backend']}" if r["library_backend"] else "")
+              + f"), bound {r['bound_ms']:.4f} ms ({r['bound_by']})  [{card}]")
     report["cases"], report["path_cases"] = cases, path
     del long_cases, path_cases
     torch.cuda.empty_cache()
@@ -533,6 +620,7 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print("kernels launched on the paths' runs: " + ", ".join(f"{n} x{totals[n]}" for n in META))
+    print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -709,6 +797,10 @@ def _serve_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> di
             raise AssertionError(f"{label}: decode-step logits not finite")
         recorded = _hold_recorded(label, cfg, calls)
         del calls
+    long_leg = None
+    if label == LONG_LEG_PATH:
+        long_leg = _long_leg(params, cfg, label, expected, limits, card)
+        launches = {k: n + long_leg["launches"][k] for k, n in launches.items()}
     # the same weights in fp32, through the kernels and the plain path: the
     # first gate's pair, and the yardstick both bf16 paths are held against
     with torch.inference_mode():
@@ -733,7 +825,79 @@ def _serve_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> di
             "prompt": PROMPT, "gen": GEN, "init_s": init_s, "prefill_ms": prefill_ms,
             "decode_ms_per_token": decode_ms, "peak_gib": peak_gib, "rel": rel,
             "recorded": recorded, "launches_run": launches, "launches_per": per,
-            "k8s": summary, "kserve_leg": kserve}
+            "k8s": summary, "kserve_leg": kserve, "long_leg": long_leg}
+
+
+def _long_leg(params, cfg, label: str, expected: tuple, limits: dict, card: str) -> dict:
+    """Batch 1, a prompt of LONG_LEG_PROMPT, GEN new tokens on the serving
+    path's weights: timed prefill (``steps.prefill``) and greedy loop, their
+    launches held to the path's set; every kernel call of one prefill and
+    decode step recorded and held against its twin; the logits gated with
+    the path's limits, in bf16 and with the weights in fp32.  The prefill's
+    local layers run flash under a window that binds; the decode steps wrap
+    the local rings and split the global caches (``n_splits``), so the
+    merge kernel runs."""
+    import torch
+    from repro_torch.kernels import native
+    from repro_torch.kernels.decode_attention import n_splits
+    from repro_torch.models import lm, steps
+
+    cache_len = LONG_LEG_PROMPT + GEN
+    tokens = torch.randint(0, cfg.vocab_size, (1, LONG_LEG_PROMPT), dtype=torch.int32,
+                           generator=torch.Generator().manual_seed(2)).to("cuda")
+    batch = {"tokens": tokens}
+    start = torch.full((1,), LONG_LEG_PROMPT, dtype=torch.int32, device="cuda")
+    plain = cfg.replace(use_kernels=False)
+    with torch.inference_mode():
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last_k, cache = steps.prefill(params, batch, cfg=cfg, cache_len=cache_len)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        first = torch.argmax(last_k, -1).to(torch.int32)[:, None]
+        rows = sorted({c["k"].shape[2] for pc in cache.values() for c in pc.values()})
+        t0 = time.perf_counter()
+        toks, _ = steps.greedy_decode_loop(params, cache, first, start, GEN, cfg=cfg)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / GEN
+        launches = dict(native.LAUNCHES)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        del cache
+        _expect(f"{label} long leg", launches, expected)
+        if rows != [cfg.sliding_window, cache_len]:
+            raise AssertionError(f"{label} long leg: cache rows {rows}, want the ring of "
+                                 f"{cfg.sliding_window} and {cache_len} global rows")
+        if not bool(torch.isfinite(last_k.float()).all()) or int(toks.max()) >= cfg.vocab_size:
+            raise AssertionError(f"{label} long leg: prefill logits or tokens out of range")
+        last_p, cache_p = steps.prefill(params, batch, cfg=plain, cache_len=cache_len)
+        with _recording(expected) as calls:
+            _, cache_k = steps.prefill(params, batch, cfg=cfg, cache_len=cache_len)
+            step_k, _ = lm.decode_step(params, cfg, first, start, cache_k)
+        step_p, _ = lm.decode_step(params, plain, first, start, cache_p)
+        del cache_k, cache_p
+        recorded = _hold_recorded(f"{label} long leg", cfg, calls)
+        del calls
+        params32 = _cast(params, torch.float32)
+        out32 = {}
+        for use in (True, False):
+            c32 = cfg.replace(dtype="float32", use_kernels=use)
+            last, cache32 = steps.prefill(params32, batch, cfg=c32, cache_len=cache_len)
+            step, _ = lm.decode_step(params32, c32, first, start, cache32)
+            out32[use] = (last, step)
+            del cache32
+        del params32
+    rel = _rels({"long prefill": (last_k, last_p, out32[True][0], out32[False][0]),
+                 "long decode": (step_k, step_p, out32[True][1], out32[False][1])})
+    _gate(label, rel, limits)
+    print(f"{label} long leg: batch 1 prompt {LONG_LEG_PROMPT}: prefill {prefill_ms:.2f} ms, "
+          f"decode {decode_ms:.2f} ms/token, peak {peak_gib:.2f} GiB; cache rows {rows} (decode "
+          f"splits {[n_splits(r) for r in rows]}); launches {launches}  [{card}]")
+    return {"batch": 1, "prompt": LONG_LEG_PROMPT, "gen": GEN, "prefill_ms": prefill_ms,
+            "decode_ms_per_token": decode_ms, "peak_gib": peak_gib, "cache_rows": rows,
+            "rel": rel, "recorded": recorded, "launches": launches}
 
 
 def _latency_floor(label: str, res, prof, least_service_s: float) -> None:

@@ -6,7 +6,7 @@
 // the whole GQA group of query heads shares each K/V tile.
 //
 // Layout: q (B,Hq,D), k/v caches (B,S,Hkv,D), cache_len (B,) int32, o like
-// q; contiguous, bf16 or fp32; D <= 128, group = Hq/Hkv <= 16.  A row needs
+// q; contiguous, bf16 or fp32; D <= 320, group = Hq/Hkv <= 16.  A row needs
 // cache_len >= 1 (decode writes its own token before it attends); lengths
 // above S are clamped to S, and a row of length 0 gets zeros.
 //
@@ -47,36 +47,50 @@
 // * Products on the CUDA cores in fp32: one query token per row leaves the
 //   tensor cores nothing to reuse.  Scores are kept in the log2 domain
 //   (scale * log2 e folded into q) and exponentiated with exp2.  Two lanes
-//   share a key's dot product; for P.V each lane owns 4 output columns of
+//   share a key's dot product; for P.V each lane owns NCOL output columns of
 //   every query of the group.
+// * Two widths, each its own instantiation: D <= 128 takes NCOL 4 (the
+//   shapes granite, h2o and minitron run, sized as before), D <= 320
+//   (gemma3) NCOL 10.  At D 320 eight warps' double-buffered 16-key tiles
+//   take 168 KB in bf16 (225,408 bytes with the scores of a 512-key split
+//   for a group of 16) but 328 KB in fp32, so the fp32 instantiation walks
+//   the split with four warps (164 KB of tiles, 221,312 bytes in all).  The
+//   merge kernel keeps 128 threads and loops over the columns.
 #include "common.cuh"
 
 namespace {
 
-constexpr int NT = 256;         // threads per block
-constexpr int NW = NT / 32;     // warps, each walking its own tiles of the split
 constexpr int WK = 16;          // keys per warp tile: two lanes per key
-constexpr int DMAX = 128;       // largest head dim: 4 output columns a lane
+constexpr int DMAX = 320;       // largest head dim
 constexpr int GMAX = 16;        // largest GQA group
 constexpr int KC_MAX = 512;     // most keys a split holds (its scores sit in shared memory)
+constexpr int COMBINE_NT = 128; // threads of the merge kernel
 
 template <typename T> struct Geom {
   static constexpr int VW = 16 / sizeof(T);     // elements per 16-byte vector
   static constexpr int PAD = 32 / sizeof(T);    // tile row padding, elements
 };
 
+// An instantiation's width: NCOL output columns a lane (head dims up to
+// 32 NCOL), NW warps each walking its own tiles of the split
+template <typename T, int NCOL> struct Width {
+  static constexpr int DMAX = 32 * NCOL;
+  static constexpr int NW = NCOL > 4 && sizeof(T) == 4 ? 4 : 8;
+  static constexpr int NT = 32 * NW;
+};
+
 // tiles [NW warps][2 stages][WK][D + PAD] (K in pass 1, V in pass 2, the
 // warps' P.V sums at the end), then, fp32: q [G][D], the split's scores
 // and then probabilities [G][kc], the rows' max and sum [2][G]
-template <typename T>
+template <typename T, int NW>
 __host__ __device__ constexpr size_t tile_bytes(int G, int D) {
   const size_t tiles = static_cast<size_t>(NW) * 2 * WK * (D + Geom<T>::PAD) * sizeof(T);
   const size_t sums = sizeof(float) * NW * G * D;
   return tiles > sums ? tiles : sums;
 }
-template <typename T>
+template <typename T, int NW>
 constexpr size_t smem_bytes(int G, int D, int kc) {
-  return tile_bytes<T>(G, D) + sizeof(float) * (static_cast<size_t>(G) * (D + kc + 2));
+  return tile_bytes<T, NW>(G, D) + sizeof(float) * (static_cast<size_t>(G) * (D + kc + 2));
 }
 
 __device__ __forceinline__ void widen(const __nv_bfloat16* src, float* dst) {  // 8 values
@@ -149,14 +163,15 @@ __device__ __forceinline__ void load_tile(T* tile, const T* src, size_t row_stri
 // One block: split blockIdx.x of batch row blockIdx.z, kv head blockIdx.y.
 // VEC: tiles staged with 16-byte cp.async (D a whole number of vectors,
 // aligned caches); otherwise with plain loads.  GC >= G: the group's
-// registers.  Output column of a lane's slot x: VEC, 2 lane + 64 (x / 2)
-// + x % 2 (two pairs); else lane + 32 x.
-template <typename T, bool VEC, int GC>
-__global__ void __launch_bounds__(NT)
+// registers.  Output column of a lane's slot x < NCOL: VEC, 2 lane + 64
+// (x / 2) + x % 2 (NCOL / 2 pairs); else lane + 32 x.
+template <typename T, bool VEC, int GC, int NCOL>
+__global__ void __launch_bounds__(Width<T, NCOL>::NT)
 decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            const int* __restrict__ cache_len, T* __restrict__ o, float* __restrict__ part_acc,
            float* __restrict__ part_ml, int S, int Hq, int Hkv, int D, int kc, float qscale) {
   constexpr int VW = Geom<T>::VW;
+  constexpr int NW = Width<T, NCOL>::NW, NT = Width<T, NCOL>::NT;
   extern __shared__ __align__(16) unsigned char smem[];
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -176,7 +191,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int RS = D + Geom<T>::PAD;              // tile row stride, elements
 
   T* tiles = reinterpret_cast<T*>(smem) + static_cast<size_t>(warp) * 2 * WK * RS;
-  float* q_s = reinterpret_cast<float*>(smem + tile_bytes<T>(G, D));  // [G][D], pre-scaled
+  float* q_s = reinterpret_cast<float*>(smem + tile_bytes<T, NW>(G, D));  // [G][D], pre-scaled
   float* p_s = q_s + G * D;                     // [G][kc] scores, then probabilities
   float* ml_s = p_s + G * kc;                   // [max, sum][G], log2 domain
 
@@ -279,11 +294,11 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   __syncthreads();
 
   // pass 2: acc[g][cols] = sum over the warp's keys of p[g][j] v[j][cols]
-  float acc[GC][4];
+  float acc[GC][NCOL];
 #pragma unroll
   for (int g = 0; g < GC; ++g)
 #pragma unroll
-    for (int x = 0; x < 4; ++x) acc[g][x] = 0.f;
+    for (int x = 0; x < NCOL; ++x) acc[g][x] = 0.f;
   for (int i = 0; warp + NW * i < n_tiles; ++i) {
     load(v, i + 1);                             // this warp's next V tile, in flight
     if constexpr (VEC) rt::cp_async_wait<1>();
@@ -292,10 +307,10 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     const float* p = p_s + (warp + NW * i) * WK;
 #pragma unroll 4
     for (int j = 0; j < WK; ++j) {
-      float vx[4];
+      float vx[NCOL];
       if constexpr (VEC) {
 #pragma unroll
-        for (int x2 = 0; x2 < 2; ++x2) {
+        for (int x2 = 0; x2 < NCOL / 2; ++x2) {
           const int col = 2 * lane + 64 * x2;
           const float2 f = col < D ? widen2(vs + j * RS + col) : make_float2(0.f, 0.f);
           vx[2 * x2] = f.x;
@@ -303,7 +318,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
         }
       } else {
 #pragma unroll
-        for (int x = 0; x < 4; ++x) {
+        for (int x = 0; x < NCOL; ++x) {
           const int col = lane + 32 * x;
           vx[x] = col < D ? rt::to_f(vs[j * RS + col]) : 0.f;
         }
@@ -313,7 +328,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
         if (g < G) {
           const float pg = p[g * kc + j];
 #pragma unroll
-          for (int x = 0; x < 4; ++x) acc[g][x] = fmaf(pg, vx[x], acc[g][x]);
+          for (int x = 0; x < NCOL; ++x) acc[g][x] = fmaf(pg, vx[x], acc[g][x]);
         }
       }
     }
@@ -329,7 +344,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   for (int g = 0; g < GC; ++g) {
     if (g < G) {
 #pragma unroll
-      for (int x = 0; x < 4; ++x) {
+      for (int x = 0; x < NCOL; ++x) {
         const int col = VEC ? 2 * lane + 64 * (x / 2) + x % 2 : lane + 32 * x;
         if (col < D) a_w[(warp * G + g) * D + col] = acc[g][x];
       }
@@ -357,7 +372,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
 // Merge the partial states of one (batch row, q head) by log-sum-exp: only
 // the splits below ceil(len / kc) hold keys.
 template <typename T>
-__global__ void __launch_bounds__(DMAX)
+__global__ void __launch_bounds__(COMBINE_NT)
 decode_fwd_combine(const float* __restrict__ part_acc, const float* __restrict__ part_ml,
                    const int* __restrict__ cache_len, T* __restrict__ o, int S, int Hq, int D,
                    int kc, int n_split) {
@@ -379,29 +394,42 @@ decode_fwd_combine(const float* __restrict__ part_acc, const float* __restrict__
   }
 }
 
-template <typename T, bool VEC, int GC>
+template <typename T, bool VEC, int GC, int NCOL>
 cudaError_t launch_split(const T* q, const T* k, const T* v, const int* cache_len, T* o,
                          float* part_acc, float* part_ml, int B, int S, int Hq, int Hkv, int D,
                          int kc, int n_split, float scale, cudaStream_t stream) {
+  using W = Width<T, NCOL>;
+  constexpr size_t smem_max = smem_bytes<T, W::NW>(GMAX, W::DMAX, KC_MAX);
+  static_assert(smem_max <= 232448, "a block may use at most 227 KB of shared memory");
   static std::atomic<unsigned> smem_set{0};
-  cudaError_t err = rt::smem_limit_once(decode_fwd<T, VEC, GC>,
-                                        static_cast<int>(smem_bytes<T>(GMAX, DMAX, KC_MAX)),
-                                        smem_set);
+  cudaError_t err = rt::smem_limit_once(decode_fwd<T, VEC, GC, NCOL>,
+                                        static_cast<int>(smem_max), smem_set);
   if (err != cudaSuccess) return err;
-  const size_t smem = smem_bytes<T>(Hq / Hkv, D, kc);
-  decode_fwd<T, VEC, GC><<<dim3(n_split, Hkv, B), NT, smem, stream>>>(
+  const size_t smem = smem_bytes<T, W::NW>(Hq / Hkv, D, kc);
+  decode_fwd<T, VEC, GC, NCOL><<<dim3(n_split, Hkv, B), W::NT, smem, stream>>>(
       q, k, v, cache_len, o, part_acc, part_ml, S, Hq, Hkv, D, kc, scale * rt::kLog2e);
   return cudaGetLastError();
 }
 
-template <typename T, bool VEC>
+template <typename T, bool VEC, int NCOL>
 cudaError_t launch_group(const T* q, const T* k, const T* v, const int* cache_len, T* o,
                          float* part_acc, float* part_ml, int B, int S, int Hq, int Hkv, int D,
                          int kc, int n_split, float scale, cudaStream_t stream) {
-  return Hq / Hkv <= 4 ? launch_split<T, VEC, 4>(q, k, v, cache_len, o, part_acc, part_ml, B, S,
-                                                 Hq, Hkv, D, kc, n_split, scale, stream)
-                       : launch_split<T, VEC, GMAX>(q, k, v, cache_len, o, part_acc, part_ml, B,
-                                                    S, Hq, Hkv, D, kc, n_split, scale, stream);
+  return Hq / Hkv <= 4
+             ? launch_split<T, VEC, 4, NCOL>(q, k, v, cache_len, o, part_acc, part_ml, B, S, Hq,
+                                             Hkv, D, kc, n_split, scale, stream)
+             : launch_split<T, VEC, GMAX, NCOL>(q, k, v, cache_len, o, part_acc, part_ml, B, S,
+                                                Hq, Hkv, D, kc, n_split, scale, stream);
+}
+
+template <typename T, bool VEC>
+cudaError_t launch_width(const T* q, const T* k, const T* v, const int* cache_len, T* o,
+                         float* part_acc, float* part_ml, int B, int S, int Hq, int Hkv, int D,
+                         int kc, int n_split, float scale, cudaStream_t stream) {
+  return D <= 128 ? launch_group<T, VEC, 4>(q, k, v, cache_len, o, part_acc, part_ml, B, S, Hq,
+                                            Hkv, D, kc, n_split, scale, stream)
+                  : launch_group<T, VEC, 10>(q, k, v, cache_len, o, part_acc, part_ml, B, S, Hq,
+                                             Hkv, D, kc, n_split, scale, stream);
 }
 
 template <typename T>
@@ -424,13 +452,13 @@ int launch(const void* q, const void* k, const void* v, const void* cache_len, v
   const auto pm = static_cast<float*>(part_ml);
   const bool vec = (static_cast<size_t>(D) * sizeof(T)) % 16 == 0 &&
                    (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 == 0;
-  cudaError_t err = vec ? launch_group<T, true>(qt, kt, vt, lens, ot, pa, pm, B, S, Hq, Hkv, D,
+  cudaError_t err = vec ? launch_width<T, true>(qt, kt, vt, lens, ot, pa, pm, B, S, Hq, Hkv, D,
                                                 kc, n_split, scale, stream)
-                        : launch_group<T, false>(qt, kt, vt, lens, ot, pa, pm, B, S, Hq, Hkv, D,
+                        : launch_width<T, false>(qt, kt, vt, lens, ot, pa, pm, B, S, Hq, Hkv, D,
                                                  kc, n_split, scale, stream);
   if (err != cudaSuccess || n_split == 1) return err;
-  decode_fwd_combine<T><<<dim3(Hq, B), DMAX, 0, stream>>>(pa, pm, lens, ot, S, Hq, D, kc,
-                                                          n_split);
+  decode_fwd_combine<T><<<dim3(Hq, B), COMBINE_NT, 0, stream>>>(pa, pm, lens, ot, S, Hq, D, kc,
+                                                                n_split);
   return cudaGetLastError();
 }
 

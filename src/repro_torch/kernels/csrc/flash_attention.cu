@@ -6,7 +6,7 @@
 // kpos > qpos - window, keys at or past kv_len masked, finite -1e30 masks.
 //
 // Layout: q (B,Sq,Hq,D), k/v (B,Skv,Hkv,D), o like q; contiguous, bf16 or
-// fp32; D <= 128.
+// fp32; D <= 320 (gemma3's 2560 / 8).
 //
 // On the TPU the kv axis was the innermost, sequential grid axis and the
 // accumulators lived in VMEM scratch across grid steps.  Here blocks run in
@@ -31,42 +31,62 @@
 //   P is rounded to bf16 in registers and fed as the register A operand of
 //   O += P V, V read from shared memory as the transposed (MN-major) B
 //   operand.  Accumulators, max and sum stay fp32.  Head dims take a
-//   compile-time tile of 16, 32, 64 or 128 columns; any other D is
+//   compile-time tile of 16, 32, 64, 128 or 320 columns; any other D is
 //   zero-padded in shared memory up to the next (zero columns add nothing to
-//   Q K^T).  Where D is not a whole number of 16-byte vectors or a pointer is
-//   not 16-byte aligned, the tiles are staged with plain loads (and the
-//   output written in 2-byte stores, not bf16 pairs) instead.  Blocks start
+//   Q K^T).  The 320-column tile (five 128-byte swizzle atoms a row) takes
+//   32-key K/V tiles where the narrower ones take 64: with 64 keys its Q
+//   (80 KB for 128 rows) and two stages of K and V (160 KB) would pass the
+//   227 KB a block may use, and a thread of a consumer warpgroup would hold
+//   160 fp32 O registers plus 32 of scores and 16 of P, past the 255 cap.
+//   With 32 keys K/V take 80 KB (164,864 bytes in all) and the scores 16
+//   registers, P 8: 184 for the three.  Both warpgroups and the 128 query
+//   rows a block stay, so each K/V tile still serves 128 rows.  Where D is
+//   not a whole number of 16-byte vectors or a pointer is not 16-byte
+//   aligned, the tiles are staged with plain loads (and the output written
+//   in 2-byte stores, not bf16 pairs) instead.  Blocks start
 //   longest first: under a causal mask a head's last query block sees the
 //   most keys, and launching every head's last block before any shorter
 //   one balances the SMs (20-26 % at S 1000-2048 on the H100).
 // * fp32 (flash_fwd): the exact CUDA-core kernel (TF32 tensor cores would
 //   round the inputs to 10 bits).  256 threads as a 16x16 grid own 64 query
 //   rows: thread (tx,ty) owns query rows ty+16i (i<4), score columns tx+16c
-//   (c<4) and output columns tx+16c (c<8).  Q (pre-scaled) and K are staged
-//   d-major in shared memory with a padded stride, so the row/column reads
-//   of the inner product are conflict-free; P goes through shared memory
-//   once per tile for the P.V product.
+//   (c < BK/16) and output columns tx+16c (c < DMAX/16).  Q (pre-scaled) and
+//   K are staged d-major in shared memory with a padded stride, so the
+//   row/column reads of the inner product are conflict-free; P goes through
+//   shared memory once per tile for the P.V product.  Two instantiations:
+//   D <= 128 with 64-key tiles (115,968 bytes), and D <= 320 with 32-key
+//   tiles (174,720 bytes; 64 keys would need 264,960).
 #include "common.cuh"
 
 namespace {
+
+constexpr int kMaxHeadDim = 320;  // the wrapper's MAX_HEAD_DIM
+
 namespace f32 {
 
 constexpr int BQ = 64;          // query rows per block
-constexpr int BK = 64;          // keys per tile
-constexpr int DMAX = 128;       // largest head dim the block's buffers hold
 constexpr int NT = 256;         // threads per block (16 x 16)
 constexpr int RPT = BQ / 16;    // query rows per thread
-constexpr int CPT = BK / 16;    // score columns per thread
-constexpr int DPT = DMAX / 16;  // output columns per thread
 constexpr int QS = BQ + 1;      // padded strides (odd: no bank conflicts)
-constexpr int KS = BK + 1;
-constexpr size_t kSmemBytes = sizeof(float) * (DMAX * QS + DMAX * KS + BK * DMAX + BK * QS);
 
-template <typename T>
+// DM: the largest head dim the block's buffers hold; BK_: keys per tile
+template <int DM, int BK_> struct Tile {
+  static constexpr int DMAX = DM;
+  static constexpr int BK = BK_;
+  static constexpr int CPT = BK / 16;    // score columns per thread
+  static constexpr int DPT = DMAX / 16;  // output columns per thread
+  static constexpr int KS = BK + 1;      // padded stride (odd)
+  static constexpr size_t kSmemBytes =
+      sizeof(float) * (DMAX * QS + DMAX * KS + BK * DMAX + BK * QS);
+};
+
+template <typename T, int DM, int BK_>
 __global__ void __launch_bounds__(NT)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           T* __restrict__ o, int Sq, int Skv, int Hq, int Hkv, int D, float scale,
           int causal, int window, int q_offset, int kv_len) {
+  using L = Tile<DM, BK_>;
+  constexpr int DMAX = L::DMAX, BK = L::BK, CPT = L::CPT, DPT = L::DPT, KS = L::KS;
   extern __shared__ float smem[];
   float* q_s = smem;                  // [DMAX][QS]  q_s[d * QS + r], pre-scaled
   float* k_s = q_s + DMAX * QS;       // [DMAX][KS]  k_s[d * KS + j]
@@ -193,21 +213,32 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
+template <typename T, int DM, int BK_>
+cudaError_t launch_tile(const void* q, const void* k, const void* v, void* o, int B, int Sq,
+                        int Skv, int Hq, int Hkv, int D, float scale, int causal, int window,
+                        int q_offset, int kv_len, void* stream) {
+  constexpr size_t smem = Tile<DM, BK_>::kSmemBytes;
+  static std::atomic<unsigned> smem_set{0};
+  cudaError_t err =
+      rt::smem_limit_once(flash_fwd<T, DM, BK_>, static_cast<int>(smem), smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
+  flash_fwd<T, DM, BK_><<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), Sq, Skv, Hq, Hkv, D, scale, causal, window, q_offset, kv_len);
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
            int Hq, int Hkv, int D, float scale, int causal, int window, int q_offset,
            int kv_len, void* stream) {
-  if (D < 1 || D > DMAX || Hkv < 1 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  if (D < 1 || D > kMaxHeadDim || Hkv < 1 || Hq % Hkv != 0) return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
-  static std::atomic<unsigned> smem_set{0};
-  cudaError_t err =
-      rt::smem_limit_once(flash_fwd<T>, static_cast<int>(kSmemBytes), smem_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_fwd<T><<<grid, NT, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Skv, Hq, Hkv, D, scale, causal, window, q_offset, kv_len);
-  return cudaGetLastError();
+  return D <= 128 ? launch_tile<T, 128, 64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+                                            window, q_offset, kv_len, stream)
+                  : launch_tile<T, 320, 32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+                                            window, q_offset, kv_len, stream);
 }
 
 }  // namespace f32
@@ -219,23 +250,24 @@ using bf16 = __nv_bfloat16;
 constexpr int NWG = 2;           // consumer warpgroups per block, 64 query rows each
 constexpr int BQ = 64 * NWG;     // query rows per block
 constexpr int NT = 128 * NWG;    // threads per block
-constexpr int BK = 64;           // keys per tile
 constexpr int NSTAGE = 2;        // K/V ring: tile i+1 loads while tile i is used
-constexpr int DMAX = 128;
 
-// Per padded head dim DP (16, 32, 64 or 128): a tile row of DP bf16 is cut
-// into sub-rows of RB bytes, one swizzle atom wide (32, 64 or 128 bytes),
-// and the tile is stored as NSUB sub-tiles [rows][RB].  Within each 8-row
-// group the 16-byte chunk c of row r sits at chunk c ^ (address bits 7+),
-// the layout wgmma's 32/64/128-byte swizzle modes read.
+// Per padded head dim DP (16, 32, 64, 128 or 320): a tile row of DP bf16 is
+// cut into sub-rows of RB bytes, one swizzle atom wide (32, 64 or 128
+// bytes), and the tile is stored as NSUB sub-tiles [rows][RB].  Within each
+// 8-row group the 16-byte chunk c of row r sits at chunk c ^ (address bits
+// 7+), the layout wgmma's 32/64/128-byte swizzle modes read.  BK keys a K/V
+// tile: 64, or 32 at DP 320 (the header says why).
 template <int DP> struct Cfg {
   static constexpr int RB = DP * 2 < 128 ? DP * 2 : 128;
   static constexpr int NSUB = DP * 2 / RB;
   static constexpr uint32_t MODE = RB == 128 ? 1 : (RB == 64 ? 2 : 3);  // descriptor swizzle
   static constexpr int NV = RB / 2;                  // output columns per sub-tile
+  static constexpr int BK = DP > 128 ? 32 : 64;
   static constexpr int Q_BYTES = BQ * DP * 2;
   static constexpr int KV_BYTES = BK * DP * 2;
   static constexpr int SMEM = Q_BYTES + NSTAGE * 2 * KV_BYTES + 1024;  // + alignment slack
+  static_assert(SMEM <= 232448, "a block may use at most 227 KB of shared memory");
 };
 
 // byte offset of 16-byte chunk c of row r in a swizzled tile of ROWS rows
@@ -321,6 +353,22 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// D (64 x 32, fp32) (+)= A (64 x 16, shared) * B (16 x 32, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // D (64 x 64, fp32) (+)= A (64 x 16, shared) * B (16 x 64, shared, K-major)
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
   asm volatile(
@@ -398,7 +446,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 // group, not waited for.  q_addr: the warpgroup's first Q row; k_addr: the
 // K tile.
 template <int DP>
-__device__ __forceinline__ void issue_scores(float (&sc)[BK / 2], uint32_t q_addr,
+__device__ __forceinline__ void issue_scores(float (&sc)[Cfg<DP>::BK / 2], uint32_t q_addr,
                                              uint32_t k_addr) {
   using C = Cfg<DP>;
   wgmma_fence();
@@ -406,7 +454,7 @@ __device__ __forceinline__ void issue_scores(float (&sc)[BK / 2], uint32_t q_add
   for (int kk = 0; kk < DP / 16; ++kk) {
     const uint32_t sub = kk * 32 / C::RB, off = kk * 32 % C::RB;
     wgmma_ss(sc, desc<DP>(q_addr + sub * BQ * C::RB + off),
-             desc<DP>(k_addr + sub * BK * C::RB + off), kk > 0);
+             desc<DP>(k_addr + sub * C::BK * C::RB + off), kk > 0);
   }
   wgmma_commit();
 }
@@ -422,6 +470,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
              bf16* __restrict__ o, int Sq, int Skv, int Hq, int Hkv, int D, float scale,
              int causal, int window, int q_offset, int kv_len) {
   using C = Cfg<DP>;
+  constexpr int BK = C::BK;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzle acts on shared-memory address bits: align the tiles to 1024
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -621,7 +670,7 @@ cudaError_t launch_dp(bool vec, const bf16* q, const bf16* k, const bf16* v, bf1
 int launch(const void* q_, const void* k_, const void* v_, void* o_, int B, int Sq, int Skv,
            int Hq, int Hkv, int D, float scale, int causal, int window, int q_offset, int kv_len,
            void* stream_) {
-  if (D < 1 || D > DMAX || Hkv < 1 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  if (D < 1 || D > kMaxHeadDim || Hkv < 1 || Hq % Hkv != 0) return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
   const auto q = static_cast<const bf16*>(q_);
   const auto k = static_cast<const bf16*>(k_);
@@ -640,7 +689,10 @@ int launch(const void* q_, const void* k_, const void* v_, void* o_, int B, int 
   if (D <= 64)
     return launch_dp<64>(vec, q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
                          q_offset, kv_len, stream);
-  return launch_dp<128>(vec, q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
+  if (D <= 128)
+    return launch_dp<128>(vec, q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
+                          q_offset, kv_len, stream);
+  return launch_dp<320>(vec, q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
                         q_offset, kv_len, stream);
 }
 

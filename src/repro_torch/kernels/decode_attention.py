@@ -17,7 +17,7 @@ import torch
 from . import native
 
 SOURCE = "decode_attention.cu"
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 320                      # gemma3: 2560 / 8
 MAX_GROUP = 16
 # keys per split: a block of the kernel walks at most this many keys of one
 # row; caches longer than this are split and merged by a second kernel

@@ -15,7 +15,7 @@ import torch
 from . import native
 
 SOURCE = "flash_attention.cu"
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 320                      # gemma3: 2560 / 8
 _ENTRY = {torch.bfloat16: "flash_attention_bf16", torch.float32: "flash_attention_f32"}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
              + [ctypes.c_int] * 4 + [ctypes.c_void_p])

@@ -2,7 +2,8 @@
 
 `python -m repro_torch.launch.serve --arch granite_3_8b --strategy kserve
 --max-batch 8 --requests 32` builds the full config of a ported arch
-(granite_3_8b, h2o_danube_3_4b, minitron_4b, zamba2_1_2b, xlstm_1_3b) with
+(granite_3_8b, h2o_danube_3_4b, minitron_4b, zamba2_1_2b, xlstm_1_3b,
+gemma3_4b) with
 random weights from a seed on the card, wraps prefill + a greedy decode loop
 in a Predictor, and runs the paper's stress test against it (the kserve
 strategy by default: the gateway batches up to --max-batch requests a

@@ -29,10 +29,10 @@ from .modules import dense_init, require_device
 
 
 def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.tie_embeddings or cfg.scale_embed or cfg.use_mrope or not cfg.use_rope:
+    if cfg.use_mrope or not cfg.use_rope:
         raise NotImplementedError(
-            f"{cfg.name}: tied / scaled embeddings, M-RoPE and rope-less archs "
-            "are not ported yet (ROADMAP.md queue 1 items 1.2, 1.9)")
+            f"{cfg.name}: M-RoPE and rope-less archs are not ported yet "
+            "(ROADMAP.md queue 1 item 1.9)")
     blocks.build_plan(cfg)
 
 
@@ -68,7 +68,8 @@ def _stack(n: int, make: Callable[[int], dict]) -> dict:
 # ---------------------------------------------------------------------------
 def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``, in
-    the compute dtype."""
+    the compute dtype.  Tied embeddings (gemma3) have no ``lm_head``: the
+    head reads ``embed``."""
     _check_supported(cfg)
     dev = require_device(device)
     dtype = cfg.compute_dtype
@@ -78,9 +79,10 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> dict:
         "embed": dense_init((cfg.vocab_size, cfg.d_model), fan_in=cfg.d_model,
                             dtype=dtype, **kw),
         "final_norm": torch.zeros((cfg.d_model,), dtype=dtype, device=dev),
-        "lm_head": dense_init((cfg.d_model, cfg.vocab_size), fan_in=cfg.d_model,
-                              dtype=dtype, **kw),
     }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size), fan_in=cfg.d_model,
+                                  dtype=dtype, **kw)
     for pi, phase in enumerate(blocks.build_plan(cfg)):
         p[f"phase{pi}"] = _stack(phase.n_groups, lambda g, phase=phase: {
             f"slot{j}": blocks.slot_init(cfg, kind, ffn, dtype, **kw)
@@ -131,11 +133,24 @@ def _shared_kind(cfg: ArchConfig, shared_cache: dict) -> str:
 # Shared pieces
 # ---------------------------------------------------------------------------
 def _embed(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(cfg.compute_dtype)
+    """Rows of the table; with ``scale_embed`` times sqrt(d_model) rounded to
+    the compute dtype first, as the reference's ``jnp.asarray(d ** 0.5,
+    dtype)`` is (bf16: 50.596 -> 50.5).  A Python float factor would take
+    the product in fp32 and round once, parting from the reference.  The
+    0-d factor stays on the host: torch passes it to a CUDA kernel as a
+    scalar, with no copy to the card per call."""
+    x = params["embed"][tokens.long()].to(cfg.compute_dtype)
+    if cfg.scale_embed:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
 
 
 def _head(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final norm, then the head; tied: ``x @ embed.T`` (the reference's
+    ``"...d,vd->...v"``) through a transposed view, no copy of the table."""
     x = blocks.norm(x, params["final_norm"], cfg)
+    if cfg.tie_embeddings:
+        return x @ params["embed"].to(x.dtype).T
     return x @ params["lm_head"].to(x.dtype)
 
 

@@ -8,7 +8,8 @@ paths, the same einsum layouts (``wq (d,h,k)``, ``wo (h,k,d)``,
 ``w_gate``/``w_up (d,f)``, ``w_down (f,d)``; Mamba2's ``conv_w (k,C)``,
 sLSTM's per-head ``r_* (h,hd,hd)``) and the same leading stacked
 ``n_groups`` dimension on every ``phase*`` leaf (zamba2's tied ``shared``
-block has none).
+block has none).  A tree with tied embeddings (gemma3) carries ``embed``
+and no ``lm_head``, as the reference's does.
 """
 from __future__ import annotations
 

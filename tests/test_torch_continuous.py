@@ -218,7 +218,7 @@ def _leaves(tree, prefix=""):
 
 
 @pytest.mark.parametrize("arch", ["h2o_danube_3_4b", "minitron_4b", "granite_3_8b",
-                                  "xlstm_1_3b", "zamba2_1_2b"])
+                                  "xlstm_1_3b", "zamba2_1_2b", "gemma3_4b"])
 def test_prefill_tokenwise_oracle(arch):
     """Chunked prefill against one decode step per token: argmax equal at
     every position, logits allclose at 1e-4, caches at 1e-3 / 1e-4."""
@@ -247,14 +247,12 @@ def _batcher_outputs(arch, prompts, max_new, max_slots, chunk):
     return out
 
 
-@pytest.mark.parametrize("seed", [0, 7, 1234])
-def test_batcher_prefill_equals_teacher_forced_seeded(seed):
-    """The scenario draws of the reference's test, on h2o_danube (its other
-    arm, gemma3, is not ported): random prompt mixes, chunk sizes and slot
-    counts give the prefill batcher the teacher-forced batcher's tokens."""
-    rng = np.random.default_rng(seed)
-    rng.integers(0, 2)                       # the reference's arch draw
-    arch = "h2o_danube_3_4b"
+def _check_scenario(rng, arch=None):
+    """The reference's scenario draws (``tests/test_prefill_oracle.py``):
+    the arch (unless given), a prompt mix, slots and a chunk size; the
+    prefill batcher must give the teacher-forced batcher's tokens."""
+    drawn = ("h2o_danube_3_4b", "gemma3_4b")[int(rng.integers(0, 2))]
+    arch = arch or drawn
     cfg, _ = _setup(arch)
     n_req = int(rng.integers(1, 5))
     prompts = [list(rng.integers(0, cfg.vocab_size, int(rng.integers(1, 14))))
@@ -266,6 +264,21 @@ def test_batcher_prefill_equals_teacher_forced_seeded(seed):
     assert out[0] == out[chunk], (
         f"{arch}: prefill batcher diverged from the teacher-forced one "
         f"(slots={max_slots}, chunk={chunk}, prompts={prompts})")
+
+
+@pytest.mark.parametrize("seed", [0, 7, 1234])
+def test_batcher_prefill_equals_teacher_forced_seeded(seed):
+    """The reference's seeded scenarios, its arch draw between h2o_danube and
+    gemma3 included (these three seeds all draw gemma3)."""
+    _check_scenario(np.random.default_rng(seed))
+
+
+@pytest.mark.parametrize("seed", [0, 7, 1234])
+@pytest.mark.parametrize("arch", ["h2o_danube_3_4b", "gemma3_4b"])
+def test_batcher_prefill_equals_teacher_forced_each_arm(arch, seed):
+    """The same scenarios with the arch fixed, so both arms of the draw run:
+    h2o_danube's all-ring plan and gemma3's ring beside a global cache."""
+    _check_scenario(np.random.default_rng(seed), arch)
 
 
 @pytest.mark.parametrize("chunk", [0, 4])

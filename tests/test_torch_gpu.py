@@ -27,28 +27,45 @@ FLASH_CASES = [
     (100, 100, 4, 2, 32, 0),      # GQA, Sq no block divides
     (64, 64, 8, 2, 64, 24),       # sliding window
     (33, 128, 4, 4, 32, 0),       # cross-length, q_offset 95
+    (40, 72, 2, 1, 320, 24),      # gemma3's head dim: window, ragged tail, q_offset 32
 ]
 # and on the card only: D 16 (the smoke configs), D 120 (h2o_danube, zero-
 # padded to the 128-column tile), D 17 (not a whole number of 16-byte
 # vectors: the plain-load staging), S 300 with a window and a q_offset,
-# and h2o_danube's D 120 under a window that binds (kv longer than it)
+# and h2o_danube's D 120 under a window that binds (kv longer than it);
+# gemma3's D 320 (group 2) under its window of 1024 with the keys longer
+# than it, and under a short window with a q_offset; D 300, zero-padded to
+# the 320-column tile and (bf16) no whole number of 16-byte vectors
 FLASH_GPU_CASES = FLASH_CASES + [
     (70, 70, 8, 2, 16, 0),
     (50, 90, 4, 4, 120, 0),
     (40, 40, 2, 1, 17, 0),
     (300, 364, 4, 2, 128, 100),
     (600, 600, 4, 2, 120, 256),
+    (1100, 1100, 8, 4, 320, 1024),
+    (300, 364, 8, 4, 320, 100),
+    (130, 130, 4, 2, 300, 0),
 ]
 # (s, hq, hkv, d, reference block_k); lengths [s, s//2, 1]
-DECODE_CASES = [(128, 4, 4, 32, 64), (200, 8, 2, 64, 64), (64, 4, 1, 128, 32)]
+DECODE_CASES = [(128, 4, 4, 32, 64), (200, 8, 2, 64, 64), (64, 4, 1, 128, 32),
+                (96, 4, 2, 320, 32)]
 # (lengths, s, hq, hkv, d) on the card, around the kernel's split of
 # SPLIT_KEYS = 512 keys: lengths at the split edges with S no multiple of
 # it; a 4096-row cache whose merge takes 8 splits; granite's serving shape
 # (one split, one launch); D 17, which takes the plain-load instantiation;
 # groups of 8 and 16 query heads per kv head (the kernel's widest
 # registers); h2o_danube's fully wrapped 4096-row ring at D 120 (every row
-# valid, as ``eff_len`` gives it once the ring has wrapped)
+# valid, as ``eff_len`` gives it once the ring has wrapped); gemma3's D 320
+# (group 2): the global cache of its long leg (2064 rows, five splits),
+# its wrapped 1024-row local ring (two splits), its serving cache (one
+# split), a group of 16 at D 320 (the widest registers of that width), and
+# D 300 (bf16: the plain-load instantiation)
 DECODE_GPU_CASES = [
+    ([2064, 1000, 513, 1], 2064, 8, 4, 320),
+    ([1024, 1024, 1024, 1024], 1024, 8, 4, 320),
+    ([145, 130, 1, 145], 145, 8, 4, 320),
+    ([600, 5], 600, 32, 2, 320),
+    ([700, 3], 700, 4, 2, 300),
     ([4096, 4096], 4096, 32, 8, 120),
     ([1, 511, 512, 513, 1300], 1300, 8, 2, 64),
     ([4096, 3001], 4096, 32, 8, 128),
@@ -328,6 +345,8 @@ def test_scans_take_their_dtype_entry_points_on_gpu(cuda, dtype, monkeypatch):
 
 @pytest.mark.gpu
 def test_wrappers_count_launches_and_reject_wide_heads(cuda):
+    """One count a call; a head dim past the kernels' 320 raises before any
+    launch."""
     native.reset_launches()
     q = torch.randn(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
     ops.flash_attention(q, q, q, use_kernel=True)
@@ -336,22 +355,58 @@ def test_wrappers_count_launches_and_reject_wide_heads(cuda):
     ops.rmsnorm(q, torch.zeros(64, device=cuda, dtype=torch.bfloat16), use_kernel=True)
     assert native.LAUNCHES == {"rmsnorm": 1, "flash_attention": 1, "decode_attention": 1,
                                "ssm_scan": 0, "mlstm_scan": 0}
-    wide = torch.randn(1, 8, 2, 192, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 192"):
+    wide = torch.randn(1, 8, 2, 336, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 336"):
         ops.flash_attention(wide, wide, wide, use_kernel=True)
-    assert native.LAUNCHES["flash_attention"] == 1
+    with pytest.raises(ValueError, match="head_dim 336"):
+        ops.decode_attention(wide[:, 0], wide, wide,
+                             torch.full((1,), 8, dtype=torch.int32, device=cuda),
+                             use_kernel=True)
+    assert native.LAUNCHES["flash_attention"] == native.LAUNCHES["decode_attention"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_head_dim_320_runs_the_hand_written_kernels_on_gpu(cuda, dtype, monkeypatch):
+    """gemma3's D 320 goes to the attention kernels' own entry points, one
+    counted launch a call, and never to SDPA (patched to raise here)."""
+    real = native.function
+    seen = []
+
+    def function(src, name, argtypes, restype=ctypes.c_int):
+        seen.append(name)
+        return real(src, name, argtypes, restype)
+
+    def no_sdpa(*args, **kw):
+        raise AssertionError("scaled_dot_product_attention called")
+
+    monkeypatch.setattr(native, "function", function)
+    monkeypatch.setattr(torch.nn.functional, "scaled_dot_product_attention", no_sdpa)
+    td = DTYPES[dtype]
+    q = torch.randn(1, 40, 8, 320, device=cuda).to(td)
+    kv = torch.randn(1, 40, 4, 320, device=cuda).to(td)
+    native.reset_launches()
+    ops.flash_attention(q, kv, kv, window=16, use_kernel=True)
+    ops.decode_attention(q[:, 0], kv, kv, torch.full((1,), 40, dtype=torch.int32, device=cuda),
+                         use_kernel=True)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["flash_attention"] == native.LAUNCHES["decode_attention"] == 1
+    suffix = "bf16" if dtype == "bfloat16" else "f32"
+    assert [n for n in seen if not n.endswith("_error_string")] == [
+        f"flash_attention_{suffix}", f"decode_attention_{suffix}"]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b",
-                                  "h2o_danube_3_4b", "minitron_4b"])
+                                  "h2o_danube_3_4b", "minitron_4b", "gemma3_4b"])
 def test_smoke_model_kernel_path_matches_plain_path_on_gpu(cuda, arch):
     """Smoke configs (fp32): prefill and a decode step through the kernels
     agree with the plain path on the same weights (granite, minitron:
     attention and norms; zamba2: the SSD scan and the shared attention
     block's kernels; xlstm: norms, and below its scoring forward through the
     mLSTM scan; h2o_danube: a window of 16 that binds in prefill, then decode
-    on the wrapped ring)."""
+    on the wrapped ring; gemma3: its local ring beside a global cache, and
+    the tied, scaled embeddings)."""
     from repro_torch.configs import registry
     from repro_torch.models import lm, steps
     cfg = registry.get_smoke_config(arch)

@@ -11,7 +11,8 @@ identical.  zamba2's smoke window is 16 rows, so its shared attention block
 runs the ring branches whenever a test's cache is 16 rows or fewer, and
 the global ones above that.  h2o_danube's layers are all ``local`` (smoke
 window 16): every cache of it is a ring of at most 16 rows, which the
-decode tests wrap.
+decode tests wrap.  gemma3's smoke plan is one ``(local, global)`` group:
+a 16-row ring beside a padded global cache, with tied, scaled embeddings.
 """
 import pytest
 
@@ -28,7 +29,8 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.models import lm, steps  # noqa: E402
 from repro_torch.models.transplant import transplant  # noqa: E402
 
-ARCHS = ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b", "h2o_danube_3_4b", "minitron_4b"]
+ARCHS = ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b", "h2o_danube_3_4b", "minitron_4b",
+         "gemma3_4b"]
 B, S, GEN = 2, 12, 4
 REL = 2e-3
 
@@ -68,12 +70,18 @@ def test_transplant_keeps_paths_and_layouts(models):
         np.testing.assert_array_equal(leaf.numpy(), want[path], err_msg=path)
     n_groups = cfg_t.n_layers // (cfg_t.shared_attn_every or cfg_t.slstm_every or 1)
     if cfg_t.family == "dense":
-        assert got["phase0/slot0/mixer/wq"].shape == (cfg_t.n_layers, cfg_t.d_model,
-                                                       cfg_t.n_heads, cfg_t.head_dim)
+        # one group per repeat of the block pattern (gemma3: (local, global))
+        assert got["phase0/slot0/mixer/wq"].shape == (
+            cfg_t.n_layers // len(cfg_t.block_pattern), cfg_t.d_model, cfg_t.n_heads,
+            cfg_t.head_dim)
         # SwiGLU's gate where the arch has one (minitron's squared ReLU has
-        # none), and an untied head
+        # none), and an untied head where the arch has one (gemma3's head is
+        # its embedding table)
         assert ("phase0/slot0/ffn/w_gate" in got) == (cfg_t.mlp_act == "swiglu")
-        assert got["lm_head"].shape == (cfg_t.d_model, cfg_t.vocab_size)
+        if cfg_t.tie_embeddings:
+            assert "lm_head" not in got
+        else:
+            assert got["lm_head"].shape == (cfg_t.d_model, cfg_t.vocab_size)
     elif cfg_t.family == "hybrid":
         assert got["shared/mixer/wq"].shape == (cfg_t.d_model, cfg_t.n_heads, cfg_t.head_dim)
         assert got["phase0/slot0/mixer/conv_w"].shape == (
@@ -325,6 +333,26 @@ def test_ring_prefill_buffer_is_linear_in_ring_and_chunk(monkeypatch):
     monkeypatch.setattr(attention, "_masked_softmax_attend", spy)
     attention.gqa_prefill(p, x, cache, pos, cfg, window=size)
     assert seen == [((1, size + c, cfg.n_kv_heads, cfg.head_dim), (1, c, size + c))]
+
+
+def test_bf16_scaled_embedding_matches_reference_bitwise():
+    """gemma3's ``_embed`` in bf16: rows of the same transplanted table times
+    sqrt(d_model) rounded to bf16 first (50.5 at the full width, not
+    50.596), equal to the reference's to the bit; an unrounded factor
+    parts from it."""
+    cfg_j = jreg.get_smoke_config("gemma3_4b").replace(d_model=2560, dtype="bfloat16")
+    cfg_t = registry.get_smoke_config("gemma3_4b").replace(d_model=2560, dtype="bfloat16")
+    rng = np.random.default_rng(4)
+    table = rng.standard_normal((cfg_t.vocab_size, cfg_t.d_model), dtype=np.float32)
+    tokens = rng.integers(0, cfg_t.vocab_size, (B, S), dtype=np.int32)
+    want = jlm._embed({"embed": jnp.asarray(table)}, cfg_j, jnp.asarray(tokens))
+    params_t = transplant({"embed": table}, device="cpu", dtype=cfg_t.compute_dtype)
+    got = lm._embed(params_t, cfg_t, torch.from_numpy(tokens))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), np.asarray(want, np.float32))
+    unrounded = (params_t["embed"][torch.from_numpy(tokens).long()].float()
+                 * cfg_t.d_model ** 0.5).to(torch.bfloat16)
+    assert not torch.equal(got, unrounded)
 
 
 def test_kernel_switch_is_the_plain_path_on_cpu(models):

@@ -104,12 +104,13 @@ def test_cuda_entry_points_raise_without_a_card(no_cuda, entry):
 
 def test_registry_names_the_roadmap_item_for_unported_archs():
     assert registry.list_archs() == ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b",
-                                     "h2o_danube_3_4b", "minitron_4b"]
+                                     "h2o_danube_3_4b", "minitron_4b", "gemma3_4b"]
     assert registry.get_config("granite-3-8b").d_model == 4096
     assert registry.get_config("h2o-danube-3-4b").sliding_window == 4096
     assert registry.get_config("minitron_4b").mlp_act == "squared_relu"
     assert registry.get_config("zamba2-1.2b").n_layers == 38
     assert registry.get_config("xlstm_1_3b").n_heads == 4
+    assert registry.get_config("gemma3-4b").head_dim == 320
     for arch, item in registry.PENDING.items():
         assert arch not in registry.PORTED
         with pytest.raises(KeyError, match=f"ROADMAP.md queue 1 item {item.split()[0]}"):
@@ -146,7 +147,7 @@ def test_inference_service_sequential_strategies(predictor, strategy):
 
 
 @pytest.mark.parametrize("arch", ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b",
-                                  "h2o_danube_3_4b", "minitron_4b"])
+                                  "h2o_danube_3_4b", "minitron_4b", "gemma3_4b"])
 def test_serve_main_runs_the_smoke_config_on_cpu(capsys, arch):
     serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--requests", "2",
                 "--gen-tokens", "2"])
