@@ -73,8 +73,10 @@ Details (every case, ptxas register reports) go to
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -107,6 +109,14 @@ RING_CHUNK_BYTES = 2e9      # the most one ring chunk may add to peak memory
 # measured BatcherBackend
 KSERVE_PATH, KSERVE_REQUESTS, KSERVE_BATCH = "granite-3-8b serving", 32, 8
 GATEWAY_REQUESTS = 64
+# the gateway's second slice on the same measured backends: h2o's
+# BatcherBackend staged across a prefill pool (gcp) and a decode pool (ibm),
+# GATEWAY_REQUESTS Poisson requests in two classes (``_disagg_leg``); and
+# granite's Predictor on gcp with an ibm standby through a mid-run gcp
+# outage, three SLO classes of FAILOVER_MIX requests (batch, standard,
+# latency), with the telemetry plane attached, then a live migration
+# (``_failover_leg``)
+FAILOVER_MIX = (64, 24, 16)
 # gemma3's long leg on its serving weights: batch 1, a prompt of 2048, GEN
 # new tokens over a cache of 2048 + GEN rows (the local layers' rings hold
 # min(1024, that)); gated with the path's limits
@@ -759,7 +769,10 @@ def _serve_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> di
     kserve = None
     if label == KSERVE_PATH:
         kserve = _kserve_leg(pred, label, expected, card)
-        launches = {k: n + kserve["launches"][k] for k, n in launches.items()}
+        failover = _failover_leg(pred, label, expected, card)
+        launches = {k: n + kserve["launches"][k] + failover["launches"][k]
+                    for k, n in launches.items()}
+        kserve["failover_leg"] = failover
 
     with torch.inference_mode():
         batch = {"tokens": torch.as_tensor(prompts, device="cuda")}
@@ -987,6 +1000,218 @@ def _gateway_leg(be, label: str, card: str) -> dict:
     return {"requests": GATEWAY_REQUESTS, "rate_rps": 1 / svc1, "summary": s}
 
 
+def _leg_launches(label: str, launches: dict, expected: tuple) -> None:
+    """A gateway leg over an already measured backend launches nothing, or,
+    where it measures a batch size the path has not run yet, exactly the
+    path's set."""
+    if any(launches.values()):
+        _expect(label, launches, expected)
+
+
+def _disagg_leg(be, label: str, expected: tuple, card: str) -> dict:
+    """The measured ``BatcherBackend`` staged across two pools: prefill on
+    gcp, decode on ibm (``DisaggSpec`` with the backend's own prompt and
+    generation lengths, a KV budget that holds every request at once), one
+    warm replica each, GATEWAY_REQUESTS Poisson arrivals at one per
+    service_time(1), half standard and half latency class.  Gated: every
+    request served exactly once by a decode batch after its prefill batch,
+    the ``gateway:prefill`` events' sizes sum to the served count, no KV
+    block leaked, every event name registered, and no latency below the
+    least network path plus the smaller measured phase time."""
+    import torch
+    from repro_torch.clouds.profiles import get_profile
+    from repro_torch.kernels import native
+    from repro_torch.serving.gateway import (AutoscalerConfig, DisaggSpec, Gateway,
+                                             TrafficSpec)
+    from repro_torch.telemetry.events import EventLog, unregistered
+
+    profs = {c: get_profile(c) for c in ("gcp", "ibm")}
+    spec = DisaggSpec(block_size=16, prompt_tokens=be.prompt_len, gen_tokens=be.gen_tokens,
+                      pool_kind={"gcp": "prefill", "ibm": "decode"})
+    spec = dataclasses.replace(spec, kv_blocks=GATEWAY_REQUESTS * spec.blocks_per_request)
+    native.reset_launches()
+    svc1 = be.service_time(1)
+    phases = {"prefill": be.prefill_time(be.prompt_len), "decode": be.decode_time(be.gen_tokens)}
+    gw = Gateway(log=EventLog(), record_batches=True)
+    gw.deploy(be.name, be, split={profs["gcp"]: 0.5, profs["ibm"]: 0.5},
+              max_batch=be.batcher.max_slots,
+              autoscaler=AutoscalerConfig(min_replicas=2, max_replicas=4), disagg=spec)
+    traffic = [TrafficSpec(be.name, GATEWAY_REQUESTS // 2, arrival="poisson",
+                           rate=0.5 / svc1, slo=c) for c in ("standard", "latency")]
+    out = gw.run(traffic, seed=0)
+    torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+    _leg_launches(f"{label} disagg leg", launches, expected)
+    res = out.per_model[be.name]
+    recs = [r for r in gw.batch_log if not r["preempted"]]
+    by_stage = {st: sorted(i for r in recs if r["stage"] == st for i in r["idx"])
+                for st in ("prefill", "decode")}
+    every = list(range(GATEWAY_REQUESTS))
+    if (by_stage["prefill"] != every or by_stage["decode"] != every or res.shed_total
+            or len(res.latencies_s) != GATEWAY_REQUESTS):
+        raise AssertionError(f"{label} disagg leg: prefilled {len(by_stage['prefill'])}, "
+                             f"decoded {len(by_stage['decode'])}, shed {res.shed_total}, "
+                             f"{len(res.latencies_s)} latencies of {GATEWAY_REQUESTS}")
+    if {r["cloud"] for r in recs if r["stage"] == "prefill"} != {"gcp"} or \
+            {r["cloud"] for r in recs if r["stage"] == "decode"} != {"ibm"}:
+        raise AssertionError(f"{label} disagg leg: a stage ran off its pool")
+    prefilled = sum(e["n"] for e in gw.log.named("gateway:prefill"))
+    if prefilled != GATEWAY_REQUESTS:
+        raise AssertionError(f"{label} disagg leg: gateway:prefill sizes sum to {prefilled}")
+    leaked = sum(gw.final_kv[be.name].values())
+    if leaked != 0:
+        raise AssertionError(f"{label} disagg leg: {leaked} KV blocks leaked {gw.final_kv}")
+    stray = unregistered(gw.log)
+    if stray:
+        raise AssertionError(f"{label} disagg leg: unregistered event names {stray}")
+    floor = min(p.network_rtt_s + p.lb_overhead_s for p in profs.values()) + min(phases.values())
+    if min(res.latencies_s) < floor - 1e-9:
+        raise AssertionError(f"{label} disagg leg: latency {min(res.latencies_s)} s below the "
+                             f"floor {floor} s (least RTT + LB + smaller phase time)")
+    pc = res.per_class()
+    s = res.summary()
+    print(f"{label} disagg leg, {GATEWAY_REQUESTS} Poisson requests at {1 / svc1:.3f} req/s, "
+          f"prefill on gcp and decode on ibm (prompt {be.prompt_len}, {be.gen_tokens} new "
+          f"tokens, {spec.kv_blocks} KV blocks of {spec.block_size}): estimates prefill chunk "
+          f"{be.prefill_time(be.batcher.prefill_chunk) * 1e3:.3f} ms, decode step "
+          f"{be.decode_time(1) * 1e3:.3f} ms; " + "; ".join(
+              f"{c} p50 {v['p50_s']} s p99 {v['p99_s']} s" for c, v in pc.items())
+          + f"; {len(gw.log.named('gateway:prefill'))} prefill batches, replicas_max "
+          f"{s['replicas_max']}; launches {launches}  [{card}]")
+    return {"requests": GATEWAY_REQUESTS, "rate_rps": 1 / svc1, "phase_s": phases,
+            "kv_blocks": spec.kv_blocks, "summary": s, "final_kv": gw.final_kv[be.name],
+            "prefill_batches": len(gw.log.named("gateway:prefill")), "launches": launches}
+
+
+def _failover_leg(pred, label: str, expected: tuple, card: str) -> dict:
+    """The card-measured Predictor on gcp with an ibm standby, in
+    ``slo_failover``'s shape: FAILOVER_MIX requests of the batch, standard
+    and latency classes (sized from the measured service_time(KSERVE_BATCH)),
+    an outage of gcp from 0.6 to 1.1 of the batch backlog's drain time,
+    admission control on, a tracer, a metrics registry, burn-rate alerts and
+    a scrape clock attached; then ``plan_placement`` / ``replan`` from the
+    observed run and a second run with the revised weights applied live by
+    a ``MigrationSpec``.  The pow2 batch sizes the gateway prices are
+    measured first, their launches counted.  Gated: every request served xor
+    shed exactly once and the batch class never shed; gcp's split weight 0
+    through the outage and back afterwards, no batch started on gcp while it
+    was down; every split summing to 1; a well-formed trace; the served and
+    shed counters equal to the offered count; burn-alert edges alternating;
+    the migration applied with every request of the second run served."""
+    import torch
+    from repro_torch.clouds.profiles import get_profile
+    from repro_torch.kernels import native
+    from repro_torch.serving.gateway import (AdmissionConfig, AutoscalerConfig, CloudCapacity,
+                                             FailureSpec, Gateway, MigrationSpec, ModelDemand,
+                                             TrafficSpec, plan_placement, replan)
+    from repro_torch.telemetry.analyze import validate_trace
+    from repro_torch.telemetry.events import EventLog, unregistered
+    from repro_torch.telemetry.metrics import MetricsRegistry
+    from repro_torch.telemetry.slo import BurnRateConfig
+    from repro_torch.telemetry.trace import Tracer
+
+    native.reset_launches()
+    sizes = [b for b in (1, 2, 4, 8, 16, 32) if b <= KSERVE_BATCH]
+    pred.warmup(sizes)
+    torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+    _leg_launches(f"{label} failover leg", launches, expected)
+    native.reset_launches()
+    gcp, ibm = get_profile("gcp"), get_profile("ibm")
+    t_b = pred.service_time(KSERVE_BATCH)
+    n_batch, n_std, n_lat = FAILOVER_MIX
+    drain = (n_batch / KSERVE_BATCH) * (gcp.network_rtt_s + t_b) / 2
+    guess = ModelDemand(pred.name, rate=n_std / drain, service_time_s=t_b / KSERVE_BATCH)
+    plan = plan_placement([guess], [CloudCapacity(gcp, 8, 1.0), CloudCapacity(ibm, 8, 1.4)],
+                          objective="p99")
+    tracer, reg = Tracer(), MetricsRegistry()
+    gw = Gateway(capacity=plan.capacity_map(), log=EventLog(), record_batches=True,
+                 admission=AdmissionConfig(), tracer=tracer, metrics=reg,
+                 slo_burn=BurnRateConfig(threshold=2.0, min_n=4), scrape_every_s=drain / 20)
+    gw.deploy(pred.name, pred, gcp, standby=ibm, max_batch=KSERVE_BATCH,
+              autoscaler=AutoscalerConfig(min_replicas=1, max_replicas=2, scale_up_delay_s=0.02,
+                                          idle_window_s=math.inf))
+    traffic = [TrafficSpec(pred.name, n_batch, slo="batch"),
+               TrafficSpec(pred.name, n_std, slo="standard", arrival="poisson",
+                           rate=n_std / drain),
+               TrafficSpec(pred.name, n_lat, slo="latency", arrival="poisson",
+                           rate=n_lat / (0.4 * drain))]
+    outage = FailureSpec("gcp", at_s=0.6 * drain, duration_s=0.5 * drain)
+    out = gw.run(traffic, seed=0, failures=[outage])
+    n = sum(FAILOVER_MIX)
+    res = out.per_model[pred.name]
+    served = [i for r in gw.batch_log if not r["preempted"] for i in r["idx"]]
+    shed = [e["idx"] for e in gw.log.named("gateway:shed")]
+    if sorted(served + shed) != list(range(n)) or len(res.latencies_s) != len(served):
+        raise AssertionError(f"{label} failover leg: {len(served)} served, {len(shed)} shed "
+                             f"of {n}, not each exactly once")
+    if res.class_shed.get("batch", 0) or len(res.class_latencies["batch"]) != n_batch:
+        raise AssertionError(f"{label} failover leg: batch class shed {res.class_shed}")
+    splits = gw.log.named("gateway:split")
+    edges = [(e["reason"], e["weights"]["gcp"]) for e in splits]
+    if ("fail", 0.0) not in edges or edges[-1] != ("recover", 1.0) or \
+            gw.final_weights[pred.name]["gcp"] != 1.0:
+        raise AssertionError(f"{label} failover leg: split edges {edges}, final "
+                             f"{gw.final_weights}")
+    down = (outage.at_s, outage.at_s + outage.duration_s)
+    on_dead = [r for r in gw.batch_log
+               if r["cloud"] == "gcp" and down[0] <= r["start_s"] < down[1]]
+    if on_dead:
+        raise AssertionError(f"{label} failover leg: {len(on_dead)} batches started on gcp "
+                             f"while it was down")
+    if any(abs(sum(e["weights"].values()) - 1.0) > 1e-9 for e in splits):
+        raise AssertionError(f"{label} failover leg: a split does not sum to 1: {splits}")
+    bad = validate_trace(tracer)
+    if bad or len(tracer.named("gateway.request")) != n:
+        raise AssertionError(f"{label} failover leg: trace violations {bad[:5]}")
+    counted = (reg.total("gateway_requests_total", model=pred.name, outcome="served"),
+               reg.total("gateway_requests_total", model=pred.name, outcome="shed"))
+    if counted != (len(served), len(shed)):
+        raise AssertionError(f"{label} failover leg: counters {counted}, want "
+                             f"{(len(served), len(shed))}")
+    alerts: dict = {}
+    for e in gw.log.named("gateway:alert"):
+        alerts.setdefault(e["cls"], []).append(e["state"])
+    for cls, states in alerts.items():
+        if any(s != ("firing" if i % 2 == 0 else "resolved") for i, s in enumerate(states)):
+            raise AssertionError(f"{label} failover leg: {cls} alert edges {states}")
+    revised = replan(plan, out)
+    target = dict(next(a for a in revised.assignments if a.model == pred.name).weights)
+    out2 = gw.run([TrafficSpec(pred.name, n_std, slo="standard", arrival="poisson",
+                               rate=n_std / drain)],
+                  seed=1, migrations=[MigrationSpec(0.3 * drain, {pred.name: target})])
+    res2 = out2.per_model[pred.name]
+    migrated = [e for e in gw.log.named("gateway:migrate") if e.get("reason") == "plan"]
+    if not migrated or len(res2.latencies_s) + res2.shed_total != n_std or \
+            any(abs(w - target.get(c, 0.0)) > 1e-9
+                for c, w in gw.final_weights[pred.name].items()):
+        raise AssertionError(f"{label} failover leg: migration to {target} gave "
+                             f"{gw.final_weights}, {len(res2.latencies_s)} served")
+    stray = unregistered(gw.log)
+    if stray:
+        raise AssertionError(f"{label} failover leg: unregistered event names {stray}")
+    torch.cuda.synchronize()
+    run_launches = dict(native.LAUNCHES)
+    _leg_launches(f"{label} failover leg runs", run_launches, expected)
+    launches = {k: v + run_launches[k] for k, v in launches.items()}
+    pc = res.per_class()
+    print(f"{label} failover leg, {n} requests ({n_batch} batch, {n_std} standard, {n_lat} "
+          f"latency; service_time({KSERVE_BATCH}) {t_b:.4f} s), gcp down "
+          f"{down[0]:.3f}-{down[1]:.3f} s: " + "; ".join(
+              f"{c} p50 {v['p50_s']} s p99 {v['p99_s']} s shed {v['shed']}"
+              for c, v in pc.items())
+          + f"; {gw.log.count('gateway:failover')} failover, "
+          f"{gw.log.count('gateway:recover')} recover, {gw.log.count('gateway:preempt')} "
+          f"preempt, {len(alerts)} alerting classes, {len(tracer.spans)} spans, "
+          f"{len(reg.scrapes)} scrapes; migration to {target}: {len(res2.latencies_s)} of "
+          f"{n_std} served, p99 {res2.summary()['p99_s']} s; launches {launches}  [{card}]")
+    return {"requests": n, "mix": FAILOVER_MIX, "drain_s": drain, "outage_s": down,
+            "service_time_s": {b: pred.service_time(b) for b in sizes},
+            "per_class": pc, "split_edges": edges, "shed": len(shed),
+            "migration_target": target, "migration_summary": res2.summary(),
+            "launches": launches}
+
+
 def _score_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> dict:
     """Score a batch through ``steps.loss_fn`` (the full-sequence forward
     with no cache, then the cross entropy), time the forward, hold the
@@ -1153,6 +1378,9 @@ def _batch_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> di
                    "step_ms": be.decode_time(1) * 1e3,
                    "service_time_1_s": be.service_time(1), "service_time_8_s": be.service_time(8)}
         gateway = _gateway_leg(be, label, card)
+        disagg = _disagg_leg(be, label, expected, card)
+        launches = {k: n + disagg["launches"][k] for k, n in launches.items()}
+        gateway["disagg_leg"] = disagg
         del be
     agree = sum(a == b for tk, tp in zip(toks_k, toks_p) for a, b in zip(tk, tp)) / n_tokens
     first_rel = _rel(first_k[0], first_p[0])

@@ -40,7 +40,8 @@ class InferenceService:
                  target_queue: int = 16, scale_up_delay_s: float = 0.5,
                  canary: Optional[Predictor] = None, canary_fraction: float = 0.0,
                  admission: Optional[AdmissionConfig] = None,
-                 log: Optional[EventLog] = None):
+                 log: Optional[EventLog] = None,
+                 tracer=None, metrics=None):
         if strategy not in STRATEGIES:
             raise ValueError(f"strategy {strategy!r}; known: {STRATEGIES}")
         self.predictor = predictor
@@ -57,6 +58,11 @@ class InferenceService:
         # requests shed at the gateway (kserve strategy only; the
         # sequential baselines admit everything by construction)
         self.log = log or EventLog()
+        self.tracer = tracer             # telemetry pass-through: the
+        self.metrics = metrics           # kserve-strategy gateway records
+        # request spans / metric series into these (observability plane,
+        # DESIGN.md S5); the sequential baselines have no event loop to
+        # instrument
 
     # -- the paper's stress test -------------------------------------------
     def stress_test(self, n_requests: int, seed: int = 0, *,
@@ -109,7 +115,8 @@ class InferenceService:
                                target_queue=self.target_queue,
                                scale_up_delay_s=self.scale_up_delay_s,
                                idle_window_s=math.inf, cold_scale_up=False)
-        gw = Gateway(log=self.log, admission=self.admission)
+        gw = Gateway(log=self.log, admission=self.admission,
+                     tracer=self.tracer, metrics=self.metrics)
         gw.deploy(self.predictor.name, self.predictor, self.profile,
                   autoscaler=cfg, max_batch=self.max_batch,
                   canary=self.canary, canary_fraction=self.canary_fraction)

@@ -7,11 +7,11 @@ reference's, and its own twins of the reference's gateway tests.
   seed; every result -- latencies, replica trace, per-version and per-class
   counts, simulated dollars, the batch log and the stripped event log -- is
   equal float for float.
-- Twins of tests/test_admission.py (the ``ReplanConfig`` cases wait for the
-  second slice), of tests/test_sim_engine.py (the ``ReplanConfig`` /
-  ``BurnRateConfig`` case waits too) and of tests/test_engine_equivalence.py
+- Twins of tests/test_admission.py and tests/test_sim_engine.py (their
+  ``ReplanConfig`` / ``BurnRateConfig`` cases are in
+  tests/test_torch_gateway_plane.py) and of tests/test_engine_equivalence.py
   (scalar == vector on the port).
-- Arguments of the second slice (ROADMAP.md queue 1 item 1.3) raise.
+- An argument neither package knows is a TypeError.
 - A ``BatcherBackend`` over the h2o_danube smoke batcher, on the CPU, behind
   the port's Gateway.
 """
@@ -34,7 +34,7 @@ from repro_torch.serving.gateway import (SLO_CLASSES, AdmissionConfig,  # noqa: 
                                          AutoscalerConfig, BatcherBackend,
                                          Gateway, RoutingConfig, ServeResult,
                                          SLOClass, TrafficSpec)
-from repro_torch.serving.gateway.router import SECOND_SLICE, _apportion  # noqa: E402
+from repro_torch.serving.gateway.router import _apportion  # noqa: E402
 from repro_torch.serving.kserve import InferenceService as PortService  # noqa: E402
 from repro_torch.sim import EventHeap, IndexQueue, Ledger  # noqa: E402
 from repro_torch.telemetry.events import EventLog  # noqa: E402
@@ -672,24 +672,7 @@ def test_unknown_engine_rejected():
         gw.run([TrafficSpec("m", 4)], engine="turbo")
 
 
-# -- arguments of the second slice ----------------------------------------------
-
-@pytest.mark.parametrize("call,arg", [(c, a) for c, args in SECOND_SLICE.items() for a in args])
-def test_second_slice_arguments_raise(call, arg):
-    """Each argument the port takes only with the second slice raises,
-    naming itself and the ROADMAP item; none is silently ignored."""
-    kw = {arg: object()}
-    with pytest.raises(NotImplementedError,
-                       match=rf"{arg}=.*ROADMAP.md queue 1 item 1.3, second slice"):
-        if call == "Gateway":
-            Gateway(**kw)
-        elif call == "deploy":
-            Gateway().deploy("m", AnalyticBackend("m"), get_profile("gcp"), **kw)
-        else:
-            gw = Gateway()
-            gw.deploy("m", AnalyticBackend("m"), get_profile("gcp"))
-            gw.run([TrafficSpec("m", 2)], **kw)
-
+# -- arguments ------------------------------------------------------------------
 
 def test_unknown_argument_is_a_type_error():
     with pytest.raises(TypeError, match="colour"):

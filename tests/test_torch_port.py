@@ -12,7 +12,7 @@ import numpy as np  # noqa: E402
 
 from repro_torch.clouds.profiles import get_profile  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.examples import continuous_batching  # noqa: E402
+from repro_torch.examples import continuous_batching, serve_llm, slo_failover  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models.transplant import transplant  # noqa: E402
@@ -164,3 +164,26 @@ def test_continuous_batching_example_runs_the_smoke_config_on_cpu(capsys):
     out = json.loads(capsys.readouterr().out)
     assert out == summary and out["oracle_ok"] and out["device"] == "cpu"
     assert out["tokens_generated"] == 16 and out["prefill_stats"]["chunks"] == 12
+
+
+def test_serve_llm_example_runs_the_smoke_config_on_cpu(capsys):
+    """The kserve canary leg, then the disaggregated leg over a measured
+    ContinuousBatcher (prefill on gcp, decode on ibm): every request served
+    or shed, no KV block leaked -- the example's own asserts, on the host."""
+    out = serve_llm.main(["--smoke", "--device", "cpu", "--requests", "12"])
+    assert json.loads(capsys.readouterr().out) == out and out["device"] == "cpu"
+    d = out["disagg_gateway"]
+    assert d["served"] + d["shed"] == 12 and d["kv_blocks_leaked"] == 0
+    assert d["prefill_batches"] > 0
+    assert sum(out["kserve_canary"]["per_version"].values()) == 12
+
+
+def test_slo_failover_example_runs_on_cpu(capsys):
+    """Plan, outage with a standby, replan, live migration and the admission
+    replay, each held to the example's own asserts, with the torch
+    predictor's service times measured on the host."""
+    out = slo_failover.main(["--device", "cpu"])
+    capsys.readouterr()
+    assert out["device"] == "cpu" and out["service_time_8_s"] > 0
+    assert out["failovers"] >= 1 and out["recovers"] >= 1 and out["migrates"] >= 1
+    assert sum(out["split_after_migration"].values()) == pytest.approx(1.0)
