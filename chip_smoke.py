@@ -63,7 +63,21 @@ Run from the root of a checkout.  It imports only the port
    tokens (equal to the non-batched path's for every request, and to the
    teacher-forced batcher's for the short prompts) and the memory one
    256-row prefill chunk adds on a wrapped ring (< 2 GB);
-4. prints the kernels' JSON line and, last, the device line.
+4. runs the paper's own workload, MNIST train-to-serve (``_mnist_leg``):
+   LeNet at the reference trainer's width 16, batches of 64, fp32, through
+   the ``e2e_train_to_serve`` example's recurring pipeline on the port's
+   orchestrator (Katib, ``SupervisedTrainJob`` for 200 steps on 2048
+   images, per-cloud Model-CI profiles of the trained model's Predictor, a
+   profile-planned split deploy, 512 Poisson requests through the gateway,
+   one tracer and one capacity market under both planes), gated by the
+   example's own asserts; then the trained model's losses and holdout
+   accuracy, the card against the port's CPU path on one init (logits,
+   gradients, the losses of 10 training steps), a checkpoint round trip on
+   the card, the paper's Table 3 on its own model (128 requests in a burst
+   under baremetal, k8s and kserve) and a trace of one training step and
+   one predict.  No port kernel is on this path: the leg's launch set is
+   empty, and the kernels' line adds nothing for it;
+5. prints the kernels' JSON line and, last, the device line.
 
 Any failure raises, and the script exits non-zero without the last line.
 The build prints each kernel instantiation's registers and spills (ptxas).
@@ -117,6 +131,19 @@ GATEWAY_REQUESTS = 64
 # latency), with the telemetry plane attached, then a live migration
 # (``_failover_leg``)
 FAILOVER_MIX = (64, 24, 16)
+# the paper's own MNIST workload (``_mnist_leg``): LeNet at the reference
+# trainer's full width, trained and served through the port's orchestrator
+# in the ``e2e_train_to_serve`` example's shape, then the paper's Table 3 on
+# its own model; the card held to the port's CPU path at these rel limits
+MNIST_WIDTH, MNIST_BATCH, MNIST_LR, MNIST_STEPS = 16, 64, 2e-3, 200
+MNIST_TRAIN, MNIST_HOLDOUT = 2048, 512
+MNIST_TABLE3_REQUESTS, MNIST_TABLE3_BATCH = 128, 32
+# (logits at the init, the first step's gradients per leaf, each loss of
+# ten steps).  After ten steps the parameters are reported, not gated: a
+# pre-activation within rounding of zero is zero past the ReLU on one
+# device and tiny on the other, and AdamW's normalised step turns that tiny
+# gradient into a full ``lr`` step (PERF.md §6)
+MNIST_LIMITS = {"logits": 1e-5, "grads": 1e-4, "losses_10_steps": 1e-3}
 # gemma3's long leg on its serving weights: batch 1, a prompt of 2048, GEN
 # new tokens over a cache of 2048 + GEN rows (the local layers' rings hold
 # min(1024, that)); gated with the path's limits
@@ -615,8 +642,12 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # -- the MNIST train-to-serve leg: no port kernel on its path ----------
+    report["mnist_leg"] = _mnist_leg(card)
+
     # -- phase 4: report -----------------------------------------------------
-    totals = {n: sum(r["launches_run"][n] for r in report["paths"].values()) for n in META}
+    totals = {n: sum(r["launches_run"][n] for r in report["paths"].values())
+              + report["mnist_leg"]["launches"][n] for n in META}
     kernels = []
     for n, (route, src, rep, label, _) in META.items():
         r = path[label][n]
@@ -1439,6 +1470,193 @@ def _batch_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> di
             "bf16_vs_fp32_token_agreement": agree32, "first_step_rel": first_rel,
             "ring_chunk_peak_rise_bytes": chunk_rise, "backend": backend, "gateway_leg": gateway,
             "recorded": recorded, "launches_run": launches, "launches_per": {"run": launches}}
+
+
+def _mnist_leg(card: str) -> dict:
+    """The paper's MNIST train-to-serve workload through the port's own
+    entry points, LeNet at full width (MNIST_WIDTH, batches of MNIST_BATCH,
+    fp32), launch counts zeroed before it and read after (no port kernel is
+    on this path, so none may launch):
+
+    - ``e2e_train_to_serve.train_to_serve`` on MNIST_TRAIN images: Katib
+      (random, 3 trials x 10 steps, lr around quickstart's MNIST_LR) ->
+      ``SupervisedTrainJob`` (MNIST_STEPS steps) -> per-cloud profiles of the
+      trained model's Predictor -> a profile-planned split deploy, run twice
+      as a recurring pipeline over one tracer, metrics registry and capacity
+      market, then 512 Poisson requests at half the fleet ceiling; gated
+      by the example's own ``check``;
+    - the trained model: every reported loss finite, the last below the
+      first, holdout accuracy > 0.5;
+    - the card against the port's CPU path on one init (a CPU generator)
+      and the same batches: logits, the first step's gradients and the
+      losses of 10 training steps at MNIST_LIMITS (the parameters and the
+      holdout logits after them reported);
+    - a checkpoint round trip on the card: bit-equal logits, equal
+      ``tree_hash``, every stored leaf fp32 numpy;
+    - the paper's Table 3 on its own model: the trained LeNet's Predictor
+      under baremetal, k8s and kserve (MNIST_TABLE3_REQUESTS in a burst,
+      batches of up to MNIST_TABLE3_BATCH, 4 replicas), gated as
+      ``_kserve_leg`` gates granite's;
+    - one training step and one predict at MNIST_TABLE3_BATCH traced."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.store import ArtifactStore, tree_hash
+    from repro_torch.clouds.profiles import get_profile
+    from repro_torch.core.trainjob import train_step
+    from repro_torch.data.mnist import Batches, make_dataset
+    from repro_torch.examples.e2e_train_to_serve import check, lenet_predictor, train_to_serve
+    from repro_torch.kernels import native
+    from repro_torch.launch.profile import trace
+    from repro_torch.models import lenet
+    from repro_torch.optim import adamw
+    from repro_torch.serving.kserve import InferenceService
+
+    label = "mnist train-to-serve"
+    imgs, labels = make_dataset(MNIST_TRAIN, seed=0)
+    h_imgs, h_labels = make_dataset(MNIST_HOLDOUT, seed=7)
+    native.reset_launches()
+    t0 = time.perf_counter()
+    out = train_to_serve(imgs, labels, device="cuda", width=MNIST_WIDTH,
+                         lr_space=(MNIST_LR / 2, MNIST_LR * 2), tune_steps=10,
+                         train_steps=MNIST_STEPS)
+    orchestrated = check(out)
+    leg_s = time.perf_counter() - t0
+    trained = out["trained"]
+    params = trained["params"]
+    losses = trained["reported"]
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{label}: reported losses {losses} not finite and falling")
+    with torch.inference_mode():
+        pred = torch.argmax(lenet.apply(params, h_imgs), -1).cpu().numpy()
+    holdout = float((pred == h_labels).mean())
+    if not holdout > 0.5:
+        raise AssertionError(f"{label}: holdout accuracy {holdout} (gate > 0.5)")
+    wall = trained["wall_s"]
+    print(f"{label}: recurring pipeline x2 and {out['requests']} Poisson requests in "
+          f"{leg_s:.2f} s; trained lr {trained['lr']:.5f}, {MNIST_STEPS} steps in {wall:.3f} s "
+          f"({MNIST_STEPS / wall:.1f} steps/s, {MNIST_STEPS * MNIST_BATCH / wall:.0f} images/s), "
+          f"losses {[round(v, 4) for v in losses]}, holdout accuracy {holdout:.4f} on "
+          f"{MNIST_HOLDOUT}; deploy {orchestrated['deploy']}, planned from "
+          f"{orchestrated['planned_from']['cloud']} at "
+          f"{orchestrated['planned_from']['service_time_s'] * 1e6:.2f} us/request; stress p50 "
+          f"{orchestrated['stress']['p50_s']:.6f} s p99 {orchestrated['stress']['p99_s']:.6f} s; "
+          f"{orchestrated['leases']} leases, {orchestrated['preempts']} preempts  [{card}]")
+
+    # the card against the port's CPU path, one init, the same batches
+    init = {d: lenet.init_params(torch.Generator().manual_seed(0), width=MNIST_WIDTH, device=d)
+            for d in ("cpu", "cuda")}
+    rel = {"logits": _rel(lenet.apply(init["cuda"], imgs[:MNIST_BATCH]),
+                          lenet.apply(init["cpu"], imgs[:MNIST_BATCH]).cuda())}
+    grads = {}
+    for d, p in init.items():
+        leaves = adamw.tree_map(lambda t: t.requires_grad_(), p)
+        loss, _ = lenet.loss_fn(leaves, {"image": imgs[:MNIST_BATCH],
+                                         "label": labels[:MNIST_BATCH]})
+        grads[d] = torch.autograd.grad(loss, adamw.tree_leaves(leaves))
+    rel["grads"] = max(_rel(g, c.cuda()) for g, c in zip(grads["cuda"], grads["cpu"]))
+    cfg = adamw.AdamWConfig(lr=MNIST_LR, weight_decay=1e-4)
+    opt = {d: adamw.init_opt_state(p) for d, p in init.items()}
+    steps_rel = []
+    for i, b in enumerate(Batches(imgs, labels, MNIST_BATCH)):
+        if i == 10:
+            break
+        step_loss = {}
+        for d in init:
+            bt = {k: torch.as_tensor(v, device=d) for k, v in b.items()}
+            init[d], opt[d], m = train_step(init[d], opt[d], bt, cfg)
+            step_loss[d] = float(m["loss"])
+        steps_rel.append(abs(step_loss["cuda"] - step_loss["cpu"]) / abs(step_loss["cpu"]))
+    rel["losses_10_steps"] = max(steps_rel)
+    with torch.inference_mode():
+        after = {d: lenet.apply(init[d], h_imgs).cpu() for d in init}
+    rel["holdout_logits_after_10"] = _rel(after["cuda"], after["cpu"])
+    argmax_agree = float((after["cuda"].argmax(-1) == after["cpu"].argmax(-1)).float().mean())
+    params_rel = {f"{k}/{n}": _rel(init["cuda"][k][n], init["cpu"][k][n].cuda())
+                  for k in sorted(init["cpu"]) for n in sorted(init["cpu"][k])}
+    over = {k: rel[k] for k, lim in MNIST_LIMITS.items() if rel[k] > lim}
+    if over:
+        raise AssertionError(f"{label}: card vs CPU rel {over} over {MNIST_LIMITS}")
+    print(f"{label}, card vs the port's CPU path (fp32, TF32 off): rel logits {rel['logits']:.3g} "
+          f"(limit {MNIST_LIMITS['logits']}), first-step gradients {rel['grads']:.3g} (limit "
+          f"{MNIST_LIMITS['grads']}), losses of 10 steps "
+          f"{[float(f'{r:.3g}') for r in steps_rel]} (limit {MNIST_LIMITS['losses_10_steps']}); "
+          f"after them, reported: holdout logits {rel['holdout_logits_after_10']:.3g} (argmax "
+          f"agrees on {argmax_agree:.4f}), parameters per leaf "
+          + ", ".join(f"{k} {v:.3g}" for k, v in params_rel.items()) + f"  [{card}]")
+    rel.update(steps=steps_rel, argmax_agree_after_10=argmax_agree, params_after_10=params_rel)
+
+    # checkpoint round trip on the card
+    store = ArtifactStore(str(ROOT / "experiments" / "chip_smoke_mnist"))
+    store.save_tree("lenet", params)
+    restored = store.load_tree("lenet", adamw.tree_map(torch.zeros_like, params))
+    with np.load(ROOT / "experiments" / "chip_smoke_mnist" / "lenet.npz") as z:
+        dtypes = {z[k].dtype for k in z.files}
+    with torch.inference_mode():
+        same = torch.equal(lenet.apply(restored, h_imgs), lenet.apply(params, h_imgs))
+    if not same or tree_hash(restored) != tree_hash(params) or dtypes != {np.dtype(np.float32)} \
+            or any(t.device.type != "cuda" for t in adamw.tree_leaves(restored)):
+        raise AssertionError(f"{label}: checkpoint round trip: logits equal {same}, stored "
+                             f"dtypes {dtypes}")
+
+    # the paper's Table 3 on its own model
+    lp = lenet_predictor(params, h_imgs[:1], "cuda", warm=(1, 8, 16, MNIST_TABLE3_BATCH))
+    res = {strat: InferenceService(lp, get_profile(prof), strat, max_batch=MNIST_TABLE3_BATCH,
+                                   max_replicas=4).stress_test(MNIST_TABLE3_REQUESTS)
+           for strat, prof in (("baremetal", "baremetal"), ("k8s", "k8s"), ("kserve", "gcp"))}
+    svc = {b: lp.service_time(b) for b in (1, MNIST_TABLE3_BATCH)}
+    for strat, r in res.items():
+        if len(r.latencies_s) != MNIST_TABLE3_REQUESTS:
+            raise AssertionError(f"{label} {strat}: {len(r.latencies_s)} of "
+                                 f"{MNIST_TABLE3_REQUESTS} requests served")
+        prof = get_profile("gcp" if strat == "kserve" else strat)
+        _latency_floor(f"{label} {strat}", r, prof, min(svc.values()))
+    if sum(res["kserve"].per_version.values()) != MNIST_TABLE3_REQUESTS:
+        raise AssertionError(f"{label} kserve: per-version counts {res['kserve'].per_version}")
+    totals = {strat: r.total_time_s for strat, r in res.items()}
+    if not totals["baremetal"] > totals["k8s"] > totals["kserve"]:
+        raise AssertionError(f"{label}: total times {totals}, not baremetal > k8s > kserve")
+    ks = res["kserve"].summary()
+    print(f"{label} Table 3, {MNIST_TABLE3_REQUESTS} requests in a burst: total baremetal "
+          f"{totals['baremetal']:.4f} s, k8s {totals['k8s']:.4f} s, kserve "
+          f"{totals['kserve']:.4f} s (k8s / kserve {totals['k8s'] / totals['kserve']:.2f}); "
+          f"kserve p50 {ks['p50_s']} s, p99 {ks['p99_s']} s, replicas_max {ks['replicas_max']}; "
+          f"service_time(1) {svc[1] * 1e3:.4f} ms, service_time({MNIST_TABLE3_BATCH}) "
+          f"{svc[MNIST_TABLE3_BATCH] * 1e3:.4f} ms  [{card}]")
+
+    # one training step and one predict, traced
+    batch = {"image": torch.as_tensor(imgs[:MNIST_BATCH], device="cuda"),
+             "label": torch.as_tensor(labels[:MNIST_BATCH], device="cuda")}
+    opt = adamw.init_opt_state(params)
+
+    def one_step():
+        train_step(params, opt, batch, cfg)
+
+    x32 = h_imgs[:MNIST_TABLE3_BATCH]
+    for _ in range(2):
+        one_step()
+        lp.predict(x32)
+    traced = {"train_step": trace(one_step, ROOT / "chiprun_out" / "profile", "mnist_train_step"),
+              "predict_32": trace(lambda: lp.predict(x32), ROOT / "chiprun_out" / "profile",
+                                  "mnist_predict_32")}
+    torch.cuda.synchronize()
+    launches = dict(native.LAUNCHES)
+    _expect(label, launches, ())
+    for k, t in traced.items():
+        print(f"{label} trace, {k}: host {t['wall_ms']:.3f} ms, device busy "
+              f"{t['device_busy_ms']:.4f} ms in a span of {t['device_span_ms']:.4f} ms (idle "
+              f"{t['idle_share_of_span']:.3f}), {t['kernels']} kernels; by group "
+              + ", ".join(f"{g} {v['ms']:.4f} ms x{v['n']}" for g, v in t["by_group_ms"].items())
+              + f"  [{card}]")
+    total_s = time.perf_counter() - t0
+    print(f"{label}: the whole leg {total_s:.2f} s; launches {launches}  [{card}]")
+    return {"leg_s": leg_s, "total_s": total_s, "train": {"lr": trained["lr"], "steps": MNIST_STEPS,
+                                      "wall_s": wall, "steps_per_s": MNIST_STEPS / wall,
+                                      "images_per_s": MNIST_STEPS * MNIST_BATCH / wall,
+                                      "reported_losses": losses, "holdout_accuracy": holdout},
+            "orchestrated": orchestrated, "card_vs_cpu_rel": rel,
+            "table3": {"totals_s": totals, "service_time_s": svc,
+                       "summaries": {s: r.summary() for s, r in res.items()}},
+            "trace": traced, "launches": launches}
 
 
 def _leaves(tree: dict):

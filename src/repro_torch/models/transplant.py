@@ -36,3 +36,14 @@ def transplant(tree: Mapping[str, Any], *, device="cuda",
 
     return {k: (transplant(v, device=dev, dtype=dtype) if isinstance(v, Mapping)
                 else leaf(v)) for k, v in tree.items()}
+
+
+def transplant_lenet(tree: Mapping[str, Any], *, device="cuda") -> dict:
+    """The reference's LeNet tree (numpy leaves) -> the port's: conv ``w``
+    goes from HWIO to OIHW (``permute(3, 2, 0, 1)``); every other leaf,
+    ``fc*.w`` included, keeps its layout and key path (``models/lenet.py``
+    flattens in the reference's NHWC order)."""
+    out = transplant(tree, device=device)
+    for name in ("conv1", "conv2"):
+        out[name]["w"] = out[name]["w"].permute(3, 2, 0, 1).contiguous()
+    return out

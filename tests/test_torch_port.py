@@ -12,10 +12,15 @@ import numpy as np  # noqa: E402
 
 from repro_torch.clouds.profiles import get_profile  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
-from repro_torch.examples import continuous_batching, serve_llm, slo_failover  # noqa: E402
+from repro_torch.core.trainjob import LMTrainJob, SupervisedTrainJob  # noqa: E402
+from repro_torch.data.mnist import Batches, make_dataset  # noqa: E402
+from repro_torch.examples import (continuous_batching, e2e_mnist_pipeline,  # noqa: E402
+                                  e2e_train_to_serve, multi_model_serving, quickstart,
+                                  serve_llm, slo_failover)
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import lm  # noqa: E402
-from repro_torch.models.transplant import transplant  # noqa: E402
+from repro_torch.models import lenet, lm  # noqa: E402
+from repro_torch.modelci.profile import roofline_fields  # noqa: E402
+from repro_torch.models.transplant import transplant, transplant_lenet  # noqa: E402
 from repro_torch.serving.continuous import ContinuousBatcher  # noqa: E402
 from repro_torch.serving.kserve import InferenceService  # noqa: E402
 
@@ -94,12 +99,33 @@ def no_cuda():
     lambda cfg: serve.main(["--arch", "granite_3_8b", "--smoke", "--requests", "1"]),
     lambda cfg: ContinuousBatcher(cfg, lm.init_params(cfg)),
     lambda cfg: continuous_batching.main(["--smoke"]),
+    lambda cfg: lenet.init_params(torch.Generator(), device="cuda"),
+    lambda cfg: transplant_lenet({"conv1": {"w": np.zeros((5, 5, 1, 2), np.float32)}},
+                                 device="cuda"),
+    lambda cfg: SupervisedTrainJob(n_steps=1).run(Batches(*make_dataset(4), 4)),
+    lambda cfg: quickstart.main([]),
+    lambda cfg: e2e_mnist_pipeline.main([]),
+    lambda cfg: e2e_train_to_serve.main([]),
+    lambda cfg: multi_model_serving.main([]),
 ], ids=["init_params", "init_cache", "make_lm_predictor", "transplant", "serve_main",
-        "continuous_batcher", "continuous_batching_example"])
+        "continuous_batcher", "continuous_batching_example", "lenet_init_params",
+        "transplant_lenet", "supervised_trainjob", "quickstart_example",
+        "e2e_mnist_pipeline_example", "e2e_train_to_serve_example",
+        "multi_model_serving_example"])
 def test_cuda_entry_points_raise_without_a_card(no_cuda, entry):
     """No silent CPU fallback: asking for the card where there is none raises."""
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         entry(registry.get_smoke_config("granite_3_8b"))
+
+
+@pytest.mark.parametrize("entry,item", [
+    (lambda: LMTrainJob(registry.get_smoke_config("granite_3_8b"), batch_size=1, seq_len=8,
+                        n_steps=1), "1.5"),
+    (lambda: roofline_fields(registry.get_config("gemma3_4b")), "1.10"),
+], ids=["lm_trainjob", "roofline_fields"])
+def test_unported_entry_points_name_their_roadmap_item(entry, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 item {item}"):
+        entry()
 
 
 def test_registry_names_the_roadmap_item_for_unported_archs():
@@ -187,3 +213,55 @@ def test_slo_failover_example_runs_on_cpu(capsys):
     assert out["device"] == "cpu" and out["service_time_8_s"] > 0
     assert out["failovers"] >= 1 and out["recovers"] >= 1 and out["migrates"] >= 1
     assert sum(out["split_after_migration"].values()) == pytest.approx(1.0)
+
+
+# -- the MNIST train-to-serve example twins, on the host -----------------------
+
+@pytest.fixture
+def one_torch_thread():
+    """LeNet's convs are tiny: one intra-op thread runs them as fast as
+    eight, and under a multi-process test run it keeps them from waiting on
+    threads the other workers hold."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
+def test_quickstart_example_runs_on_cpu(capsys, one_torch_thread):
+    """Load, train (40 steps, width 8) and evaluate through the serial
+    Pipeline: the holdout accuracy gate of the reference's example."""
+    out = quickstart.main(["--device", "cpu"])
+    assert "kind: Pipeline" in capsys.readouterr().out
+    assert out["device"] == "cpu" and out["holdout_accuracy"] > 0.5
+
+
+def test_e2e_mnist_pipeline_example_runs_on_cpu(capsys, one_torch_thread):
+    """Katib -> TFJob -> KServe on gcp and ibm, each cloud's 128-request
+    stress test served and its checkpoint and YAML spec written."""
+    out = e2e_mnist_pipeline.main(["--device", "cpu"])
+    capsys.readouterr()
+    for cloud in ("gcp", "ibm"):
+        assert out[cloud]["serving"]["n"] == 128 and out[cloud]["serving"]["strategy"] == "kserve"
+        assert set(out[cloud]["stages_s"]) == {"katib_tuning", "tfjob_training", "kserve_serving"}
+        assert Path(out[cloud]["pipeline_yaml"]).is_file()
+
+
+def test_e2e_train_to_serve_example_runs_on_cpu(capsys, one_torch_thread):
+    """The recurring tune -> train -> profile x2 -> deploy pipeline and the
+    512-request stress test, held to every assert of the reference
+    example's MNIST leg (``check``)."""
+    out = e2e_train_to_serve.main(["--device", "cpu"])
+    capsys.readouterr()
+    assert out["device"] == "cpu" and out["runs"][1]["cache_hits"] == 4
+    assert sum(out["deploy"]["weights"].values()) == pytest.approx(1.0)
+    assert out["preempts"] >= 1 and out["stress"]["requests"] == 512
+
+
+def test_multi_model_serving_example_runs_on_cpu(capsys, one_torch_thread):
+    """LeNet, the embedder (with a canary) and the smoke LLM behind one
+    gateway: two LLM cold starts, every request served."""
+    out = multi_model_serving.main(["--device", "cpu"])
+    capsys.readouterr()
+    assert out["cold_starts_llm"] >= 2
+    assert out["served"] == {"lenet": 200, "embed": 128, "llm": 8}
