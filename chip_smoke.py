@@ -77,7 +77,24 @@ Run from the root of a checkout.  It imports only the port
    under baremetal, k8s and kserve) and a trace of one training step and
    one predict.  No port kernel is on this path: the leg's launch set is
    empty, and the kernels' line adds nothing for it;
-5. prints the kernels' JSON line and, last, the device line.
+5. trains granite-3-8b at full width (``_lm_train_leg``; depth cut from 40
+   to TRAIN_LAYERS layers: training holds 16 bytes a parameter in fp32
+   plus a bf16 copy, 134 GB at 40 layers) through ``LMTrainJob.run``: bf16
+   compute on fp32 masters, ``use_kernels=True``, TRAIN_BATCH x TRAIN_SEQ
+   tokens from the port's ``lm_batches``, TRAIN_STEPS steps, a checkpoint
+   and a resume for 2 more.  Gated: the four kernels of the path (RMSNorm
+   and flash attention, forward and backward) launched and no other; every
+   kernel call of one recorded step, forward and backward, against its
+   twin; finite losses that fall (``examples/train_llm.py``'s assert); the
+   resumed run's first loss below a fresh job's; one step's loss and
+   global gradient norm, kernel path against plain path in bf16 (<=
+   TRAIN_LIMITS), and every gradient leaf in fp32 at 2 layers.  Phase 2
+   holds and times the two backward kernels (flash at granite's training
+   shape, at h2o's D 120 under a window that binds and in fp32; RMSNorm
+   at 4096 x 4096) against autograd of their twins, beside autograd
+   through SDPA and ``F.rms_norm``.  Steps/s, tokens/s, peak memory and a
+   trace of one step are reported;
+6. prints the kernels' JSON line and, last, the device line.
 
 Any failure raises, and the script exits non-zero without the last line.
 The build prints each kernel instantiation's registers and spills (ptxas).
@@ -105,6 +122,7 @@ HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 TOL = 2e-2                  # reference bf16 tolerance, tests/test_kernels.py:17-19
+BWD_FLOOR = 1e-6            # the backward kernels' absolute floor, of the twin's largest
 # the bf16 kernel path may drift from the fp32 plain run at most this many
 # times as far as the bf16 plain path does on the same weights and tokens
 DRIFT_RATIO = 1.5
@@ -148,6 +166,15 @@ MNIST_LIMITS = {"logits": 1e-5, "grads": 1e-4, "losses_10_steps": 1e-3}
 # new tokens over a cache of 2048 + GEN rows (the local layers' rings hold
 # min(1024, that)); gated with the path's limits
 LONG_LEG_PATH, LONG_LEG_PROMPT = "gemma3-4b serving", 2048
+# granite-3-8b training (``_lm_train_leg``): full width, depth cut to
+# TRAIN_LAYERS; the gates on one step, kernel path against plain path: loss
+# and global gradient norm in bf16, every gradient leaf in fp32 (2 layers).
+# An H100 read 6.4e-6 and 4.5e-5 (bf16) and 4.8e-6 (fp32): the limits sit
+# 200x and more above, far below a kernel fault phase 2 catches
+TRAIN_PATH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = \
+    "granite-3-8b training", 8, 4, 1024, 20
+TRAIN_LIMITS = {"bf16_loss": 2e-2, "bf16_grad_norm": 2e-2, "fp32_grad_leaf": 1e-3}
+TRAIN_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd")
 # (label, arch, run, the kernels that run must launch (no other may launch),
 # limits on the logits' rel error of kernel path vs plain path in bf16 and
 # with the weights in fp32; None reports without gating).  The fp32 limits
@@ -172,9 +199,12 @@ PATHS = (
     ("xlstm-1.3b scoring", "xlstm_1_3b", "score", ("rmsnorm", "mlstm_scan"), None, None),
 )
 # kernel -> (route, source, TPU kernel it replaces, path whose shapes its
-# entry in the kernels line reports, its wrapper's name in ``ops``).  The
-# ``ops`` entry of the kernel's own name, with ``use_kernel=False``, is its
-# twin on the wrapper's arguments.
+# entry in the kernels line reports, its wrapper: a name in ``ops``, or
+# ``module.name`` in ``repro_torch.kernels`` for the backward kernels, which
+# their ``autograd.Function`` calls).  The ``ops`` entry of the kernel's own
+# name, with ``use_kernel=False``, is its twin on the wrapper's arguments.
+# The backward kernels replace no TPU kernel: the reference differentiates
+# its plain code (``jax.value_and_grad`` at repro/models/steps.py:44).
 META = {
     "rmsnorm": ("triton", "src/repro_torch/kernels/_rmsnorm_triton.py",
                 "src/repro/kernels/rmsnorm.py:36", "granite-3-8b serving", "_rmsnorm_kernel"),
@@ -188,6 +218,11 @@ META = {
                  "src/repro/kernels/ssm_scan.py:79", "zamba2-1.2b serving", "_ssm_kernel"),
     "mlstm_scan": ("cuda", "src/repro_torch/kernels/csrc/mlstm_scan.cu",
                    "src/repro/kernels/mlstm_scan.py:77", "xlstm-1.3b scoring", "_mlstm_kernel"),
+    "flash_attention_bwd": ("cuda", "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "src/repro/models/steps.py:44", TRAIN_PATH,
+                            "flash_attention.flash_attention_bwd"),
+    "rmsnorm_bwd": ("triton", "src/repro_torch/kernels/_rmsnorm_triton.py",
+                    "src/repro/models/steps.py:44", TRAIN_PATH, "rmsnorm.rmsnorm_bwd"),
 }
 
 
@@ -205,37 +240,44 @@ def _cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters: int) -> tuple[float, str, float | None, list]:
+def _device_ms(fn, iters: int, capturable: bool = True) -> tuple[float, str, float | None, list]:
     """Mean device time per call of ``fn``: the durations of the device
     activity (kernels, copies) a ``torch.profiler`` trace of ``iters`` calls
     records, summed, so host issue gaps between launches do not count.
     The median of three such traces: a trace that drops events reads low
-    (seen on the H100).  Where the profiler records
-    no device activity, the CUDA-event time of a CUDA graph that replays
-    the calls.  Returns (ms, which of the two, device activities per call
-    in the median trace, None from a graph, the names of the device
-    activities in that trace, longest first; empty from a graph)."""
+    (seen on the H100); a trace with no device activity at all (seen on an
+    autograd backward) is taken again, up to six traces.  Where none
+    records device activity, the CUDA-event time of a CUDA graph that
+    replays the calls, or, for a function that cannot be captured
+    (``capturable`` False: autograd's backward runs on its own thread),
+    of the calls themselves.  Returns (ms, which of the three, device
+    activities per call in the median trace, None otherwise, the names of
+    the device activities in that trace, longest first; empty otherwise)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     readings = []
-    for _ in range(3):
+    for _ in range(6):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         device = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         if not device:
-            break
+            continue
         by_name: dict = {}
         for e in device:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
         readings.append((sum(by_name.values()) / 1e3 / iters, len(device) / iters,
                          sorted(by_name, key=by_name.get, reverse=True)))
+        if len(readings) == 3:
+            break
     if readings:
         ms, per_call, names = sorted(readings, key=lambda r: r[0])[len(readings) // 2]
         return ms, "profiler", per_call, names
+    if not capturable:
+        return _cuda_ms(fn, iters), "cuda events", None, []
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -258,12 +300,16 @@ def _sdpa_backend(names: list) -> str:
     return "math (plain products and softmax)"
 
 
-def _check(name: str, got, want) -> tuple[float, float]:
+def _check(name: str, got, want, floor: float = 0.0) -> tuple[float, float]:
     """|kernel - twin| <= TOL |twin| + TOL rms(twin's row), the row being the
     last axis: the reference's bf16 tolerance with its absolute term scaled
     to the row, since attention over L keys gives outputs of size ~L**-0.5.
-    Returns the max abs error and the largest share of its allowance any
-    element used (1 fails)."""
+    ``floor`` (the backward kernels' cases: BWD_FLOOR) puts the absolute
+    term at least at that share of the twin's largest value: a gradient row
+    can be zero in the twin (the first query of a causal row sees one key,
+    so its dq is exactly zero) while the kernel's sums in another order
+    leave fp32 noise there.  Returns the max abs error and the largest share
+    of its allowance any element used (1 fails)."""
     import torch
     torch.cuda.synchronize()
     g, w = got.float(), want.float()
@@ -271,12 +317,17 @@ def _check(name: str, got, want) -> tuple[float, float]:
         raise AssertionError(f"{name}: shape {tuple(g.shape)} vs {tuple(w.shape)} or non-finite")
     err = (g - w).abs()
     row = w.square().mean(dim=-1, keepdim=True).sqrt()
+    if floor:
+        row = torch.clamp(row, min=float(floor / TOL * w.abs().max()))
     allowed = (TOL * (w.abs() + row)).clamp_min(1e-12)
     share = float((err / allowed).max())
     if share > 1.0:
         bad = int((err > allowed).sum())
+        at = tuple(int(i) for i in torch.unravel_index(torch.argmax(err / allowed), err.shape))
         raise AssertionError(f"{name}: {bad} elements off by more than {TOL}(|twin| + "
-                             f"rms row) (max abs err {float(err.max())}, share {share:.3g})")
+                             f"rms row) (max abs err {float(err.max())}, share {share:.3g}; "
+                             f"worst at {at}: kernel {float(g[at])}, twin {float(w[at])}, "
+                             f"rms of the twin's row {float(row[at[:-1]])})")
     return float(err.max()), share
 
 
@@ -326,6 +377,71 @@ def _flash_case(b: int, sq: int, skv: int, hq: int, hkv: int, d: int, gen, windo
                                                        enable_gqa=True),
         nbytes=2 * (2 * b * sq * hq * d + 2 * b * skv * hkv * d),
         flops=4 * d * b * hq * visible, peak=BF16_FLOPS)
+
+
+def _flash_bwd_case(b: int, s: int, hq: int, hkv: int, d: int, gen, window: int = 0,
+                    dtype=None):
+    """The backward kernel alone on the LSE forward's log-sum-exp, against
+    the twin's gradient (autograd in fp32); the library call is the backward
+    of SDPA (autograd of one forward, kept).  The bound counts the five
+    S x S x D products over the visible pairs, and each of q, k, v, dO, lse
+    read once and dq, dk, dv written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    dtype = dtype or torch.bfloat16
+    q = torch.randn(b, s, hq, d, device="cuda", generator=gen).to(dtype)
+    k, v = (torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(dtype) for _ in range(2))
+    do = torch.randn(b, s, hq, d, device="cuda", generator=gen).to(dtype)
+    _, lse = fa._forward(q, k, v, True, window, d ** -0.5, 0, True)
+    pos = torch.arange(s, device="cuda")
+    mask = pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[None, :] > pos[:, None] - window
+    visible = int(mask.sum())
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    o_lib = (F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+             if window else F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                          enable_gqa=True))
+    do_t = do.transpose(1, 2)
+    kw = dict(causal=True, window=window)
+    size = 2 if dtype == torch.bfloat16 else 4
+    return dict(
+        shape=f"q ({b},{s},{hq},{d}) kv {hkv} causal" + (f" window {window}" if window else "")
+              + (" bf16" if size == 2 else " fp32"),
+        kernel=lambda: ops.flash_attention_bwd(q, k, v, do, lse, use_kernel=True, **kw),
+        twin=lambda: ref.flash_attention_bwd_ref(q, k, v, do, **kw),
+        library=lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t, retain_graph=True),
+        capturable=False,
+        nbytes=size * (3 * b * s * hq * d + 4 * b * s * hkv * d) + 4 * b * hq * s,
+        flops=10 * d * b * hq * visible, peak=BF16_FLOPS if size == 2 else FP32_FLOPS,
+        floor=BWD_FLOOR)
+
+
+def _rmsnorm_bwd_case(rows: int, d: int, gen):
+    """The backward kernel on the forward kernel's rstd, against autograd of
+    the twin; the library call is the backward of ``F.rms_norm``.  Bytes:
+    x, g, scale and rstd read once, dx and dscale written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import rmsnorm as rn
+    x = torch.randn(rows, d, device="cuda", generator=gen).to(torch.bfloat16)
+    s = (torch.randn(d, device="cuda", generator=gen) * 0.1).to(torch.bfloat16)
+    g = torch.randn(rows, d, device="cuda", generator=gen).to(torch.bfloat16)
+    _, rstd = rn._forward(x, s, 1e-6, True)
+    xl = x.detach().requires_grad_()
+    wl = (1.0 + s.float()).to(torch.bfloat16).requires_grad_()
+    y_lib = F.rms_norm(xl, (d,), weight=wl, eps=1e-6)
+    return dict(
+        shape=f"x ({rows},{d}) bf16",
+        kernel=lambda: ops.rmsnorm_bwd(x, s, g, rstd, use_kernel=True),
+        twin=lambda: ref.rmsnorm_bwd_ref(x, s, g),
+        library=lambda: torch.autograd.grad(y_lib, (xl, wl), g, retain_graph=True),
+        capturable=False,
+        nbytes=2 * 3 * rows * d + 4 * rows + 2 * 2 * d,
+        flops=8 * rows * d, peak=FP32_FLOPS, floor=BWD_FLOOR)
 
 
 def _decode_case(lens: list, s: int, hq: int, hkv: int, d: int, gen):
@@ -398,13 +514,14 @@ def _run_case(name: str, case: dict, iters: int) -> dict:
     got, want = case["kernel"](), case["twin"]()
     if not isinstance(got, tuple):
         got, want = (got,), (want,)
-    checks = [_check(f"{name} output {i}", g, w) for i, (g, w) in enumerate(zip(got, want))]
+    checks = [_check(f"{name} output {i}", g, w, case.get("floor", 0.0))
+              for i, (g, w) in enumerate(zip(got, want))]
     bound, by = _bound_ms(case["nbytes"], case["flops"], case["peak"])
     lib = case["library"]
     device_ms, source, per_call, _ = _device_ms(case["kernel"], iters)
-    lib_dev = _device_ms(lib, iters) if lib is not None else None
+    lib_dev = _device_ms(lib, iters, case.get("capturable", True)) if lib is not None else None
     backend = None
-    if lib is not None and name in ("flash_attention", "decode_attention"):
+    if lib is not None and name in ("flash_attention", "decode_attention", "flash_attention_bwd"):
         backend = _sdpa_backend(lib_dev[3])
     return {"kernel": name, "shape": case["shape"], "device_kernels_per_call": per_call,
             "max_abs_err": max(e for e, _ in checks), "tol_share": max(t for _, t in checks),
@@ -577,6 +694,13 @@ def main() -> int:
                                           gm.n_kv_heads, gm.head_dim, gen), 20),
         ("decode_attention", _decode_case([gm.sliding_window], gm.sliding_window, gm.n_heads,
                                           gm.n_kv_heads, gm.head_dim, gen), 20),
+        # the backward kernels: h2o's D 120 under a window that binds, and
+        # flash in fp32 at a small shape (the training leg's own shapes are
+        # its path cases below)
+        ("flash_attention_bwd", _flash_bwd_case(1, 2048, h.n_heads, h.n_kv_heads, h.head_dim,
+                                                gen, window=512), 5),
+        ("flash_attention_bwd", _flash_bwd_case(1, 256, 8, 2, 64, gen,
+                                                dtype=torch.float32), 5),
     ]
     # the shapes each path's run gives each kernel
     path_cases = {
@@ -615,6 +739,10 @@ def main() -> int:
         "xlstm-1.3b scoring": {
             "rmsnorm": (_rmsnorm_case(rows, xl.d_model, gen), 50),
             "mlstm_scan": (_mlstm_case(BATCH, PROMPT, xl.n_heads, xhd, xl.ssm_chunk, gen), 20)},
+        TRAIN_PATH: {
+            "flash_attention_bwd": (_flash_bwd_case(TRAIN_BATCH, TRAIN_SEQ, g.n_heads,
+                                                    g.n_kv_heads, g.head_dim, gen), 5),
+            "rmsnorm_bwd": (_rmsnorm_bwd_case(TRAIN_BATCH * TRAIN_SEQ, g.d_model, gen), 20)},
     }
     cases = [_run_case(n, c, it) for n, c, it in long_cases]
     path = {label: {n: _run_case(n, c, it) for n, (c, it) in per.items()}
@@ -644,10 +772,16 @@ def main() -> int:
 
     # -- the MNIST train-to-serve leg: no port kernel on its path ----------
     report["mnist_leg"] = _mnist_leg(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- LM training: both ways through the kernels --------------------------
+    report["lm_train_leg"] = _lm_train_leg(card)
 
     # -- phase 4: report -----------------------------------------------------
     totals = {n: sum(r["launches_run"][n] for r in report["paths"].values())
-              + report["mnist_leg"]["launches"][n] for n in META}
+              + report["mnist_leg"]["launches"][n] + report["lm_train_leg"]["launches"][n]
+              for n in META}
     kernels = []
     for n, (route, src, rep, label, _) in META.items():
         r = path[label][n]
@@ -699,18 +833,31 @@ def _gate(label: str, rel: dict, limits: dict) -> None:
               f"{r['ratio']:.4g} (limit {DRIFT_RATIO})")
 
 
+def _wrapper_home(name: str):
+    """(module, attribute) of a kernel's wrapper as the path calls it:
+    ``ops`` for the forward kernels, the kernel's own module for the
+    backward ones (their ``autograd.Function`` calls them there)."""
+    import importlib
+    where = META[name][4]
+    if "." in where:
+        mod, attr = where.split(".")
+        return importlib.import_module(f"repro_torch.kernels.{mod}"), attr
+    return importlib.import_module("repro_torch.kernels.ops"), where
+
+
 @contextlib.contextmanager
 def _recording(names):
-    """Record every call of the named kernels' wrappers made through ``ops``
-    inside the block: copies of the arguments and of the result."""
-    from repro_torch.kernels import ops
+    """Record every call of the named kernels' wrappers made inside the
+    block: copies of the arguments and of the result (detached, so a
+    training step's graph is not kept)."""
     calls: dict = {n: [] for n in names}
-    saved = {n: getattr(ops, META[n][4]) for n in names}
+    homes = {n: _wrapper_home(n) for n in names}
+    saved = {n: getattr(mod, attr) for n, (mod, attr) in homes.items()}
 
     def copy(v):
         if isinstance(v, tuple):
             return tuple(copy(t) for t in v)
-        return v.clone() if hasattr(v, "clone") else v
+        return v.detach().clone() if hasattr(v, "clone") else v
 
     def recorder(n, wrapper):
         def call(*args, **kw):
@@ -720,12 +867,12 @@ def _recording(names):
         return call
 
     for n, wrapper in saved.items():
-        setattr(ops, META[n][4], recorder(n, wrapper))
+        setattr(*homes[n], recorder(n, wrapper))
     try:
         yield calls
     finally:
         for n, wrapper in saved.items():
-            setattr(ops, META[n][4], wrapper)
+            setattr(*homes[n], wrapper)
 
 
 def _hold_recorded(label: str, cfg, calls: dict) -> dict:
@@ -740,7 +887,8 @@ def _hold_recorded(label: str, cfg, calls: dict) -> dict:
             want = twin(*args, **kw, **extra, use_kernel=False)
             pairs = zip(got, want) if isinstance(got, tuple) else ((got, want),)
             for j, (g, w) in enumerate(pairs):
-                e, sh = _check(f"{label}: {n} call {i} output {j} (recorded)", g, w)
+                e, sh = _check(f"{label}: {n} call {i} output {j} (recorded)", g, w,
+                               BWD_FLOOR if n.endswith("_bwd") else 0.0)
                 errs.append(e)
                 shares.append(sh)
         if not recs:
@@ -1657,6 +1805,179 @@ def _mnist_leg(card: str) -> dict:
             "table3": {"totals_s": totals, "service_time_s": svc,
                        "summaries": {s: r.summary() for s, r in res.items()}},
             "trace": traced, "launches": launches}
+
+
+def _lm_train_leg(card: str) -> dict:
+    """granite-3-8b at full width, TRAIN_LAYERS layers, trained through the
+    port's entry point with every kernel on the path running both ways:
+
+    - ``LMTrainJob.run`` (fp32 masters, bf16 compute, ``use_kernels=True``,
+      TRAIN_BATCH x TRAIN_SEQ tokens a step from ``lm_batches``,
+      TRAIN_STEPS steps, warmup-cosine) with a checkpoint, then a job
+      resumed from it for 2 steps; launch counts zeroed before and read
+      after: RMSNorm and flash attention forward and backward, no other;
+      finite losses that fall (``examples/train_llm.py``'s ``check``); the
+      resumed run's first loss below the fresh job's first;
+    - every kernel call of one recorded ``steps.train_step``, forward and
+      backward, held against its twin on the recorded inputs;
+    - one step on fresh masters and one batch, kernel path against plain
+      path: loss and global gradient norm in bf16 (per-leaf rel reported),
+      every gradient leaf in fp32 at 2 layers, at TRAIN_LIMITS;
+    - steps/s, tokens/s, peak memory, and a trace of one training step."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint.store import ArtifactStore
+    from repro_torch.configs import registry
+    from repro_torch.core.trainjob import LMTrainJob
+    from repro_torch.data.tokens import lm_batches
+    from repro_torch.examples.train_llm import check
+    from repro_torch.kernels import native
+    from repro_torch.launch.profile import trace
+    from repro_torch.models import lm, steps
+    from repro_torch.optim import adamw
+    from repro_torch.telemetry.events import EventLog
+
+    label = TRAIN_PATH
+    full = registry.get_config("granite_3_8b")
+    cfg = full.replace(n_layers=TRAIN_LAYERS, use_kernels=True)
+    print(f"{label}: granite-3-8b at full width (d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), depth cut from "
+          f"{full.n_layers} to {cfg.n_layers} layers (16 bytes a parameter in fp32 plus a bf16 "
+          f"copy); batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps, bf16 compute on fp32 "
+          f"masters, use_kernels=True  [{card}]")
+    root = ROOT / "experiments" / "chip_smoke_lm"
+    shutil.rmtree(root, ignore_errors=True)
+    store = ArtifactStore(str(root))
+    job_kw = dict(batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, store=store, device="cuda")
+    t_leg = time.perf_counter()
+
+    # -- the job, a checkpoint, a resume --------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    log = EventLog()
+    try:        # the checkpoint is 24 GB: it leaves the checkout whatever happens
+        res = LMTrainJob(cfg, n_steps=TRAIN_STEPS, log=log, **job_kw).run(
+            checkpoint_name="granite")
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        n_params = sum(t.numel() for t in _leaves(res["params"]))
+        del res["params"]
+        stages = log.totals()
+        history = res["history"]
+        if not all(math.isfinite(v) for v in history):
+            raise AssertionError(f"{label}: losses not finite: {history}")
+        check(history, TRAIN_STEPS)
+        train_s = stages["tfjob:train"]
+        resumed = LMTrainJob(cfg, n_steps=2, **job_kw).run(resume_from="granite")
+        del resumed["params"]
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = dict(native.LAUNCHES)
+    _expect(label, launches, TRAIN_KERNELS)
+    if not resumed["history"][0] < history[0]:
+        raise AssertionError(f"{label}: resumed first loss {resumed['history'][0]} not below "
+                             f"the fresh job's {history[0]}")
+    tokens = TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    print(f"{label}: {TRAIN_STEPS} steps in {train_s:.3f} s ({TRAIN_STEPS / train_s:.3f} steps/s, "
+          f"{tokens / train_s:.0f} tokens/s), {n_params / 1e9:.3f} B parameters, peak "
+          f"{peak_gib:.2f} GiB; losses {[round(v, 4) for v in history]}; checkpoint "
+          f"{stages.get('tfjob:checkpoint', 0.0):.2f} s; resumed for 2 steps: "
+          f"{[round(v, 4) for v in resumed['history']]} (first below the fresh job's "
+          f"{history[0]:.4f}); launches {launches}  [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- one recorded step: every kernel call against its twin ----------------
+    batch = next(lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=3))
+    batch = {k: torch.as_tensor(batch[k], device="cuda") for k in ("tokens", "labels")}
+    params = lm.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    opt = adamw.init_opt_state(params)
+    with _recording(TRAIN_KERNELS) as calls:
+        steps.train_step(params, opt, batch, cfg=cfg)
+    recorded = _hold_recorded(label, cfg, calls)
+    del calls, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- one step, kernel path against plain path -----------------------------
+    def grads(p, c):
+        leaves = adamw.tree_map(lambda t: t.detach().requires_grad_(), p)
+        loss, _ = steps.loss_fn(leaves, c, batch)
+        return loss.detach(), torch.autograd.grad(loss, adamw.tree_leaves(leaves))
+
+    names = [k for k, _ in _named(params)]
+    loss_k, g_k = grads(params, cfg)
+    norm_k = adamw.global_norm(dict(zip(names, g_k)))
+    loss_p, g_p = grads(params, cfg.replace(use_kernels=False))
+    norm_p = adamw.global_norm(dict(zip(names, g_p)))
+    bf16 = {"loss": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+            "grad_norm": abs(float(norm_k) - float(norm_p)) / float(norm_p),
+            "leaves": {n: _rel(a, b) for n, a, b in zip(names, g_k, g_p)}}
+    del g_k, g_p, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg32 = cfg.replace(n_layers=2, dtype="float32")
+    params32 = lm.init_params(cfg32, seed=0, device="cuda", dtype=torch.float32)
+    _, g_k = grads(params32, cfg32)
+    _, g_p = grads(params32, cfg32.replace(use_kernels=False))
+    fp32 = {n: _rel(a, b) for n, a, b in zip([k for k, _ in _named(params32)], g_k, g_p)}
+    del g_k, g_p, params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    over = [f"bf16 {k} {bf16[k]} (limit {TRAIN_LIMITS['bf16_' + k]})" for k in ("loss", "grad_norm")
+            if bf16[k] > TRAIN_LIMITS["bf16_" + k]]
+    over += [f"fp32 {n} {r} (limit {TRAIN_LIMITS['fp32_grad_leaf']})" for n, r in fp32.items()
+             if r > TRAIN_LIMITS["fp32_grad_leaf"]]
+    worst_bf16 = max(bf16["leaves"], key=bf16["leaves"].get)
+    worst_fp32 = max(fp32, key=fp32.get)
+    print(f"{label}, one step, kernel path vs plain path: bf16 loss rel {bf16['loss']:.4g} (limit "
+          f"{TRAIN_LIMITS['bf16_loss']}), global gradient norm rel {bf16['grad_norm']:.4g} (limit "
+          f"{TRAIN_LIMITS['bf16_grad_norm']}), per-leaf gradient rel up to "
+          f"{bf16['leaves'][worst_bf16]:.4g} ({worst_bf16}, reported); fp32 at 2 layers: per-leaf "
+          f"gradient rel up to {fp32[worst_fp32]:.4g} ({worst_fp32}; limit "
+          f"{TRAIN_LIMITS['fp32_grad_leaf']})  [{card}]")
+    if over:
+        raise AssertionError(f"{label}: kernel vs plain over the limits: " + "; ".join(over))
+
+    # -- one training step traced ----------------------------------------------
+    params = lm.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    opt = adamw.init_opt_state(params)
+
+    def one_step():
+        steps.train_step(params, opt, batch, cfg=cfg)
+
+    one_step()
+    traced = trace(one_step, ROOT / "chiprun_out" / "profile", "granite_train_step")
+    torch.cuda.synchronize()
+    del params, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{label} trace, one step: host {traced['wall_ms']:.3f} ms, device busy "
+          f"{traced['device_busy_ms']:.3f} ms in a span of {traced['device_span_ms']:.3f} ms (idle "
+          f"{traced['idle_share_of_span']:.3f}), {traced['kernels']} kernels; by group "
+          + ", ".join(f"{g} {v['ms']:.3f} ms x{v['n']}" for g, v in traced["by_group_ms"].items())
+          + f"  [{card}]")
+    total_s = time.perf_counter() - t_leg
+    print(f"{label}: the whole leg {total_s:.2f} s  [{card}]")
+    return {"layers": cfg.n_layers, "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": TRAIN_STEPS, "train_s": train_s, "steps_per_s": TRAIN_STEPS / train_s,
+            "tokens_per_s": tokens / train_s, "peak_gib": peak_gib, "stages_s": stages,
+            "history": history, "resumed": resumed["history"], "recorded": recorded,
+            "bf16_kernel_vs_plain": bf16, "fp32_kernel_vs_plain": fp32, "trace": traced,
+            "leg_s": total_s, "launches": launches}
+
+
+def _named(tree: dict, prefix: str = ""):
+    """(path, leaf) in ``adamw.tree_leaves``'s order (sorted keys)."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _named(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
 
 
 def _leaves(tree: dict):

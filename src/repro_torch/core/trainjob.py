@@ -1,23 +1,34 @@
 """TFJob analog: a training job, counterpart of ``repro.core.trainjob``.
 
-``SupervisedTrainJob`` trains the paper's classifier (LeNet on MNIST) on
-``device``: an eager step of ``lenet.loss_fn``, ``torch.autograd.grad`` and
-``adamw_update``.  It logs through the EventLog, checkpoints into the
-ArtifactStore (PVC analog), and times its stages for the Tables 4/5 repro.
-The reference's ``LMTrainJob`` raises here until ROADMAP.md queue 1 item
-1.5 ports it.
+Two flavours, as in the reference:
+  * ``SupervisedTrainJob`` trains the paper's classifier (LeNet on MNIST)
+    on ``device``: an eager step of ``lenet.loss_fn``,
+    ``torch.autograd.grad`` and ``adamw_update``;
+  * ``LMTrainJob`` trains any ported LM arch on the synthetic token
+    pipeline (``data.tokens.lm_batches``): fp32 master parameters,
+    ``steps.train_step`` (autograd through the kernels' backward where
+    ``cfg.use_kernels`` is set, AdamW in place) under the reference's
+    warmup-cosine schedule, and resume from a checkpoint with its
+    optimizer state.  One card: a ``mesh`` raises (ROADMAP.md queue 1
+    item 1.10).
+Both log through the EventLog, checkpoint into the ArtifactStore (PVC
+analog), and time their stages for the Tables 4/5 repro.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Callable, Iterable, Optional
 
 import torch
 
 from ..checkpoint.store import ArtifactStore
-from ..models import lenet
+from ..configs.base import ArchConfig
+from ..data import tokens as token_data
+from ..models import lenet, lm, steps
 from ..models.modules import require_device
 from ..optim import adamw
+from ..optim.schedules import warmup_cosine
 from ..telemetry.events import EventLog
 
 
@@ -84,8 +95,64 @@ class SupervisedTrainJob:
 
 
 class LMTrainJob:
-    """The reference's distributed LM training job, not ported yet."""
+    """LM training on one card: the reference's signature (``mesh`` must be
+    None here), plus the device it runs on."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("core.trainjob.LMTrainJob is not ported yet: ROADMAP.md "
-                                  "queue 1 item 1.5 (LM training)")
+    def __init__(self, cfg: ArchConfig, *, batch_size: int, seq_len: int,
+                 n_steps: int, lr: float = 3e-4, seed: int = 0,
+                 mesh=None, store: Optional[ArtifactStore] = None,
+                 log: Optional[EventLog] = None, device="cuda"):
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.seq_len = seq_len
+        self.n_steps = n_steps
+        self.lr = lr
+        self.seed = seed
+        self.mesh = mesh
+        self.store = store
+        self.log = log or EventLog()
+        self.device = device
+
+    def run(self, *, report: Optional[Callable] = None,
+            checkpoint_name: Optional[str] = None,
+            resume_from: Optional[str] = None) -> dict:
+        """resume_from: checkpoint name in the store -- restores params AND
+        optimizer state, continuing the step counter (preemption recovery,
+        the Kubernetes-rescheduling analog)."""
+        if self.mesh is not None:
+            raise NotImplementedError("LMTrainJob on a device mesh is not ported yet: "
+                                      "ROADMAP.md queue 1 item 1.10 (sharding)")
+        cfg = self.cfg
+        dev = require_device(self.device)
+        opt_cfg = adamw.AdamWConfig(lr=self.lr)
+        schedule = functools.partial(warmup_cosine, warmup=max(self.n_steps // 10, 1),
+                                     total=self.n_steps)
+        with self.log.stage("tfjob:init"):
+            params = lm.init_params(cfg, seed=self.seed, device=dev,
+                                    dtype=getattr(torch, cfg.param_dtype))
+            opt = adamw.init_opt_state(params)
+            if resume_from and self.store:
+                params = self.store.load_tree(resume_from, params)
+                if self.store.exists(f"{resume_from}_opt"):
+                    opt = self.store.load_tree(f"{resume_from}_opt", opt)
+        data = token_data.lm_batches(cfg, self.batch_size, self.seq_len, seed=self.seed)
+        history = []
+        with self.log.stage("tfjob:train"):
+            for i, batch in enumerate(data):
+                if i >= self.n_steps:
+                    break
+                batch = {k: torch.as_tensor(batch[k], device=dev) for k in ("tokens", "labels")}
+                params, opt, metrics = steps.train_step(params, opt, batch, cfg=cfg,
+                                                        opt_cfg=opt_cfg, lr_scale=schedule(i))
+                loss = float(metrics["loss"])
+                history.append(loss)
+                if report:
+                    report(i + 1, loss)
+        out = {"loss": history[-1] if history else float("nan"), "history": history}
+        if self.store and checkpoint_name:
+            with self.log.stage("tfjob:checkpoint"):
+                out["checkpoint"] = self.store.save_tree(checkpoint_name, params,
+                                                         meta={"loss": out["loss"]})
+                self.store.save_tree(f"{checkpoint_name}_opt", opt)
+        out["params"] = params
+        return out

@@ -56,6 +56,12 @@
 //   shared memory once per tile for the P.V product.  Two instantiations:
 //   D <= 128 with 64-key tiles (115,968 bytes), and D <= 320 with 32-key
 //   tiles (174,720 bytes; 64 keys would need 264,960).
+//
+// Training: both kernels take a compile-time flag LSE.  With it they also
+// write each row's fp32 log-sum-exp of the scaled scores, lse (B,Hq,Sq) =
+// m + log(l) (natural log), which flash_attention_bwd.cu recomputes the
+// probabilities from.  Without it (the serving entry points) the code is
+// the same as before the flag existed: the flag only adds the store.
 #include "common.cuh"
 
 namespace {
@@ -80,11 +86,11 @@ template <int DM, int BK_> struct Tile {
       sizeof(float) * (DMAX * QS + DMAX * KS + BK * DMAX + BK * QS);
 };
 
-template <typename T, int DM, int BK_>
+template <typename T, int DM, int BK_, bool LSE>
 __global__ void __launch_bounds__(NT)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int Sq, int Skv, int Hq, int Hkv, int D, float scale,
-          int causal, int window, int q_offset, int kv_len) {
+          T* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv, int D,
+          float scale, int causal, int window, int q_offset, int kv_len) {
   using L = Tile<DM, BK_>;
   constexpr int DMAX = L::DMAX, BK = L::BK, CPT = L::CPT, DPT = L::DPT, KS = L::KS;
   extern __shared__ float smem[];
@@ -205,6 +211,10 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     const int r = q0 + ty + 16 * i;
     if (r >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if constexpr (LSE) {
+      if (tx == 0)
+        lse[(static_cast<size_t>(b) * Hq + h) * Sq + r] = m[i] + logf(fmaxf(l[i], 1e-30f));
+    }
 #pragma unroll
     for (int c = 0; c < DPT; ++c) {
       const int d = tx + 16 * c;
@@ -213,32 +223,41 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
 }
 
-template <typename T, int DM, int BK_>
-cudaError_t launch_tile(const void* q, const void* k, const void* v, void* o, int B, int Sq,
-                        int Skv, int Hq, int Hkv, int D, float scale, int causal, int window,
-                        int q_offset, int kv_len, void* stream) {
+template <typename T, int DM, int BK_, bool LSE>
+cudaError_t launch_tile(const void* q, const void* k, const void* v, void* o, float* lse, int B,
+                        int Sq, int Skv, int Hq, int Hkv, int D, float scale, int causal,
+                        int window, int q_offset, int kv_len, void* stream) {
   constexpr size_t smem = Tile<DM, BK_>::kSmemBytes;
   static std::atomic<unsigned> smem_set{0};
   cudaError_t err =
-      rt::smem_limit_once(flash_fwd<T, DM, BK_>, static_cast<int>(smem), smem_set);
+      rt::smem_limit_once(flash_fwd<T, DM, BK_, LSE>, static_cast<int>(smem), smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, Hq, B);
-  flash_fwd<T, DM, BK_><<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
+  flash_fwd<T, DM, BK_, LSE><<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Skv, Hq, Hkv, D, scale, causal, window, q_offset, kv_len);
+      static_cast<T*>(o), lse, Sq, Skv, Hq, Hkv, D, scale, causal, window, q_offset, kv_len);
   return cudaGetLastError();
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Skv,
-           int Hq, int Hkv, int D, float scale, int causal, int window, int q_offset,
+// LSE: the training variant, head dims up to 128 (the backward's range)
+template <typename T, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+           int Skv, int Hq, int Hkv, int D, float scale, int causal, int window, int q_offset,
            int kv_len, void* stream) {
-  if (D < 1 || D > kMaxHeadDim || Hkv < 1 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+  if (D < 1 || D > (LSE ? 128 : kMaxHeadDim) || Hkv < 1 || Hq % Hkv != 0)
+    return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
-  return D <= 128 ? launch_tile<T, 128, 64>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal,
-                                            window, q_offset, kv_len, stream)
-                  : launch_tile<T, 320, 32>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal,
-                                            window, q_offset, kv_len, stream);
+  if constexpr (LSE) {
+    return launch_tile<T, 128, 64, true>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+                                         window, q_offset, kv_len, stream);
+  } else {
+    return D <= 128 ? launch_tile<T, 128, 64, false>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D,
+                                                     scale, causal, window, q_offset, kv_len,
+                                                     stream)
+                    : launch_tile<T, 320, 32, false>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D,
+                                                     scale, causal, window, q_offset, kv_len,
+                                                     stream);
+  }
 }
 
 }  // namespace f32
@@ -464,11 +483,11 @@ __device__ __forceinline__ void issue_scores(float (&sc)[Cfg<DP>::BK / 2], uint3
 // layout (per warpgroup, as mma.sync's per warp): warp w, lane (g = lane/4,
 // t = lane%4) holds rows 16w + g + 8i and columns 8j + 2t + c in register
 // 4j + 2i + c.
-template <int DP, bool VEC>
+template <int DP, bool VEC, bool LSE>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-             bf16* __restrict__ o, int Sq, int Skv, int Hq, int Hkv, int D, float scale,
-             int causal, int window, int q_offset, int kv_len) {
+             bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
+             int D, float scale, int causal, int window, int q_offset, int kv_len) {
   using C = Cfg<DP>;
   constexpr int BK = C::BK;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -627,6 +646,11 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
     const int r = wr0 + 16 * warp + g + 8 * i;
     if (r >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    if constexpr (LSE) {   // m is in the log2 domain
+      if (t == 0)
+        lse[(static_cast<size_t>(b) * Hq + h) * Sq + r] =
+            (m[i] + log2f(fmaxf(l[i], 1e-30f))) * 0.6931471805599453f;
+    }
 #pragma unroll
     for (int sb = 0; sb < C::NSUB; ++sb)
 #pragma unroll
@@ -644,33 +668,36 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
   }
 }
 
-template <int DP, bool VEC>
-cudaError_t launch_tile(const bf16* q, const bf16* k, const bf16* v, bf16* o, int B, int Sq,
-                        int Skv, int Hq, int Hkv, int D, float scale, int causal, int window,
-                        int q_offset, int kv_len, cudaStream_t stream) {
+template <int DP, bool VEC, bool LSE>
+cudaError_t launch_tile(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B,
+                        int Sq, int Skv, int Hq, int Hkv, int D, float scale, int causal,
+                        int window, int q_offset, int kv_len, cudaStream_t stream) {
   static std::atomic<unsigned> smem_set{0};
-  cudaError_t err = rt::smem_limit_once(flash_fwd_tc<DP, VEC>, Cfg<DP>::SMEM, smem_set);
+  cudaError_t err = rt::smem_limit_once(flash_fwd_tc<DP, VEC, LSE>, Cfg<DP>::SMEM, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(Hq, (Sq + BQ - 1) / BQ, B);
-  flash_fwd_tc<DP, VEC><<<grid, NT, Cfg<DP>::SMEM, stream>>>(
-      q, k, v, o, Sq, Skv, Hq, Hkv, D, scale, causal, window, q_offset, kv_len);
+  flash_fwd_tc<DP, VEC, LSE><<<grid, NT, Cfg<DP>::SMEM, stream>>>(
+      q, k, v, o, lse, Sq, Skv, Hq, Hkv, D, scale, causal, window, q_offset, kv_len);
   return cudaGetLastError();
 }
 
-template <int DP>
-cudaError_t launch_dp(bool vec, const bf16* q, const bf16* k, const bf16* v, bf16* o, int B,
-                      int Sq, int Skv, int Hq, int Hkv, int D, float scale, int causal,
+template <int DP, bool LSE>
+cudaError_t launch_dp(bool vec, const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+                      int B, int Sq, int Skv, int Hq, int Hkv, int D, float scale, int causal,
                       int window, int q_offset, int kv_len, cudaStream_t stream) {
-  return vec ? launch_tile<DP, true>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
-                                     q_offset, kv_len, stream)
-             : launch_tile<DP, false>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
-                                      q_offset, kv_len, stream);
+  return vec ? launch_tile<DP, true, LSE>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+                                          window, q_offset, kv_len, stream)
+             : launch_tile<DP, false, LSE>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale,
+                                           causal, window, q_offset, kv_len, stream);
 }
 
-int launch(const void* q_, const void* k_, const void* v_, void* o_, int B, int Sq, int Skv,
-           int Hq, int Hkv, int D, float scale, int causal, int window, int q_offset, int kv_len,
-           void* stream_) {
-  if (D < 1 || D > kMaxHeadDim || Hkv < 1 || Hq % Hkv != 0) return cudaErrorInvalidValue;
+// LSE: the training variant, head dims up to 128 (the backward's range)
+template <bool LSE>
+int launch(const void* q_, const void* k_, const void* v_, void* o_, float* lse, int B, int Sq,
+           int Skv, int Hq, int Hkv, int D, float scale, int causal, int window, int q_offset,
+           int kv_len, void* stream_) {
+  if (D < 1 || D > (LSE ? 128 : kMaxHeadDim) || Hkv < 1 || Hq % Hkv != 0)
+    return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
   const auto q = static_cast<const bf16*>(q_);
   const auto k = static_cast<const bf16*>(k_);
@@ -681,19 +708,24 @@ int launch(const void* q_, const void* k_, const void* v_, void* o_, int B, int 
                          reinterpret_cast<uintptr_t>(v_) | reinterpret_cast<uintptr_t>(o_);
   const bool vec = D % 8 == 0 && ptrs % 16 == 0;
   if (D <= 16)
-    return launch_dp<16>(vec, q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
-                         q_offset, kv_len, stream);
+    return launch_dp<16, LSE>(vec, q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+                              window, q_offset, kv_len, stream);
   if (D <= 32)
-    return launch_dp<32>(vec, q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
-                         q_offset, kv_len, stream);
+    return launch_dp<32, LSE>(vec, q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+                              window, q_offset, kv_len, stream);
   if (D <= 64)
-    return launch_dp<64>(vec, q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
-                         q_offset, kv_len, stream);
-  if (D <= 128)
-    return launch_dp<128>(vec, q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
-                          q_offset, kv_len, stream);
-  return launch_dp<320>(vec, q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
-                        q_offset, kv_len, stream);
+    return launch_dp<64, LSE>(vec, q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+                              window, q_offset, kv_len, stream);
+  if constexpr (LSE) {
+    return launch_dp<128, true>(vec, q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+                                window, q_offset, kv_len, stream);
+  } else {
+    if (D <= 128)
+      return launch_dp<128, false>(vec, q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+                                   window, q_offset, kv_len, stream);
+    return launch_dp<320, false>(vec, q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+                                 window, q_offset, kv_len, stream);
+  }
 }
 
 }  // namespace tc
@@ -703,16 +735,33 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     int Sq, int Skv, int Hq, int Hkv, int D, float scale,
                                     int causal, int window, int q_offset, int kv_len,
                                     void* stream) {
-  return tc::launch(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window, q_offset, kv_len,
-                    stream);
+  return tc::launch<false>(q, k, v, o, nullptr, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
+                           q_offset, kv_len, stream);
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B,
                                    int Sq, int Skv, int Hq, int Hkv, int D, float scale,
                                    int causal, int window, int q_offset, int kv_len,
                                    void* stream) {
-  return f32::launch<float>(q, k, v, o, B, Sq, Skv, Hq, Hkv, D, scale, causal, window, q_offset,
-                            kv_len, stream);
+  return f32::launch<float, false>(q, k, v, o, nullptr, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+                                   window, q_offset, kv_len, stream);
+}
+
+// The training forward: also the rows' log-sum-exp (B,Hq,Sq) fp32; q_offset
+// 0, every key valid, D <= 128.
+extern "C" int flash_attention_lse_bf16(const void* q, const void* k, const void* v, void* o,
+                                        float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                                        int D, float scale, int causal, int window,
+                                        void* stream) {
+  return tc::launch<true>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal, window, 0, Skv,
+                          stream);
+}
+
+extern "C" int flash_attention_lse_f32(const void* q, const void* k, const void* v, void* o,
+                                       float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int D,
+                                       float scale, int causal, int window, void* stream) {
+  return f32::launch<float, true>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
+                                  0, Skv, stream);
 }
 
 RT_EXPORT_ERROR_STRING(flash_attention)

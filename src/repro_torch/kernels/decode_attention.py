@@ -7,6 +7,8 @@ wrapper launches the kernel on CUDA tensors (caches longer than
 ``SPLIT_KEYS`` rows are split across blocks and merged by a second, small
 kernel: one call, one count) and raises on anything else;
 ``ops.decode_attention`` chooses the plain twin where no kernel runs.
+Under grad it raises (``native.refuse_grad``): it has no backward kernel,
+and no training path decodes.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     b, hq, d = q.shape
+    native.refuse_grad("decode_attention", "2.4", q, k_cache, v_cache)
     s, hkv = k_cache.shape[1], k_cache.shape[2]
     if k_cache.shape != (b, s, hkv, d) or v_cache.shape != k_cache.shape:
         raise ValueError(f"decode_attention: shapes q {tuple(q.shape)}, "

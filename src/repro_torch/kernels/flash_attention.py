@@ -1,10 +1,22 @@
-"""Blocked causal / windowed GQA attention forward, for prefill.
+"""Blocked causal / windowed GQA attention, forward (prefill and training)
+and backward (training).
 
-Wrapper of the CUDA kernel in ``csrc/flash_attention.cu``, which replaces
-the Pallas kernel ``repro/kernels/flash_attention.py:flash_attention``.  The
-source's header says how it is laid out and what bounds it.  The wrapper
-launches the kernel on CUDA tensors and raises on anything else;
-``ops.flash_attention`` chooses the plain twin where no kernel runs.
+Wrappers of the CUDA kernels in ``csrc/flash_attention.cu``, which
+replaces the Pallas kernel ``repro/kernels/flash_attention.py:flash_attention``,
+and ``csrc/flash_attention_bwd.cu``, which the reference does not have (it
+differentiates plain code, ``jax.value_and_grad`` at
+``repro/models/steps.py:44``).  The sources' headers say how they are laid
+out and what bounds them.
+
+Under autograd (grad enabled and q, k or v requiring it) ``flash_attention``
+goes through ``FlashAttentionFunction``: its forward launches the forward
+kernel's variant that also writes each row's fp32 log-sum-exp, and its
+backward launches ``flash_attention_bwd``, which recomputes the
+probabilities from it.  The backward takes head dims up to 128 and
+``q_offset`` 0; anything else raises under grad.  Without grad the serving
+forward runs, as before.  The wrappers launch the kernels on CUDA tensors
+and raise on anything else; ``ops.flash_attention`` chooses the plain twin
+where no kernel runs.
 """
 from __future__ import annotations
 
@@ -15,16 +27,23 @@ import torch
 from . import native
 
 SOURCE = "flash_attention.cu"
+SOURCE_BWD = "flash_attention_bwd.cu"
 MAX_HEAD_DIM = 320                      # gemma3: 2560 / 8
+MAX_HEAD_DIM_BWD = 128                  # granite, minitron 128; h2o 120; zamba2 64
 _ENTRY = {torch.bfloat16: "flash_attention_bf16", torch.float32: "flash_attention_f32"}
+_ENTRY_LSE = {torch.bfloat16: "flash_attention_lse_bf16",
+              torch.float32: "flash_attention_lse_f32"}
+_ENTRY_BWD = {torch.bfloat16: "flash_attention_bwd_bf16",
+              torch.float32: "flash_attention_bwd_f32"}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+_ARGTYPES_LSE = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_ARGTYPES_BWD = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    scale: float | None = None, q_offset: int = 0) -> torch.Tensor:
-    """q (B,Sq,Hq,D); k, v (B,Skv,Hkv,D) -> (B,Sq,Hq,D)."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     b, sq, hq, d = q.shape
@@ -43,14 +62,103 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         "the kernel takes bfloat16 or float32, all alike")
     if k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k, v on different devices")
+
+
+def _forward(q, k, v, causal: bool, window: int, scale: float, q_offset: int,
+             with_lse: bool):
+    """The forward kernel; with ``with_lse`` its variant that also returns
+    the fp32 log-sum-exp of each row's scaled scores, (B,Hq,Sq)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    scale_ = scale if scale is not None else d ** -0.5
-    fn = native.function(SOURCE, _ENTRY[q.dtype], _ARGTYPES)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 b, sq, skv, hq, hkv, d, scale_, int(causal), int(window),
-                 int(q_offset), skv, torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if with_lse:
+            lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+            fn = native.function(SOURCE, _ENTRY_LSE[q.dtype], _ARGTYPES_LSE)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                     b, sq, skv, hq, hkv, d, scale, int(causal), int(window), stream)
+        else:
+            lse = None
+            fn = native.function(SOURCE, _ENTRY[q.dtype], _ARGTYPES)
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     b, sq, skv, hq, hkv, d, scale, int(causal), int(window),
+                     int(q_offset), skv, stream)
     native.check(SOURCE, err, "flash_attention")
     native.count_launch("flash_attention")
-    return out
+    return out, lse
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The forward kernel's log-sum-exp variant; the backward kernel for
+    the gradients."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = _forward(q, k, v, causal, window, scale, 0, True)
+        ctx.save_for_backward(q, k, v, lse)
+        ctx.causal, ctx.window, ctx.scale = causal, window, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, causal=ctx.causal,
+                                         window=ctx.window, scale=ctx.scale)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: float | None = None, q_offset: int = 0) -> torch.Tensor:
+    """q (B,Sq,Hq,D); k, v (B,Skv,Hkv,D) -> (B,Sq,Hq,D); differentiable
+    (through ``FlashAttentionFunction``) when grad is enabled and an input
+    needs it."""
+    _check(q, k, v)
+    d = q.shape[-1]
+    scale_ = scale if scale is not None else d ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if d > MAX_HEAD_DIM_BWD:
+            raise ValueError(f"flash_attention under grad: head_dim {d} has no backward "
+                             f"kernel (it takes 1..{MAX_HEAD_DIM_BWD}): ROADMAP.md queue 2 "
+                             "item 2.1")
+        if q_offset:
+            raise ValueError(f"flash_attention under grad: q_offset {q_offset}; the "
+                             "backward kernel takes 0 (a training forward starts at 0)")
+        return FlashAttentionFunction.apply(q, k, v, bool(causal), int(window), scale_)
+    return _forward(q, k, v, causal, window, scale_, q_offset, False)[0]
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                        lse: torch.Tensor, *, causal: bool = True, window: int = 0,
+                        scale: float | None = None):
+    """The gradients of ``flash_attention`` (``q_offset`` 0) at (q, k, v):
+    ``do`` is the output's gradient and ``lse`` (B,Hq,Sq) fp32 the forward's
+    log-sum-exp.  Returns (dq, dk, dv) in the inputs' dtype, summed in fp32;
+    dk and dv sum over each kv head's query heads."""
+    _check(q, k, v)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    if d > MAX_HEAD_DIM_BWD:
+        raise ValueError(f"flash_attention_bwd: head_dim {d} unsupported; the kernel takes "
+                         f"1..{MAX_HEAD_DIM_BWD} (ROADMAP.md queue 2 item 2.1)")
+    if do.shape != q.shape or lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: do {tuple(do.shape)}, lse {tuple(lse.shape)} "
+                         f"{lse.dtype} do not match q {tuple(q.shape)}")
+    if not (b and sq and skv):
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    do, lse = do.to(q.dtype).contiguous(), lse.contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)  # the rows' sum P dP
+    scale_ = scale if scale is not None else d ** -0.5
+    fn = native.function(SOURCE_BWD, _ENTRY_BWD[q.dtype], _ARGTYPES_BWD)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 b, sq, skv, hq, hkv, d, scale_, int(causal), int(window),
+                 torch.cuda.current_stream().cuda_stream)
+    native.check(SOURCE_BWD, err, "flash_attention_bwd")
+    native.count_launch("flash_attention_bwd")
+    return dq, dk, dv

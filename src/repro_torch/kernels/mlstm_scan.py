@@ -8,6 +8,9 @@ fp32 inputs the CUDA-core kernel.  Like the TPU kernel it
 returns y only, no carried state.  The wrapper launches the kernel on CUDA
 tensors and raises on anything else; ``ops.mlstm_scan`` chooses the plain
 twin (``ops.mlstm_chunked``) where no kernel runs.
+Under grad it raises (``native.refuse_grad``): its backward kernel is
+not written yet, so xlstm trains on the card only with
+``use_kernels=False``.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ def mlstm_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logi: torch.Te
     if q.device.type != "cuda":
         raise ValueError(f"mlstm_scan: no kernel for device {q.device}")
     b, s, h, d = q.shape
+    native.refuse_grad("mlstm_scan", "2.3", q, k, v, logi, logf)
     if k.shape != q.shape or v.shape != q.shape or logi.shape != (b, s, h) \
             or logf.shape != (b, s, h):
         raise ValueError(f"mlstm_scan: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "

@@ -8,9 +8,11 @@ changed source rebuilds and an unchanged one loads at once.  Building
 happens on first use, never at import: a host without ``nvcc`` can import
 every module of the port.
 
-``LAUNCHES`` counts kernel launches by kernel name.  Each wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that it
-went through the kernels.
+``LAUNCHES`` counts kernel launches by kernel name, the two backward
+kernels under their own.  Each wrapper adds one where it launches its
+kernel and nowhere else, so a run can show that it went through the
+kernels.  ``refuse_grad`` is the guard of the kernels that have no
+backward.
 """
 from __future__ import annotations
 
@@ -22,16 +24,28 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / ".torch_ext_build"
-SOURCES = ("flash_attention.cu", "decode_attention.cu", "ssm_scan.cu", "mlstm_scan.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu", "ssm_scan.cu",
+           "mlstm_scan.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0, "ssm_scan": 0,
-            "mlstm_scan": 0}
+            "mlstm_scan": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 0}
 
 _FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
+
+
+def refuse_grad(name: str, item: str, *tensors) -> None:
+    """Raise where grad is enabled and an input of a kernel that has no
+    backward requires it: returning its output would drop the gradient
+    without a word (the output has no ``grad_fn``)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward kernel: ROADMAP.md queue 2 item {item}. "
+                           "Train this arch with use_kernels=False, or on the CPU")
 
 
 def reset_launches() -> None:

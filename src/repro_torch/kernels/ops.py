@@ -7,7 +7,12 @@ the tensor lies on the CPU (where no kernel exists); otherwise the call goes
 to the kernel's wrapper and nothing else, which launches the kernel or
 raises.  No path catches a build or launch error.
 
-The attention and norm twins live in ``ref``.  The two scans' twins are the
+The attention and norm twins live in ``ref``.  ``flash_attention`` and
+``rmsnorm`` are differentiable on both sides: the twins by autograd, the
+kernels through their ``autograd.Function`` and backward kernels, which
+``flash_attention_bwd`` and ``rmsnorm_bwd`` below also expose (the
+twins: ``ref.flash_attention_bwd_ref``, ``ref.rmsnorm_bwd_ref``).  The
+other kernels raise under grad.  The two scans' twins are the
 chunked forms below (``ssd_chunked``, ``mlstm_chunked``), counterparts of
 the reference's ``ops.ssd_chunked_jnp`` and ``models/ssm._mlstm_chunked``;
 ``ref`` holds their sequential oracles.
@@ -19,8 +24,10 @@ import torch
 from . import ref
 from .decode_attention import decode_attention as _decode_kernel
 from .flash_attention import flash_attention as _flash_kernel
+from .flash_attention import flash_attention_bwd as _flash_bwd_kernel
 from .mlstm_scan import mlstm_scan as _mlstm_kernel
 from .rmsnorm import rmsnorm as _rmsnorm_kernel
+from .rmsnorm import rmsnorm_bwd as _rmsnorm_bwd_kernel
 from .ssm_scan import ssm_scan as _ssm_kernel
 
 NEG_INF = ref.NEG_INF
@@ -45,6 +52,25 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                        scale=scale, q_offset=q_offset)
     return _flash_kernel(q, k, v, causal=causal, window=window,
                          scale=scale, q_offset=q_offset)
+
+
+def rmsnorm_bwd(x, scale, g, rstd, *, eps: float = 1e-6, use_kernel: bool = False):
+    """(dx, dscale) of ``rmsnorm`` for the output gradient ``g``; ``rstd``
+    is the kernel forward's fp32 1/rms per row (the twin recomputes it)."""
+    if _plain(use_kernel, x):
+        return ref.rmsnorm_bwd_ref(x, scale, g, eps)
+    return _rmsnorm_bwd_kernel(x, scale, g, rstd, eps=eps)
+
+
+def flash_attention_bwd(q, k, v, do, lse, *, causal: bool = True, window: int = 0,
+                        scale: float | None = None, use_kernel: bool = False):
+    """(dq, dk, dv) of ``flash_attention`` (``q_offset`` 0) for the output
+    gradient ``do``; ``lse`` is the kernel forward's fp32 log-sum-exp (the
+    twin recomputes the softmax)."""
+    if _plain(use_kernel, q):
+        return ref.flash_attention_bwd_ref(q, k, v, do, causal=causal, window=window,
+                                           scale=scale)
+    return _flash_bwd_kernel(q, k, v, do, lse, causal=causal, window=window, scale=scale)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, scale: float | None = None,

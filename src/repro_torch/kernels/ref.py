@@ -8,11 +8,14 @@ keys are all masked averages uniformly instead of producing NaN.
 
 The CPU path runs the attention and norm twins; on the card only
 ``chip_smoke.py`` and the tests call them, to hold each kernel against its
-twin.  ``ssm_scan_ref`` and ``mlstm_scan_ref`` are the sequential oracles
-of the two scans, whose plain twins are the chunked forms in ``ops``;
-``decode_attention_split_ref``, ``ssd_chunk_parallel_ref`` and
-``mlstm_chunk_parallel_ref`` compute decode attention and the two scans in
-the order their CUDA kernels do, for the tests (no path calls them).
+twin.  ``flash_attention_bwd_ref`` and ``rmsnorm_bwd_ref`` are the backward
+kernels' twins: autograd of the forward twins (attention's in fp32).  ``ssm_scan_ref`` and
+``mlstm_scan_ref`` are the sequential oracles of the two scans, whose plain
+twins are the chunked forms in ``ops``;
+``decode_attention_split_ref``, ``ssd_chunk_parallel_ref``,
+``mlstm_chunk_parallel_ref`` and ``flash_attention_bwd_order_ref`` compute
+decode attention, the two scans and attention's backward in the order
+their CUDA kernels do, for the tests (no path calls them).
 """
 from __future__ import annotations
 
@@ -55,6 +58,75 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor, *, causal: bool = True, window: int = 0,
+                            scale: float | None = None):
+    """(dq, dk, dv) in q's dtype: autograd of ``flash_attention_ref`` at the
+    fp32 values of (q, k, v) for the output gradient ``do`` -- the gradient
+    the backward kernel computes.  In fp32, because autograd of the bf16
+    twin rounds dP = dO V^T to bf16 inside the softmax backward: on a row
+    whose attention is nearly one-hot, dS is small and that rounding is
+    not, and the bf16 twin's dq there is off the fp32 gradient by more
+    than the kernels' tolerance."""
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().float().requires_grad_() for t in (q, k, v))
+        out = flash_attention_ref(qq, kk, vv, causal=causal, window=window, scale=scale)
+        grads = torch.autograd.grad(out, (qq, kk, vv), do.float())
+    return tuple(g.to(q.dtype) for g in grads)
+
+
+def flash_attention_bwd_order_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                  do: torch.Tensor, *, causal: bool = True, window: int = 0,
+                                  scale: float | None = None,
+                                  delta_from_output: bool = False, split_ds: bool = True):
+    """(dq, dk, dv) computed as the bf16 backward kernel computes them: P
+    recomputed in fp32, dP = dO V^T and Delta_i = sum_j P_ij dP_ij in fp32,
+    P rounded to the input dtype as the operand of dV = P^T dO, and dS =
+    P o (dP - Delta) entering dQ and dK as two halves in the input dtype
+    (hi + lo), every product summed in fp32.  The usual flash backward's
+    orders, for the tests: ``delta_from_output`` takes Delta_i =
+    rowsum(dO o O) from the output rounded to the input dtype, and
+    ``split_ds=False`` rounds dS once.  Used by no path: it holds the
+    kernel's order to the gradient."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    kf, vf = _gqa_expand(k, hq).float(), _gqa_expand(v, hq).float()
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
+    pos = torch.arange(sq, device=q.device)
+    mask = torch.ones((sq, sq), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= pos[None, :] <= pos[:, None]
+    if window and window > 0:
+        mask &= pos[:, None] - pos[None, :] < window
+    logits = torch.where(mask, logits, -torch.inf)
+    p = torch.where(mask, torch.exp(logits - torch.logsumexp(logits, -1, keepdim=True)), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
+    if delta_from_output:
+        out = flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)[..., None]
+    else:
+        delta = (p * dp).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    hi = ds.to(q.dtype).float()
+    ds = hi + (ds - hi).to(q.dtype).float() if split_ds else hi
+    dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), do.float())
+    dk, dv = (t.reshape(b, sq, hkv, hq // hkv, d).sum(3) for t in (dk, dv))
+    return tuple(t.to(q.dtype) for t in (dq, dk, dv))
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,
+                    eps: float = 1e-6):
+    """(dx, dscale): autograd of ``rmsnorm_ref`` at (x, scale) for the output
+    gradient ``g`` -- what the backward kernel computes."""
+    with torch.enable_grad():
+        xx, ss = x.detach().requires_grad_(), scale.detach().requires_grad_()
+        out = rmsnorm_ref(xx, ss, eps)
+        return torch.autograd.grad(out, (xx, ss), g.to(out.dtype))
 
 
 def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,

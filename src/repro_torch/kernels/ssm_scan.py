@@ -7,6 +7,9 @@ tensor-core path (three launches, with scratch this wrapper allocates),
 fp32 inputs the CUDA-core kernel.  The wrapper launches the kernels on
 CUDA tensors and raises on anything else; ``ops.ssm_scan`` chooses the
 plain twin (``ops.ssd_chunked``) where no kernel runs.
+Under grad it raises (``native.refuse_grad``): its backward kernel is
+not written yet, so zamba2 trains on the card only with
+``use_kernels=False``.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ def ssm_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tenso
     if x.device.type != "cuda":
         raise ValueError(f"ssm_scan: no kernel for device {x.device}")
     b, s, h, p = x.shape
+    native.refuse_grad("ssm_scan", "2.2", x, dt, A, Bm, Cm)
     n = Bm.shape[-1]
     if dt.shape != (b, s, h) or A.shape != (h,) or Bm.shape != (b, s, n) or Cm.shape != Bm.shape:
         raise ValueError(f"ssm_scan: shapes x {tuple(x.shape)}, dt {tuple(dt.shape)}, "

@@ -41,6 +41,8 @@ BATCH, PROMPT = 4, 128          # chip_smoke.py's serving shape
 MAX_LEN, CHUNK = 4608, 256      # chip_smoke.py's batcher
 
 GROUPS = (("flash_attention", ("flash_fwd",)), ("decode_attention", ("decode_fwd",)),
+          ("flash_attention_bwd", ("flash_bwd",)),
+          ("rmsnorm_bwd", ("_rmsnorm_bwd_kernel", "_rmsnorm_dscale_kernel")),
           ("rmsnorm", ("_rmsnorm_kernel",)),
           ("ssm_scan", ("ssd_scan", "ssd_states", "ssd_carry", "ssd_output", "ssd_fused")),
           ("mlstm_scan", ("mlstm_scan_kernel", "mlstm_gates", "mlstm_scores", "mlstm_walk")),

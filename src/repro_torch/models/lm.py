@@ -12,9 +12,14 @@ Entry points, as in the reference:
 Parameters and caches are nested dicts of tensors with the reference's key
 paths; every ``phase*`` leaf carries the stacked ``n_groups`` dim, and where
 the reference runs ``lax.scan`` over it the port loops over the group index.
-The reference casts its fp32 parameters to the compute dtype on every call;
-the port holds them in the compute dtype from load on, which gives the same
-numbers.  ``decode_step`` and ``prefill_chunk`` update the cache in place.
+Serving holds the parameters in the compute dtype from load on.  Training
+holds fp32 masters (``init_params(..., dtype=cfg.param_dtype)``) and
+``forward`` casts the tree's floating leaves to the compute dtype once at
+entry, as the reference's ``nn.cast_tree`` does on every call; for a tree
+already in the compute dtype the cast returns the same tensors.  With
+``cfg.remat`` each group's body runs under ``torch.utils.checkpoint`` when
+gradients are recorded (the reference's ``jax.checkpoint`` around its
+scanned group).  ``decode_step`` and ``prefill_chunk`` update the cache in place.
 The shared block's per-group KV caches sit under ``phase*/shared``.
 """
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from . import blocks
@@ -66,13 +72,15 @@ def _stack(n: int, make: Callable[[int], dict]) -> dict:
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
-def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda") -> dict:
+def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
+                dtype: torch.dtype | None = None) -> dict:
     """Random parameters from a seeded ``torch.Generator`` on ``device``, in
-    the compute dtype.  Tied embeddings (gemma3) have no ``lm_head``: the
-    head reads ``embed``."""
+    ``dtype`` (default: the compute dtype, for serving; training passes
+    ``cfg.param_dtype``'s fp32 masters).  Tied embeddings (gemma3) have no
+    ``lm_head``: the head reads ``embed``."""
     _check_supported(cfg)
     dev = require_device(device)
-    dtype = cfg.compute_dtype
+    dtype = dtype or cfg.compute_dtype
     gen = torch.Generator(device=dev).manual_seed(seed)
     kw = dict(generator=gen, device=dev)
     p: dict = {
@@ -167,30 +175,44 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, collect_cache: bool =
     ones (``local`` layers, zamba2's shared block past a 64k budget) as a
     ring of ``min(window, cache_len)`` rows holding the last positions at
     slots ``p % size`` (S rows, unplaced, when ``cache_len`` is 0)."""
+    params = _cast_tree(params, cfg.compute_dtype)       # mixed precision
     shared = "local" if _shared_window(cfg, cache_len) else "global"
     tokens = batch["tokens"]
     b, s = tokens.shape
     positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
     x = _embed(params, cfg, tokens)
     cache: dict | None = {} if collect_cache else None
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
     for pi, phase in enumerate(blocks.build_plan(cfg)):
         pcache: dict = {}
         for g in range(phase.n_groups):
             gp = _at(params[f"phase{pi}"], g)
-            for j, (kind, ffn) in enumerate(zip(phase.kinds, phase.ffns)):
-                x, c = blocks.slot_forward(gp[f"slot{j}"], x, positions, cfg, kind, ffn,
-                                           collect_cache=collect_cache)
-                if collect_cache:
-                    _put(pcache, f"slot{j}", g, phase.n_groups, c, kind, cache_len, cfg)
-            if phase.shared_attn:
-                x, c = blocks.slot_forward(params["shared"], x, positions, cfg, shared, "mlp",
-                                           collect_cache=collect_cache)
-                if collect_cache:
-                    _put(pcache, "shared", g, phase.n_groups, c, shared, cache_len, cfg)
+
+            def group(x, gp=gp, phase=phase, g=g, pcache=pcache):
+                for j, (kind, ffn) in enumerate(zip(phase.kinds, phase.ffns)):
+                    x, c = blocks.slot_forward(gp[f"slot{j}"], x, positions, cfg, kind, ffn,
+                                               collect_cache=collect_cache)
+                    if collect_cache:
+                        _put(pcache, f"slot{j}", g, phase.n_groups, c, kind, cache_len, cfg)
+                if phase.shared_attn:
+                    x, c = blocks.slot_forward(params["shared"], x, positions, cfg, shared,
+                                               "mlp", collect_cache=collect_cache)
+                    if collect_cache:
+                        _put(pcache, "shared", g, phase.n_groups, c, shared, cache_len, cfg)
+                return x
+
+            x = checkpoint(group, x, use_reentrant=False) if remat else group(x)
         if collect_cache:
             cache[f"phase{pi}"] = pcache
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)  # MoE only
     return _head(params, cfg, x), aux, cache
+
+
+def _cast_tree(tree: dict, dtype: torch.dtype) -> dict:
+    """Floating leaves to ``dtype`` (``.to`` returns a leaf already in it
+    unchanged); integer leaves as they are."""
+    return {k: (_cast_tree(v, dtype) if isinstance(v, dict)
+                else v.to(dtype) if v.is_floating_point() else v) for k, v in tree.items()}
 
 
 def _put(pcache: dict, name: str, g: int, n_groups: int, c: dict, kind: str,

@@ -1,13 +1,15 @@
-"""Serving and scoring entry points: counterpart of ``repro.models.steps``
-without its training half (``train_step`` and AdamW wait for ROADMAP queue 1
-item 1.5).  ``loss_fn`` is the forward of a training step: it scores a
-batch, and for xlstm it is the one path that runs the mLSTM scan kernel
-(a full-sequence forward that asks for no state)."""
+"""Training, serving and scoring entry points: counterpart of
+``repro.models.steps``.  ``loss_fn`` is the forward of a training step: it
+scores a batch, and for xlstm it is the one path that runs the mLSTM scan
+kernel (a full-sequence forward that asks for no state).  ``train_step``
+differentiates it with ``torch.autograd.grad`` over every parameter leaf
+and applies AdamW in place (``optim.adamw.adamw_update_``)."""
 from __future__ import annotations
 
 import torch
 
 from ..configs.base import ArchConfig
+from ..optim import adamw
 from . import lm
 
 
@@ -26,6 +28,24 @@ def loss_fn(params: dict, cfg: ArchConfig, batch: dict):
     logits, aux, _ = lm.forward(params, cfg, batch)
     ce = softmax_xent(logits[:, :-1], batch["labels"][:, 1:])
     return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
+
+
+def train_step(params: dict, opt_state: dict, batch: dict, *, cfg: ArchConfig,
+               opt_cfg: adamw.AdamWConfig = adamw.AdamWConfig(),
+               lr_scale: torch.Tensor | float = 1.0):
+    """One step: ``loss_fn``, the gradient of every leaf by
+    ``torch.autograd.grad`` (``allow_unused=False``: a leaf the loss does
+    not reach raises), then AdamW.  The parameters, ``mu`` and ``nu`` are
+    updated in place (the reference's ``donate_argnums``); the same trees
+    are returned, with the metrics (tensors on the parameters' device)."""
+    leaves = adamw.tree_map(lambda p: p.detach().requires_grad_(), params)
+    loss, metrics = loss_fn(leaves, cfg, batch)
+    flat = adamw.tree_leaves(leaves)
+    by_leaf = dict(zip(map(id, flat), torch.autograd.grad(loss, flat, allow_unused=False)))
+    om = adamw.adamw_update_(leaves, adamw.tree_map(lambda p: by_leaf[id(p)], leaves),
+                             opt_state, opt_cfg, lr_scale)
+    return params, opt_state, {"loss": loss.detach(),
+                               **{k: v.detach() for k, v in metrics.items()}, **om}
 
 
 def prefill(params: dict, batch: dict, *, cfg: ArchConfig, cache_len: int = 0):

@@ -6,6 +6,12 @@ Optimizer state mirrors the parameter tree (``mu``, ``nu`` in fp32) plus a
 0-d int ``step`` on the parameters' device.  The clip factor, the bias
 corrections and the returned metrics stay tensors on that device: an
 update makes no host sync.
+
+``adamw_update_`` writes the step into the parameters, ``mu`` and ``nu`` in
+place, leaf by leaf: the counterpart of the reference's ``donate_argnums``,
+so a full-width LM step never holds a second copy of its parameters and
+optimizer state.  ``adamw_update`` returns new trees, as the reference
+does: it runs ``adamw_update_`` on copies.
 """
 from __future__ import annotations
 
@@ -50,10 +56,23 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
 
 
-@torch.no_grad()
 def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
                  lr_scale: torch.Tensor | float = 1.0):
-    """Returns (new_params, new_state, metrics)."""
+    """Returns (new_params, new_state, metrics); the inputs are left as they
+    were."""
+    with torch.no_grad():
+        new_params = tree_map(torch.clone, params)
+        new_state = {"mu": tree_map(torch.clone, state["mu"]),
+                     "nu": tree_map(torch.clone, state["nu"]), "step": state["step"]}
+    metrics = adamw_update_(new_params, grads, new_state, cfg, lr_scale)
+    return new_params, new_state, metrics
+
+
+@torch.no_grad()
+def adamw_update_(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
+                  lr_scale: torch.Tensor | float = 1.0) -> dict:
+    """One AdamW step in place: the parameters, ``mu`` and ``nu`` are
+    overwritten and ``state["step"]`` replaced.  Returns the metrics."""
     gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state["step"] + 1
@@ -61,17 +80,13 @@ def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
     b1c = 1.0 - cfg.b1 ** stepf
     b2c = 1.0 - cfg.b2 ** stepf
     lr = cfg.lr * lr_scale
-
-    def upd(p, g, mu, nu):
+    for p, g, mu, nu in zip(tree_leaves(params), tree_leaves(grads),
+                            tree_leaves(state["mu"]), tree_leaves(state["nu"])):
         g = g.float() * clip
-        mu = cfg.b1 * mu + (1 - cfg.b1) * g
-        nu = cfg.b2 * nu + (1 - cfg.b2) * torch.square(g)
+        mu.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        nu.mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(g))
         step_dir = (mu / b1c) / (torch.sqrt(nu / b2c) + cfg.eps)
         decay = cfg.weight_decay * p.float() if p.ndim >= 2 else 0.0
-        new_p = p.float() - lr * (step_dir + decay)
-        return new_p.to(p.dtype), mu, nu
-
-    out = tree_map(upd, params, grads, state["mu"], state["nu"])
-    pick = lambda i: tree_map(lambda o: o[i], out)
-    new_state = {"mu": pick(1), "nu": pick(2), "step": step}
-    return pick(0), new_state, {"grad_norm": gnorm, "lr": lr}
+        p.copy_(p.float() - lr * (step_dir + decay))
+    state["step"] = step
+    return {"grad_norm": gnorm, "lr": lr}

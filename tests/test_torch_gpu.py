@@ -8,6 +8,10 @@ no JAX, so it also runs where only PyTorch is installed:
 The shapes are those of tests/test_kernels.py, which test_torch_kernels.py
 also uses to hold the twins to the JAX reference; the tolerances are the
 reference's (tests/test_kernels.py:17-19): 3e-4 in fp32, 2e-2 in bf16.
+The backward kernels (flash attention, RMSNorm) are held to autograd of
+their twins at the same tolerances, and a smoke model's gradients through
+the kernels to its plain path's; the kernels without a backward must
+raise under grad.
 """
 import ctypes
 
@@ -354,7 +358,8 @@ def test_wrappers_count_launches_and_reject_wide_heads(cuda):
                          use_kernel=True)
     ops.rmsnorm(q, torch.zeros(64, device=cuda, dtype=torch.bfloat16), use_kernel=True)
     assert native.LAUNCHES == {"rmsnorm": 1, "flash_attention": 1, "decode_attention": 1,
-                               "ssm_scan": 0, "mlstm_scan": 0}
+                               "ssm_scan": 0, "mlstm_scan": 0, "flash_attention_bwd": 0,
+                               "rmsnorm_bwd": 0}
     wide = torch.randn(1, 8, 2, 336, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim 336"):
         ops.flash_attention(wide, wide, wide, use_kernel=True)
@@ -537,3 +542,197 @@ def test_lenet_logits_grads_and_training_match_cpu_on_gpu(cuda):
     for a, b in zip(losses[cuda], losses["cpu"]):
         assert abs(a - b) / abs(b) <= 1e-3
     assert not any(native.LAUNCHES.values())
+
+
+# (sq, skv, hq, hkv, d, window) for the flash backward (q_offset 0): MHA;
+# GQA 4:1 with S no tile divides; h2o's D 120 under a binding window; D 17
+# (plain-load staging); zamba2's D 64; granite's D 128 over several key
+# tiles, causal and with a window; kv longer than q; a window of 1
+FLASH_BWD_CASES = [
+    (64, 64, 4, 4, 32, 0),
+    (100, 100, 8, 2, 64, 0),
+    (200, 200, 8, 2, 120, 64),
+    (40, 40, 2, 1, 17, 0),
+    (130, 130, 4, 4, 64, 0),
+    (300, 300, 8, 2, 128, 0),
+    (300, 300, 8, 2, 128, 100),
+    (70, 150, 4, 2, 128, 0),
+    (65, 65, 2, 2, 16, 1),
+]
+
+
+def _flash_grads(q, k, v, do, use_kernel, **kw):
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*leaves, use_kernel=use_kernel, **kw)
+    return out, torch.autograd.grad(out, leaves, do)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,skv,hq,hkv,d,window", FLASH_BWD_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_backward_kernel_matches_twin_on_gpu(cuda, sq, skv, hq, hkv, d, window, dtype):
+    """Autograd through the kernel (the LSE forward, then the backward
+    kernel) against the twin's gradient (autograd in fp32): dq, dk, dv."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    td = DTYPES[dtype]
+    q = torch.randn(2, sq, hq, d, device=cuda, generator=g).to(td)
+    k, v = (torch.randn(2, skv, hkv, d, device=cuda, generator=g).to(td) for _ in range(2))
+    do = torch.randn(2, sq, hq, d, device=cuda, generator=g).to(td)
+    native.reset_launches()
+    out, got = _flash_grads(q, k, v, do, True, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["flash_attention"] == native.LAUNCHES["flash_attention_bwd"] == 1
+    want = ref.flash_attention_bwd_ref(q, k, v, do, causal=True, window=window)
+    for a, b in zip(got, want):
+        assert a.dtype == td
+        _close(a, b, dtype)
+    _close(out.detach(), ref.flash_attention_ref(q, k, v, causal=True, window=window), dtype)
+
+
+def rule_share(got: torch.Tensor, want: torch.Tensor, floor: float = 1e-6) -> float:
+    """The largest share of its allowance any element uses under the card's
+    rule for a backward kernel (``chip_smoke._check``): |got - want| <=
+    2e-2 (|want| + rms of want's row), the row's rms at least ``floor / 2e-2``
+    of want's largest value."""
+    g, w = got.float(), want.float()
+    row = w.square().mean(dim=-1, keepdim=True).sqrt()
+    row = torch.clamp(row, min=float(floor / 2e-2 * w.abs().max()))
+    return float(((g - w).abs() / (2e-2 * (w.abs() + row))).max())
+
+
+def bwd_inputs(case: str):
+    """bf16 causal GQA inputs (B 1, S 16, 2 query heads on 1 kv head, D 128)
+    on which a bf16 backward's order shows.  ``one_hot``: head 0's row 1
+    puts all but ~1e-5 of its weight on key 0, so its dS is ~1e-5 of dP.
+    ``common_keys``: every key is one shared vector plus 0.1 of noise, so
+    dq = scale sum_j dS_ij k_j (sum_j dS_ij = 0) cancels to ~0.1 of
+    sum_j |dS_ij| |k_j|."""
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((1, 16, 2, 128), dtype=np.float32)
+    if case == "one_hot":
+        k = rng.standard_normal((1, 16, 1, 128), dtype=np.float32)
+        q[0, 1, 0] = k[0, 0, 0]             # score ~ |k_0|^2 / sqrt(128) ~ 11 above key 1's
+    else:
+        k = rng.standard_normal(128, dtype=np.float32) \
+            + 0.1 * rng.standard_normal((1, 16, 1, 128), dtype=np.float32)
+    v = rng.standard_normal((1, 16, 1, 128), dtype=np.float32)
+    do = rng.standard_normal((1, 16, 2, 128), dtype=np.float32)
+    return tuple(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["one_hot", "common_keys"])
+def test_flash_backward_kernel_holds_where_the_usual_orders_miss_on_gpu(cuda, case):
+    """The kernel on the inputs where the usual flash backward's orders miss
+    the fp32 gradient (``test_torch_kernels.py``): dq, dk, dv within the
+    rule ``chip_smoke.py`` holds the backward kernels to."""
+    q, k, v, do = (t.to(cuda) for t in bwd_inputs(case))
+    _, got = _flash_grads(q, k, v, do, True)
+    want = ref.flash_attention_bwd_ref(q, k, v, do)
+    assert max(rule_share(a, b) for a, b in zip(got, want)) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 64, 120, 128])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_lse_variant_output_equals_the_serving_variant_on_gpu(cuda, d, dtype):
+    """The training forward writes the same output, bit for bit, as the
+    serving forward, and a log-sum-exp equal to the twin's."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(1)
+    td = DTYPES[dtype]
+    q = torch.randn(2, 150, 8, d, device=cuda, generator=g).to(td)
+    k, v = (torch.randn(2, 150, 2, d, device=cuda, generator=g).to(td) for _ in range(2))
+    for window in (0, 40):
+        serve, _ = fa._forward(q, k, v, True, window, d ** -0.5, 0, False)
+        train, lse = fa._forward(q, k, v, True, window, d ** -0.5, 0, True)
+        torch.cuda.synchronize()
+        assert torch.equal(serve, train)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float().repeat_interleave(4, 2))
+        pos = torch.arange(150, device=cuda)
+        mask = (pos[None] <= pos[:, None]) & ((pos[:, None] - pos[None] < window) | (window == 0))
+        want = torch.logsumexp(torch.where(mask, logits * d ** -0.5, -torch.inf), dim=-1)
+        np.testing.assert_allclose(lse.cpu().numpy(), want.cpu().numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", RMSNORM_SHAPES + [(4096, 4096)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rmsnorm_backward_kernel_matches_twin_on_gpu(cuda, shape, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    td = DTYPES[dtype]
+    x = torch.randn(shape, device=cuda, generator=g).to(td)
+    s = (torch.randn(shape[-1:], device=cuda, generator=g) * 0.1).to(td)
+    gy = torch.randn(shape, device=cuda, generator=g).to(td)
+    leaves = [x.clone().requires_grad_(), s.clone().requires_grad_()]
+    native.reset_launches()
+    out = ops.rmsnorm(*leaves, use_kernel=True)
+    got = torch.autograd.grad(out, leaves, gy)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["rmsnorm"] == native.LAUNCHES["rmsnorm_bwd"] == 1
+    want = ref.rmsnorm_bwd_ref(x, s, gy)
+    _close(got[0], want[0], dtype)
+    # dscale sums over every row: hold it relative to its own scale
+    rel = float((got[1].float() - want[1].float()).abs().max() / want[1].float().abs().max())
+    assert rel <= tol(dtype)["rtol"], rel
+    # the result repeats: no atomics
+    again = torch.autograd.grad(ops.rmsnorm(*leaves, use_kernel=True), leaves, gy)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite_3_8b", "h2o_danube_3_4b", "minitron_4b"])
+def test_smoke_model_gradients_kernel_path_match_plain_path_on_gpu(cuda, arch):
+    """fp32 smoke config, 2 layers: every parameter leaf gets a gradient
+    through the kernels (attention and norms both ways), within 3e-4 of the
+    plain path's, and a training step launches the four kernels and no other."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm, steps
+    from repro_torch.optim import adamw
+    cfg = registry.get_smoke_config(arch)
+    params = lm.init_params(cfg, seed=0, device=cuda, dtype=torch.float32)
+    toks = torch.randint(0, cfg.vocab_size, (2, 48), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    batch = {"tokens": toks, "labels": toks}
+    grads = {}
+    for use in (True, False):
+        leaves = adamw.tree_map(lambda p: p.clone().requires_grad_(), params)
+        loss, _ = steps.loss_fn(leaves, cfg.replace(use_kernels=use), batch)
+        grads[use] = torch.autograd.grad(loss, adamw.tree_leaves(leaves))
+    assert len(grads[True]) == len(adamw.tree_leaves(params))
+    for a, b in zip(grads[True], grads[False]):
+        assert _rel(a, b) <= 3e-4
+    native.reset_launches()
+    steps.train_step(params, adamw.init_opt_state(params), batch,
+                     cfg=cfg.replace(use_kernels=True))
+    torch.cuda.synchronize()
+    assert {k for k, n in native.LAUNCHES.items() if n} == {
+        "rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd"}
+
+
+@pytest.mark.gpu
+def test_kernels_without_a_backward_raise_under_grad_on_gpu(cuda):
+    """decode attention, the two scans and flash at D 320 refuse a call
+    under grad, naming their ROADMAP item, instead of returning an output
+    with no gradient; under no_grad they run."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(2, 8, 64, device=cuda, generator=g, requires_grad=True)
+    kc = torch.randn(2, 16, 2, 64, device=cuda, generator=g)
+    lens = torch.full((2,), 16, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="ROADMAP.md queue 2 item 2.4"):
+        ops.decode_attention(q, kc, kc, lens, use_kernel=True)
+    x, dt, A, Bm, Cm = _on(ssm_inputs(np.random.default_rng(0), 1, 32, 2, 8, 16), cuda,
+                           torch.float32)
+    with pytest.raises(RuntimeError, match="ROADMAP.md queue 2 item 2.2"):
+        ops.ssm_scan(x.requires_grad_(), dt, A, Bm, Cm, use_kernel=True)
+    qm, km, vm, li, fp = _on(mlstm_inputs(np.random.default_rng(0), 1, 32, 2, 16), cuda,
+                             torch.float32)
+    with pytest.raises(RuntimeError, match="ROADMAP.md queue 2 item 2.3"):
+        ops.mlstm_scan(qm, km.requires_grad_(), vm, li, torch.nn.functional.logsigmoid(fp),
+                       use_kernel=True)
+    wide = torch.randn(1, 16, 2, 320, device=cuda, generator=g, requires_grad=True)
+    with pytest.raises(ValueError, match="ROADMAP.md queue 2 item 2.1"):
+        ops.flash_attention(wide, wide, wide, use_kernel=True)
+    with torch.no_grad():
+        ops.decode_attention(q, kc, kc, lens, use_kernel=True)
+        ops.flash_attention(wide, wide, wide, use_kernel=True)

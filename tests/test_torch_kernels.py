@@ -25,8 +25,8 @@ from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm  # noqa: E402
 from repro.kernels.ssm_scan import ssm_scan as jax_ssm  # noqa: E402
 from repro_torch.kernels import native, ops, ref  # noqa: E402
 from test_torch_gpu import (DECODE_CASES, FLASH_CASES, MLSTM_CASES,  # noqa: E402
-                            RMSNORM_SHAPES, SSM_CASES, extreme_decay_inputs,
-                            mlstm_inputs, ssm_inputs, tol)
+                            RMSNORM_SHAPES, SSM_CASES, bwd_inputs, extreme_decay_inputs,
+                            mlstm_inputs, rule_share, ssm_inputs, tol)
 
 SCAN_TOL = dict(rtol=2e-4, atol=2e-4)   # tests/test_kernels.py:83-88, 144
 
@@ -291,7 +291,8 @@ def test_cpu_wrappers_run_the_twin_and_count_nothing():
     q = torch.randn(1, 4, 2, 8)
     ops.mlstm_scan(q, q, q, torch.zeros(1, 4, 2), torch.zeros(1, 4, 2), use_kernel=True)
     assert native.LAUNCHES == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
-                               "ssm_scan": 0, "mlstm_scan": 0}
+                               "ssm_scan": 0, "mlstm_scan": 0, "flash_attention_bwd": 0,
+                               "rmsnorm_bwd": 0}
 
 
 @pytest.mark.parametrize("fn,args", [
@@ -330,3 +331,19 @@ def test_kernel_wrappers_never_run_the_twin(module, args):
     with pytest.raises(ValueError, match="no kernel for device cpu"):
         wrapper(*args())
     assert native.LAUNCHES[module] == 0
+
+
+@pytest.mark.parametrize("case,usual", [("one_hot", {"delta_from_output": True}),
+                                        ("common_keys", {"split_ds": False})])
+def test_flash_backward_order_holds_where_the_usual_orders_miss(case, usual):
+    """The bf16 backward kernel's order (``ref.flash_attention_bwd_order_ref``:
+    Delta = sum_j P dP in fp32, dS in two bf16 halves) keeps dq, dk, dv
+    within the card's rule against the gradient in fp32.  The usual flash
+    backward's orders miss dq there: Delta = rowsum(dO o O) from the bf16
+    output carries O's rounding into the small dS of a nearly one-hot row,
+    and one bf16 rounding of dS survives the cancellation of dS K."""
+    q, k, v, do = bwd_inputs(case)
+    want = ref.flash_attention_bwd_ref(q, k, v, do)
+    got = ref.flash_attention_bwd_order_ref(q, k, v, do)
+    assert max(rule_share(g, w) for g, w in zip(got, want)) <= 1.0
+    assert rule_share(ref.flash_attention_bwd_order_ref(q, k, v, do, **usual)[0], want[0]) > 1.0

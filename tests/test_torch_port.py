@@ -16,8 +16,8 @@ from repro_torch.core.trainjob import LMTrainJob, SupervisedTrainJob  # noqa: E4
 from repro_torch.data.mnist import Batches, make_dataset  # noqa: E402
 from repro_torch.examples import (continuous_batching, e2e_mnist_pipeline,  # noqa: E402
                                   e2e_train_to_serve, multi_model_serving, quickstart,
-                                  serve_llm, slo_failover)
-from repro_torch.launch import serve  # noqa: E402
+                                  serve_llm, slo_failover, train_llm)
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import lenet, lm  # noqa: E402
 from repro_torch.modelci.profile import roofline_fields  # noqa: E402
 from repro_torch.models.transplant import transplant, transplant_lenet  # noqa: E402
@@ -107,11 +107,14 @@ def no_cuda():
     lambda cfg: e2e_mnist_pipeline.main([]),
     lambda cfg: e2e_train_to_serve.main([]),
     lambda cfg: multi_model_serving.main([]),
+    lambda cfg: LMTrainJob(cfg, batch_size=1, seq_len=8, n_steps=1).run(),
+    lambda cfg: train.main(["--arch", "granite_3_8b", "--smoke", "--steps", "1"]),
+    lambda cfg: train_llm.main(["--steps", "1"]),
 ], ids=["init_params", "init_cache", "make_lm_predictor", "transplant", "serve_main",
         "continuous_batcher", "continuous_batching_example", "lenet_init_params",
         "transplant_lenet", "supervised_trainjob", "quickstart_example",
         "e2e_mnist_pipeline_example", "e2e_train_to_serve_example",
-        "multi_model_serving_example"])
+        "multi_model_serving_example", "lm_trainjob", "train_main", "train_llm_example"])
 def test_cuda_entry_points_raise_without_a_card(no_cuda, entry):
     """No silent CPU fallback: asking for the card where there is none raises."""
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -119,10 +122,10 @@ def test_cuda_entry_points_raise_without_a_card(no_cuda, entry):
 
 
 @pytest.mark.parametrize("entry,item", [
-    (lambda: LMTrainJob(registry.get_smoke_config("granite_3_8b"), batch_size=1, seq_len=8,
-                        n_steps=1), "1.5"),
     (lambda: roofline_fields(registry.get_config("gemma3_4b")), "1.10"),
-], ids=["lm_trainjob", "roofline_fields"])
+    (lambda: train.main(["--arch", "granite_3_8b", "--smoke", "--device", "cpu", "--steps",
+                         "1", "--mesh", "local"]), "1.10"),
+], ids=["roofline_fields", "train_main_mesh"])
 def test_unported_entry_points_name_their_roadmap_item(entry, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 item {item}"):
         entry()
@@ -180,6 +183,24 @@ def test_serve_main_runs_the_smoke_config_on_cpu(capsys, arch):
     out = json.loads(capsys.readouterr().out)
     assert out["n"] == 2 and out["device"] == "cpu"
     assert out["arch"] == registry.get_config(arch).name
+
+
+@pytest.mark.parametrize("arch", ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b"])
+def test_train_main_runs_the_smoke_config_on_cpu(capsys, tmp_path, arch, one_torch_thread):
+    train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "3", "--batch", "2",
+                "--seq", "16", "--store", str(tmp_path)])
+    out = json.loads(capsys.readouterr().out)
+    assert out["arch"] == registry.get_config(arch).name and out["device"] == "cpu"
+    assert np.isfinite(out["loss_first"]) and np.isfinite(out["loss_last"])
+    assert (tmp_path / f"{out['arch']}-smoke_opt.npz").is_file()
+
+
+def test_train_llm_example_runs_on_cpu(capsys, one_torch_thread):
+    """The example's own assert (the loss falls over 20 steps), on the host."""
+    res = train_llm.main(["--device", "cpu", "--steps", "20", "--batch", "4", "--seq", "32"])
+    out = json.loads(capsys.readouterr().out)
+    assert out["device"] == "cpu" and len(res["history"]) == 20
+    assert min(res["history"]) < res["history"][0]
 
 
 def test_continuous_batching_example_runs_the_smoke_config_on_cpu(capsys):
