@@ -381,11 +381,12 @@ def _flash_case(b: int, sq: int, skv: int, hq: int, hkv: int, d: int, gen, windo
 
 def _flash_bwd_case(b: int, s: int, hq: int, hkv: int, d: int, gen, window: int = 0,
                     dtype=None):
-    """The backward kernel alone on the LSE forward's log-sum-exp, against
-    the twin's gradient (autograd in fp32); the library call is the backward
-    of SDPA (autograd of one forward, kept).  The bound counts the five
-    S x S x D products over the visible pairs, and each of q, k, v, dO, lse
-    read once and dq, dk, dv written once."""
+    """The backward kernel alone on the training forward's log-sum-exp and
+    fp32 output, against the twin's gradient (autograd in fp32); the
+    library call is the backward of SDPA (autograd of one forward, kept).
+    The bound counts the five S x S x D products over the visible pairs,
+    and each of q, k, v, dO, lse and the fp32 output read once and dq, dk,
+    dv written once."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -394,7 +395,7 @@ def _flash_bwd_case(b: int, s: int, hq: int, hkv: int, d: int, gen, window: int 
     q = torch.randn(b, s, hq, d, device="cuda", generator=gen).to(dtype)
     k, v = (torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(dtype) for _ in range(2))
     do = torch.randn(b, s, hq, d, device="cuda", generator=gen).to(dtype)
-    _, lse = fa._forward(q, k, v, True, window, d ** -0.5, 0, True)
+    _, lse, o32 = fa.forward_for_training(q, k, v, True, window, d ** -0.5)
     pos = torch.arange(s, device="cuda")
     mask = pos[None, :] <= pos[:, None]
     if window:
@@ -410,11 +411,11 @@ def _flash_bwd_case(b: int, s: int, hq: int, hkv: int, d: int, gen, window: int 
     return dict(
         shape=f"q ({b},{s},{hq},{d}) kv {hkv} causal" + (f" window {window}" if window else "")
               + (" bf16" if size == 2 else " fp32"),
-        kernel=lambda: ops.flash_attention_bwd(q, k, v, do, lse, use_kernel=True, **kw),
+        kernel=lambda: ops.flash_attention_bwd(q, k, v, do, lse, o32, use_kernel=True, **kw),
         twin=lambda: ref.flash_attention_bwd_ref(q, k, v, do, **kw),
         library=lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t, retain_graph=True),
         capturable=False,
-        nbytes=size * (3 * b * s * hq * d + 4 * b * s * hkv * d) + 4 * b * hq * s,
+        nbytes=size * (3 * b * s * hq * d + 4 * b * s * hkv * d) + 4 * b * hq * s * (d + 1),
         flops=10 * d * b * hq * visible, peak=BF16_FLOPS if size == 2 else FP32_FLOPS,
         floor=BWD_FLOOR)
 

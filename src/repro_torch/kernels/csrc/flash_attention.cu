@@ -23,8 +23,9 @@
 //   block of 256 threads owns 128 query rows: two consumer warpgroups of 64
 //   rows each share the K/V tiles.  Q and a ring of two stages of 64-key K
 //   and V tiles sit in shared memory in the swizzled layout the wgmma
-//   descriptors read (rows cut into 128-byte, or for D 16 / 32, 32- and
-//   64-byte swizzle atoms), filled with 16-byte cp.async so tile i+1 loads
+//   descriptors read (wgmma.cuh, which flash_attention_bwd.cu shares: rows
+//   cut into 128-byte, or for D 16 / 32, 32- and 64-byte swizzle atoms),
+//   filled with 16-byte cp.async so tile i+1 loads
 //   while tile i is multiplied.  S = Q K^T reads both operands from shared
 //   memory (K-major); the fp32 scores stay in registers, are scaled in fp32
 //   (scale * log2 e, exp2), masked and folded into the running max and sum;
@@ -60,9 +61,17 @@
 // Training: both kernels take a compile-time flag LSE.  With it they also
 // write each row's fp32 log-sum-exp of the scaled scores, lse (B,Hq,Sq) =
 // m + log(l) (natural log), which flash_attention_bwd.cu recomputes the
-// probabilities from.  Without it (the serving entry points) the code is
-// the same as before the flag existed: the flag only adds the store.
+// probabilities from.  The bf16 kernel with LSE also writes O32 (B,Sq,Hq,D)
+// fp32: the output before its bf16 rounding,
+// normalised by the sum of the bf16-rounded P that entered P V rather than
+// by l.  Its rows are an exact softmax average (weights summing to one) of
+// the rows of V, so the backward's Delta = rowsum(dO o O32) carries only
+// the rounding of P's relative weights, not of their total (the backward's
+// header gives the numbers).  Without LSE (the serving entry points) the
+// code is the same as before the flag existed, and with it the bf16 output
+// is the same bits: the flag only adds the stores and the second sum.
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -271,17 +280,10 @@ constexpr int BQ = 64 * NWG;     // query rows per block
 constexpr int NT = 128 * NWG;    // threads per block
 constexpr int NSTAGE = 2;        // K/V ring: tile i+1 loads while tile i is used
 
-// Per padded head dim DP (16, 32, 64, 128 or 320): a tile row of DP bf16 is
-// cut into sub-rows of RB bytes, one swizzle atom wide (32, 64 or 128
-// bytes), and the tile is stored as NSUB sub-tiles [rows][RB].  Within each
-// 8-row group the 16-byte chunk c of row r sits at chunk c ^ (address bits
-// 7+), the layout wgmma's 32/64/128-byte swizzle modes read.  BK keys a K/V
-// tile: 64, or 32 at DP 320 (the header says why).
-template <int DP> struct Cfg {
-  static constexpr int RB = DP * 2 < 128 ? DP * 2 : 128;
-  static constexpr int NSUB = DP * 2 / RB;
-  static constexpr uint32_t MODE = RB == 128 ? 1 : (RB == 64 ? 2 : 3);  // descriptor swizzle
-  static constexpr int NV = RB / 2;                  // output columns per sub-tile
+// Per padded head dim DP (16, 32, 64, 128 or 320): the swizzled tile layout
+// of wgmma.cuh; BK keys a K/V tile: 64, or 32 at DP 320 (the header says
+// why).
+template <int DP> struct Cfg : sm90::Layout<DP> {
   static constexpr int BK = DP > 128 ? 32 : 64;
   static constexpr int Q_BYTES = BQ * DP * 2;
   static constexpr int KV_BYTES = BK * DP * 2;
@@ -289,176 +291,18 @@ template <int DP> struct Cfg {
   static_assert(SMEM <= 232448, "a block may use at most 227 KB of shared memory");
 };
 
-// byte offset of 16-byte chunk c of row r in a swizzled tile of ROWS rows
-template <int DP, int ROWS>
-__device__ __forceinline__ uint32_t chunk_offset(int r, int c) {
-  constexpr int RB = Cfg<DP>::RB, CPS = RB / 16;     // chunks per sub-row
-  const uint32_t o = (c / CPS) * ROWS * RB + r * RB + (c % CPS) * 16;
-  return o ^ (((o >> 7) & (CPS - 1)) << 4);
-}
+using sm90::fast_exp2;
+using sm90::fence_async_shared;
+using sm90::fence_regs;
+using sm90::pack_bf16;
+using sm90::wgmma_commit;
+using sm90::wgmma_fence;
+using sm90::wgmma_wait_all;
 
-// Stage rows [r0, r0 + ROWS) of a row-strided bf16 matrix in a swizzled
-// tile; rows at or past n_rows and columns at or past D are zero.  VEC: one
-// 16-byte cp.async per chunk (D % 8 == 0, aligned source); otherwise plain
-// loads and a 16-byte shared store.
 template <int DP, int ROWS, bool VEC>
 __device__ __forceinline__ void load_tile(unsigned char* tile, const bf16* src, size_t row_stride,
                                           int r0, int n_rows, int D, int tid) {
-  constexpr int CPR = DP / 8;                        // 16-byte chunks per row
-#pragma unroll
-  for (int e = tid; e < ROWS * CPR; e += NT) {
-    const int r = e / CPR, c = e % CPR;
-    const bool row_ok = r0 + r < n_rows;
-    unsigned char* dst = tile + chunk_offset<DP, ROWS>(r, c);
-    if constexpr (VEC) {
-      const bool ok = row_ok && c * 8 < D;
-      rt::cp_async16(dst, src + (ok ? static_cast<size_t>(r0 + r) * row_stride + c * 8 : 0),
-                     ok ? 16 : 0);
-    } else {
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      bf16* part = reinterpret_cast<bf16*>(&val);
-      if (row_ok) {
-        const bf16* row = src + static_cast<size_t>(r0 + r) * row_stride;
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          if (c * 8 + u < D) part[u] = row[c * 8 + u];
-      }
-      *reinterpret_cast<uint4*>(dst) = val;
-    }
-  }
-}
-
-// wgmma shared-memory matrix descriptor of a swizzled tile: start address,
-// the stride between 8-row groups (8 RB bytes) and the swizzle mode.  Every
-// operand here spans one swizzle atom in its contiguous dimension (a 16-deep
-// K slice of Q or K; a V sub-tile of NV columns), so the other stride is
-// never used; it is set equal.
-template <int DP>
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  constexpr uint64_t stride = (8 * Cfg<DP>::RB) >> 4;
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (stride << 16) | (stride << 32) |
-         (static_cast<uint64_t>(Cfg<DP>::MODE) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// make generic-proxy writes to shared memory visible to wgmma's reads
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// the compiler must not move reads of wgmma results above the wait
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// 2^x (ex2.approx: ~2 ulp; 0 for the -1e30 masks)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// D (64 x 32, fp32) (+)= A (64 x 16, shared) * B (16 x 32, shared, K-major)
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// D (64 x 64, fp32) (+)= A (64 x 16, shared) * B (16 x 64, shared, K-major)
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(acc));
-}
-
-// D (64 x 16, fp32) += A (64 x 16, registers) * B (16 x 16, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[8], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 32, fp32) += A (64 x 16, registers) * B (16 x 32, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-// D (64 x 64, fp32) += A (64 x 16, registers) * B (16 x 64, shared, MN-major)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  sm90::load_tile<DP, ROWS, VEC, NT>(tile, src, row_stride, r0, n_rows, D, tid);
 }
 
 // Issue S = Q K^T for one warpgroup (64 rows x BK keys, fp32) as one wgmma
@@ -467,14 +311,8 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
 template <int DP>
 __device__ __forceinline__ void issue_scores(float (&sc)[Cfg<DP>::BK / 2], uint32_t q_addr,
                                              uint32_t k_addr) {
-  using C = Cfg<DP>;
   wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    const uint32_t sub = kk * 32 / C::RB, off = kk * 32 % C::RB;
-    wgmma_ss(sc, desc<DP>(q_addr + sub * BQ * C::RB + off),
-             desc<DP>(k_addr + sub * C::BK * C::RB + off), kk > 0);
-  }
+  sm90::ss_product<DP, BQ, Cfg<DP>::BK>(sc, q_addr, k_addr);
   wgmma_commit();
 }
 
@@ -486,8 +324,9 @@ __device__ __forceinline__ void issue_scores(float (&sc)[Cfg<DP>::BK / 2], uint3
 template <int DP, bool VEC, bool LSE>
 __global__ void __launch_bounds__(NT, 1)
 flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-             bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
-             int D, float scale, int causal, int window, int q_offset, int kv_len) {
+             bf16* __restrict__ o, float* __restrict__ lse, float* __restrict__ o32, int Sq,
+             int Skv, int Hq, int Hkv, int D, float scale, int causal, int window, int q_offset,
+             int kv_len) {
   using C = Cfg<DP>;
   constexpr int BK = C::BK;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -545,6 +384,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
 #pragma unroll
     for (int i = 0; i < C::NV / 2; ++i) acc[s][i] = 0.f;
   float m[2] = {rt::kNegInf, rt::kNegInf}, l[2] = {0.f, 0.f};
+  float lr[2] = {0.f, 0.f};   // LSE: the sum of the bf16-rounded P, O32's normaliser
 
   const uint32_t qw_addr = q_addr + 64 * wg * C::RB;   // this warpgroup's Q rows
   for (int it = 0; it < n_tiles; ++it) {
@@ -604,6 +444,10 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
         }
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rsum[i];
+    if constexpr (LSE) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) lr[i] *= alpha[i];
+    }
 #pragma unroll
     for (int sb = 0; sb < C::NSUB; ++sb)
 #pragma unroll
@@ -622,15 +466,18 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
       pa[kk][1] = pack_bf16(p[2], p[3]);
       pa[kk][2] = pack_bf16(p[4], p[5]);
       pa[kk][3] = pack_bf16(p[6], p[7]);
+      if constexpr (LSE) {   // registers 0, 2 hold row g; 1, 3 row g + 8
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = sm90::unpack_bf16(pa[kk][e]);
+          lr[e & 1] += f.x + f.y;
+        }
+      }
     }
 
     // O += P V (V the MN-major B operand)
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk)
-#pragma unroll
-      for (int sb = 0; sb < C::NSUB; ++sb)
-        wgmma_rs(acc[sb], pa[kk], desc<DP>(v_addr + sb * BK * C::RB + kk * 16 * C::RB));
+    sm90::rs_product<DP, BK>(acc, pa, v_addr);
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
@@ -643,6 +490,10 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    if constexpr (LSE) {
+      lr[i] += __shfl_xor_sync(0xffffffffu, lr[i], 1);
+      lr[i] += __shfl_xor_sync(0xffffffffu, lr[i], 2);
+    }
     const int r = wr0 + 16 * warp + g + 8 * i;
     if (r >= Sq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
@@ -665,37 +516,55 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
           if (col + 1 < D) dst[1] = __float2bfloat16(x1);
         }
       }
+    if constexpr (LSE) {   // O32: the same sums over the rounded P's own total
+      const float inv_r = 1.f / fmaxf(lr[i], 1e-30f);
+      float* o32r = o32 + (static_cast<size_t>(b) * Sq + r) * q_row + static_cast<size_t>(h) * D;
+#pragma unroll
+      for (int sb = 0; sb < C::NSUB; ++sb)
+#pragma unroll
+        for (int j = 0; j < C::NV / 8; ++j) {
+          const int col = sb * C::NV + 8 * j + 2 * t;
+          const float x0 = acc[sb][4 * j + 2 * i] * inv_r;
+          const float x1 = acc[sb][4 * j + 2 * i + 1] * inv_r;
+          if (VEC) {   // D % 8 == 0: the pair is whole and 8-byte aligned
+            if (col < D) *reinterpret_cast<float2*>(o32r + col) = make_float2(x0, x1);
+          } else {
+            if (col < D) o32r[col] = x0;
+            if (col + 1 < D) o32r[col + 1] = x1;
+          }
+        }
+    }
   }
 }
 
 template <int DP, bool VEC, bool LSE>
-cudaError_t launch_tile(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int B,
-                        int Sq, int Skv, int Hq, int Hkv, int D, float scale, int causal,
-                        int window, int q_offset, int kv_len, cudaStream_t stream) {
+cudaError_t launch_tile(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+                        float* o32, int B, int Sq, int Skv, int Hq, int Hkv, int D, float scale,
+                        int causal, int window, int q_offset, int kv_len, cudaStream_t stream) {
   static std::atomic<unsigned> smem_set{0};
   cudaError_t err = rt::smem_limit_once(flash_fwd_tc<DP, VEC, LSE>, Cfg<DP>::SMEM, smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(Hq, (Sq + BQ - 1) / BQ, B);
   flash_fwd_tc<DP, VEC, LSE><<<grid, NT, Cfg<DP>::SMEM, stream>>>(
-      q, k, v, o, lse, Sq, Skv, Hq, Hkv, D, scale, causal, window, q_offset, kv_len);
+      q, k, v, o, lse, o32, Sq, Skv, Hq, Hkv, D, scale, causal, window, q_offset, kv_len);
   return cudaGetLastError();
 }
 
 template <int DP, bool LSE>
 cudaError_t launch_dp(bool vec, const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
-                      int B, int Sq, int Skv, int Hq, int Hkv, int D, float scale, int causal,
-                      int window, int q_offset, int kv_len, cudaStream_t stream) {
-  return vec ? launch_tile<DP, true, LSE>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal,
-                                          window, q_offset, kv_len, stream)
-             : launch_tile<DP, false, LSE>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale,
+                      float* o32, int B, int Sq, int Skv, int Hq, int Hkv, int D, float scale,
+                      int causal, int window, int q_offset, int kv_len, cudaStream_t stream) {
+  return vec ? launch_tile<DP, true, LSE>(q, k, v, o, lse, o32, B, Sq, Skv, Hq, Hkv, D, scale,
+                                          causal, window, q_offset, kv_len, stream)
+             : launch_tile<DP, false, LSE>(q, k, v, o, lse, o32, B, Sq, Skv, Hq, Hkv, D, scale,
                                            causal, window, q_offset, kv_len, stream);
 }
 
 // LSE: the training variant, head dims up to 128 (the backward's range)
 template <bool LSE>
-int launch(const void* q_, const void* k_, const void* v_, void* o_, float* lse, int B, int Sq,
-           int Skv, int Hq, int Hkv, int D, float scale, int causal, int window, int q_offset,
-           int kv_len, void* stream_) {
+int launch(const void* q_, const void* k_, const void* v_, void* o_, float* lse, float* o32,
+           int B, int Sq, int Skv, int Hq, int Hkv, int D, float scale, int causal, int window,
+           int q_offset, int kv_len, void* stream_) {
   if (D < 1 || D > (LSE ? 128 : kMaxHeadDim) || Hkv < 1 || Hq % Hkv != 0)
     return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
@@ -708,22 +577,22 @@ int launch(const void* q_, const void* k_, const void* v_, void* o_, float* lse,
                          reinterpret_cast<uintptr_t>(v_) | reinterpret_cast<uintptr_t>(o_);
   const bool vec = D % 8 == 0 && ptrs % 16 == 0;
   if (D <= 16)
-    return launch_dp<16, LSE>(vec, q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+    return launch_dp<16, LSE>(vec, q, k, v, o, lse, o32, B, Sq, Skv, Hq, Hkv, D, scale, causal,
                               window, q_offset, kv_len, stream);
   if (D <= 32)
-    return launch_dp<32, LSE>(vec, q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+    return launch_dp<32, LSE>(vec, q, k, v, o, lse, o32, B, Sq, Skv, Hq, Hkv, D, scale, causal,
                               window, q_offset, kv_len, stream);
   if (D <= 64)
-    return launch_dp<64, LSE>(vec, q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+    return launch_dp<64, LSE>(vec, q, k, v, o, lse, o32, B, Sq, Skv, Hq, Hkv, D, scale, causal,
                               window, q_offset, kv_len, stream);
   if constexpr (LSE) {
-    return launch_dp<128, true>(vec, q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+    return launch_dp<128, true>(vec, q, k, v, o, lse, o32, B, Sq, Skv, Hq, Hkv, D, scale, causal,
                                 window, q_offset, kv_len, stream);
   } else {
     if (D <= 128)
-      return launch_dp<128, false>(vec, q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+      return launch_dp<128, false>(vec, q, k, v, o, lse, o32, B, Sq, Skv, Hq, Hkv, D, scale, causal,
                                    window, q_offset, kv_len, stream);
-    return launch_dp<320, false>(vec, q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+    return launch_dp<320, false>(vec, q, k, v, o, lse, o32, B, Sq, Skv, Hq, Hkv, D, scale, causal,
                                  window, q_offset, kv_len, stream);
   }
 }
@@ -735,8 +604,8 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     int Sq, int Skv, int Hq, int Hkv, int D, float scale,
                                     int causal, int window, int q_offset, int kv_len,
                                     void* stream) {
-  return tc::launch<false>(q, k, v, o, nullptr, B, Sq, Skv, Hq, Hkv, D, scale, causal, window,
-                           q_offset, kv_len, stream);
+  return tc::launch<false>(q, k, v, o, nullptr, nullptr, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+                           window, q_offset, kv_len, stream);
 }
 
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* o, int B,
@@ -747,14 +616,15 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, 
                                    window, q_offset, kv_len, stream);
 }
 
-// The training forward: also the rows' log-sum-exp (B,Hq,Sq) fp32; q_offset
-// 0, every key valid, D <= 128.
+// The training forward: also the rows' log-sum-exp (B,Hq,Sq) fp32 and the
+// fp32 output before its bf16 rounding (B,Sq,Hq,D), normalised by the sum of
+// the rounded P (the header says why); q_offset 0, every key valid, D <= 128.
 extern "C" int flash_attention_lse_bf16(const void* q, const void* k, const void* v, void* o,
-                                        float* lse, int B, int Sq, int Skv, int Hq, int Hkv,
-                                        int D, float scale, int causal, int window,
+                                        float* lse, float* o32, int B, int Sq, int Skv, int Hq,
+                                        int Hkv, int D, float scale, int causal, int window,
                                         void* stream) {
-  return tc::launch<true>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal, window, 0, Skv,
-                          stream);
+  return tc::launch<true>(q, k, v, o, lse, o32, B, Sq, Skv, Hq, Hkv, D, scale, causal, window, 0,
+                          Skv, stream);
 }
 
 extern "C" int flash_attention_lse_f32(const void* q, const void* k, const void* v, void* o,

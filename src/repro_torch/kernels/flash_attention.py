@@ -10,13 +10,14 @@ out and what bounds them.
 
 Under autograd (grad enabled and q, k or v requiring it) ``flash_attention``
 goes through ``FlashAttentionFunction``: its forward launches the forward
-kernel's variant that also writes each row's fp32 log-sum-exp, and its
-backward launches ``flash_attention_bwd``, which recomputes the
-probabilities from it.  The backward takes head dims up to 128 and
-``q_offset`` 0; anything else raises under grad.  Without grad the serving
-forward runs, as before.  The wrappers launch the kernels on CUDA tensors
-and raise on anything else; ``ops.flash_attention`` chooses the plain twin
-where no kernel runs.
+kernel's variant that also writes each row's fp32 log-sum-exp and, in
+bf16, the fp32 output before its rounding (O32), and its backward launches
+``flash_attention_bwd``, which recomputes the probabilities from the
+log-sum-exp and takes each row's Delta = rowsum(dO o O32).  The backward
+takes head dims up to 128 and ``q_offset`` 0; anything else raises under
+grad.  Without grad the serving forward runs, as before.  The wrappers
+launch the kernels on CUDA tensors and raise on anything else;
+``ops.flash_attention`` chooses the plain twin where no kernel runs.
 """
 from __future__ import annotations
 
@@ -37,9 +38,11 @@ _ENTRY_BWD = {torch.bfloat16: "flash_attention_bwd_bf16",
               torch.float32: "flash_attention_bwd_f32"}
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_float]
              + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-_ARGTYPES_LSE = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
-                 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-_ARGTYPES_BWD = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
+_ARGTYPES_LSE = {torch.bfloat16: ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                                  + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+                 torch.float32: ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                                 + [ctypes.c_int] * 2 + [ctypes.c_void_p])}
+_ARGTYPES_BWD = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_float]
                  + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 
 
@@ -66,45 +69,62 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _forward(q, k, v, causal: bool, window: int, scale: float, q_offset: int,
              with_lse: bool):
-    """The forward kernel; with ``with_lse`` its variant that also returns
-    the fp32 log-sum-exp of each row's scaled scores, (B,Hq,Sq)."""
+    """The forward kernel; with ``with_lse`` its training variant (``q_offset``
+    0), which also returns the fp32 log-sum-exp of each row's scaled scores,
+    (B,Hq,Sq)."""
+    return _launch(q, k, v, causal, window, scale, q_offset, with_lse)[:2]
+
+
+def forward_for_training(q, k, v, causal: bool, window: int, scale: float):
+    """The training forward (``q_offset`` 0): (out, lse, O32).  O32 is the
+    fp32 output before its rounding to the input dtype (the output itself
+    in fp32), normalised as ``csrc/flash_attention.cu`` says; the backward
+    takes each row's Delta from it."""
+    return _launch(q, k, v, causal, window, scale, 0, True)
+
+
+def _launch(q, k, v, causal, window, scale, q_offset, training):
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
+    lse = o32 = None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if with_lse:
+        if training:
             lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
-            fn = native.function(SOURCE, _ENTRY_LSE[q.dtype], _ARGTYPES_LSE)
+            bf16 = q.dtype == torch.bfloat16
+            o32 = torch.empty(q.shape, dtype=torch.float32, device=q.device) if bf16 else out
+            fn = native.function(SOURCE, _ENTRY_LSE[q.dtype], _ARGTYPES_LSE[q.dtype])
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-                     b, sq, skv, hq, hkv, d, scale, int(causal), int(window), stream)
+                     *([o32.data_ptr()] if bf16 else []), b, sq, skv, hq, hkv, d, scale,
+                     int(causal), int(window), stream)
         else:
-            lse = None
             fn = native.function(SOURCE, _ENTRY[q.dtype], _ARGTYPES)
             err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                      b, sq, skv, hq, hkv, d, scale, int(causal), int(window),
                      int(q_offset), skv, stream)
     native.check(SOURCE, err, "flash_attention")
     native.count_launch("flash_attention")
-    return out, lse
+    return out, lse, o32
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """The forward kernel's log-sum-exp variant; the backward kernel for
-    the gradients."""
+    """The forward kernel's training variant; the backward kernel for the
+    gradients.  In bf16 it keeps O32 for the backward, 4 bytes an output
+    element (64 MiB a layer at granite's 4 x 1024 tokens)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
-        out, lse = _forward(q, k, v, causal, window, scale, 0, True)
-        ctx.save_for_backward(q, k, v, lse)
+        out, lse, o32 = forward_for_training(q, k, v, causal, window, scale)
+        ctx.save_for_backward(q, k, v, lse, o32)
         ctx.causal, ctx.window, ctx.scale = causal, window, scale
         return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, causal=ctx.causal,
+        q, k, v, lse, o32 = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, lse, o32, causal=ctx.causal,
                                          window=ctx.window, scale=ctx.scale)
         return dq, dk, dv, None, None, None
 
@@ -131,32 +151,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
-                        lse: torch.Tensor, *, causal: bool = True, window: int = 0,
-                        scale: float | None = None):
+                        lse: torch.Tensor, o32: torch.Tensor, *, causal: bool = True,
+                        window: int = 0, scale: float | None = None):
     """The gradients of ``flash_attention`` (``q_offset`` 0) at (q, k, v):
-    ``do`` is the output's gradient and ``lse`` (B,Hq,Sq) fp32 the forward's
-    log-sum-exp.  Returns (dq, dk, dv) in the inputs' dtype, summed in fp32;
-    dk and dv sum over each kv head's query heads."""
+    ``do`` is the output's gradient, ``lse`` (B,Hq,Sq) fp32 the forward's
+    log-sum-exp and ``o32`` (B,Sq,Hq,D) fp32 its output before rounding
+    (``forward_for_training``).  Returns (dq, dk, dv) in the inputs' dtype,
+    summed in fp32; dk and dv sum over each kv head's query heads."""
     _check(q, k, v)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     if d > MAX_HEAD_DIM_BWD:
         raise ValueError(f"flash_attention_bwd: head_dim {d} unsupported; the kernel takes "
                          f"1..{MAX_HEAD_DIM_BWD} (ROADMAP.md queue 2 item 2.1)")
-    if do.shape != q.shape or lse.shape != (b, hq, sq) or lse.dtype != torch.float32:
+    if (do.shape != q.shape or lse.shape != (b, hq, sq) or lse.dtype != torch.float32
+            or o32 is None or o32.shape != q.shape or o32.dtype != torch.float32):
         raise ValueError(f"flash_attention_bwd: do {tuple(do.shape)}, lse {tuple(lse.shape)} "
-                         f"{lse.dtype} do not match q {tuple(q.shape)}")
+                         f"{lse.dtype}, o32 "
+                         f"{None if o32 is None else (tuple(o32.shape), o32.dtype)} do not "
+                         f"match q {tuple(q.shape)}")
     if not (b and sq and skv):
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    do, lse = do.to(q.dtype).contiguous(), lse.contiguous()
+    do, lse, o32 = do.to(q.dtype).contiguous(), lse.contiguous(), o32.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)  # the rows' sum P dP
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)  # rowsum(dO o O32)
     scale_ = scale if scale is not None else d ** -0.5
     fn = native.function(SOURCE_BWD, _ENTRY_BWD[q.dtype], _ARGTYPES_BWD)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 o32.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  b, sq, skv, hq, hkv, d, scale_, int(causal), int(window),
                  torch.cuda.current_stream().cuda_stream)
     native.check(SOURCE_BWD, err, "flash_attention_bwd")

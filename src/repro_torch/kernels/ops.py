@@ -62,15 +62,16 @@ def rmsnorm_bwd(x, scale, g, rstd, *, eps: float = 1e-6, use_kernel: bool = Fals
     return _rmsnorm_bwd_kernel(x, scale, g, rstd, eps=eps)
 
 
-def flash_attention_bwd(q, k, v, do, lse, *, causal: bool = True, window: int = 0,
+def flash_attention_bwd(q, k, v, do, lse, o32=None, *, causal: bool = True, window: int = 0,
                         scale: float | None = None, use_kernel: bool = False):
     """(dq, dk, dv) of ``flash_attention`` (``q_offset`` 0) for the output
-    gradient ``do``; ``lse`` is the kernel forward's fp32 log-sum-exp (the
-    twin recomputes the softmax)."""
+    gradient ``do``; ``lse`` and ``o32`` are the kernel training forward's
+    fp32 log-sum-exp and output (``flash_attention.forward_for_training``;
+    the twin recomputes the softmax and needs neither)."""
     if _plain(use_kernel, q):
         return ref.flash_attention_bwd_ref(q, k, v, do, causal=causal, window=window,
                                            scale=scale)
-    return _flash_bwd_kernel(q, k, v, do, lse, causal=causal, window=window, scale=scale)
+    return _flash_bwd_kernel(q, k, v, do, lse, o32, causal=causal, window=window, scale=scale)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, scale: float | None = None,

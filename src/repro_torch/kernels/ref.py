@@ -79,17 +79,30 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bwd_order_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                   do: torch.Tensor, *, causal: bool = True, window: int = 0,
-                                  scale: float | None = None,
-                                  delta_from_output: bool = False, split_ds: bool = True):
-    """(dq, dk, dv) computed as the bf16 backward kernel computes them: P
-    recomputed in fp32, dP = dO V^T and Delta_i = sum_j P_ij dP_ij in fp32,
-    P rounded to the input dtype as the operand of dV = P^T dO, and dS =
-    P o (dP - Delta) entering dQ and dK as two halves in the input dtype
-    (hi + lo), every product summed in fp32.  The usual flash backward's
-    orders, for the tests: ``delta_from_output`` takes Delta_i =
-    rowsum(dO o O) from the output rounded to the input dtype, and
-    ``split_ds=False`` rounds dS once.  Used by no path: it holds the
-    kernel's order to the gradient."""
+                                  scale: float | None = None, delta: str = "o32",
+                                  split_dq: bool = True, split_dk: bool = True,
+                                  centre: str = "band", exact_delta_tiles: int = 4):
+    """(dq, dk, dv) computed as the bf16 backward kernel computes them, for
+    the tests (no path calls it): P recomputed in fp32, dP = dO V^T in fp32,
+    dS = P o (dP - Delta); P rounded to the input dtype as the operand of
+    dV = P^T dO; dS entering dQ and dK as two halves in the input dtype (hi
+    + lo); every product summed in fp32.  Square masks (Sq = Skv).  The
+    kernel's 64-row query blocks: a block's band is the 64-key tiles from
+    the one holding its first visible key to its last.
+
+    ``delta``: "o32" (the kernel's) Delta_i = rowsum(dO o O32), O32 the
+    forward's output before rounding, bf16(p) V / sum bf16(p) with p the
+    exponentiated scores (here against the row's maximum); "o32_by_l" the
+    same normalised by sum p (the forward's l); "sum_p_dp" sum_j P dP in
+    fp32 (PR 20's kernel, from a first pass); "output" rowsum(dO o O) from
+    the output rounded to the input dtype (the usual flash backward).
+    ``exact_delta_tiles`` T: the rows of a block whose band spans at most T
+    tiles take Delta = sum_j P dP (the kernel's first sweep there).
+    ``split_dq`` / ``split_dk``: dS as hi + lo (else one rounding) in dQ,
+    dK.  ``centre``: dq = scale (dS K - c rowsum(dS)) for the rounded dS,
+    c the mean of the block's "band" of keys (the kernel's), of its "first"
+    tile, of its "diagonal" tile, the row's P-weighted mean ("weighted"),
+    or no centring ("none")."""
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     scale = scale if scale is not None else d ** -0.5
@@ -104,19 +117,49 @@ def flash_attention_bwd_order_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     logits = torch.where(mask, logits, -torch.inf)
     p = torch.where(mask, torch.exp(logits - torch.logsumexp(logits, -1, keepdim=True)), 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
-    if delta_from_output:
-        out = flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale)
-        delta = (do.float() * out.float()).sum(-1).transpose(1, 2)[..., None]
+    exact = (p * dp).sum(-1, keepdim=True)
+    if delta == "sum_p_dp":
+        dl = exact
     else:
-        delta = (p * dp).sum(-1, keepdim=True)
-    ds = p * (dp - delta)
+        if delta == "output":
+            out = flash_attention_ref(q, k, v, causal=causal, window=window, scale=scale).float()
+        else:
+            pu = torch.where(mask, torch.exp(logits - logits.amax(-1, keepdim=True)), 0.0)
+            pr = pu.to(q.dtype).float()
+            l = pu.sum(-1, keepdim=True) if delta == "o32_by_l" else pr.sum(-1, keepdim=True)
+            out = torch.einsum("bhqk,bkhd->bqhd", pr / l, vf)
+        dl = (do.float() * out).sum(-1).transpose(1, 2)[..., None]
+        for q0 in range(0, sq, 64):
+            k0, k1 = _band(q0, sq, causal, window)
+            if -(-(k1 - k0) // 64) <= exact_delta_tiles:
+                dl[:, :, q0:q0 + 64] = exact[:, :, q0:q0 + 64]
+    ds = p * (dp - dl)
     hi = ds.to(q.dtype).float()
-    ds = hi + (ds - hi).to(q.dtype).float() if split_ds else hi
-    dq = scale * torch.einsum("bhqk,bkhd->bqhd", ds, kf)
-    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    split = hi + (ds - hi).to(q.dtype).float()
+    ds_q, ds_k = (split if s_ else hi for s_ in (split_dq, split_dk))
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds_q, kf)
+    if centre != "none":
+        c = torch.empty_like(q, dtype=torch.float32)
+        for q0 in range(0, sq, 64):
+            k0, k1 = _band(q0, sq, causal, window)
+            k0, k1 = {"first": (k0, k0 + 64), "diagonal": (q0, q0 + 64)}.get(centre, (k0, k1))
+            c[:, q0:q0 + 64] = kf[:, k0:k1].mean(1, keepdim=True)
+        if centre == "weighted":
+            c = torch.einsum("bhqk,bkhd->bqhd", p, kf)
+        dq = dq - c * ds_q.sum(-1).transpose(1, 2)[..., None]
+    dq = scale * dq
+    dk = scale * torch.einsum("bhqk,bqhd->bkhd", ds_k, q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), do.float())
     dk, dv = (t.reshape(b, sq, hkv, hq // hkv, d).sum(3) for t in (dk, dv))
     return tuple(t.to(q.dtype) for t in (dq, dk, dv))
+
+
+def _band(q0: int, s: int, causal: bool, window: int) -> tuple[int, int]:
+    """The keys [begin, end) the backward kernel's dQ block of query rows
+    [q0, q0 + 64) walks (square masks): from the 64-key tile holding its
+    first visible key to its last visible key."""
+    begin = max(0, q0 - window + 1) // 64 * 64 if window and window > 0 else 0
+    return begin, min(s, q0 + 64) if causal else s
 
 
 def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, g: torch.Tensor,

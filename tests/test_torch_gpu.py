@@ -656,6 +656,66 @@ def test_flash_lse_variant_output_equals_the_serving_variant_on_gpu(cuda, d, dty
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_backward_kernel_repeats_bit_for_bit_on_gpu(cuda, dtype):
+    """Each gradient has one owner block and sums in a fixed order (no
+    atomics): two calls give the same bits."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(2)
+    td = DTYPES[dtype]
+    q = torch.randn(2, 300, 8, 128, device=cuda, generator=g).to(td)
+    k, v = (torch.randn(2, 300, 2, 128, device=cuda, generator=g).to(td) for _ in range(2))
+    do = torch.randn(2, 300, 8, 128, device=cuda, generator=g).to(td)
+    _, lse, o32 = fa.forward_for_training(q, k, v, True, 100, 128 ** -0.5)
+    first = fa.flash_attention_bwd(q, k, v, do, lse, o32, window=100)
+    again = fa.flash_attention_bwd(q, k, v, do, lse, o32, window=100)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 256])
+def test_flash_backward_kernel_training_scale_on_gpu(cuda, window):
+    """bf16 at a training shape (S 1024, 32 query heads on 8 kv heads, D
+    128, causal, and under a window of 256): dq, dk, dv within the rule
+    ``chip_smoke.py`` holds the backward kernel to."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn(1, 1024, 32, 128, device=cuda, generator=g).to(torch.bfloat16)
+    k, v = (torch.randn(1, 1024, 8, 128, device=cuda, generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    do = torch.randn(1, 1024, 32, 128, device=cuda, generator=g).to(torch.bfloat16)
+    _, got = _flash_grads(q, k, v, do, True, window=window)
+    want = ref.flash_attention_bwd_ref(q, k, v, do, window=window)
+    assert max(rule_share(a, b) for a, b in zip(got, want)) <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 64, 120, 128])
+def test_flash_training_forward_o32_matches_twin_on_gpu(cuda, d):
+    """The bf16 training forward's O32 (the output before rounding, over
+    the rounded P's own sum): against the twin's output in fp32 within the
+    rule the forward is held to (it carries P's bf16 rounding: an H100 read
+    0.29-0.35 of it); over rows of V that are all ones, 1 to fp32 rounding
+    (its weights sum to one, where l, the fp32 P's sum, leaves ~1e-3); its
+    bf16 output stays the serving output's bits."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(2, 150, 8, d, device=cuda, generator=g).to(torch.bfloat16)
+    k, v = (torch.randn(2, 150, 2, d, device=cuda, generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    for window in (0, 40):
+        out, _, o32 = fa.forward_for_training(q, k, v, True, window, d ** -0.5)
+        serve, _ = fa._forward(q, k, v, True, window, d ** -0.5, 0, False)
+        torch.cuda.synchronize()
+        assert o32.dtype == torch.float32 and o32.shape == q.shape
+        assert torch.equal(out, serve)
+        want = ref.flash_attention_ref(q.float(), k.float(), v.float(), window=window)
+        assert rule_share(o32, want) <= 1.0
+        _, _, ones = fa.forward_for_training(q, k, torch.ones_like(v), True, window, d ** -0.5)
+        assert float((ones - 1).abs().max()) <= 1e-5
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("shape", RMSNORM_SHAPES + [(4096, 4096)])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_rmsnorm_backward_kernel_matches_twin_on_gpu(cuda, shape, dtype):

@@ -333,12 +333,14 @@ def test_kernel_wrappers_never_run_the_twin(module, args):
     assert native.LAUNCHES[module] == 0
 
 
-@pytest.mark.parametrize("case,usual", [("one_hot", {"delta_from_output": True}),
-                                        ("common_keys", {"split_ds": False})])
+@pytest.mark.parametrize("case,usual", [
+    ("one_hot", {"delta": "output", "exact_delta_tiles": 0}),
+    ("common_keys", {"delta": "sum_p_dp", "split_dq": False, "centre": "none"})])
 def test_flash_backward_order_holds_where_the_usual_orders_miss(case, usual):
     """The bf16 backward kernel's order (``ref.flash_attention_bwd_order_ref``:
-    Delta = sum_j P dP in fp32, dS in two bf16 halves) keeps dq, dk, dv
-    within the card's rule against the gradient in fp32.  The usual flash
+    Delta exact in short bands and from the forward's fp32 output beyond,
+    the keys centred for dq, dS in two bf16 halves) keeps dq, dk, dv within
+    the card's rule against the gradient in fp32.  The usual flash
     backward's orders miss dq there: Delta = rowsum(dO o O) from the bf16
     output carries O's rounding into the small dS of a nearly one-hot row,
     and one bf16 rounding of dS survives the cancellation of dS K."""
@@ -347,3 +349,75 @@ def test_flash_backward_order_holds_where_the_usual_orders_miss(case, usual):
     got = ref.flash_attention_bwd_order_ref(q, k, v, do)
     assert max(rule_share(g, w) for g, w in zip(got, want)) <= 1.0
     assert rule_share(ref.flash_attention_bwd_order_ref(q, k, v, do, **usual)[0], want[0]) > 1.0
+
+
+def bwd_random_inputs(seed: int):
+    """bf16 GQA 4:1 inputs at D 128 (B 1, S 512, 8 query heads on 2 kv
+    heads), drawn with numpy: eight 64-row query blocks of the kernel, the
+    last three of which (causal) take Delta from O32."""
+    rng = np.random.default_rng(seed)
+    shapes = [(1, 512, 8, 128), (1, 512, 2, 128), (1, 512, 2, 128), (1, 512, 8, 128)]
+    return tuple(torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(torch.bfloat16)
+                 for s in shapes)
+
+
+def bwd_late_one_hot():
+    """``bwd_inputs("one_hot")``'s row, but at position 330 (B 1, S 384, 2
+    query heads on 1 kv head, D 128): its band spans six key tiles, so the
+    kernel takes its Delta from O32."""
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((1, 384, 2, 128), dtype=np.float32)
+    k = rng.standard_normal((1, 384, 1, 128), dtype=np.float32)
+    q[0, 330, 0] = k[0, 7, 0]
+    v = rng.standard_normal((1, 384, 1, 128), dtype=np.float32)
+    do = rng.standard_normal((1, 384, 2, 128), dtype=np.float32)
+    return tuple(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, do))
+
+
+BWD_ORDER_INPUTS = {"one_hot": lambda: (bwd_inputs("one_hot"), 0),
+                    "common_keys": lambda: (bwd_inputs("common_keys"), 0),
+                    "late_one_hot": lambda: (bwd_late_one_hot(), 0),
+                    "random_causal": lambda: (bwd_random_inputs(1), 0),
+                    "random_window": lambda: (bwd_random_inputs(2), 300)}
+
+
+def _order_shares(name: str, **flags):
+    (q, k, v, do), window = BWD_ORDER_INPUTS[name]()
+    want = ref.flash_attention_bwd_ref(q, k, v, do, window=window)
+    got = ref.flash_attention_bwd_order_ref(q, k, v, do, window=window, **flags)
+    return [rule_share(g, w) for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("name", list(BWD_ORDER_INPUTS))
+def test_flash_backward_order_within_half_the_rule(name):
+    """The kernel's order keeps dq, dk and dv within half the card's rule on
+    the hard inputs and on seeded random ones, causal and windowed."""
+    assert max(_order_shares(name)) <= 0.5
+
+
+# (the alternative's flags, input, gradient (0 dq, 1 dk), what it does
+# there): "misses" the rule, "worse" within it but above the kernel's order
+# (by 0.05 of the rule or more), "within" it
+BWD_ORDER_FLAGS = [
+    ({"delta": "output"}, "late_one_hot", 0, "misses"),      # O32 holds a long band's one-hot row
+    ({"centre": "none", "exact_delta_tiles": 0}, "common_keys", 0, "misses"),
+    ({"split_dq": False}, "random_causal", 0, "worse"),
+    ({"split_dk": False}, "random_causal", 1, "worse"),
+    ({"exact_delta_tiles": 0}, "random_causal", 0, "within"),  # O32 for every row
+    ({"delta": "sum_p_dp"}, "random_causal", 0, "within"),     # PR 20's first pass everywhere
+    ({"centre": "first"}, "random_window", 0, "within"),
+]
+
+
+@pytest.mark.parametrize("flags,name,grad,effect", BWD_ORDER_FLAGS)
+def test_flash_backward_order_flag(flags, name, grad, effect):
+    """Each alternative the kernel's order was chosen against, on the input
+    where it shows: what it does to dq or dk under the rule."""
+    base = _order_shares(name)[grad]
+    alt = _order_shares(name, **flags)[grad]
+    if effect == "misses":
+        assert alt > 1.0
+    else:
+        assert alt <= 1.0
+    if effect == "worse":
+        assert alt > base + 0.05
