@@ -20,15 +20,19 @@ Run from the root of a checkout.  It imports only the port
    the kernels a ``torch.profiler`` trace of such a loop records (for the
    library call also the backend its kernels' names show: SDPA has no
    flash kernel past head dim 256, so at gemma3's 320 it falls back);
-3. drives eight paths at full width, with random bf16 weights from a seeded
+3. drives ten paths at full width, with random bf16 weights from a seeded
    generator and ``use_kernels=True``, each through the entry points a user
    calls, freeing each path's weights before the next:
    granite-3-8b serving (40 layers), h2o-danube-3-4b serving (24 sliding-
    window layers, head dim 120), minitron-4b serving (32 layers, squared-
    ReLU MLP), gemma3-4b serving (34 layers, 5:1 local:global with window
    1024, head dim 320, tied and scaled embeddings), zamba2-1.2b serving
-   (38 Mamba2 layers and the shared attention block) and xlstm-1.3b
-   serving, each through ``make_lm_predictor`` and the k8s strategy of
+   (38 Mamba2 layers and the shared attention block), xlstm-1.3b serving,
+   granite-moe-3b-a800m serving (32 layers, 40 experts top 8, attention at
+   a GQA group of 3) and deepseek-v2-lite-16b serving (27 layers, MLA with
+   its prefill through flash attention at head dim 192, v zero-padded, and
+   an absorbed decode that runs no kernel; 64 experts top 6 and 2 shared,
+   a dense layer 0), each through ``make_lm_predictor`` and the k8s strategy of
    ``InferenceService``; gemma3 also serves a long leg on the same weights
    (batch 1, a 2048-token prompt, ``_long_leg``: the window binds in
    prefill, decode wraps the 1024-row local rings and splits the global
@@ -52,10 +56,17 @@ Run from the root of a checkout.  It imports only the port
    rule.  The path's logits (prefill and one decode step, or the scoring
    forward) are compared three ways, each gated where the path's readings
    allow (``PATHS``): the bf16 kernel path against the bf16 plain path
-   (granite, h2o, minitron, gemma3: <= 2e-2); with the same weights cast to fp32,
-   the kernel path against the plain path (granite, h2o, minitron, gemma3
-   <= 1e-4, zamba2 <= 1e-3); and the bf16 kernel path's drift from the fp32 plain
-   path, at most 1.5 times the bf16 plain path's (every path).
+   (granite, h2o, minitron, gemma3, granite-moe, deepseek: <= 2e-2); with
+   the same weights cast to fp32 (in place, leaf by leaf, so deepseek's
+   fp32 tree fits beside no bf16 copy), the kernel path against the plain
+   path (granite, h2o, minitron, gemma3, granite-moe, deepseek <= 1e-4,
+   zamba2 <= 1e-3); and the bf16 kernel path's drift from the fp32 plain
+   path, at most 1.5 times the bf16 plain path's (every path).  On the MoE
+   paths each plain run routes every token to the experts its kernel run
+   chose (a near-tied top-k choice that bf16 rounding flips would move a
+   token by a whole gate's share, which no kernel fault does), and the
+   (token, layer) decisions it would have made otherwise are counted and
+   printed.
    Random-weight zamba2 and xlstm amplify bf16 rounding until the two bf16
    paths differ by more than any kernel does (the reference drifts as far:
    ``tests/test_torch_drift.py``), and xlstm even in fp32, so those
@@ -197,6 +208,10 @@ PATHS = (
      ("rmsnorm", "flash_attention", "decode_attention", "ssm_scan"), None, 1e-3),
     ("xlstm-1.3b serving", "xlstm_1_3b", "serve", ("rmsnorm",), None, None),
     ("xlstm-1.3b scoring", "xlstm_1_3b", "score", ("rmsnorm", "mlstm_scan"), None, None),
+    ("granite-moe-3b-a800m serving", "granite_moe_3b_a800m", "serve",
+     ("rmsnorm", "flash_attention", "decode_attention"), TOL, 1e-4),
+    ("deepseek-v2-lite-16b serving", "deepseek_v2_lite_16b", "serve",
+     ("rmsnorm", "flash_attention"), TOL, 1e-4),
 )
 # kernel -> (route, source, TPU kernel it replaces, path whose shapes its
 # entry in the kernels line reports, its wrapper: a name in ``ops``, or
@@ -352,13 +367,23 @@ def _rmsnorm_case(rows: int, d: int, gen):
         nbytes=2 * (2 * rows * d + d), flops=4 * rows * d, peak=FP32_FLOPS)
 
 
-def _flash_case(b: int, sq: int, skv: int, hq: int, hkv: int, d: int, gen, window: int = 0):
+def _flash_case(b: int, sq: int, skv: int, hq: int, hkv: int, d: int, gen, window: int = 0,
+                dv: int = 0):
+    """With ``dv``: MLA's call (``models/attention.mla_forward``), v of dv
+    columns zero-padded to D and the scale of D passed; its library call is
+    SDPA on the same inputs, causal by ``is_causal`` (the form SDPA's
+    fused backends take), with that scale.  The bound counts what the
+    function needs: q and k of D columns, v and the output of dv, so the
+    padding is the kernel's cost."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
     q = torch.randn(b, sq, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
     k = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
-    v = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn(b, skv, hkv, dv or d, device="cuda", generator=gen).to(torch.bfloat16)
+    dv = dv or d
+    if dv < d:
+        v = F.pad(v, (0, d - dv))
     off = skv - sq
     qpos = torch.arange(sq, device="cuda")[:, None] + off
     kpos = torch.arange(skv, device="cuda")[None, :]
@@ -368,15 +393,20 @@ def _flash_case(b: int, sq: int, skv: int, hq: int, hkv: int, d: int, gen, windo
     visible = int(mask.sum())                                        # keys seen, all rows
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     kw = dict(causal=True, q_offset=off, window=window)
+    if dv < d:
+        kw["scale"] = d ** -0.5
+        lib_kw = dict(is_causal=True, scale=kw["scale"])
+    else:
+        lib_kw = dict(attn_mask=mask, enable_gqa=True)
     return dict(
         shape=f"q ({b},{sq},{hq},{d}) kv ({b},{skv},{hkv},{d}) causal q_offset {off}"
-              + (f" window {window}" if window else "") + " bf16",
+              + (f" window {window}" if window else "")
+              + (f" v {dv} zero-padded, scale {d}^-0.5" if dv < d else "") + " bf16",
         kernel=lambda: ops.flash_attention(q, k, v, use_kernel=True, **kw),
         twin=lambda: ref.flash_attention_ref(q, k, v, **kw),
-        library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                       enable_gqa=True),
-        nbytes=2 * (2 * b * sq * hq * d + 2 * b * skv * hkv * d),
-        flops=4 * d * b * hq * visible, peak=BF16_FLOPS)
+        library=lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib_kw),
+        nbytes=2 * (b * sq * hq * (d + dv) + b * skv * hkv * (d + dv)),
+        flops=2 * (d + dv) * b * hq * visible, peak=BF16_FLOPS)
 
 
 def _flash_bwd_case(b: int, s: int, hq: int, hkv: int, d: int, gen, window: int = 0,
@@ -655,6 +685,9 @@ def main() -> int:
     h = registry.get_config("h2o_danube_3_4b")
     mt = registry.get_config("minitron_4b")
     gm = registry.get_config("gemma3_4b")
+    gmo = registry.get_config("granite_moe_3b_a800m")
+    ds = registry.get_config("deepseek_v2_lite_16b")
+    ds_qk = ds.qk_nope_dim + ds.qk_rope_dim             # MLA's qk head dim, 192
     cache_len = PROMPT + GEN + 1
     long_cache = LONG_LEG_PROMPT + GEN      # gemma3's long leg: its global caches' rows
     rows = BATCH * PROMPT
@@ -702,6 +735,10 @@ def main() -> int:
                                                 gen, window=512), 5),
         ("flash_attention_bwd", _flash_bwd_case(1, 256, 8, 2, 64, gen,
                                                 dtype=torch.float32), 5),
+        # deepseek's MLA prefill at a long prompt: D 192 through the
+        # 320-column tile, v zero-padded, against SDPA's fused backends
+        ("flash_attention", _flash_case(1, 2048, 2048, ds.n_heads, ds.n_kv_heads, ds_qk, gen,
+                                        dv=ds.v_head_dim), 10),
     ]
     # the shapes each path's run gives each kernel
     path_cases = {
@@ -737,6 +774,16 @@ def main() -> int:
                                             gm.head_dim, gen, window=gm.sliding_window), 20),
             "decode_attention": (_decode_case([PROMPT + 1] * BATCH, cache_len, gm.n_heads,
                                               gm.n_kv_heads, gm.head_dim, gen), 50)},
+        "granite-moe-3b-a800m serving": {         # a GQA group of 3
+            "rmsnorm": (_rmsnorm_case(rows, gmo.d_model, gen), 50),
+            "flash_attention": (_flash_case(BATCH, PROMPT, PROMPT, gmo.n_heads, gmo.n_kv_heads,
+                                            gmo.head_dim, gen), 20),
+            "decode_attention": (_decode_case([PROMPT + 1] * BATCH, cache_len, gmo.n_heads,
+                                              gmo.n_kv_heads, gmo.head_dim, gen), 50)},
+        "deepseek-v2-lite-16b serving": {         # MLA: D 192, v padded; decode runs no kernel
+            "rmsnorm": (_rmsnorm_case(rows, ds.d_model, gen), 50),
+            "flash_attention": (_flash_case(BATCH, PROMPT, PROMPT, ds.n_heads, ds.n_kv_heads,
+                                            ds_qk, gen, dv=ds.v_head_dim), 20)},
         "xlstm-1.3b scoring": {
             "rmsnorm": (_rmsnorm_case(rows, xl.d_model, gen), 50),
             "mlstm_scan": (_mlstm_case(BATCH, PROMPT, xl.n_heads, xhd, xl.ssm_chunk, gen), 20)},
@@ -978,14 +1025,24 @@ def _serve_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> di
         if not bool(torch.isfinite(last_k.float()).all()):
             raise AssertionError(f"{label}: prefill logits not finite")
         # kernel path vs plain path on the same weights; every kernel call of
-        # the kernel path's prefill and decode step recorded
+        # the kernel path's prefill and decode step recorded.  MoE: the plain
+        # path routes as the kernel path did (``_routing``), so the logits
+        # differ by the kernels' rounding alone, and the decisions it would
+        # have made otherwise are counted
         plain = cfg.replace(use_kernels=False)
-        last_p, cache_p = steps.prefill(params, batch, cfg=plain, cache_len=cache_len)
-        with _recording(expected) as calls:
-            _, cache_k = steps.prefill(params, batch, cfg=cfg, cache_len=cache_len)
+        with _recording(expected) as calls, _routing() as ids_k:
+            last_k, cache_k = steps.prefill(params, batch, cfg=cfg, cache_len=cache_len)
+            n_prefill = len(ids_k)
             step_k, _ = lm.decode_step(params, cfg, first, start, cache_k)
-        step_p, _ = lm.decode_step(params, plain, first, start, cache_p)
-        del cache_k, cache_p
+        del cache_k
+        with _routing(replay=ids_k) as ids_p:
+            last_p, cache_p = steps.prefill(params, batch, cfg=plain, cache_len=cache_len)
+            step_p, _ = lm.decode_step(params, plain, first, start, cache_p)
+        del cache_p
+        flips = {"prefill": _flips(ids_k[:n_prefill], ids_p[:n_prefill]),
+                 "decode": _flips(ids_k[n_prefill:], ids_p[n_prefill:])} if cfg.n_experts \
+            else None
+        del ids_k, ids_p
         if not bool(torch.isfinite(step_k.float()).all()):
             raise AssertionError(f"{label}: decode-step logits not finite")
         recorded = _hold_recorded(label, cfg, calls)
@@ -995,28 +1052,45 @@ def _serve_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> di
         long_leg = _long_leg(params, cfg, label, expected, limits, card)
         launches = {k: n + long_leg["launches"][k] for k, n in launches.items()}
     # the same weights in fp32, through the kernels and the plain path: the
-    # first gate's pair, and the yardstick both bf16 paths are held against
+    # first gate's pair, and the yardstick both bf16 paths are held against.
+    # The tree is cast in place, largest leaf first, each bf16 leaf freed as
+    # its fp32 twin is made: the peak is the fp32 tree and about one leaf
+    # (deepseek: 62.8 GB; a full copy beside the bf16 tree would not fit)
+    del pred, svc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     with torch.inference_mode():
-        params32 = _cast(params, torch.float32)
-        del params, pred
-        out32 = {}
-        for use in (True, False):
+        _cast_in_place(params, torch.float32)
+        params32 = params
+        del params
+        out32, ids32 = {}, {}
+        for use in (True, False):               # the plain run replays the kernel run's routing
             c32 = cfg.replace(dtype="float32", use_kernels=use)
-            last, cache32 = steps.prefill(params32, batch, cfg=c32, cache_len=cache_len)
-            step, _ = lm.decode_step(params32, c32, first, start, cache32)
+            with _routing(replay=ids32.get(True)) as ids32[use]:
+                last, cache32 = steps.prefill(params32, batch, cfg=c32, cache_len=cache_len)
+                step, _ = lm.decode_step(params32, c32, first, start, cache32)
             out32[use] = (last, step)
             del cache32
         del params32
+    peak32_gib = torch.cuda.max_memory_allocated() / 2**30
+    if flips is not None:
+        flips["fp32, prefill and decode step"] = _flips(ids32[True], ids32[False])
+    del ids32
     rel = _rels({"prefill": (last_k, last_p, out32[True][0], out32[False][0]),
                  "decode": (step_k, step_p, out32[True][1], out32[False][1])})
+    if flips is not None:
+        _print_flips(label, flips)
     _gate(label, rel, limits)
     print(f"{label}, full width ({cfg.n_layers} layers, {n_params / 1e9:.2f} B params, bf16): "
           f"batch {BATCH} prompt {PROMPT}: prefill {prefill_ms:.2f} ms, decode "
-          f"{decode_ms:.2f} ms/token, peak {peak_gib:.2f} GiB; launches per prefill "
+          f"{decode_ms:.2f} ms/token, peak {peak_gib:.2f} GiB (served runs; the fp32 "
+          f"comparison after the in-place cast {peak32_gib:.2f} GiB); launches per prefill "
           f"{per['prefill']}, per decode step {per['decode_step']}  [{card}]")
     return {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params, "batch": BATCH,
             "prompt": PROMPT, "gen": GEN, "init_s": init_s, "prefill_ms": prefill_ms,
-            "decode_ms_per_token": decode_ms, "peak_gib": peak_gib, "rel": rel,
+            "decode_ms_per_token": decode_ms, "peak_gib": peak_gib, "peak_fp32_gib": peak32_gib,
+            "rel": rel, "routing_flips": flips, "limits": limits,
             "recorded": recorded, "launches_run": launches, "launches_per": per,
             "k8s": summary, "kserve_leg": kserve, "long_leg": long_leg}
 
@@ -1988,6 +2062,71 @@ def _leaves(tree: dict):
 
 def _cast(tree: dict, dtype) -> dict:
     return {k: (_cast(v, dtype) if isinstance(v, dict) else v.to(dtype)) for k, v in tree.items()}
+
+
+def _cast_in_place(tree: dict, dtype) -> None:
+    """Replace every leaf of ``tree`` by its cast to ``dtype``, largest
+    first, freeing each old leaf (and releasing its cached memory)
+    before the next cast: the peak is the new tree and about one old leaf,
+    never both trees.  The caller must hold no other reference to a leaf."""
+    import torch
+
+    def slots(t):
+        for k, v in t.items():
+            yield from (slots(v) if isinstance(v, dict) else ((t, k),))
+
+    for t, k in sorted(slots(tree), key=lambda tk: -tk[0][tk[1]].numel()):
+        t[k] = t[k].to(dtype)
+        torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _routing(replay: list | None = None):
+    """Yields the expert ids (B,S,k) of every MoE top-k choice made inside
+    the block, in call order (``moe._top_k`` wrapped).  With ``replay``,
+    another run's list, call i routes to that run's ids instead, with this
+    run's own probabilities there as gates (renormalised as ever), while the
+    list still holds the ids this run would have chosen: two paths compared
+    so differ by rounding alone, never by a flipped token's whole gate."""
+    import torch
+    from repro_torch.models import moe
+    ids, real = [], moe._top_k
+
+    def spy(probs, k):
+        gates, own = real(probs, k)
+        ids.append(own.clone())
+        if replay is None:
+            return gates, own
+        if len(ids) > len(replay) or replay[len(ids) - 1].shape != own.shape:
+            raise AssertionError(f"routing {len(ids)} {tuple(own.shape)} has no twin in the "
+                                 f"replayed run ({len(replay)} routings)")
+        forced = replay[len(ids) - 1]
+        return torch.gather(probs, -1, forced), forced
+
+    moe._top_k = spy
+    try:
+        yield ids
+    finally:
+        moe._top_k = real
+
+
+def _flips(got: list, want: list) -> int:
+    """(token, layer) routing decisions whose top-k expert set differs."""
+    if len(got) != len(want):
+        raise AssertionError(f"{len(got)} routings against {len(want)}")
+    return sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+               for a, b in zip(got, want))
+
+
+def _print_flips(label: str, flips: dict) -> None:
+    """MoE paths: the routing decisions the plain path would have made
+    otherwise.  It replays the kernel path's, so none of them enters the
+    gated logits, and both logit gates hold as on the dense paths."""
+    print(f"{label}: routing decisions (token x MoE layer) whose top-k set differs between "
+          f"the bf16 kernel and bf16 plain paths: prefill {flips['prefill']}, decode step "
+          f"{flips['decode']} (fp32 kernel vs fp32 plain: "
+          f"{flips['fp32, prefill and decode step']}); the plain paths replayed the kernel "
+          f"paths' routing")
 
 
 def _rel(got, want) -> float:

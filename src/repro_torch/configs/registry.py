@@ -24,12 +24,10 @@ ARCH_IDS = (
 )
 
 PORTED = ("granite_3_8b", "zamba2_1_2b", "xlstm_1_3b", "h2o_danube_3_4b", "minitron_4b",
-          "gemma3_4b")
+          "gemma3_4b", "granite_moe_3b_a800m", "deepseek_v2_lite_16b")
 
 # ROADMAP.md queue 1 item that brings each not-yet-ported arch over
 PENDING = {
-    "granite_moe_3b_a800m": "1.6 (MoE)",
-    "deepseek_v2_lite_16b": "1.7 (MLA)",
     "whisper_base": "1.9 (enc-dec)",
     "qwen2_vl_7b": "1.9 (VLM)",
 }

@@ -6,6 +6,7 @@ forward, or a continuous batcher's prefill chunk and step.
     PYTHONPATH=src python -m repro_torch.launch.profile --arch h2o_danube_3_4b
     PYTHONPATH=src python -m repro_torch.launch.profile --arch xlstm_1_3b --score
     PYTHONPATH=src python -m repro_torch.launch.profile --arch h2o_danube_3_4b --batcher
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch deepseek_v2_lite_16b
 
 Builds the model with random weights on the card (``use_kernels=True``),
 warms it up, then, at batch 4 x prompt 128, traces one prefill and one
@@ -18,7 +19,7 @@ ring has wrapped) and one engine step with all four slots decoding.  For
 each it prints the host wall time, the device busy time (union of kernel
 intervals), the device's idle share of the span between its first and
 last kernel, and device time by kernel group (the port's kernels, matrix
-products, the rest).  The chrome traces go to ``--out`` (default
+products, sorts and indexed gathers and scatters, the rest).  The chrome traces go to ``--out`` (default
 ``chiprun_out/profile``).
 """
 from __future__ import annotations
@@ -46,7 +47,10 @@ GROUPS = (("flash_attention", ("flash_fwd",)), ("decode_attention", ("decode_fwd
           ("rmsnorm", ("_rmsnorm_kernel",)),
           ("ssm_scan", ("ssd_scan", "ssd_states", "ssd_carry", "ssd_output", "ssd_fused")),
           ("mlstm_scan", ("mlstm_scan_kernel", "mlstm_gates", "mlstm_scores", "mlstm_walk")),
-          ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma", "cublas", "nvjet")))
+          ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma", "cublas", "nvjet")),
+          # sorts, gathers and scatters: MoE's routing, dispatch and combine,
+          # besides the cache-row writes and the embedding lookup
+          ("index_sort", ("sort", "scatter", "gather", "index")))
 
 
 def _group(name: str) -> str:

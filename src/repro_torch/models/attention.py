@@ -1,4 +1,4 @@
-"""GQA attention with RoPE: counterpart of the GQA part of
+"""GQA attention with RoPE and MLA: counterpart of the GQA and MLA parts of
 ``repro.models.attention``.
 
 Parameters keep the reference's einsum layouts: ``wq (d,Hq,hd)``,
@@ -10,10 +10,26 @@ and chunked prefill treat the cache as a ring of ``min(window, S)`` rows
 (post-RoPE attention does not care about key order): ``local`` layers
 (h2o_danube) always, zamba2's shared block whenever its cache is no longer
 than the window.  ``lm.forward`` places a prefill's rows in the ring.
+
+MLA (deepseek-v2) keeps the compressed cache ``{c_kv (B,S,r), k_rope
+(B,S,dr)}``.  Its full-sequence forward decompresses to multi-head
+attention at qk head dim ``dn + dr`` through flash attention (the kernel
+path zero-pads v to that width and passes the scale of the qk dim); its
+decode and chunked prefill run in the absorbed form (q folded through
+``w_uk``, the output through ``w_uv``) over the compressed cache, plain
+products with fp32 scores, no kernel, as in the reference.  Layouts:
+``w_uq (d,H,dn)``, ``w_qr (d,H,dr)``, ``w_dkv (d,r+dr)``, ``w_uk (r,H,dn)``,
+``w_uv (r,H,dv)``, ``wo (H,dv,d)``.
+
+The ``*_decode_stacked`` variants write one layer's rows straight into the
+layer-stacked cache (G,B,S,...) at group ``g``: the reference keeps them
+as twins of its scanned decode.  Since decode writes in place here, each
+runs the per-layer decode on views of group ``g``.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
@@ -166,3 +182,140 @@ def gqa_cache_shape(cfg: ArchConfig, batch: int, length: int, window: int = 0) -
     size = min(window, length) if window > 0 else length
     kv = (batch, size, cfg.n_kv_heads, cfg.head_dim)
     return {"k": kv, "v": kv}
+
+
+def gqa_decode_stacked(p: dict, x: torch.Tensor, stacked: dict, g: int,
+                       positions: torch.Tensor, cfg: ArchConfig, *, window: int = 0):
+    """``gqa_decode`` writing into group ``g`` of the layer-stacked cache
+    {k, v: (G,B,S,Hkv,hd)}, in place.  Returns (out, stacked)."""
+    out, _ = gqa_decode(p, x, {name: t[g] for name, t in stacked.items()}, positions, cfg,
+                        window=window)
+    return out, stacked
+
+
+# ---------------------------------------------------------------------------
+# MLA (deepseek-v2): low-rank compressed KV + decoupled RoPE
+# ---------------------------------------------------------------------------
+def mla_init(cfg: ArchConfig, dtype: torch.dtype, *, generator: torch.Generator,
+             device) -> dict:
+    d, hq = cfg.d_model, cfg.n_heads
+    r, dr, dn, dv = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
+    kw = dict(generator=generator, dtype=dtype, device=device)
+    return {"w_uq": dense_init((d, hq, dn), fan_in=d, **kw),
+            "w_qr": dense_init((d, hq, dr), fan_in=d, **kw),
+            "w_dkv": dense_init((d, r + dr), fan_in=d, **kw),
+            "w_uk": dense_init((r, hq, dn), fan_in=r, **kw),
+            "w_uv": dense_init((r, hq, dv), fan_in=r, **kw),
+            "wo": dense_init((hq, dv, d), fan_in=hq * dv, **kw)}
+
+
+def _mla_scale(cfg: ArchConfig) -> float:
+    return (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+
+
+def _mla_compress(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
+    """(c_kv (B,S,r), roped k_rope (B,S,dr)) of x (B,S,D)."""
+    r = cfg.kv_lora_rank
+    c = x @ p["w_dkv"]
+    k_rope = apply_rope(c[..., None, r:], positions, cfg.rope_theta)[:, :, 0]
+    return c[..., :r], k_rope
+
+
+def _mla_queries(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
+    """(q_nope (B,S,H,dn), roped q_rope (B,S,H,dr))."""
+    q_nope = torch.einsum("bsd,dhk->bshk", x, p["w_uq"])
+    q_rope = apply_rope(torch.einsum("bsd,dhk->bshk", x, p["w_qr"]), positions,
+                        cfg.rope_theta)
+    return q_nope, q_rope
+
+
+def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
+                *, return_cache: bool = False):
+    """Prefill / training: decompress to MHA at qk head dim dn + dr and run
+    flash attention.  The kernel path zero-pads v from dv to that width
+    (the kernel takes one head dim), passes the qk dim's scale and cuts
+    the output back to dv; the plain path attends with v at its own width.
+    With ``return_cache`` also the compressed rows {c_kv, k_rope}."""
+    c_kv, k_rope = _mla_compress(p, x, positions, cfg)
+    q_nope, q_rope = _mla_queries(p, x, positions, cfg)
+    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uv"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand_as(q_rope)], dim=-1)
+    dqk, dv = q.shape[-1], v.shape[-1]
+    if cfg.use_kernels:
+        v_p = F.pad(v, (0, dqk - dv)) if dv < dqk else v
+        o = ops.flash_attention(q, k, v_p, causal=True, scale=_mla_scale(cfg),
+                                use_kernel=True)[..., :dv]
+    else:
+        o = ops.flash_attention(q, k, v, causal=True, use_kernel=False)
+    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return (out, {"c_kv": c_kv, "k_rope": k_rope}) if return_cache else out
+
+
+def _mla_absorbed(p: dict, x: torch.Tensor, q_nope: torch.Tensor, q_rope: torch.Tensor,
+                  c_kv: torch.Tensor, k_rope: torch.Tensor, valid: torch.Tensor,
+                  cfg: ArchConfig) -> torch.Tensor:
+    """Absorbed-form attention of C queries a row over the compressed cache:
+    q_nope (B,C,H,dn), q_rope (B,C,H,dr), c_kv (B,S,r), k_rope (B,S,dr),
+    valid (B,C,S) -> (B,C,D).  Scores and the weighted sum of c_kv take
+    their operands in the cache's dtype and accumulate in fp32 (the
+    reference's ``preferred_element_type=f32``; a bf16 product would round
+    the scores)."""
+    q_abs = torch.einsum("bqhk,rhk->bqhr", q_nope, p["w_uk"])
+    logits = (torch.einsum("bqhr,bsr->bqhs", q_abs.to(c_kv.dtype).float(), c_kv.float())
+              + torch.einsum("bqhk,bsk->bqhs", q_rope.to(k_rope.dtype).float(),
+                             k_rope.float())) * _mla_scale(cfg)
+    logits = torch.where(valid[:, :, None, :], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    o_c = torch.einsum("bqhs,bsr->bqhr", probs.to(c_kv.dtype).float(), c_kv.float())
+    o = torch.einsum("bqhr,rhk->bqhk", o_c.to(x.dtype), p["w_uv"])
+    return torch.einsum("bqhk,hkd->bqd", o, p["wo"])
+
+
+def mla_decode(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
+               cfg: ArchConfig):
+    """One-token absorbed-form decode.  x (B,1,D); cache {c_kv (B,S,r),
+    k_rope (B,S,dr)} written in place at row ``positions`` (B,); keys
+    0..positions.  Returns (out (B,1,D), cache)."""
+    b = x.shape[0]
+    pos_seq = positions[:, None]
+    c_new, krope_new = _mla_compress(p, x, pos_seq, cfg)
+    bidx, rows = torch.arange(b, device=x.device), positions.long()
+    cache["c_kv"][bidx, rows] = c_new[:, 0].to(cache["c_kv"].dtype)
+    cache["k_rope"][bidx, rows] = krope_new[:, 0].to(cache["k_rope"].dtype)
+    q_nope, q_rope = _mla_queries(p, x, pos_seq, cfg)
+    keys = torch.arange(cache["c_kv"].shape[1], device=x.device)
+    valid = keys[None, None, :] <= pos_seq[:, :, None]
+    return _mla_absorbed(p, x, q_nope, q_rope, cache["c_kv"], cache["k_rope"], valid,
+                         cfg), cache
+
+
+def mla_prefill(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
+                cfg: ArchConfig):
+    """Chunked prefill in the absorbed form: C prompt tokens a row written
+    into the compressed cache in place, then every query over it with the
+    decode path's masked softmax.  x (B,C,D); positions (B,C) absolute,
+    contiguous ascending.  Returns (out (B,C,D), cache)."""
+    c_new, krope_new = _mla_compress(p, x, positions, cfg)
+    b2, pos = torch.arange(x.shape[0], device=x.device)[:, None], positions.long()
+    cache["c_kv"][b2, pos] = c_new.to(cache["c_kv"].dtype)
+    cache["k_rope"][b2, pos] = krope_new.to(cache["k_rope"].dtype)
+    q_nope, q_rope = _mla_queries(p, x, positions, cfg)
+    keys = torch.arange(cache["c_kv"].shape[1], device=x.device)
+    valid = keys[None, None, :] <= pos[:, :, None]
+    return _mla_absorbed(p, x, q_nope, q_rope, cache["c_kv"], cache["k_rope"], valid,
+                         cfg), cache
+
+
+def mla_decode_stacked(p: dict, x: torch.Tensor, stacked: dict, g: int,
+                       positions: torch.Tensor, cfg: ArchConfig):
+    """``mla_decode`` writing into group ``g`` of the layer-stacked
+    compressed cache {c_kv (G,B,S,r), k_rope (G,B,S,dr)}, in place."""
+    out, _ = mla_decode(p, x, {name: t[g] for name, t in stacked.items()}, positions, cfg)
+    return out, stacked
+
+
+def mla_cache_shape(cfg: ArchConfig, batch: int, length: int) -> dict:
+    return {"c_kv": (batch, length, cfg.kv_lora_rank),
+            "k_rope": (batch, length, cfg.qk_rope_dim)}

@@ -3,18 +3,24 @@
 Counterpart of ``repro.models.blocks``.  Each layer is
     x = x + mixer(norm1(x));  x = x + ffn(norm2(x))      (ffn optional)
 and layers are grouped by the repeating block pattern; a phase's parameters
-are stacked on a leading ``n_groups`` dim, as in the reference.  Ported
-mixers: ``global`` and ``local`` (sliding-window, ring-buffer cache) GQA,
-``mamba2``, ``mlstm`` and ``slstm``; ffns: ``mlp`` (SwiGLU or a one-matrix
-activation such as minitron's squared ReLU) and ``none``.  zamba2's
+are stacked on a leading ``n_groups`` dim, as in the reference.  Mixers:
+``global`` and ``local`` (sliding-window, ring-buffer cache) GQA, ``mla``
+(compressed cache, absorbed-form decode), ``mamba2``, ``mlstm`` and
+``slstm``; ffns: ``mlp`` (SwiGLU or a one-matrix activation such as
+minitron's squared ReLU), ``moe`` (``models/moe.py``) and ``none``.
+deepseek's plan puts a dense ``mlp`` layer 0 in a phase of its own before
+the ``moe`` ones (``first_layer_dense``).  zamba2's
 weight-tied shared attention + MLP block runs after each group of a
 ``shared_attn`` phase, windowed when the decode budget exceeds 64k and, in
 decode, as a ``local`` one (the ring branches of ``attention``) while its
-cache is no longer than the window.  A block pattern that asks for another
-kind raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+cache is no longer than the window.  A family the port does not build yet
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.
 The norm sites go through ``ops.rmsnorm`` (the kernel when
 ``cfg.use_kernels``).  Decode and chunked prefill update their cache in
 place: attention writes its rows, recurrent mixers their whole state.
+The MoE ffn routes with capacity in the full-sequence forward and in
+decode, and with ``no_drop`` in chunked prefill (so a chunk routes each
+token as its decode step would); ``slot_forward`` returns its aux loss.
 """
 from __future__ import annotations
 
@@ -25,12 +31,12 @@ import torch
 from ..configs.base import ArchConfig
 from ..kernels import ops
 from . import attention as attn
+from . import moe as moe_mod
 from . import ssm
 from .modules import ACTIVATIONS, dense_init, swiglu
 
-# block kinds not ported yet -> ROADMAP.md queue 1 item
-PENDING_KINDS = {"mla": "1.7", "moe": "1.6"}
-KV_KINDS = ("global", "local")       # every other kind is a recurrent mixer in ``ssm``
+KV_KINDS = ("global", "local")       # GQA; ``mla`` keeps a compressed cache
+CACHE_KINDS = KV_KINDS + ("mla",)    # caches of rows by position; the rest: recurrent states
 
 
 def _ssm(kind: str, fn: str):
@@ -44,13 +50,6 @@ class Phase:
     ffns: tuple           # ffn kind per slot
     n_groups: int
     shared_attn: bool = False   # zamba2: tied attention block after each group
-
-
-def _require_ported(kind: str, ffn: str) -> None:
-    for k in (kind, ffn):
-        if k in PENDING_KINDS:
-            raise NotImplementedError(f"block kind {k!r} is not ported yet: "
-                                      f"ROADMAP.md queue 1 item {PENDING_KINDS[k]}")
 
 
 def build_plan(cfg: ArchConfig) -> list[Phase]:
@@ -84,9 +83,6 @@ def build_plan(cfg: ArchConfig) -> list[Phase]:
         phases.append(Phase(tuple(pattern), (ffn,) * per, full))
     if rem:
         phases.append(Phase(tuple(pattern[:rem]), (ffn,) * rem, 1))
-    for phase in phases:
-        for kind, f in zip(phase.kinds, phase.ffns):
-            _require_ported(kind, f)
     return phases
 
 
@@ -119,14 +115,18 @@ def mlp_forward(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def slot_init(cfg: ArchConfig, kind: str, ffn: str, dtype: torch.dtype, *,
               generator: torch.Generator, device) -> dict:
-    _require_ported(kind, ffn)
     kw = dict(generator=generator, device=device)
-    mixer = attn.gqa_init(cfg, dtype, **kw) if kind in KV_KINDS else \
-        _ssm(kind, "init")(cfg, dtype, **kw)
+    if kind in KV_KINDS:
+        mixer = attn.gqa_init(cfg, dtype, **kw)
+    elif kind == "mla":
+        mixer = attn.mla_init(cfg, dtype, **kw)
+    else:
+        mixer = _ssm(kind, "init")(cfg, dtype, **kw)
     p = {"norm1": torch.zeros((cfg.d_model,), dtype=dtype, device=device), "mixer": mixer}
     if ffn != "none":
         p["norm2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
-        p["ffn"] = mlp_init(cfg, dtype, **kw)
+        p["ffn"] = (moe_mod.moe_init(cfg, dtype, **kw) if ffn == "moe"
+                    else mlp_init(cfg, dtype, **kw))
     return p
 
 
@@ -134,10 +134,15 @@ def norm(x: torch.Tensor, scale: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     return ops.rmsnorm(x, scale, eps=cfg.norm_eps, use_kernel=cfg.use_kernels)
 
 
-def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, ffn: str) -> torch.Tensor:
+def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, ffn: str, *, no_drop: bool = False):
+    """(x + ffn(norm2(x)), the MoE aux loss or None)."""
     if ffn == "none":
-        return x
-    return x + mlp_forward(p["ffn"], norm(x, p["norm2"], cfg), cfg)
+        return x, None
+    h = norm(x, p["norm2"], cfg)
+    if ffn == "moe":
+        y, aux = moe_mod.moe_forward(p["ffn"], h, cfg, no_drop=no_drop)
+        return x + y, aux
+    return x + mlp_forward(p["ffn"], h, cfg), None
 
 
 def window_of(cfg: ArchConfig, kind: str) -> int:
@@ -153,54 +158,78 @@ def _store(cache: dict, new: dict) -> None:
 # the slot functions take kind/ffn from a plan that build_plan has checked
 def slot_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
                  kind: str, ffn: str, *, collect_cache: bool = False):
-    """Returns (x, cache or None): {k, v} for attention, the final state for
-    recurrent mixers."""
+    """Returns (x, cache or None, aux): {k, v} for GQA, {c_kv, k_rope} for
+    MLA, the final state for recurrent mixers; the MoE aux loss (fp32
+    scalar), None for other ffns."""
     xn = norm(x, p["norm1"], cfg)
     if kind in KV_KINDS:
         out = attn.gqa_forward(p["mixer"], xn, positions, cfg, window=window_of(cfg, kind),
                                return_kv=collect_cache)
         mix, cache = (out[0], {"k": out[1][0], "v": out[1][1]}) if collect_cache \
             else (out, None)
+    elif kind == "mla":
+        out = attn.mla_forward(p["mixer"], xn, positions, cfg, return_cache=collect_cache)
+        mix, cache = out if collect_cache else (out, None)
     elif collect_cache:
         mix, cache = _ssm(kind, "forward")(p["mixer"], xn, cfg, return_state=True)
     else:
         mix, cache = _ssm(kind, "forward")(p["mixer"], xn, cfg), None
-    return _ffn(p, x + mix, cfg, ffn), cache
+    x, aux = _ffn(p, x + mix, cfg, ffn)
+    return x, cache, aux
+
+
+def _mixer_cached(p: dict, xn: torch.Tensor, cache: dict, positions: torch.Tensor,
+                  cfg: ArchConfig, kind: str, fn: str) -> torch.Tensor:
+    """The mixer's ``fn`` ("decode" or "prefill") against its cache, which
+    it updates in place."""
+    if kind in KV_KINDS:
+        return getattr(attn, f"gqa_{fn}")(p, xn, cache, positions, cfg,
+                                          window=window_of(cfg, kind))[0]
+    if kind == "mla":
+        return getattr(attn, f"mla_{fn}")(p, xn, cache, positions, cfg)[0]
+    mix, new = _ssm(kind, fn)(p, xn, cache, cfg)
+    _store(cache, new)
+    return mix
 
 
 def slot_decode(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
                 cfg: ArchConfig, kind: str, ffn: str):
-    xn = norm(x, p["norm1"], cfg)
-    if kind in KV_KINDS:
-        mix, cache = attn.gqa_decode(p["mixer"], xn, cache, positions, cfg,
-                                     window=window_of(cfg, kind))
-    else:
-        mix, new = _ssm(kind, "decode")(p["mixer"], xn, cache, cfg)
-        _store(cache, new)
-    return _ffn(p, x + mix, cfg, ffn), cache
+    """One token a row; MoE routes with capacity, as the reference's does."""
+    mix = _mixer_cached(p["mixer"], norm(x, p["norm1"], cfg), cache, positions, cfg, kind,
+                        "decode")
+    return _ffn(p, x + mix, cfg, ffn)[0], cache
 
 
 def slot_prefill(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
                  cfg: ArchConfig, kind: str, ffn: str):
     """Chunked-prefill twin of slot_decode: attention batches the chunk's
     queries against the cache with decode-exact masking; recurrent mixers
-    run the exact decode recurrence over the chunk."""
-    xn = norm(x, p["norm1"], cfg)
-    if kind in KV_KINDS:
-        mix, cache = attn.gqa_prefill(p["mixer"], xn, cache, positions, cfg,
-                                      window=window_of(cfg, kind))
-    else:
-        mix, new = _ssm(kind, "prefill")(p["mixer"], xn, cache, cfg)
-        _store(cache, new)
-    return _ffn(p, x + mix, cfg, ffn), cache
+    run the exact decode recurrence over the chunk; MoE routes with
+    ``no_drop``, so no token of the chunk is dropped where its decode step
+    would keep it."""
+    mix = _mixer_cached(p["mixer"], norm(x, p["norm1"], cfg), cache, positions, cfg, kind,
+                        "prefill")
+    return _ffn(p, x + mix, cfg, ffn, no_drop=True)[0], cache
+
+
+def slot_decode_stacked(p: dict, x: torch.Tensor, stacked: dict, g: int,
+                        positions: torch.Tensor, cfg: ArchConfig, kind: str, ffn: str):
+    """slot_decode against the layer-stacked cache (a leading group dim):
+    it runs on group ``g``'s views, which every mixer updates in place.
+    Returns (x, stacked)."""
+    return slot_decode(p, x, {k: t[g] for k, t in stacked.items()}, positions, cfg, kind,
+                       ffn)[0], stacked
 
 
 def slot_cache_shape(cfg: ArchConfig, kind: str, batch: int, length: int) -> dict:
     if kind in KV_KINDS:
         return attn.gqa_cache_shape(cfg, batch, length, window=window_of(cfg, kind))
+    if kind == "mla":
+        return attn.mla_cache_shape(cfg, batch, length)
     return _ssm(kind, "cache_shape")(cfg, batch)
 
 
 def cache_dtypes(kind: str, compute_dtype: torch.dtype) -> torch.dtype:
-    """KV caches follow the compute dtype; recurrent states carry fp32."""
-    return compute_dtype if kind in KV_KINDS else torch.float32
+    """KV and compressed MLA caches follow the compute dtype; recurrent
+    states carry fp32."""
+    return compute_dtype if kind in CACHE_KINDS else torch.float32

@@ -1,5 +1,6 @@
 """Decoder-only language model: counterpart of ``repro.models.lm`` for the
-dense GQA archs and the SSM family (xlstm; zamba2 with its weight-tied
+dense GQA archs, the MoE ones (granite-moe; deepseek-v2 with MLA and a
+dense first layer) and the SSM family (xlstm; zamba2 with its weight-tied
 shared attention + MLP block after each group).
 
 Entry points, as in the reference:
@@ -77,7 +78,9 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     """Random parameters from a seeded ``torch.Generator`` on ``device``, in
     ``dtype`` (default: the compute dtype, for serving; training passes
     ``cfg.param_dtype``'s fp32 masters).  Tied embeddings (gemma3) have no
-    ``lm_head``: the head reads ``embed``."""
+    ``lm_head``: the head reads ``embed``.  A MoE router is fp32 whatever
+    ``dtype`` is, as the reference initialises it (``moe.router_logits``
+    rounds it to the compute dtype, as the reference's ``cast_tree`` does)."""
     _check_supported(cfg)
     dev = require_device(device)
     dtype = dtype or cfg.compute_dtype
@@ -101,8 +104,8 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
 
 
 def init_cache(cfg: ArchConfig, batch: int, length: int, *, device="cuda") -> dict:
-    """Zeroed decode caches (structure mirrors forward(collect_cache)): KV in
-    the compute dtype, recurrent states in fp32."""
+    """Zeroed decode caches (structure mirrors forward(collect_cache)): KV and
+    MLA's compressed rows in the compute dtype, recurrent states in fp32."""
     dev = require_device(device)
 
     def zeros(n: int, shapes: dict, dtype) -> dict:
@@ -169,6 +172,9 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, collect_cache: bool =
             cache_len: int = 0):
     """batch {"tokens": (B,S)} -> (logits (B,S,V), aux, cache or None).
 
+    ``aux`` is the MoE load-balance loss summed over every MoE slot (the
+    reference's scan carry), an fp32 zero for archs without one.
+
     With ``collect_cache`` the KV caches come back placed as the reference's
     ``_pad_cache`` places them, so decode can continue from the prefill:
     global slots padded with zeros to ``max(cache_len, S)`` rows; windowed
@@ -183,28 +189,30 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, collect_cache: bool =
     x = _embed(params, cfg, tokens)
     cache: dict | None = {} if collect_cache else None
     remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
+    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
     for pi, phase in enumerate(blocks.build_plan(cfg)):
         pcache: dict = {}
         for g in range(phase.n_groups):
             gp = _at(params[f"phase{pi}"], g)
 
-            def group(x, gp=gp, phase=phase, g=g, pcache=pcache):
+            def group(x, a, gp=gp, phase=phase, g=g, pcache=pcache):
                 for j, (kind, ffn) in enumerate(zip(phase.kinds, phase.ffns)):
-                    x, c = blocks.slot_forward(gp[f"slot{j}"], x, positions, cfg, kind, ffn,
-                                               collect_cache=collect_cache)
+                    x, c, aj = blocks.slot_forward(gp[f"slot{j}"], x, positions, cfg, kind,
+                                                   ffn, collect_cache=collect_cache)
                     if collect_cache:
                         _put(pcache, f"slot{j}", g, phase.n_groups, c, kind, cache_len, cfg)
+                    if aj is not None:
+                        a = a + aj
                 if phase.shared_attn:
-                    x, c = blocks.slot_forward(params["shared"], x, positions, cfg, shared,
-                                               "mlp", collect_cache=collect_cache)
+                    x, c, _ = blocks.slot_forward(params["shared"], x, positions, cfg, shared,
+                                                  "mlp", collect_cache=collect_cache)
                     if collect_cache:
                         _put(pcache, "shared", g, phase.n_groups, c, shared, cache_len, cfg)
-                return x
+                return x, a
 
-            x = checkpoint(group, x, use_reentrant=False) if remat else group(x)
+            x, aux = checkpoint(group, x, aux, use_reentrant=False) if remat else group(x, aux)
         if collect_cache:
             cache[f"phase{pi}"] = pcache
-    aux = torch.zeros((), dtype=torch.float32, device=tokens.device)  # MoE only
     return _head(params, cfg, x), aux, cache
 
 
@@ -219,10 +227,11 @@ def _put(pcache: dict, name: str, g: int, n_groups: int, c: dict, kind: str,
          cache_len: int, cfg: ArchConfig) -> None:
     """Write slot ``c``'s prefill output into group ``g`` of its stacked
     cache ``pcache[name]``, allocated (zeroed) at the first group: K/V rows
-    placed as the reference's ``_pad_cache`` places them (see ``forward``),
-    recurrent states whole."""
+    and MLA's compressed rows (``c_kv``, ``k_rope``) placed as the
+    reference's ``_pad_cache`` places them (see ``forward``), recurrent
+    states whole."""
     window = blocks.window_of(cfg, kind)
-    s = c["k"].shape[1] if kind in blocks.KV_KINDS else 0
+    s = next(iter(c.values())).shape[1] if kind in blocks.CACHE_KINDS else 0
     rows = (min(window, cache_len) if window else max(cache_len, s)) if cache_len else s
     if name not in pcache:
         def shape(t):

@@ -6,10 +6,15 @@ caller does ``jax.tree_util.tree_map(np.asarray, params)``; this module
 imports no JAX) and returns the same tree of torch tensors: the same key
 paths, the same einsum layouts (``wq (d,h,k)``, ``wo (h,k,d)``,
 ``w_gate``/``w_up (d,f)``, ``w_down (f,d)``; Mamba2's ``conv_w (k,C)``,
-sLSTM's per-head ``r_* (h,hd,hd)``) and the same leading stacked
+sLSTM's per-head ``r_* (h,hd,hd)``; MoE's fp32 ``router (d,E)``,
+``experts_gate``/``experts_up (E,d,f)``, ``experts_down (E,f,d)``,
+``shared_gate``/``shared_up (d,fs)``, ``shared_down (fs,d)``; MLA's
+``w_uq (d,h,dn)``, ``w_qr (d,h,dr)``, ``w_dkv (d,r+dr)``, ``w_uk (r,h,dn)``,
+``w_uv (r,h,dv)``, ``wo (h,dv,d)``) and the same leading stacked
 ``n_groups`` dimension on every ``phase*`` leaf (zamba2's tied ``shared``
-block has none).  A tree with tied embeddings (gemma3) carries ``embed``
-and no ``lm_head``, as the reference's does.
+block has none; deepseek's dense layer 0 is ``phase0`` with one group).
+A tree with tied embeddings (gemma3) carries ``embed`` and no
+``lm_head``, as the reference's does.
 """
 from __future__ import annotations
 

@@ -28,6 +28,17 @@ from repro_torch.serving.continuous import ContinuousBatcher  # noqa: E402
 from repro_torch.serving.gateway import BatcherBackend  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Smoke-size models: one intra-op thread runs them about as fast as
+    many, and under a multi-process test run it keeps them from waiting on
+    threads the other workers hold."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(saved)
+
+
 @functools.lru_cache(maxsize=None)
 def _setup(arch):
     cfg = registry.get_smoke_config(arch)
@@ -218,10 +229,13 @@ def _leaves(tree, prefix=""):
 
 
 @pytest.mark.parametrize("arch", ["h2o_danube_3_4b", "minitron_4b", "granite_3_8b",
-                                  "xlstm_1_3b", "zamba2_1_2b", "gemma3_4b"])
+                                  "xlstm_1_3b", "zamba2_1_2b", "gemma3_4b",
+                                  "granite_moe_3b_a800m", "deepseek_v2_lite_16b"])
 def test_prefill_tokenwise_oracle(arch):
     """Chunked prefill against one decode step per token: argmax equal at
-    every position, logits allclose at 1e-4, caches at 1e-3 / 1e-4."""
+    every position, logits allclose at 1e-4, caches at 1e-3 / 1e-4.  The
+    MoE archs route a chunk with ``no_drop`` and a decode token with
+    capacity k, so neither drops; deepseek's MLA caches are compressed."""
     cfg, params = _setup(arch)
     toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 12),
                                                               dtype=np.int32))

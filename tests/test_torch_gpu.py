@@ -39,8 +39,12 @@ FLASH_CASES = [
 # and h2o_danube's D 120 under a window that binds (kv longer than it);
 # gemma3's D 320 (group 2) under its window of 1024 with the keys longer
 # than it, and under a short window with a q_offset; D 300, zero-padded to
-# the 320-column tile and (bf16) no whole number of 16-byte vectors
+# the 320-column tile and (bf16) no whole number of 16-byte vectors;
+# granite-moe's group of 3 (24 query heads over 8 kv heads, D 64), at its
+# serving prefill and with a q_offset and no block dividing S
 FLASH_GPU_CASES = FLASH_CASES + [
+    (128, 128, 24, 8, 64, 0),
+    (100, 157, 6, 2, 64, 0),
     (70, 70, 8, 2, 16, 0),
     (50, 90, 4, 4, 120, 0),
     (40, 40, 2, 1, 17, 0),
@@ -63,8 +67,11 @@ DECODE_CASES = [(128, 4, 4, 32, 64), (200, 8, 2, 64, 64), (64, 4, 1, 128, 32),
 # (group 2): the global cache of its long leg (2064 rows, five splits),
 # its wrapped 1024-row local ring (two splits), its serving cache (one
 # split), a group of 16 at D 320 (the widest registers of that width), and
-# D 300 (bf16: the plain-load instantiation)
+# D 300 (bf16: the plain-load instantiation); granite-moe's group of 3 (24
+# query heads over 8 kv heads, D 64) at its serving cache and across splits
 DECODE_GPU_CASES = [
+    ([145, 130, 1, 145], 145, 24, 8, 64),
+    ([1300, 513, 2], 1300, 6, 2, 64),
     ([2064, 1000, 513, 1], 2064, 8, 4, 320),
     ([1024, 1024, 1024, 1024], 1024, 8, 4, 320),
     ([145, 130, 1, 145], 145, 8, 4, 320),
@@ -164,6 +171,85 @@ def test_flash_kernel_matches_twin_on_gpu(cuda, sq, skv, hq, hkv, d, window, dty
     got = ops.flash_attention(q, k, v, use_kernel=True, **kw)
     want = ref.flash_attention_ref(q, k, v, **kw)
     _close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [128, 1000])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_kernel_mla_shape_on_gpu(cuda, s, dtype):
+    """deepseek's MLA call: q and k at D 192 (nope 128 + rope 64), v of 128
+    zero-padded to 192, ``scale = 192^-0.5`` passed, causal MHA; the
+    output's first 128 columns against the twin on the unpadded v, and the
+    padded columns zero."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    td = DTYPES[dtype]
+    q, k = (torch.randn(2, s, 16, 192, device=cuda, generator=g).to(td) for _ in range(2))
+    v = torch.randn(2, s, 16, 128, device=cuda, generator=g).to(td)
+    v_p = torch.nn.functional.pad(v, (0, 64))
+    got = ops.flash_attention(q, k, v_p, causal=True, scale=192 ** -0.5, use_kernel=True)
+    _close(got[..., :128], ref.flash_attention_ref(q, k, v, causal=True), dtype)
+    assert not bool(got[..., 128:].any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite_moe_3b_a800m", "deepseek_v2_lite_16b"])
+def test_moe_layer_routes_on_the_card_as_on_the_cpu(cuda, arch):
+    """One MoE layer in fp32 (a smoke config widened to 8 experts, top 4, so
+    capacity drops): the card's routing (ids, dispatch order, slots,
+    keep) equals the CPU's on the same weights and inputs, and so do the
+    output (3e-4) and the aux loss."""
+    from repro_torch.configs import registry
+    from repro_torch.models import moe
+    cfg = registry.get_smoke_config(arch).replace(n_experts=8, top_k=4)
+    params = moe.moe_init(cfg, torch.float32, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((3, 40, cfg.d_model),
+                                                                  dtype=np.float32))
+    on = {"cpu": (params, x), "cuda": ({k: v.to(cuda) for k, v in params.items()},
+                                       x.to(cuda))}
+    out = {}
+    for dev, (p, xx) in on.items():
+        cap = moe.capacity(cfg, xx.shape[1])
+        _, route, _ = moe._route_group(xx, moe.router_logits(p, xx), cfg, cap)
+        out[dev] = (route, *moe.moe_forward(p, xx, cfg))
+    assert not bool(out["cpu"][0].keep.all())           # some assignments drop
+    for name in ("ids", "order", "slot", "keep", "tok_idx"):
+        assert torch.equal(getattr(out["cuda"][0], name).cpu(),
+                           getattr(out["cpu"][0], name)), name
+    _close(out["cuda"][1], out["cpu"][1], "float32")
+    assert abs(float(out["cuda"][2]) - float(out["cpu"][2])) <= 3e-4 * float(out["cpu"][2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["granite_3_8b", "deepseek_v2_lite_16b"])
+def test_stacked_decode_writes_the_group_in_place_on_gpu(cuda, arch):
+    """``slot_decode_stacked`` on the card (granite: the decode kernel on
+    group g's view of the stacked cache; deepseek: the absorbed MLA decode)
+    gives ``lm.decode_step``'s logits and cache, fp32 at 3e-4."""
+    from repro_torch.configs import registry
+    from repro_torch.models import blocks, lm, steps
+    cfg = registry.get_smoke_config(arch).replace(use_kernels=True)
+    params = lm.init_params(cfg, seed=0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 17), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(1))
+    _, cache = steps.prefill(params, {"tokens": tokens[:, :-1]}, cfg=cfg, cache_len=20)
+    stacked = {k: {s: {n: t.clone() for n, t in c.items()} for s, c in pc.items()}
+               for k, pc in cache.items()}
+    pos = torch.full((2,), 16, dtype=torch.int32, device=cuda)
+    want, _ = lm.decode_step(params, cfg, tokens[:, -1:], pos, cache)
+    x = lm._embed(params, cfg, tokens[:, -1:])
+    for pi, phase in enumerate(blocks.build_plan(cfg)):
+        for g in range(phase.n_groups):
+            gp = lm._at(params[f"phase{pi}"], g)
+            for j, (kind, ffn) in enumerate(zip(phase.kinds, phase.ffns)):
+                x, _ = blocks.slot_decode_stacked(gp[f"slot{j}"], x,
+                                                  stacked[f"phase{pi}"][f"slot{j}"], g, pos,
+                                                  cfg, kind, ffn)
+    _close(lm._head(params, cfg, x[:, 0]), want, "float32")
+    for k, pc in cache.items():
+        for s, c in pc.items():
+            for n, t in c.items():
+                _close(stacked[k][s][n], t, "float32")
 
 
 @pytest.mark.gpu
@@ -403,7 +489,8 @@ def test_head_dim_320_runs_the_hand_written_kernels_on_gpu(cuda, dtype, monkeypa
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b",
-                                  "h2o_danube_3_4b", "minitron_4b", "gemma3_4b"])
+                                  "h2o_danube_3_4b", "minitron_4b", "gemma3_4b",
+                                  "granite_moe_3b_a800m", "deepseek_v2_lite_16b"])
 def test_smoke_model_kernel_path_matches_plain_path_on_gpu(cuda, arch):
     """Smoke configs (fp32): prefill and a decode step through the kernels
     agree with the plain path on the same weights (granite, minitron:
@@ -411,7 +498,9 @@ def test_smoke_model_kernel_path_matches_plain_path_on_gpu(cuda, arch):
     block's kernels; xlstm: norms, and below its scoring forward through the
     mLSTM scan; h2o_danube: a window of 16 that binds in prefill, then decode
     on the wrapped ring; gemma3: its local ring beside a global cache, and
-    the tied, scaled embeddings)."""
+    the tied, scaled embeddings; granite-moe: attention at a group of 2
+    beside the MoE layers; deepseek: MLA's padded-v flash call, its
+    absorbed decode on no kernel, a dense layer 0)."""
     from repro_torch.configs import registry
     from repro_torch.models import lm, steps
     cfg = registry.get_smoke_config(arch)

@@ -18,7 +18,7 @@ from repro_torch.examples import (continuous_batching, e2e_mnist_pipeline,  # no
                                   e2e_train_to_serve, multi_model_serving, quickstart,
                                   serve_llm, slo_failover, train_llm)
 from repro_torch.launch import serve, train  # noqa: E402
-from repro_torch.models import lenet, lm  # noqa: E402
+from repro_torch.models import blocks, lenet, lm  # noqa: E402
 from repro_torch.modelci.profile import roofline_fields  # noqa: E402
 from repro_torch.models.transplant import transplant, transplant_lenet  # noqa: E402
 from repro_torch.serving.continuous import ContinuousBatcher  # noqa: E402
@@ -133,13 +133,21 @@ def test_unported_entry_points_name_their_roadmap_item(entry, item):
 
 def test_registry_names_the_roadmap_item_for_unported_archs():
     assert registry.list_archs() == ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b",
-                                     "h2o_danube_3_4b", "minitron_4b", "gemma3_4b"]
+                                     "h2o_danube_3_4b", "minitron_4b", "gemma3_4b",
+                                     "granite_moe_3b_a800m", "deepseek_v2_lite_16b"]
+    assert set(registry.PENDING) == {"whisper_base", "qwen2_vl_7b"}
+    assert set(registry.PORTED) | set(registry.PENDING) == set(registry.ARCH_IDS)
+    for arch in registry.PORTED:        # every block kind of a ported arch builds
+        assert blocks.build_plan(registry.get_config(arch))
     assert registry.get_config("granite-3-8b").d_model == 4096
     assert registry.get_config("h2o-danube-3-4b").sliding_window == 4096
     assert registry.get_config("minitron_4b").mlp_act == "squared_relu"
     assert registry.get_config("zamba2-1.2b").n_layers == 38
     assert registry.get_config("xlstm_1_3b").n_heads == 4
     assert registry.get_config("gemma3-4b").head_dim == 320
+    assert registry.get_config("granite-moe-3b-a800m").n_experts == 40
+    ds = registry.get_config("deepseek-v2-lite-16b")
+    assert ds.use_mla and ds.first_layer_dense and ds.n_shared_experts == 2
     for arch, item in registry.PENDING.items():
         assert arch not in registry.PORTED
         with pytest.raises(KeyError, match=f"ROADMAP.md queue 1 item {item.split()[0]}"):

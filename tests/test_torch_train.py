@@ -44,7 +44,7 @@ from repro_torch.models.transplant import transplant  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 
 ARCHS = ["granite_3_8b", "h2o_danube_3_4b", "minitron_4b", "gemma3_4b", "zamba2_1_2b",
-         "xlstm_1_3b"]
+         "xlstm_1_3b", "granite_moe_3b_a800m", "deepseek_v2_lite_16b"]
 B, S = 2, 32
 REL = 3e-4
 ZERO_LEAF = 1e-6
