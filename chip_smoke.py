@@ -20,9 +20,9 @@ Run from the root of a checkout.  It imports only the port
    the kernels a ``torch.profiler`` trace of such a loop records (for the
    library call also the backend its kernels' names show: SDPA has no
    flash kernel past head dim 256, so at gemma3's 320 it falls back);
-3. drives ten paths at full width, with random bf16 weights from a seeded
-   generator and ``use_kernels=True``, each through the entry points a user
-   calls, freeing each path's weights before the next:
+3. drives twelve paths at full width, with random bf16 weights from a
+   seeded generator and ``use_kernels=True``, each through the entry points
+   a user calls, freeing each path's weights before the next:
    granite-3-8b serving (40 layers), h2o-danube-3-4b serving (24 sliding-
    window layers, head dim 120), minitron-4b serving (32 layers, squared-
    ReLU MLP), gemma3-4b serving (34 layers, 5:1 local:global with window
@@ -32,8 +32,18 @@ Run from the root of a checkout.  It imports only the port
    a GQA group of 3) and deepseek-v2-lite-16b serving (27 layers, MLA with
    its prefill through flash attention at head dim 192, v zero-padded, and
    an absorbed decode that runs no kernel; 64 experts top 6 and 2 shared,
-   a dense layer 0), each through ``make_lm_predictor`` and the k8s strategy of
-   ``InferenceService``; gemma3 also serves a long leg on the same weights
+   a dense layer 0), whisper-base serving (6 + 6 layers: the encoder's
+   non-causal flash attention over 1500 frames, the decoder's cross-
+   attention, non-causal flash over those rows in prefill and decode
+   attention over all 1500 in each step, which must leave the cached rows
+   bit for bit as prefill wrote them) and qwen2-vl-7b serving (28 layers,
+   M-RoPE, a GQA group of 7 in both attention kernels, a prompt of
+   VLM_PROMPT so that tokens follow the 256 vision rows), each through
+   ``make_lm_predictor`` and the k8s strategy of ``InferenceService`` (the
+   predictor builds the reference's stub inputs: zero frames, zero vision
+   rows, equal M-RoPE streams); the logit gates of those two run the
+   frames, or the vision rows and a 16 x 16 M-RoPE image grid, drawn from a
+   seeded generator; gemma3 also serves a long leg on the same weights
    (batch 1, a 2048-token prompt, ``_long_leg``: the window binds in
    prefill, decode wraps the 1024-row local rings and splits the global
    layers' 2064-row caches five ways), gated like its main run;
@@ -139,6 +149,10 @@ BWD_FLOOR = 1e-6            # the backward kernels' absolute floor, of the twin'
 DRIFT_RATIO = 1.5
 
 BATCH, PROMPT, GEN = 4, 128, 16
+# qwen2-vl's prompt: its predictor overwrites the first min(256, S) rows
+# with vision rows, so at PROMPT every prompt would be the same zeros; its
+# logit gate lays those rows out as a VLM_GRID x VLM_GRID image grid
+VLM_PATH, VLM_PROMPT, VLM_GRID = "qwen2-vl-7b serving", 384, 16
 # the continuous batcher's run: slots, cache rows, prefill chunk, the mix's
 # long prompt (it wraps h2o_danube's 4096-row ring in chunked prefill, and
 # its decode runs on the wrapped ring) and the longest prompt that also goes
@@ -212,6 +226,10 @@ PATHS = (
      ("rmsnorm", "flash_attention", "decode_attention"), TOL, 1e-4),
     ("deepseek-v2-lite-16b serving", "deepseek_v2_lite_16b", "serve",
      ("rmsnorm", "flash_attention"), TOL, 1e-4),
+    ("whisper-base serving", "whisper_base", "serve",
+     ("rmsnorm", "flash_attention", "decode_attention"), TOL, 1e-4),
+    (VLM_PATH, "qwen2_vl_7b", "serve",
+     ("rmsnorm", "flash_attention", "decode_attention"), TOL, 1e-4),
 )
 # kernel -> (route, source, TPU kernel it replaces, path whose shapes its
 # entry in the kernels line reports, its wrapper: a name in ``ops``, or
@@ -368,13 +386,16 @@ def _rmsnorm_case(rows: int, d: int, gen):
 
 
 def _flash_case(b: int, sq: int, skv: int, hq: int, hkv: int, d: int, gen, window: int = 0,
-                dv: int = 0):
+                dv: int = 0, causal: bool = True):
     """With ``dv``: MLA's call (``models/attention.mla_forward``), v of dv
     columns zero-padded to D and the scale of D passed; its library call is
     SDPA on the same inputs, causal by ``is_causal`` (the form SDPA's
     fused backends take), with that scale.  The bound counts what the
     function needs: q and k of D columns, v and the output of dv, so the
-    padding is the kernel's cost."""
+    padding is the kernel's cost.  ``causal`` False (whisper's encoder and
+    cross-attention): every query sees every key, so the bound's operations
+    count the full Sq x Skv rectangle, and the library call is SDPA with
+    no mask."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
@@ -387,19 +408,22 @@ def _flash_case(b: int, sq: int, skv: int, hq: int, hkv: int, d: int, gen, windo
     off = skv - sq
     qpos = torch.arange(sq, device="cuda")[:, None] + off
     kpos = torch.arange(skv, device="cuda")[None, :]
-    mask = kpos <= qpos                                                # causal, offset
+    mask = kpos <= qpos if causal else torch.ones_like(kpos <= qpos)  # causal, offset
     if window:
         mask &= kpos > qpos - window
     visible = int(mask.sum())                                        # keys seen, all rows
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    kw = dict(causal=True, q_offset=off, window=window)
+    kw = dict(causal=True, q_offset=off, window=window) if causal else dict(causal=False)
     if dv < d:
         kw["scale"] = d ** -0.5
         lib_kw = dict(is_causal=True, scale=kw["scale"])
+    elif not causal:
+        lib_kw = dict(enable_gqa=True)
     else:
         lib_kw = dict(attn_mask=mask, enable_gqa=True)
     return dict(
-        shape=f"q ({b},{sq},{hq},{d}) kv ({b},{skv},{hkv},{d}) causal q_offset {off}"
+        shape=f"q ({b},{sq},{hq},{d}) kv ({b},{skv},{hkv},{d}) "
+              + (f"causal q_offset {off}" if causal else "non-causal")
               + (f" window {window}" if window else "")
               + (f" v {dv} zero-padded, scale {d}^-0.5" if dv < d else "") + " bf16",
         kernel=lambda: ops.flash_attention(q, k, v, use_kernel=True, **kw),
@@ -688,6 +712,9 @@ def main() -> int:
     gmo = registry.get_config("granite_moe_3b_a800m")
     ds = registry.get_config("deepseek_v2_lite_16b")
     ds_qk = ds.qk_nope_dim + ds.qk_rope_dim             # MLA's qk head dim, 192
+    wb = registry.get_config("whisper_base")
+    qv = registry.get_config("qwen2_vl_7b")
+    vlm_cache = VLM_PROMPT + GEN + 1
     cache_len = PROMPT + GEN + 1
     long_cache = LONG_LEG_PROMPT + GEN      # gemma3's long leg: its global caches' rows
     rows = BATCH * PROMPT
@@ -739,6 +766,13 @@ def main() -> int:
         # 320-column tile, v zero-padded, against SDPA's fused backends
         ("flash_attention", _flash_case(1, 2048, 2048, ds.n_heads, ds.n_kv_heads, ds_qk, gen,
                                         dv=ds.v_head_dim), 10),
+        # whisper's decoder: its prompt's queries over the 1500 encoder rows
+        # (non-causal cross-attention), and decode over its self-attention
+        # cache (its path case below is decode over the encoder rows)
+        ("flash_attention", _flash_case(BATCH, PROMPT, wb.encoder_len, wb.n_heads,
+                                        wb.n_kv_heads, wb.head_dim, gen, causal=False), 20),
+        ("decode_attention", _decode_case([PROMPT + 1] * BATCH, cache_len, wb.n_heads,
+                                          wb.n_kv_heads, wb.head_dim, gen), 50),
     ]
     # the shapes each path's run gives each kernel
     path_cases = {
@@ -784,6 +818,18 @@ def main() -> int:
             "rmsnorm": (_rmsnorm_case(rows, ds.d_model, gen), 50),
             "flash_attention": (_flash_case(BATCH, PROMPT, PROMPT, ds.n_heads, ds.n_kv_heads,
                                             ds_qk, gen, dv=ds.v_head_dim), 20)},
+        "whisper-base serving": {                 # the encoder's rows: non-causal flash, decode
+            "rmsnorm": (_rmsnorm_case(BATCH * wb.encoder_len, wb.d_model, gen), 50),
+            "flash_attention": (_flash_case(BATCH, wb.encoder_len, wb.encoder_len, wb.n_heads,
+                                            wb.n_kv_heads, wb.head_dim, gen, causal=False), 10),
+            "decode_attention": (_decode_case([wb.encoder_len] * BATCH, wb.encoder_len,
+                                              wb.n_heads, wb.n_kv_heads, wb.head_dim, gen), 50)},
+        VLM_PATH: {                               # a GQA group of 7 in both kernels
+            "rmsnorm": (_rmsnorm_case(BATCH * VLM_PROMPT, qv.d_model, gen), 50),
+            "flash_attention": (_flash_case(BATCH, VLM_PROMPT, VLM_PROMPT, qv.n_heads,
+                                            qv.n_kv_heads, qv.head_dim, gen), 20),
+            "decode_attention": (_decode_case([VLM_PROMPT + 1] * BATCH, vlm_cache, qv.n_heads,
+                                              qv.n_kv_heads, qv.head_dim, gen), 50)},
         "xlstm-1.3b scoring": {
             "rmsnorm": (_rmsnorm_case(rows, xl.d_model, gen), 50),
             "mlstm_scan": (_mlstm_case(BATCH, PROMPT, xl.n_heads, xhd, xl.ssm_chunk, gen), 20)},
@@ -954,10 +1000,46 @@ def _rels(pairs: dict) -> dict:
             for phase, (k, p, k32, p32) in pairs.items()}
 
 
-def _prompts(cfg):
+def _prompts(cfg, prompt: int = PROMPT):
     import torch
-    return torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), dtype=torch.int32,
+    return torch.randint(0, cfg.vocab_size, (BATCH, prompt), dtype=torch.int32,
                          generator=torch.Generator().manual_seed(1))
+
+
+def _mrope_grid(b: int, s: int, n_vis: int, side: int):
+    """(B,3,S) M-RoPE positions of Qwen2-VL's layout: n_vis image rows on a
+    ``side``-wide grid (t 0, h = i // side, w = i % side), then text from
+    the grid's larger side onward, equal on all three streams."""
+    import torch
+    i = torch.arange(s)
+    text = max(-(-n_vis // side), side) + i - n_vis
+    img = i < n_vis
+    pos = torch.stack([torch.where(img, 0, text), torch.where(img, i // side, text),
+                       torch.where(img, i % side, text)])
+    return pos[None].expand(b, 3, s).to(torch.int32).contiguous()
+
+
+def _gate_inputs(cfg, tokens):
+    """The logit gates' batch around ``tokens`` (B,S) on the card, and the
+    first decode step's positions.  Where the predictor feeds zeros (the
+    reference's stub frontends), the gates draw from a seeded generator:
+    whisper's frames; qwen2-vl's vision rows, on an image grid of M-RoPE
+    positions.  Decode is held where the temporal stream is the sequence
+    index (t = S on every stream), the one place where the reference's
+    cache index by t (ROADMAP queue 3) writes a new row."""
+    import torch
+    from repro_torch.models import steps
+    b, s = tokens.shape
+    gen = torch.Generator().manual_seed(3)
+    batch = {"tokens": tokens}
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(b, cfg.encoder_len, cfg.d_model, generator=gen).cuda()
+    if cfg.family == "vlm":
+        n_vis = min(cfg.n_vision_tokens, s)
+        batch["vision_embeds"] = (torch.randn(b, n_vis, cfg.d_model, generator=gen)
+                                  * 0.02).cuda()
+        batch["mrope_positions"] = _mrope_grid(b, s, n_vis, VLM_GRID).cuda()
+    return batch, steps.start_positions(cfg, b, s, "cuda")
 
 
 def _serve_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> dict:
@@ -978,9 +1060,10 @@ def _serve_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> di
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
-    cache_len = PROMPT + GEN + 1
-    pred = make_lm_predictor(cfg, gen_tokens=GEN, prompt_len=PROMPT, params=params)
-    prompts = _prompts(cfg).numpy()
+    prompt = VLM_PROMPT if label == VLM_PATH else PROMPT
+    cache_len = prompt + GEN + 1
+    pred = make_lm_predictor(cfg, gen_tokens=GEN, prompt_len=prompt, params=params)
+    prompts = _prompts(cfg, prompt).numpy()
 
     native.reset_launches()
     toks = pred.predict(prompts)
@@ -1002,8 +1085,7 @@ def _serve_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> di
         kserve["failover_leg"] = failover
 
     with torch.inference_mode():
-        batch = {"tokens": torch.as_tensor(prompts, device="cuda")}
-        start = torch.full((BATCH,), PROMPT, dtype=torch.int32, device="cuda")
+        batch, start = _gate_inputs(cfg, torch.as_tensor(prompts, device="cuda"))
         per = {}
         native.reset_launches()
         torch.cuda.synchronize()
@@ -1013,6 +1095,10 @@ def _serve_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> di
         prefill_ms = (time.perf_counter() - t0) * 1e3
         per["prefill"] = dict(native.LAUNCHES)
         first = torch.argmax(last_k, -1).to(torch.int32)[:, None]
+        # whisper: the cached encoder rows, which decode reads and must not write
+        cross = {(pi, slot, k): (t, t.clone()) for pi, pc in cache.items()
+                 if pi.startswith("phase") for slot, c in pc.items() for k, t in c.items()
+                 if k.startswith("cross_")}
         native.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1020,7 +1106,10 @@ def _serve_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> di
         torch.cuda.synchronize()
         decode_ms = (time.perf_counter() - t0) * 1e3 / GEN
         per["decode_step"] = {k: n // GEN for k, n in native.LAUNCHES.items()}
-        del cache
+        moved = [key for key, (t, before) in cross.items() if not torch.equal(t, before)]
+        if moved:
+            raise AssertionError(f"{label}: decode wrote the cached encoder rows {moved}")
+        del cache, cross
         peak_gib = torch.cuda.max_memory_allocated() / 2**30      # the served runs'
         if not bool(torch.isfinite(last_k.float()).all()):
             raise AssertionError(f"{label}: prefill logits not finite")
@@ -1083,12 +1172,12 @@ def _serve_path(cfg, label: str, expected: tuple, limits: dict, card: str) -> di
         _print_flips(label, flips)
     _gate(label, rel, limits)
     print(f"{label}, full width ({cfg.n_layers} layers, {n_params / 1e9:.2f} B params, bf16): "
-          f"batch {BATCH} prompt {PROMPT}: prefill {prefill_ms:.2f} ms, decode "
+          f"batch {BATCH} prompt {prompt}: prefill {prefill_ms:.2f} ms, decode "
           f"{decode_ms:.2f} ms/token, peak {peak_gib:.2f} GiB (served runs; the fp32 "
           f"comparison after the in-place cast {peak32_gib:.2f} GiB); launches per prefill "
           f"{per['prefill']}, per decode step {per['decode_step']}  [{card}]")
     return {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params, "batch": BATCH,
-            "prompt": PROMPT, "gen": GEN, "init_s": init_s, "prefill_ms": prefill_ms,
+            "prompt": prompt, "gen": GEN, "init_s": init_s, "prefill_ms": prefill_ms,
             "decode_ms_per_token": decode_ms, "peak_gib": peak_gib, "peak_fp32_gib": peak32_gib,
             "rel": rel, "routing_flips": flips, "limits": limits,
             "recorded": recorded, "launches_run": launches, "launches_per": per,

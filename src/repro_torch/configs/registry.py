@@ -1,8 +1,8 @@
 """Config registry: --arch <id> resolution for the archs the port runs.
 
-The reference knows ten archs.  The port resolves the same names but only
-builds the ones it has ported; the others raise a ``KeyError`` that names
-the ROADMAP item that ports them.
+The reference knows ten archs, and the port builds all ten.  An arch in
+``PENDING`` (none now) would raise a ``KeyError`` that names the ROADMAP
+item that ports it.
 """
 from __future__ import annotations
 
@@ -24,13 +24,11 @@ ARCH_IDS = (
 )
 
 PORTED = ("granite_3_8b", "zamba2_1_2b", "xlstm_1_3b", "h2o_danube_3_4b", "minitron_4b",
-          "gemma3_4b", "granite_moe_3b_a800m", "deepseek_v2_lite_16b")
+          "gemma3_4b", "granite_moe_3b_a800m", "deepseek_v2_lite_16b", "whisper_base",
+          "qwen2_vl_7b")
 
 # ROADMAP.md queue 1 item that brings each not-yet-ported arch over
-PENDING = {
-    "whisper_base": "1.9 (enc-dec)",
-    "qwen2_vl_7b": "1.9 (VLM)",
-}
+PENDING: dict = {}
 
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 

@@ -14,8 +14,9 @@ kernel's variant that also writes each row's fp32 log-sum-exp and, in
 bf16, the fp32 output before its rounding (O32), and its backward launches
 ``flash_attention_bwd``, which recomputes the probabilities from the
 log-sum-exp and takes each row's Delta = rowsum(dO o O32).  The backward
-takes head dims up to 128 and ``q_offset`` 0; anything else raises under
-grad.  Without grad the serving forward runs, as before.  The wrappers
+takes head dims up to 128 and ``q_offset`` 0, with or without a causal
+mask (whisper's encoder and cross-attention train without one); anything
+else raises under grad.  Without grad the serving forward runs, as before.  The wrappers
 launch the kernels on CUDA tensors and raise on anything else;
 ``ops.flash_attention`` chooses the plain twin where no kernel runs.
 """

@@ -7,10 +7,15 @@ forward, or a continuous batcher's prefill chunk and step.
     PYTHONPATH=src python -m repro_torch.launch.profile --arch xlstm_1_3b --score
     PYTHONPATH=src python -m repro_torch.launch.profile --arch h2o_danube_3_4b --batcher
     PYTHONPATH=src python -m repro_torch.launch.profile --arch deepseek_v2_lite_16b
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch whisper_base
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch qwen2_vl_7b --prompt 384
 
 Builds the model with random weights on the card (``use_kernels=True``),
-warms it up, then, at batch 4 x prompt 128, traces one prefill and one
-decode step with ``torch.profiler`` (CPU and CUDA activity).  With
+warms it up, then, at batch 4 x prompt 128 (``--prompt``), traces one
+prefill and one decode step (the family's inputs around the tokens as the
+predictor builds them, ``steps.batch_inputs``: whisper's 1500 zero frames
+through its encoder, qwen2-vl's zero vision rows and M-RoPE positions)
+with ``torch.profiler`` (CPU and CUDA activity).  With
 ``--score`` it traces one full-sequence forward of ``steps.loss_fn`` (no
 cache) instead; with ``--batcher``, for a ``ContinuousBatcher`` of 4
 slots over 4608 cache rows, one 256-row ``lm.prefill_chunk`` on a one-row
@@ -104,6 +109,7 @@ def main(argv=None):
                     help="trace the scoring forward instead of prefill and decode")
     ap.add_argument("--batcher", action="store_true",
                     help="trace a continuous batcher's prefill chunk and step instead")
+    ap.add_argument("--prompt", type=int, default=PROMPT)
     ap.add_argument("--out", default="chiprun_out/profile")
     args = ap.parse_args(argv)
 
@@ -112,22 +118,22 @@ def main(argv=None):
     cfg = cfg.replace(use_kernels=True)
     params = lm.init_params(cfg, seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
-    tokens = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device=dev,
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, args.prompt), device=dev,
                            generator=gen, dtype=torch.int32)
-    cache_len = PROMPT + 2
-    pos = torch.full((BATCH,), PROMPT, dtype=torch.int32, device=dev)
+    batch = steps.batch_inputs(cfg, tokens)
+    cache_len = args.prompt + 2
+    pos = steps.start_positions(cfg, BATCH, args.prompt, dev)
     state = {}
 
     def run_prefill():
-        last, state["cache"] = steps.prefill(params, {"tokens": tokens}, cfg=cfg,
-                                             cache_len=cache_len)
+        last, state["cache"] = steps.prefill(params, batch, cfg=cfg, cache_len=cache_len)
         state["tok"] = torch.argmax(last, -1).to(torch.int32)[:, None]
 
     def run_decode():
         lm.decode_step(params, cfg, state["tok"], pos, state["cache"])
 
     def run_score():
-        lm.forward(params, cfg, {"tokens": tokens})
+        lm.forward(params, cfg, batch)
 
     def batcher_runs():
         cb = ContinuousBatcher(cfg, params, max_slots=BATCH, max_len=MAX_LEN,
@@ -138,6 +144,8 @@ def main(argv=None):
         row = lm.init_cache(cfg, 1, MAX_LEN, device=dev)
         chunk = tokens.reshape(1, -1)[:, :CHUNK]
         chunk_pos = torch.arange(MAX_LEN - CHUNK, MAX_LEN, dtype=torch.int32, device=dev)[None]
+        if cfg.use_mrope:
+            chunk_pos = chunk_pos[:, None].expand(1, 3, CHUNK)
         return {"prefill_chunk": lambda: lm.prefill_chunk(params, cfg, chunk, chunk_pos, row),
                 "batcher_step": cb.step}
 
@@ -148,7 +156,7 @@ def main(argv=None):
             for fn in runs.values():
                 fn()
         out = Path(args.out)
-        res = {"arch": cfg.name, "batch": BATCH, "prompt": PROMPT,
+        res = {"arch": cfg.name, "batch": BATCH, "prompt": args.prompt,
                "device": torch.cuda.get_device_name(dev),
                **{label: trace(fn, out, label) for label, fn in runs.items()}}
     print(json.dumps(res, indent=1))

@@ -1,11 +1,12 @@
 """Serving launcher: batched greedy generation through the KServe analog.
 
 `python -m repro_torch.launch.serve --arch granite_3_8b --strategy kserve
---max-batch 8 --requests 32` builds the full config of a ported arch
-(granite_3_8b, h2o_danube_3_4b, minitron_4b, zamba2_1_2b, xlstm_1_3b,
-gemma3_4b) with
-random weights from a seed on the card, wraps prefill + a greedy decode loop
-in a Predictor, and runs the paper's stress test against it (the kserve
+--max-batch 8 --requests 32` builds the full config of any of the ten archs
+(whisper-base and qwen2-vl-7b too) with random weights from a seed on the
+card, wraps prefill + a greedy decode loop in a Predictor (around the
+token ids it builds the family's inputs as the reference's predictor does:
+zero frames for whisper, zero vision embeddings and equal M-RoPE streams
+for qwen2-vl, ``steps.batch_inputs``), and runs the paper's stress test against it (the kserve
 strategy by default: the gateway batches up to --max-batch requests a
 predict; baremetal and k8s serve one at a time).  `--smoke` selects
 the reduced config; `--device cpu` runs the plain path on the host.  The
@@ -43,9 +44,10 @@ def make_lm_predictor(cfg: ArchConfig, *, gen_tokens: int = 8, prompt_len: int =
     @torch.inference_mode()
     def predict(tokens):
         tokens = torch.as_tensor(np.asarray(tokens), dtype=torch.int32, device=dev)
-        last, cache = steps.prefill(params, {"tokens": tokens}, cfg=cfg, cache_len=cache_len)
+        last, cache = steps.prefill(params, steps.batch_inputs(cfg, tokens), cfg=cfg,
+                                    cache_len=cache_len)
         first = torch.argmax(last, dim=-1).to(torch.int32)[:, None]
-        start = torch.full((tokens.shape[0],), tokens.shape[1], dtype=torch.int32, device=dev)
+        start = steps.start_positions(cfg, tokens.shape[0], tokens.shape[1], dev)
         toks, _ = steps.greedy_decode_loop(params, cache, first, start, gen_tokens, cfg=cfg)
         return toks
 

@@ -1,5 +1,13 @@
-"""GQA attention with RoPE and MLA: counterpart of the GQA and MLA parts of
-``repro.models.attention``.
+"""GQA attention (RoPE, M-RoPE or none), cross-attention and MLA:
+counterpart of ``repro.models.attention``.
+
+Positions are (B,S) or, under M-RoPE (qwen2-vl), (B,3,S): the (t, h, w)
+streams, each rotating its own section of the frequency dims.  Caches are
+indexed by the temporal stream (``_tpos``), as in the reference.  An arch
+with ``use_rope=False`` (whisper) rotates nothing.  Whisper's decoder
+cross-attends the encoder's rows: ``cross_kv`` projects them once a
+prefill, ``cross_forward`` runs non-causal flash attention over them and
+``cross_decode`` decode attention with every row's length the encoder's.
 
 Parameters keep the reference's einsum layouts: ``wq (d,Hq,hd)``,
 ``wk``/``wv (d,Hkv,hd)``, ``wo (Hq,hd,d)``.  Decode and chunked prefill
@@ -42,17 +50,52 @@ NEG_INF = -1e30
 # RoPE
 # ---------------------------------------------------------------------------
 def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    """theta^(-i / half), i < half: the fp32 exponents of the reference, the
+    power taken in fp64 and rounded (the correctly rounded fp32 value,
+    which the reference's fp32 power gives; torch's fp32 ``pow`` is an ulp
+    off at some i, which moves the angle at position p by p such ulps)."""
     half = head_dim // 2
-    return theta ** (-torch.arange(0, half, dtype=torch.float32, device=device) / half)
+    expo = -torch.arange(0, half, dtype=torch.float32, device=device) / half
+    base = torch.tensor(theta, dtype=torch.float32).item()
+    return torch.pow(base, expo.double()).float()
+
+
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x (B,S,H,D) rotated by angles (B,S,D/2), half-split convention, in fp32."""
+    cos, sin = torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """x: (B,S,H,D); positions: (B,S) -> rotated x (half-split convention)."""
     freqs = rope_freqs(x.shape[-1], theta, x.device)                  # (D/2,)
-    angles = positions[..., None].float() * freqs                      # (B,S,D/2)
-    cos, sin = torch.cos(angles)[:, :, None, :], torch.sin(angles)[:, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+    return _rotate(x, positions[..., None].float() * freqs)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Qwen2-VL M-RoPE: positions (B,3,S), the (t, h, w) streams.  The D/2
+    frequencies split into three sections, ``half - 2 (half // 3)`` then
+    ``half // 3`` twice (22/21/21 at D 128), stream i rotating section i."""
+    half = x.shape[-1] // 2
+    sections = (half - 2 * (half // 3), half // 3, half // 3)
+    freqs = rope_freqs(x.shape[-1], theta, x.device).split(sections)
+    pos = positions.float()
+    return _rotate(x, torch.cat([pos[:, i, :, None] * f for i, f in enumerate(freqs)], dim=-1))
+
+
+def _rope(x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    if not cfg.use_rope:
+        return x
+    if cfg.use_mrope:
+        return apply_mrope(x, positions, cfg.rope_theta)
+    return apply_rope(x, positions, cfg.rope_theta)
+
+
+def _tpos(positions: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The temporal stream of (B,3,...) M-RoPE positions, which indexes the
+    cache; plain positions as they are."""
+    return positions[:, 0] if cfg.use_mrope else positions
 
 
 # ---------------------------------------------------------------------------
@@ -72,13 +115,13 @@ def _qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta), v)
+    return _rope(q, positions, cfg), _rope(k, positions, cfg), v
 
 
 def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
                 *, window: int = 0, causal: bool = True, return_kv: bool = False):
-    """Full-sequence attention (prefill). x: (B,S,D); positions (B,S)."""
+    """Full-sequence attention (prefill; whisper's encoder with ``causal``
+    False). x: (B,S,D); positions (B,S) or (B,3,S)."""
     q, k, v = _qkv(p, x, positions, cfg)
     o = ops.flash_attention(q, k, v, causal=causal, window=window,
                             use_kernel=cfg.use_kernels)
@@ -89,18 +132,21 @@ def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConf
 def gqa_decode(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
                cfg: ArchConfig, *, window: int = 0):
     """One-token decode. x: (B,1,D); cache {k,v: (B,S,Hkv,hd)} written in
-    place; positions (B,) absolute position of the new token.  Global: row
-    ``positions``, keys 0..positions.  Ring (``window > 0``): row
-    ``positions % size``, the last ``min(positions + 1, size)`` keys.
-    Returns (out (B,1,D), cache)."""
+    place (other entries, such as whisper's cross rows, untouched);
+    positions (B,), or (B,3) under M-RoPE, absolute position of the new
+    token, whose temporal stream t indexes the cache.  Global: row t, keys
+    0..t.  Ring (``window > 0``): row ``t % size``, the last
+    ``min(t + 1, size)`` keys.  Returns (out (B,1,D), cache)."""
     b = x.shape[0]
-    q, k, v = _qkv(p, x, positions[:, None], cfg)
+    pos_seq = positions[:, :, None] if cfg.use_mrope else positions[:, None]
+    q, k, v = _qkv(p, x, pos_seq, cfg)
+    tpos = _tpos(pos_seq, cfg)[:, 0]
     if window > 0:
         size = min(window, cache["k"].shape[1])
-        slot = positions % size
-        eff_len = torch.clamp_max(positions + 1, size)
+        slot = tpos % size
+        eff_len = torch.clamp_max(tpos + 1, size)
     else:
-        slot, eff_len = positions, positions + 1
+        slot, eff_len = tpos, tpos + 1
     bidx = torch.arange(b, device=x.device)
     rows = slot.long()
     cache["k"][bidx, rows] = k[:, 0].to(cache["k"].dtype)
@@ -131,7 +177,8 @@ def gqa_prefill(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
                 cfg: ArchConfig, *, window: int = 0):
     """Chunked prefill: C prompt tokens at once against the decode cache.
 
-    x: (B,C,D); positions (B,C) absolute, contiguous ascending.  Every query
+    x: (B,C,D); positions (B,C) (or (B,3,C) under M-RoPE, whose temporal
+    stream indexes the cache) absolute, contiguous ascending.  Every query
     attends with the masked softmax of the one-token decode path, so its
     logits match decode's; the chunk's K/V rows land in the cache in place.
     Global: rows ``positions``, each query over the whole cache.  Ring
@@ -147,7 +194,7 @@ def gqa_prefill(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
     b, c, _ = x.shape
     q, k, v = _qkv(p, x, positions, cfg)
     k_cd, v_cd = k.to(cache["k"].dtype), v.to(cache["v"].dtype)
-    pos = positions.long()
+    pos = _tpos(positions, cfg).long()
     b2 = torch.arange(b, device=x.device)[:, None]
     if window > 0:
         size = min(window, cache["k"].shape[1])
@@ -191,6 +238,40 @@ def gqa_decode_stacked(p: dict, x: torch.Tensor, stacked: dict, g: int,
     out, _ = gqa_decode(p, x, {name: t[g] for name, t in stacked.items()}, positions, cfg,
                         window=window)
     return out, stacked
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (whisper's decoder)
+# ---------------------------------------------------------------------------
+def cross_init(cfg: ArchConfig, dtype: torch.dtype, *, generator: torch.Generator,
+               device) -> dict:
+    return gqa_init(cfg, dtype, generator=generator, device=device)
+
+
+def cross_kv(p: dict, enc_out: torch.Tensor):
+    """(k, v) (B,Senc,Hkv,hd) of the encoder's output (B,Senc,D)."""
+    return (torch.einsum("bsd,dhk->bshk", enc_out, p["wk"]),
+            torch.einsum("bsd,dhk->bshk", enc_out, p["wv"]))
+
+
+def cross_forward(p: dict, x: torch.Tensor, enc_kv: tuple, cfg: ArchConfig) -> torch.Tensor:
+    """x (B,S,D) attends every encoder row (non-causal flash attention);
+    enc_kv = ``cross_kv`` of the encoder's output."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    k, v = enc_kv
+    o = ops.flash_attention(q, k, v, causal=False, use_kernel=cfg.use_kernels)
+    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+def cross_decode(p: dict, x: torch.Tensor, enc_kv: tuple, cfg: ArchConfig) -> torch.Tensor:
+    """One token a row, x (B,1,D), over the cached encoder rows: decode
+    attention with every row's length the full ``k.shape[1]``.  Reads the
+    rows, never writes them."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])[:, 0]
+    k, v = enc_kv
+    lens = torch.full((x.shape[0],), k.shape[1], dtype=torch.int32, device=x.device)
+    o = ops.decode_attention(q, k, v, lens, use_kernel=cfg.use_kernels)
+    return torch.einsum("bhk,hkd->bd", o, p["wo"])[:, None, :]
 
 
 # ---------------------------------------------------------------------------

@@ -13,8 +13,10 @@ the ``moe`` ones (``first_layer_dense``).  zamba2's
 weight-tied shared attention + MLP block runs after each group of a
 ``shared_attn`` phase, windowed when the decode budget exceeds 64k and, in
 decode, as a ``local`` one (the ring branches of ``attention``) while its
-cache is no longer than the window.  A family the port does not build yet
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.
+cache is no longer than the window.  The ``audio`` (whisper) and ``vlm``
+(qwen2-vl) families plan as dense ones, as in the reference; whisper's
+decoder slots (``cross=True``) add a cross-attention sub-layer between the
+mixer and the ffn, ``x + cross(norm_x(x), enc_kv)``.
 The norm sites go through ``ops.rmsnorm`` (the kernel when
 ``cfg.use_kernels``).  Decode and chunked prefill update their cache in
 place: attention writes its rows, recurrent mixers their whole state.
@@ -68,9 +70,6 @@ def build_plan(cfg: ArchConfig) -> list[Phase]:
         if rem:
             phases.append(Phase(("mamba2",) * rem, ("none",) * rem, 1))
         return phases
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  "(ROADMAP.md queue 1 item 1.9)")
     ffn = "moe" if cfg.n_experts else "mlp"
     pattern = cfg.block_pattern
     phases = []
@@ -114,7 +113,7 @@ def mlp_forward(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 # Slots
 # ---------------------------------------------------------------------------
 def slot_init(cfg: ArchConfig, kind: str, ffn: str, dtype: torch.dtype, *,
-              generator: torch.Generator, device) -> dict:
+              generator: torch.Generator, device, cross: bool = False) -> dict:
     kw = dict(generator=generator, device=device)
     if kind in KV_KINDS:
         mixer = attn.gqa_init(cfg, dtype, **kw)
@@ -127,6 +126,9 @@ def slot_init(cfg: ArchConfig, kind: str, ffn: str, dtype: torch.dtype, *,
         p["norm2"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
         p["ffn"] = (moe_mod.moe_init(cfg, dtype, **kw) if ffn == "moe"
                     else mlp_init(cfg, dtype, **kw))
+    if cross:                           # whisper's decoder: the cross-attention sub-layer
+        p["norm_x"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+        p["cross"] = attn.cross_init(cfg, dtype, **kw)
     return p
 
 
@@ -145,6 +147,14 @@ def _ffn(p: dict, x: torch.Tensor, cfg: ArchConfig, ffn: str, *, no_drop: bool =
     return x + mlp_forward(p["ffn"], h, cfg), None
 
 
+def _cross(p: dict, x: torch.Tensor, cfg: ArchConfig, enc_kv, fn) -> torch.Tensor:
+    """x + the cross sub-layer (``attention.cross_forward`` or
+    ``cross_decode``) where the slot has one (``enc_kv`` given)."""
+    if enc_kv is None:
+        return x
+    return x + fn(p["cross"], norm(x, p["norm_x"], cfg), enc_kv, cfg)
+
+
 def window_of(cfg: ArchConfig, kind: str) -> int:
     return cfg.sliding_window if kind == "local" else 0
 
@@ -157,10 +167,11 @@ def _store(cache: dict, new: dict) -> None:
 
 # the slot functions take kind/ffn from a plan that build_plan has checked
 def slot_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
-                 kind: str, ffn: str, *, collect_cache: bool = False):
+                 kind: str, ffn: str, *, collect_cache: bool = False, enc_kv=None):
     """Returns (x, cache or None, aux): {k, v} for GQA, {c_kv, k_rope} for
     MLA, the final state for recurrent mixers; the MoE aux loss (fp32
-    scalar), None for other ffns."""
+    scalar), None for other ffns.  ``enc_kv`` (whisper's decoder): the
+    encoder's (k, v) the cross sub-layer attends."""
     xn = norm(x, p["norm1"], cfg)
     if kind in KV_KINDS:
         out = attn.gqa_forward(p["mixer"], xn, positions, cfg, window=window_of(cfg, kind),
@@ -174,7 +185,7 @@ def slot_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchCon
         mix, cache = _ssm(kind, "forward")(p["mixer"], xn, cfg, return_state=True)
     else:
         mix, cache = _ssm(kind, "forward")(p["mixer"], xn, cfg), None
-    x, aux = _ffn(p, x + mix, cfg, ffn)
+    x, aux = _ffn(p, _cross(p, x + mix, cfg, enc_kv, attn.cross_forward), cfg, ffn)
     return x, cache, aux
 
 
@@ -193,11 +204,12 @@ def _mixer_cached(p: dict, xn: torch.Tensor, cache: dict, positions: torch.Tenso
 
 
 def slot_decode(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
-                cfg: ArchConfig, kind: str, ffn: str):
-    """One token a row; MoE routes with capacity, as the reference's does."""
+                cfg: ArchConfig, kind: str, ffn: str, *, enc_kv=None):
+    """One token a row; MoE routes with capacity, as the reference's does.
+    ``enc_kv``: the cached encoder rows the cross sub-layer reads."""
     mix = _mixer_cached(p["mixer"], norm(x, p["norm1"], cfg), cache, positions, cfg, kind,
                         "decode")
-    return _ffn(p, x + mix, cfg, ffn)[0], cache
+    return _ffn(p, _cross(p, x + mix, cfg, enc_kv, attn.cross_decode), cfg, ffn)[0], cache
 
 
 def slot_prefill(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
@@ -213,12 +225,13 @@ def slot_prefill(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
 
 
 def slot_decode_stacked(p: dict, x: torch.Tensor, stacked: dict, g: int,
-                        positions: torch.Tensor, cfg: ArchConfig, kind: str, ffn: str):
+                        positions: torch.Tensor, cfg: ArchConfig, kind: str, ffn: str, *,
+                        enc_kv=None):
     """slot_decode against the layer-stacked cache (a leading group dim):
     it runs on group ``g``'s views, which every mixer updates in place.
     Returns (x, stacked)."""
     return slot_decode(p, x, {k: t[g] for k, t in stacked.items()}, positions, cfg, kind,
-                       ffn)[0], stacked
+                       ffn, enc_kv=enc_kv)[0], stacked
 
 
 def slot_cache_shape(cfg: ArchConfig, kind: str, batch: int, length: int) -> dict:

@@ -1,7 +1,18 @@
-"""Decoder-only language model: counterpart of ``repro.models.lm`` for the
-dense GQA archs, the MoE ones (granite-moe; deepseek-v2 with MLA and a
-dense first layer) and the SSM family (xlstm; zamba2 with its weight-tied
-shared attention + MLP block after each group).
+"""Language models: counterpart of ``repro.models.lm`` for every arch of the
+reference: the dense GQA archs, the MoE ones (granite-moe; deepseek-v2 with
+MLA and a dense first layer), the SSM family (xlstm; zamba2 with its
+weight-tied shared attention + MLP block after each group), whisper's
+encoder-decoder and qwen2-vl.
+
+``batch`` holds ``tokens`` (B,S) and, by family, the frontends' stubs, as
+in the reference: ``frames`` (B,encoder_len,D) for audio, whose encoder
+(``p["encoder"]``, ``encoder_layers`` stacked global/MLP slots) runs
+non-causal attention over them after a sinusoid; ``vision_embeds``
+(B,n_vis,D), which overwrite the first n_vis embedded rows, and
+``mrope_positions`` (B,3,S) for M-RoPE archs.  Whisper's decoder slots
+carry a cross sub-layer; a prefill stores each slot's projected encoder
+rows as ``cross_k``/``cross_v`` beside its K/V (and the top-level
+``enc_len``), and decode reads them and never writes them.
 
 Entry points, as in the reference:
   init_params(cfg, ...)                          -> params tree
@@ -25,22 +36,31 @@ The shared block's per-group KV caches sit under ``phase*/shared``.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
+from . import attention as attn
 from . import blocks
 from .modules import dense_init, require_device
 
 
-def _check_supported(cfg: ArchConfig) -> None:
-    if cfg.use_mrope or not cfg.use_rope:
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE and rope-less archs are not ported yet "
-            "(ROADMAP.md queue 1 item 1.9)")
-    blocks.build_plan(cfg)
+def sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """positions (B,S) -> (B,S,D) fp32, the classic transformer sinusoid:
+    sin then cos of ``p * exp(-i log(10000) / (D/2 - 1))``.  The step and
+    each exponent are fp32, as the reference's are; the exponential is taken
+    in fp64 and rounded, so each frequency is the correctly rounded one
+    (fp32 ``exp`` implementations differ from it by an ulp here and there,
+    which moves the angle at position p by up to p ulps of the frequency)."""
+    half = d // 2
+    step = (torch.tensor(math.log(10000.0), dtype=torch.float32) / max(half - 1, 1)).item()
+    expo = -torch.arange(half, dtype=torch.float32, device=positions.device) * step
+    freqs = torch.exp(expo.double()).float()
+    ang = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def _at(tree: dict, g: int) -> dict:
@@ -80,8 +100,10 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     ``cfg.param_dtype``'s fp32 masters).  Tied embeddings (gemma3) have no
     ``lm_head``: the head reads ``embed``.  A MoE router is fp32 whatever
     ``dtype`` is, as the reference initialises it (``moe.router_logits``
-    rounds it to the compute dtype, as the reference's ``cast_tree`` does)."""
-    _check_supported(cfg)
+    rounds it to the compute dtype, as the reference's ``cast_tree`` does).
+    Whisper's decoder slots carry ``norm_x`` and ``cross``; its encoder is
+    ``p["encoder"]``, ``encoder_layers`` global/MLP slots stacked."""
+    plan = blocks.build_plan(cfg)
     dev = require_device(device)
     dtype = dtype or cfg.compute_dtype
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -94,28 +116,39 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size), fan_in=cfg.d_model,
                                   dtype=dtype, **kw)
-    for pi, phase in enumerate(blocks.build_plan(cfg)):
+    cross = cfg.family == "audio"
+    for pi, phase in enumerate(plan):
         p[f"phase{pi}"] = _stack(phase.n_groups, lambda g, phase=phase: {
-            f"slot{j}": blocks.slot_init(cfg, kind, ffn, dtype, **kw)
+            f"slot{j}": blocks.slot_init(cfg, kind, ffn, dtype, cross=cross, **kw)
             for j, (kind, ffn) in enumerate(zip(phase.kinds, phase.ffns))})
     if cfg.family == "hybrid":          # zamba2's tied shared attention + MLP block
         p["shared"] = blocks.slot_init(cfg, "global", "mlp", dtype, **kw)
+    if cfg.family == "audio":           # whisper's encoder stack
+        p["encoder"] = _stack(cfg.encoder_layers,
+                              lambda g: blocks.slot_init(cfg, "global", "mlp", dtype, **kw))
     return p
 
 
 def init_cache(cfg: ArchConfig, batch: int, length: int, *, device="cuda") -> dict:
     """Zeroed decode caches (structure mirrors forward(collect_cache)): KV and
-    MLA's compressed rows in the compute dtype, recurrent states in fp32."""
+    MLA's compressed rows in the compute dtype, recurrent states in fp32;
+    audio adds each slot's ``cross_k``/``cross_v`` of ``encoder_len`` rows
+    and the top-level ``enc_len`` (B,) int32."""
     dev = require_device(device)
 
     def zeros(n: int, shapes: dict, dtype) -> dict:
         return {k: torch.zeros((n,) + shp, dtype=dtype, device=dev) for k, shp in shapes.items()}
 
+    cross = {}
+    if cfg.family == "audio":
+        rows = (batch, cfg.encoder_len, cfg.n_kv_heads, cfg.head_dim)
+        cross = {"cross_k": rows, "cross_v": rows}
     cache: dict = {}
     for pi, phase in enumerate(blocks.build_plan(cfg)):
-        pc = {f"slot{j}": zeros(phase.n_groups,
-                                blocks.slot_cache_shape(cfg, kind, batch, length),
-                                blocks.cache_dtypes(kind, cfg.compute_dtype))
+        pc = {f"slot{j}": {**zeros(phase.n_groups,
+                                   blocks.slot_cache_shape(cfg, kind, batch, length),
+                                   blocks.cache_dtypes(kind, cfg.compute_dtype)),
+                           **zeros(phase.n_groups, cross, cfg.compute_dtype)}
               for j, kind in enumerate(phase.kinds)}
         if phase.shared_attn:
             kind = "local" if _shared_window(cfg, length) else "global"
@@ -123,6 +156,8 @@ def init_cache(cfg: ArchConfig, batch: int, length: int, *, device="cuda") -> di
                                  blocks.slot_cache_shape(cfg, kind, batch, length),
                                  cfg.compute_dtype)
         cache[f"phase{pi}"] = pc
+    if cfg.family == "audio":
+        cache["enc_len"] = torch.zeros((batch,), dtype=torch.int32, device=dev)
     return cache
 
 
@@ -165,12 +200,54 @@ def _head(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return x @ params["lm_head"].to(x.dtype)
 
 
+def _arange(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
+
+
+def _encoder(params: dict, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over the frame embeddings (the conv/mel frontend is
+    a stub, as in the reference): a sinusoid, then per layer non-causal
+    attention and the MLP, pre-norm residual."""
+    x = frames.to(cfg.compute_dtype)
+    pos = _arange(x.shape[0], x.shape[1], x.device)
+    x = x + sinusoid(pos, cfg.d_model).to(x.dtype)
+    enc = params["encoder"]
+    for g in range(enc["norm1"].shape[0]):
+        gp = _at(enc, g)
+        x = x + attn.gqa_forward(gp["mixer"], blocks.norm(x, gp["norm1"], cfg), pos, cfg,
+                                 causal=False)
+        x = x + blocks.mlp_forward(gp["ffn"], blocks.norm(x, gp["norm2"], cfg), cfg)
+    return x
+
+
+def _positions_for(cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """(B,3,S) ``mrope_positions`` under M-RoPE, else 0..S-1 a row."""
+    if cfg.use_mrope:
+        return batch["mrope_positions"]
+    b, s = batch["tokens"].shape
+    return _arange(b, s, batch["tokens"].device)
+
+
+def _inputs(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
+    """The embedded tokens; a VLM's first n_vis rows replaced by
+    ``vision_embeds``; audio's plus the sinusoid of 0..S-1."""
+    x = _embed(params, cfg, batch["tokens"])
+    if cfg.family == "vlm" and "vision_embeds" in batch:
+        vis = batch["vision_embeds"].to(x.dtype)
+        x = torch.cat([vis, x[:, vis.shape[1]:]], dim=1)
+    if cfg.family == "audio":
+        b, s = batch["tokens"].shape
+        x = x + sinusoid(_arange(b, s, x.device), cfg.d_model).to(x.dtype)
+    return x
+
+
 # ---------------------------------------------------------------------------
 # Forward (prefill)
 # ---------------------------------------------------------------------------
 def forward(params: dict, cfg: ArchConfig, batch: dict, *, collect_cache: bool = False,
             cache_len: int = 0):
-    """batch {"tokens": (B,S)} -> (logits (B,S,V), aux, cache or None).
+    """batch {"tokens": (B,S), and the family's stubs (module docstring)}
+    -> (logits (B,S,V), aux, cache or None).
 
     ``aux`` is the MoE load-balance loss summed over every MoE slot (the
     reference's scan carry), an fp32 zero for archs without one.
@@ -180,13 +257,15 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, collect_cache: bool =
     global slots padded with zeros to ``max(cache_len, S)`` rows; windowed
     ones (``local`` layers, zamba2's shared block past a 64k budget) as a
     ring of ``min(window, cache_len)`` rows holding the last positions at
-    slots ``p % size`` (S rows, unplaced, when ``cache_len`` is 0)."""
+    slots ``p % size`` (S rows, unplaced, when ``cache_len`` is 0).  Audio:
+    each decoder slot's ``cross_k``/``cross_v`` (the encoder's rows,
+    unpadded) beside them, and ``enc_len``."""
     params = _cast_tree(params, cfg.compute_dtype)       # mixed precision
     shared = "local" if _shared_window(cfg, cache_len) else "global"
     tokens = batch["tokens"]
-    b, s = tokens.shape
-    positions = torch.arange(s, dtype=torch.int32, device=tokens.device)[None].expand(b, s)
-    x = _embed(params, cfg, tokens)
+    positions = _positions_for(cfg, batch)
+    x = _inputs(params, cfg, batch)
+    enc_out = _encoder(params, cfg, batch["frames"]) if cfg.family == "audio" else None
     cache: dict | None = {} if collect_cache else None
     remat = cfg.remat and torch.is_grad_enabled() and not collect_cache
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
@@ -197,10 +276,15 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, collect_cache: bool =
 
             def group(x, a, gp=gp, phase=phase, g=g, pcache=pcache):
                 for j, (kind, ffn) in enumerate(zip(phase.kinds, phase.ffns)):
-                    x, c, aj = blocks.slot_forward(gp[f"slot{j}"], x, positions, cfg, kind,
-                                                   ffn, collect_cache=collect_cache)
+                    sp = gp[f"slot{j}"]
+                    enc_kv = None if enc_out is None else attn.cross_kv(sp["cross"], enc_out)
+                    x, c, aj = blocks.slot_forward(sp, x, positions, cfg, kind, ffn,
+                                                   collect_cache=collect_cache, enc_kv=enc_kv)
                     if collect_cache:
                         _put(pcache, f"slot{j}", g, phase.n_groups, c, kind, cache_len, cfg)
+                        if enc_kv is not None:
+                            _put_rows(pcache[f"slot{j}"], g, phase.n_groups,
+                                      {"cross_k": enc_kv[0], "cross_v": enc_kv[1]})
                     if aj is not None:
                         a = a + aj
                 if phase.shared_attn:
@@ -213,6 +297,9 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, collect_cache: bool =
             x, aux = checkpoint(group, x, aux, use_reentrant=False) if remat else group(x, aux)
         if collect_cache:
             cache[f"phase{pi}"] = pcache
+    if collect_cache and enc_out is not None:
+        cache["enc_len"] = torch.full((x.shape[0],), enc_out.shape[1], dtype=torch.int32,
+                                      device=x.device)
     return _head(params, cfg, x), aux, cache
 
 
@@ -250,17 +337,31 @@ def _put(pcache: dict, name: str, g: int, n_groups: int, c: dict, kind: str,
             dst[:, :s] = t
 
 
+def _put_rows(slot_cache: dict, g: int, n_groups: int, rows: dict) -> None:
+    """Write ``rows`` (whisper's projected encoder rows, unpadded) into group
+    ``g`` of the slot's stacked cache, allocated at the first group."""
+    for k, t in rows.items():
+        if k not in slot_cache:
+            slot_cache[k] = torch.zeros((n_groups,) + tuple(t.shape), dtype=t.dtype,
+                                        device=t.device)
+        slot_cache[k][g].copy_(t)
+
+
 # ---------------------------------------------------------------------------
 # Decode and chunked prefill
 # ---------------------------------------------------------------------------
 def _run_cached(params: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor,
                 cache: dict, slot_fn) -> torch.Tensor:
+    """Every slot's ``slot_fn`` against its cache; a slot that caches
+    encoder rows (whisper's decoder) cross-attends them."""
     for pi, phase in enumerate(blocks.build_plan(cfg)):
         pcache = cache[f"phase{pi}"]
         for g in range(phase.n_groups):
             gp, gc = _at(params[f"phase{pi}"], g), _at(pcache, g)
             for j, (kind, ffn) in enumerate(zip(phase.kinds, phase.ffns)):
-                x, _ = slot_fn(gp[f"slot{j}"], x, gc[f"slot{j}"], positions, cfg, kind, ffn)
+                sc = gc[f"slot{j}"]
+                kw = {"enc_kv": (sc["cross_k"], sc["cross_v"])} if "cross_k" in sc else {}
+                x, _ = slot_fn(gp[f"slot{j}"], x, sc, positions, cfg, kind, ffn, **kw)
             if phase.shared_attn:
                 x, _ = slot_fn(params["shared"], x, gc["shared"], positions, cfg,
                                _shared_kind(cfg, gc["shared"]), "mlp")
@@ -269,18 +370,26 @@ def _run_cached(params: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch
 
 def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                 positions: torch.Tensor, cache: dict):
-    """tokens (B,1); positions (B,) absolute position of the new token.
-    Returns (logits (B,V), cache) with the cache updated in place."""
-    x = _run_cached(params, cfg, _embed(params, cfg, tokens), positions, cache,
-                    blocks.slot_decode)
+    """tokens (B,1); positions (B,) (or (B,3) under M-RoPE) absolute position
+    of the new token; audio adds the sinusoid at that position.  Returns
+    (logits (B,V), cache) with the cache updated in place (whisper's cross
+    rows and ``enc_len`` read, never written)."""
+    x = _embed(params, cfg, tokens)
+    if cfg.family == "audio":
+        x = x + sinusoid(positions[:, None], cfg.d_model).to(x.dtype)
+    x = _run_cached(params, cfg, x, positions, cache, blocks.slot_decode)
     return _head(params, cfg, x[:, 0]), cache
 
 
 def prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                   positions: torch.Tensor, cache: dict):
     """C prompt tokens at once against the decode cache: tokens (B,C);
-    positions (B,C) absolute, contiguous ascending per row.  Returns
-    (logits (B,C,V), cache) with the cache updated in place."""
+    positions (B,C) (or (B,3,C) under M-RoPE) absolute, contiguous ascending
+    per row.  Returns (logits (B,C,V), cache) with the cache updated in
+    place.  Audio raises, as in the reference: its prefill is the
+    encoder's and the full forward's."""
+    if cfg.family == "audio":
+        raise NotImplementedError("chunked prefill: audio enc-dec unsupported")
     x = _run_cached(params, cfg, _embed(params, cfg, tokens), positions, cache,
                     blocks.slot_prefill)
     return _head(params, cfg, x), cache

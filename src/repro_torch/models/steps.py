@@ -23,8 +23,10 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def loss_fn(params: dict, cfg: ArchConfig, batch: dict):
-    """batch {"tokens", "labels": (B,S)} -> (loss, {"ce", "aux"}): the
-    full-sequence forward with no cache, then the shifted cross entropy."""
+    """batch {"tokens", "labels": (B,S), and the family's stubs (``frames``,
+    ``vision_embeds``, ``mrope_positions``), which go to ``lm.forward``} ->
+    (loss, {"ce", "aux"}): the full-sequence forward with no cache, then the
+    shifted cross entropy."""
     logits, aux, _ = lm.forward(params, cfg, batch)
     ce = softmax_xent(logits[:, :-1], batch["labels"][:, 1:])
     return ce + cfg.router_aux_weight * aux, {"ce": ce, "aux": aux}
@@ -48,6 +50,32 @@ def train_step(params: dict, opt_state: dict, batch: dict, *, cfg: ArchConfig,
                                **{k: v.detach() for k, v in metrics.items()}, **om}
 
 
+def batch_inputs(cfg: ArchConfig, tokens: torch.Tensor) -> dict:
+    """The batch the reference's predictor builds around token ids (B,S)
+    (``repro/launch/serve.py:31-43``): under M-RoPE ``mrope_positions``
+    0..S-1 on all three streams; a VLM's ``vision_embeds``, zeros, of
+    min(n_vision_tokens, S) rows; audio's ``frames``, zeros, of
+    ``encoder_len`` rows (the frontends are stubs)."""
+    b, s = tokens.shape
+    kw = dict(dtype=cfg.compute_dtype, device=tokens.device)
+    batch = {"tokens": tokens}
+    if cfg.use_mrope:
+        batch["mrope_positions"] = torch.arange(s, dtype=torch.int32, device=tokens.device)[
+            None, None].expand(b, 3, s)
+    if cfg.family == "vlm":
+        batch["vision_embeds"] = torch.zeros((b, min(cfg.n_vision_tokens, s), cfg.d_model), **kw)
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros((b, cfg.encoder_len, cfg.d_model), **kw)
+    return batch
+
+
+def start_positions(cfg: ArchConfig, b: int, pos: int, device) -> torch.Tensor:
+    """The first decode step's positions after a prompt of ``pos`` tokens:
+    (B,), or (B,3) under M-RoPE, every stream at ``pos``."""
+    start = torch.full((b,), pos, dtype=torch.int32, device=device)
+    return start[:, None].expand(b, 3).contiguous() if cfg.use_mrope else start
+
+
 def prefill(params: dict, batch: dict, *, cfg: ArchConfig, cache_len: int = 0):
     """Full-sequence forward emitting a decode cache (padded to cache_len).
     Returns (last-position logits (B,V), cache)."""
@@ -66,7 +94,8 @@ def serve_step(params: dict, cache: dict, tokens: torch.Tensor, positions: torch
 def greedy_decode_loop(params: dict, cache: dict, first_token: torch.Tensor,
                        start_pos: torch.Tensor, n_steps: int, *, cfg: ArchConfig):
     """Greedy generation, one decode step per token: first_token (B,1),
-    start_pos (B,).  Returns (tokens (B, n_steps), cache)."""
+    start_pos (B,) or (B,3) under M-RoPE (each step adds one to every
+    stream).  Returns (tokens (B, n_steps), cache)."""
     tok, pos, out = first_token, start_pos, []
     for _ in range(n_steps):
         logits, cache = lm.decode_step(params, cfg, tok, pos, cache)

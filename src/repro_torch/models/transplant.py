@@ -14,7 +14,12 @@ sLSTM's per-head ``r_* (h,hd,hd)``; MoE's fp32 ``router (d,E)``,
 ``n_groups`` dimension on every ``phase*`` leaf (zamba2's tied ``shared``
 block has none; deepseek's dense layer 0 is ``phase0`` with one group).
 A tree with tied embeddings (gemma3) carries ``embed`` and no
-``lm_head``, as the reference's does.
+``lm_head``, as the reference's does.  Whisper's tree carries, in each
+decoder slot, ``norm_x (d,)`` and ``cross`` (``wq``/``wk``/``wv``/``wo`` in
+the GQA layouts above), stacked like the slot, and ``encoder``: its
+``encoder_layers`` global/MLP slots (``norm1``, ``mixer``, ``norm2``,
+``ffn``) stacked on a leading dimension of that size.  Qwen2-VL's tree is a
+dense one; its vision tower is a stub in both packages.
 """
 from __future__ import annotations
 

@@ -11,7 +11,9 @@ With ``prefill_chunk=C`` the prompt instead runs through ``lm.prefill_chunk``
 in ceil(P/C) calls on a one-row cache, whose rows are then copied into the
 slot's row, and the request enters the pool with its first token already
 emitted.  Idle slots process a pad token whose writes land in their own
-cache rows, never leaking across slots.
+cache rows, never leaking across slots.  Under M-RoPE (qwen2-vl) each
+position goes to all three streams, as the reference's batcher does: text
+only.  Audio (whisper) is refused, as in the reference.
 
 The engine runs on the device of the parameters and updates its caches in
 place (``zero_`` / ``copy_`` on dim 1, the slot dim, of every ``phase*``
@@ -165,6 +167,8 @@ class ContinuousBatcher:
         while t0 < n:
             c = min(self.prefill_chunk, n - t0)
             pos = torch.arange(t0, t0 + c, dtype=torch.int32, device=self.device)[None]
+            if self.cfg.use_mrope:
+                pos = pos[:, None].expand(1, 3, c)
             logits, _ = lm.prefill_chunk(self.params, self.cfg, prompt[None, t0:t0 + c], pos,
                                          self._row_cache)
             self.prefill_stats["chunks"] += 1
@@ -195,6 +199,8 @@ class ContinuousBatcher:
             positions.append(s.pos)
         tok = torch.tensor(tokens, dtype=torch.int32, device=self.device)[:, None]
         pos = torch.tensor(positions, dtype=torch.int32, device=self.device)
+        if self.cfg.use_mrope:
+            pos = pos[:, None].expand(self.max_slots, 3)
         logits, _ = lm.decode_step(self.params, self.cfg, tok, pos, self.cache)
         nxt = torch.argmax(logits, dim=-1).tolist()     # the host pull: waits for the card
 

@@ -197,13 +197,23 @@ def test_eos_token_finishes_a_request_and_reuses_its_slot(setup):
 
 # -- twins of the batcher half of tests/test_prefill_oracle.py ----------------
 
+def _positions(cfg, t0: int, c: int) -> torch.Tensor:
+    """Positions t0..t0+c-1 of one row: (1,c), or under M-RoPE (1,3,c) on
+    three distinct streams, the temporal one the sequence index (equal
+    streams would make M-RoPE plain RoPE)."""
+    i = torch.arange(t0, t0 + c, dtype=torch.int32)
+    if cfg.use_mrope:
+        return torch.stack([i, i // 3 + 1, (i * 7) % 5 + 2])[None]
+    return i[None]
+
+
 def _teacher_forced(cfg, params, toks, cache_len):
     """One decode_step per prompt token at B=1."""
     cache = lm.init_cache(cfg, 1, cache_len, device="cpu")
     logits = []
     for t in range(toks.shape[1]):
         lg, cache = lm.decode_step(params, cfg, toks[:, t:t + 1],
-                                   torch.tensor([t], dtype=torch.int32), cache)
+                                   _positions(cfg, t, 1)[..., 0], cache)
         logits.append(lg)
     return torch.stack(logits, dim=1), cache
 
@@ -213,8 +223,8 @@ def _chunked(cfg, params, toks, cache_len, chunk):
     outs, t0, n = [], 0, toks.shape[1]
     while t0 < n:
         c = min(chunk, n - t0)
-        pos = torch.arange(t0, t0 + c, dtype=torch.int32)[None]
-        lg, cache = lm.prefill_chunk(params, cfg, toks[:, t0:t0 + c], pos, cache)
+        lg, cache = lm.prefill_chunk(params, cfg, toks[:, t0:t0 + c], _positions(cfg, t0, c),
+                                     cache)
         outs.append(lg)
         t0 += c
     return torch.cat(outs, dim=1), cache
@@ -230,12 +240,14 @@ def _leaves(tree, prefix=""):
 
 @pytest.mark.parametrize("arch", ["h2o_danube_3_4b", "minitron_4b", "granite_3_8b",
                                   "xlstm_1_3b", "zamba2_1_2b", "gemma3_4b",
-                                  "granite_moe_3b_a800m", "deepseek_v2_lite_16b"])
+                                  "granite_moe_3b_a800m", "deepseek_v2_lite_16b",
+                                  "qwen2_vl_7b"])
 def test_prefill_tokenwise_oracle(arch):
     """Chunked prefill against one decode step per token: argmax equal at
     every position, logits allclose at 1e-4, caches at 1e-3 / 1e-4.  The
     MoE archs route a chunk with ``no_drop`` and a decode token with
-    capacity k, so neither drops; deepseek's MLA caches are compressed."""
+    capacity k, so neither drops; deepseek's MLA caches are compressed;
+    qwen2-vl takes (1,3,C) M-RoPE positions."""
     cfg, params = _setup(arch)
     toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 12),
                                                               dtype=np.int32))

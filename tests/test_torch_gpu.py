@@ -41,8 +41,12 @@ FLASH_CASES = [
 # than it, and under a short window with a q_offset; D 300, zero-padded to
 # the 320-column tile and (bf16) no whole number of 16-byte vectors;
 # granite-moe's group of 3 (24 query heads over 8 kv heads, D 64), at its
-# serving prefill and with a q_offset and no block dividing S
+# serving prefill and with a q_offset and no block dividing S; qwen2-vl's
+# group of 7 (28 query heads over 4 kv heads, D 128) at its serving prefill,
+# and with a q_offset and no block dividing S
 FLASH_GPU_CASES = FLASH_CASES + [
+    (384, 384, 28, 4, 128, 0),
+    (100, 130, 14, 2, 128, 0),
     (128, 128, 24, 8, 64, 0),
     (100, 157, 6, 2, 64, 0),
     (70, 70, 8, 2, 16, 0),
@@ -68,8 +72,15 @@ DECODE_CASES = [(128, 4, 4, 32, 64), (200, 8, 2, 64, 64), (64, 4, 1, 128, 32),
 # its wrapped 1024-row local ring (two splits), its serving cache (one
 # split), a group of 16 at D 320 (the widest registers of that width), and
 # D 300 (bf16: the plain-load instantiation); granite-moe's group of 3 (24
-# query heads over 8 kv heads, D 64) at its serving cache and across splits
+# query heads over 8 kv heads, D 64) at its serving cache and across splits;
+# whisper's cross-attention over its 1500 encoder rows, every row full
+# (three splits), and its self-attention cache; qwen2-vl's group of 7 (28
+# over 4, D 128) at its serving cache and across splits
 DECODE_GPU_CASES = [
+    ([1500, 1500, 1500, 1500], 1500, 8, 8, 64),
+    ([145, 130, 1, 145], 145, 8, 8, 64),
+    ([401, 200, 1, 401], 401, 28, 4, 128),
+    ([1300, 513, 2], 1300, 14, 2, 128),
     ([145, 130, 1, 145], 145, 24, 8, 64),
     ([1300, 513, 2], 1300, 6, 2, 64),
     ([2064, 1000, 513, 1], 2064, 8, 4, 320),
@@ -171,6 +182,27 @@ def test_flash_kernel_matches_twin_on_gpu(cuda, sq, skv, hq, hkv, d, window, dty
     got = ops.flash_attention(q, k, v, use_kernel=True, **kw)
     want = ref.flash_attention_ref(q, k, v, **kw)
     _close(got, want, dtype)
+
+
+# (sq, skv, hq, hkv, d): whisper's non-causal calls, its encoder's
+# self-attention over 1500 frames (neither tile divides 1500) and its
+# decoder's 128 queries over them; the smoke config's; and a cross-length
+# call with a group of 2 where no block divides either length
+FLASH_NONCAUSAL_GPU_CASES = [(1500, 1500, 8, 8, 64), (128, 1500, 8, 8, 64),
+                             (30, 30, 4, 4, 16), (100, 333, 4, 2, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,skv,hq,hkv,d", FLASH_NONCAUSAL_GPU_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_kernel_non_causal_on_gpu(cuda, sq, skv, hq, hkv, d, dtype):
+    g = torch.Generator(device=cuda).manual_seed(0)
+    td = DTYPES[dtype]
+    q = torch.randn(2, sq, hq, d, device=cuda, generator=g).to(td)
+    k = torch.randn(2, skv, hkv, d, device=cuda, generator=g).to(td)
+    v = torch.randn(2, skv, hkv, d, device=cuda, generator=g).to(td)
+    got = ops.flash_attention(q, k, v, causal=False, use_kernel=True)
+    _close(got, ref.flash_attention_ref(q, k, v, causal=False), dtype)
 
 
 @pytest.mark.gpu
@@ -490,7 +522,8 @@ def test_head_dim_320_runs_the_hand_written_kernels_on_gpu(cuda, dtype, monkeypa
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b",
                                   "h2o_danube_3_4b", "minitron_4b", "gemma3_4b",
-                                  "granite_moe_3b_a800m", "deepseek_v2_lite_16b"])
+                                  "granite_moe_3b_a800m", "deepseek_v2_lite_16b",
+                                  "whisper_base", "qwen2_vl_7b"])
 def test_smoke_model_kernel_path_matches_plain_path_on_gpu(cuda, arch):
     """Smoke configs (fp32): prefill and a decode step through the kernels
     agree with the plain path on the same weights (granite, minitron:
@@ -500,19 +533,23 @@ def test_smoke_model_kernel_path_matches_plain_path_on_gpu(cuda, arch):
     on the wrapped ring; gemma3: its local ring beside a global cache, and
     the tied, scaled embeddings; granite-moe: attention at a group of 2
     beside the MoE layers; deepseek: MLA's padded-v flash call, its
-    absorbed decode on no kernel, a dense layer 0)."""
+    absorbed decode on no kernel, a dense layer 0; whisper: the encoder's
+    and the cross sub-layer's non-causal flash, decode over the encoder
+    rows; qwen2-vl: M-RoPE, its vision rows, a group of 2), each with the
+    inputs ``make_lm_predictor`` builds (``steps.batch_inputs``)."""
     from repro_torch.configs import registry
     from repro_torch.models import lm, steps
     cfg = registry.get_smoke_config(arch)
     params = lm.init_params(cfg, seed=0, device=cuda)
     tokens = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda,
                            generator=torch.Generator(device=cuda).manual_seed(1))
+    batch = steps.batch_inputs(cfg, tokens[:, :-1])
     out = {}
     for use in (True, False):
         c = cfg.replace(use_kernels=use)
-        last, cache = steps.prefill(params, {"tokens": tokens[:, :-1]}, cfg=c, cache_len=30)
+        last, cache = steps.prefill(params, batch, cfg=c, cache_len=30)
         step, _ = lm.decode_step(params, c, tokens[:, -1:],
-                                 torch.full((2,), 23, dtype=torch.int32, device=cuda), cache)
+                                 steps.start_positions(cfg, 2, 23, cuda), cache)
         out[use] = (last, step)
     for got, want in zip(out[True], out[False]):
         rel = float((got - want).abs().max() / want.abs().max())
@@ -650,6 +687,14 @@ FLASH_BWD_CASES = [
 ]
 
 
+# (sq, skv, hq, hkv, d) for the flash backward without a causal mask
+# (whisper's training): its encoder's 1500 frames (a multiple of no tile),
+# its decoder's 128 queries over them, the smoke config's, and a
+# cross-length call with a group of 2
+FLASH_BWD_NONCAUSAL_CASES = [(1500, 1500, 8, 8, 64), (128, 1500, 8, 8, 64),
+                             (30, 30, 4, 4, 16), (100, 333, 4, 2, 64)]
+
+
 def _flash_grads(q, k, v, do, use_kernel, **kw):
     leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
     out = ops.flash_attention(*leaves, use_kernel=use_kernel, **kw)
@@ -676,6 +721,28 @@ def test_flash_backward_kernel_matches_twin_on_gpu(cuda, sq, skv, hq, hkv, d, wi
         assert a.dtype == td
         _close(a, b, dtype)
     _close(out.detach(), ref.flash_attention_ref(q, k, v, causal=True, window=window), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sq,skv,hq,hkv,d", FLASH_BWD_NONCAUSAL_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_backward_kernel_non_causal_on_gpu(cuda, sq, skv, hq, hkv, d, dtype):
+    """The same without a causal mask: every query sees every key."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    td = DTYPES[dtype]
+    q = torch.randn(2, sq, hq, d, device=cuda, generator=g).to(td)
+    k, v = (torch.randn(2, skv, hkv, d, device=cuda, generator=g).to(td) for _ in range(2))
+    do = torch.randn(2, sq, hq, d, device=cuda, generator=g).to(td)
+    native.reset_launches()
+    out, got = _flash_grads(q, k, v, do, True, causal=False)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["flash_attention"] == native.LAUNCHES["flash_attention_bwd"] == 1
+    want = ref.flash_attention_bwd_ref(q, k, v, do, causal=False)
+    for a, b in zip(got, want):
+        assert a.dtype == td
+        _close(a, b, dtype)
+        assert rule_share(a, b) <= 1.0
+    _close(out.detach(), ref.flash_attention_ref(q, k, v, causal=False), dtype)
 
 
 def rule_share(got: torch.Tensor, want: torch.Tensor, floor: float = 1e-6) -> float:
@@ -830,19 +897,26 @@ def test_rmsnorm_backward_kernel_matches_twin_on_gpu(cuda, shape, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["granite_3_8b", "h2o_danube_3_4b", "minitron_4b"])
+@pytest.mark.parametrize("arch", ["granite_3_8b", "h2o_danube_3_4b", "minitron_4b",
+                                  "whisper_base", "qwen2_vl_7b"])
 def test_smoke_model_gradients_kernel_path_match_plain_path_on_gpu(cuda, arch):
     """fp32 smoke config, 2 layers: every parameter leaf gets a gradient
     through the kernels (attention and norms both ways), within 3e-4 of the
-    plain path's, and a training step launches the four kernels and no other."""
+    plain path's, and a training step launches the four kernels and no other
+    (whisper: the encoder's and the cross sub-layer's non-causal flash both
+    ways, over frames drawn from the seed; qwen2-vl: M-RoPE and its vision
+    rows, drawn too)."""
     from repro_torch.configs import registry
     from repro_torch.models import lm, steps
     from repro_torch.optim import adamw
     cfg = registry.get_smoke_config(arch)
     params = lm.init_params(cfg, seed=0, device=cuda, dtype=torch.float32)
-    toks = torch.randint(0, cfg.vocab_size, (2, 48), device=cuda,
-                         generator=torch.Generator(device=cuda).manual_seed(1))
-    batch = {"tokens": toks, "labels": toks}
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 48), device=cuda, generator=gen)
+    batch = {**steps.batch_inputs(cfg, toks), "labels": toks}
+    for name in ("frames", "vision_embeds"):
+        if name in batch:
+            batch[name] = torch.randn(batch[name].shape, device=cuda, generator=gen)
     grads = {}
     for use in (True, False):
         leaves = adamw.tree_map(lambda p: p.clone().requires_grad_(), params)

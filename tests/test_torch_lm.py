@@ -18,6 +18,11 @@ the forward and decode, ``no_drop`` in chunked prefill), whose aux loss
 joins the forward's output; deepseek's attention is MLA, and the
 reference runs it without kernels (its MLA kernel path passes ``scale=``
 to an ``ops.flash_attention`` that takes none and raises ``TypeError``).
+whisper_base runs its encoder over frames drawn from the seed and
+cross-attends them (chunked prefill raises for audio on both sides);
+qwen2_vl_7b takes vision rows drawn from the seed and M-RoPE positions on
+three distinct streams, the temporal one the sequence index (the cache
+index of both packages' decode).
 """
 import pytest
 
@@ -35,7 +40,8 @@ from repro_torch.models import lm, steps  # noqa: E402
 from repro_torch.models.transplant import transplant  # noqa: E402
 
 ARCHS = ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b", "h2o_danube_3_4b", "minitron_4b",
-         "gemma3_4b", "granite_moe_3b_a800m", "deepseek_v2_lite_16b"]
+         "gemma3_4b", "granite_moe_3b_a800m", "deepseek_v2_lite_16b", "whisper_base",
+         "qwen2_vl_7b"]
 # the reference's kernel path is broken for MLA (ROADMAP.md queue 3)
 NO_REFERENCE_KERNELS = ("deepseek_v2_lite_16b",)
 B, S, GEN = 2, 12, 4
@@ -65,6 +71,43 @@ def _leaves(tree, prefix=""):
             yield from _leaves(v, f"{prefix}{k}/")
         else:
             yield f"{prefix}{k}", v
+
+
+def _mrope(s0: int, s1: int) -> np.ndarray:
+    """(B,3,s1-s0) M-RoPE positions: t the sequence index, h and w apart."""
+    i = np.arange(s0, s1)
+    pos = np.stack([i, i // 3 + 1, (i * 7) % 5 + 2])
+    return np.broadcast_to(pos[None], (B, 3, s1 - s0)).astype(np.int32).copy()
+
+
+def _stubs(cfg, s: int) -> dict:
+    """The family's inputs beside s tokens, drawn with numpy from a seed:
+    audio frames; a VLM's vision rows and M-RoPE positions."""
+    rng = np.random.default_rng(100)
+    out = {}
+    if cfg.family == "audio":
+        out["frames"] = rng.standard_normal((B, cfg.encoder_len, cfg.d_model), dtype=np.float32)
+    if cfg.family == "vlm":
+        out["vision_embeds"] = rng.normal(0, 0.02, (B, min(cfg.n_vision_tokens, s),
+                                                    cfg.d_model)).astype(np.float32)
+    if cfg.use_mrope:
+        out["mrope_positions"] = _mrope(0, s)
+    return out
+
+
+def _jbatch(cfg, tokens, **extra) -> dict:
+    return {k: jnp.asarray(v) for k, v in {"tokens": tokens, **_stubs(cfg, tokens.shape[1]),
+                                           **extra}.items()}
+
+
+def _tbatch(cfg, tokens, **extra) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in {"tokens": tokens, **_stubs(cfg, tokens.shape[1]), **extra}.items()}
+
+
+def _pos(cfg, t: int) -> np.ndarray:
+    """Decode positions of the token at t: (B,), or (B,3) under M-RoPE."""
+    return _mrope(t, t + 1)[:, :, 0] if cfg.use_mrope else np.full((B,), t, np.int32)
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -126,6 +169,14 @@ def test_transplant_keeps_paths_and_layouts(models):
         assert got["shared/mixer/wq"].shape == (cfg_t.d_model, cfg_t.n_heads, cfg_t.head_dim)
         assert got["phase0/slot0/mixer/conv_w"].shape == (
             n_groups, cfg_t.ssm_conv, cfg_t.d_inner + 2 * cfg_t.ssm_state)
+    elif cfg_t.family == "audio":
+        # the decoder's cross sub-layer and the stacked encoder
+        assert got["phase0/slot0/cross/wq"].shape == (cfg_t.n_layers, cfg_t.d_model,
+                                                      cfg_t.n_heads, cfg_t.head_dim)
+        assert got["encoder/norm2"].shape == (cfg_t.encoder_layers, cfg_t.d_model)
+    elif cfg_t.family == "vlm":
+        assert got["phase0/slot0/mixer/wk"].shape == (cfg_t.n_layers, cfg_t.d_model,
+                                                      cfg_t.n_kv_heads, cfg_t.head_dim)
     else:
         hd = cfg_t.d_model // cfg_t.n_heads
         assert got[f"phase0/slot{cfg_t.slstm_every - 1}/mixer/r_i"].shape == (
@@ -134,8 +185,8 @@ def test_transplant_keeps_paths_and_layouts(models):
 
 def test_forward_logits_match_reference(models):
     cfg_j, params_j, cfg_t, params_t, tokens = models
-    want, aux_j, _ = jlm.forward(params_j, cfg_j, {"tokens": jnp.asarray(tokens)})
-    got, aux, _ = lm.forward(params_t, cfg_t, {"tokens": torch.from_numpy(tokens)})
+    want, aux_j, _ = jlm.forward(params_j, cfg_j, _jbatch(cfg_t, tokens))
+    got, aux, _ = lm.forward(params_t, cfg_t, _tbatch(cfg_t, tokens))
     assert got.shape == (B, S, cfg_t.vocab_size) and aux.dtype == torch.float32
     assert rel_err(got, want) < REL
     # the MoE aux loss summed over the MoE slots; zero without one
@@ -146,9 +197,9 @@ def test_forward_logits_match_reference(models):
 def test_prefill_and_greedy_decode_match_reference(models):
     cfg_j, params_j, cfg_t, params_t, tokens = models
     cache_len = S + GEN + 1
-    last_j, cache_j = jsteps.prefill(params_j, {"tokens": jnp.asarray(tokens)}, cfg=cfg_j,
+    last_j, cache_j = jsteps.prefill(params_j, _jbatch(cfg_t, tokens), cfg=cfg_j,
                                      cache_len=cache_len)
-    last_t, cache_t = steps.prefill(params_t, {"tokens": torch.from_numpy(tokens)}, cfg=cfg_t,
+    last_t, cache_t = steps.prefill(params_t, _tbatch(cfg_t, tokens), cfg=cfg_t,
                                     cache_len=cache_len)
     assert rel_err(last_t, last_j) < REL
     for path, leaf in _leaves(cache_t):
@@ -157,9 +208,9 @@ def test_prefill_and_greedy_decode_match_reference(models):
     first_t = torch.argmax(last_t, -1).to(torch.int32)[:, None]
     np.testing.assert_array_equal(first_t.numpy(), np.asarray(first_j))
     toks_j, cache_j = jsteps.greedy_decode_loop(params_j, cache_j, first_j,
-                                                jnp.full((B,), S, jnp.int32), GEN, cfg=cfg_j)
+                                                jnp.asarray(_pos(cfg_t, S)), GEN, cfg=cfg_j)
     toks_t, cache_t = steps.greedy_decode_loop(params_t, cache_t, first_t,
-                                               torch.full((B,), S, dtype=torch.int32), GEN,
+                                               torch.from_numpy(_pos(cfg_t, S)), GEN,
                                                cfg=cfg_t)
     assert toks_t.shape == (B, GEN)
     np.testing.assert_array_equal(toks_t.numpy(), np.asarray(toks_j))
@@ -175,33 +226,44 @@ def test_decode_step_matches_reference_and_forward(models):
     token in a group of S, decode alone, so drops differ between the two,
     as the reference's ``tests/test_archs.py`` notes)."""
     cfg_j, params_j, cfg_t, params_t, tokens = models
-    pos = np.full((B,), S - 1, np.int32)
-    _, cache_j = jsteps.prefill(params_j, {"tokens": jnp.asarray(tokens[:, :-1])},
+    pos = _pos(cfg_t, S - 1)
+    _, cache_j = jsteps.prefill(params_j, _jbatch(cfg_t, tokens[:, :-1]),
                                 cfg=cfg_j, cache_len=S + 4)
     want, _ = jlm.decode_step(params_j, cfg_j, jnp.asarray(tokens[:, -1:]),
                               jnp.asarray(pos), cache_j)
-    _, cache_t = steps.prefill(params_t, {"tokens": torch.from_numpy(tokens[:, :-1])},
+    _, cache_t = steps.prefill(params_t, _tbatch(cfg_t, tokens[:, :-1]),
                                cfg=cfg_t, cache_len=S + 4)
     got, _ = lm.decode_step(params_t, cfg_t, torch.from_numpy(tokens[:, -1:]),
                             torch.from_numpy(pos), cache_t)
     assert rel_err(got, want) < REL
     if cfg_t.n_experts:
         cfg_t = cfg_t.replace(capacity_factor=8.0)
-        _, cache_t = steps.prefill(params_t, {"tokens": torch.from_numpy(tokens[:, :-1])},
+        _, cache_t = steps.prefill(params_t, _tbatch(cfg_t, tokens[:, :-1]),
                                    cfg=cfg_t, cache_len=S + 4)
         got, _ = lm.decode_step(params_t, cfg_t, torch.from_numpy(tokens[:, -1:]),
                                 torch.from_numpy(pos), cache_t)
-    full, _, _ = lm.forward(params_t, cfg_t, {"tokens": torch.from_numpy(tokens)})
+    full, _, _ = lm.forward(params_t, cfg_t, _tbatch(cfg_t, tokens))
     assert rel_err(got, full[:, -1]) < REL
 
 
 @pytest.mark.parametrize("chunk", [4, S])
 def test_prefill_chunk_matches_reference(models, chunk):
+    """(audio: both packages refuse chunked prefill.)"""
     cfg_j, params_j, cfg_t, params_t, tokens = models
     cache_j = jlm.init_cache(cfg_j, B, S + 4)
     cache_t = lm.init_cache(cfg_t, B, S + 4, device="cpu")
+    if cfg_t.family == "audio":
+        pos = np.broadcast_to(np.arange(chunk, dtype=np.int32), (B, chunk))
+        with pytest.raises(NotImplementedError, match="audio"):
+            jlm.prefill_chunk(params_j, cfg_j, jnp.asarray(tokens[:, :chunk]), jnp.asarray(pos),
+                              cache_j)
+        with pytest.raises(NotImplementedError, match="audio"):
+            lm.prefill_chunk(params_t, cfg_t, torch.from_numpy(tokens[:, :chunk]),
+                             torch.from_numpy(pos.copy()), cache_t)
+        return
     for c0 in range(0, S, chunk):
-        pos = np.broadcast_to(np.arange(c0, c0 + chunk, dtype=np.int32), (B, chunk))
+        pos = _mrope(c0, c0 + chunk) if cfg_t.use_mrope else \
+            np.broadcast_to(np.arange(c0, c0 + chunk, dtype=np.int32), (B, chunk))
         want, cache_j = jlm.prefill_chunk(params_j, cfg_j, jnp.asarray(tokens[:, c0:c0 + chunk]),
                                           jnp.asarray(pos), cache_j)
         got, cache_t = lm.prefill_chunk(params_t, cfg_t,
@@ -217,10 +279,8 @@ def test_loss_fn_matches_reference(models):
     """The scoring forward (no cache; xlstm's route to the mLSTM scan)."""
     cfg_j, params_j, cfg_t, params_t, tokens = models
     labels = np.where(np.arange(S)[None] % 5 == 4, -1, tokens)      # some masked labels
-    want, mj = jsteps.loss_fn(params_j, cfg_j, {"tokens": jnp.asarray(tokens),
-                                                "labels": jnp.asarray(labels)})
-    got, mt = steps.loss_fn(params_t, cfg_t, {"tokens": torch.from_numpy(tokens),
-                                              "labels": torch.from_numpy(labels)})
+    want, mj = jsteps.loss_fn(params_j, cfg_j, _jbatch(cfg_t, tokens, labels=labels))
+    got, mt = steps.loss_fn(params_t, cfg_t, _tbatch(cfg_t, tokens, labels=labels))
     assert abs(float(got) - float(want)) < REL * abs(float(want))
     assert abs(float(mt["ce"]) - float(mj["ce"])) < REL * abs(float(mj["ce"]))
 
@@ -410,7 +470,7 @@ def test_bf16_scaled_embedding_matches_reference_bitwise():
 def test_kernel_switch_is_the_plain_path_on_cpu(models):
     """use_kernels=True on CPU tensors runs the twins: same logits bit for bit."""
     _, _, cfg_t, params_t, tokens = models
-    batch = {"tokens": torch.from_numpy(tokens)}
+    batch = _tbatch(cfg_t, tokens)
     a, _, _ = lm.forward(params_t, cfg_t, batch)
     b, _, _ = lm.forward(params_t, cfg_t.replace(use_kernels=True), batch)
     assert torch.equal(a, b)

@@ -132,11 +132,13 @@ def test_unported_entry_points_name_their_roadmap_item(entry, item):
 
 
 def test_registry_names_the_roadmap_item_for_unported_archs():
+    """All ten archs are ported: none is pending, so none names an item."""
     assert registry.list_archs() == ["granite_3_8b", "zamba2_1_2b", "xlstm_1_3b",
                                      "h2o_danube_3_4b", "minitron_4b", "gemma3_4b",
-                                     "granite_moe_3b_a800m", "deepseek_v2_lite_16b"]
-    assert set(registry.PENDING) == {"whisper_base", "qwen2_vl_7b"}
-    assert set(registry.PORTED) | set(registry.PENDING) == set(registry.ARCH_IDS)
+                                     "granite_moe_3b_a800m", "deepseek_v2_lite_16b",
+                                     "whisper_base", "qwen2_vl_7b"]
+    assert registry.PENDING == {}
+    assert set(registry.PORTED) == set(registry.ARCH_IDS)
     for arch in registry.PORTED:        # every block kind of a ported arch builds
         assert blocks.build_plan(registry.get_config(arch))
     assert registry.get_config("granite-3-8b").d_model == 4096
@@ -148,6 +150,10 @@ def test_registry_names_the_roadmap_item_for_unported_archs():
     assert registry.get_config("granite-moe-3b-a800m").n_experts == 40
     ds = registry.get_config("deepseek-v2-lite-16b")
     assert ds.use_mla and ds.first_layer_dense and ds.n_shared_experts == 2
+    wb = registry.get_config("whisper-base")
+    assert wb.family == "audio" and not wb.use_rope and wb.encoder_len == 1500
+    qv = registry.get_config("qwen2-vl-7b")
+    assert qv.use_mrope and qv.n_heads // qv.n_kv_heads == 7 and qv.n_vision_tokens == 256
     for arch, item in registry.PENDING.items():
         assert arch not in registry.PORTED
         with pytest.raises(KeyError, match=f"ROADMAP.md queue 1 item {item.split()[0]}"):

@@ -1,9 +1,10 @@
 """Hypothesis property tests on the port's invariants: twins of the
 properties of tests/test_properties.py whose code the port holds (RoPE,
 ``softmax_xent``, attention's causality and sliding window, decode
-attention's ``cache_len``, ``tree_hash``, the Katib space round trip and
-MoE capacity).  ``fit_pspec`` and the sinusoid positions wait for their
-modules (ROADMAP.md queue 1 items 1.10 and 1.9).  Inputs are drawn with
+attention's ``cache_len``, ``tree_hash``, the Katib space round trip, MoE
+capacity and the sinusoid positions), and M-RoPE on equal streams being
+RoPE.  ``fit_pspec`` waits for its module (ROADMAP.md queue 1 item 1.10).
+Inputs are drawn with
 numpy from seeds the strategies give; tolerances are the reference's.
 The reference's tensors and tree leaves are numpy here; torch tensors and
 their trees are hashed alike.
@@ -20,7 +21,8 @@ from repro_torch.checkpoint.store import tree_hash  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
-from repro_torch.models.attention import apply_rope  # noqa: E402
+from repro_torch.models.attention import apply_mrope, apply_rope  # noqa: E402
+from repro_torch.models.lm import sinusoid  # noqa: E402
 from repro_torch.models.steps import softmax_xent  # noqa: E402
 from repro_torch.tuning import katib  # noqa: E402
 
@@ -141,3 +143,23 @@ def test_moe_capacity_monotone_and_sufficient(tokens, cf):
     assert c >= int(cf * tokens * cfg.top_k / cfg.n_experts)
     assert moe.capacity(cfg, tokens + 1) >= c
     assert moe.capacity(cfg.replace(capacity_factor=cf * 2), tokens) >= c
+
+
+@settings(max_examples=20, deadline=None)
+@given(st.integers(2, 128), st.integers(1, 8))
+def test_sinusoid_positions_distinct(d2, stride):
+    """Distinct positions produce distinct positional encodings."""
+    enc = sinusoid(torch.tensor([[0, stride]], dtype=torch.int32), d2 * 2)
+    assert float((enc[0, 0] - enc[0, 1]).abs().max()) > 1e-6
+
+
+@settings(max_examples=20, deadline=None)
+@given(st.integers(3, 64), st.integers(0, 5000))
+def test_mrope_on_equal_streams_is_rope(d2, pos):
+    """With the three streams equal, every section rotates by the one
+    position: M-RoPE is RoPE (which is why the parity tests use distinct
+    streams)."""
+    x = _normal(d2, 1, 2, 2, d2 * 2)
+    p = torch.full((1, 2), pos, dtype=torch.int32)
+    torch.testing.assert_close(apply_mrope(x, p[:, None].expand(1, 3, 2), 1e6),
+                               apply_rope(x, p, 1e6), rtol=0, atol=0)

@@ -44,7 +44,8 @@ from repro_torch.models.transplant import transplant  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 
 ARCHS = ["granite_3_8b", "h2o_danube_3_4b", "minitron_4b", "gemma3_4b", "zamba2_1_2b",
-         "xlstm_1_3b", "granite_moe_3b_a800m", "deepseek_v2_lite_16b"]
+         "xlstm_1_3b", "granite_moe_3b_a800m", "deepseek_v2_lite_16b", "whisper_base",
+         "qwen2_vl_7b"]
 B, S = 2, 32
 REL = 3e-4
 ZERO_LEAF = 1e-6
@@ -83,8 +84,15 @@ def _np(tree):
 
 
 def _batch(cfg, seed=0):
+    """``lm_batches``' batch (whisper's frames, qwen2-vl's vision rows too),
+    its M-RoPE positions replaced by three distinct streams (t the sequence
+    index): equal streams would make M-RoPE plain RoPE."""
     b = next(tokens.lm_batches(cfg, B, S, seed=seed))
-    return {k: b[k] for k in ("tokens", "labels")}
+    if cfg.use_mrope:
+        i = np.arange(S)
+        b["mrope_positions"] = np.broadcast_to(
+            np.stack([i, i // 3 + 1, (i * 7) % 5 + 2])[None], (B, 3, S)).astype(np.int32).copy()
+    return b
 
 
 @pytest.fixture(scope="module", params=ARCHS)
