@@ -111,11 +111,21 @@ Run from the root of a checkout.  It imports only the port
    global gradient norm, kernel path against plain path in bf16 (<=
    TRAIN_LIMITS), and every gradient leaf in fp32 at 2 layers.  Phase 2
    holds and times the two backward kernels (flash at granite's training
-   shape, at h2o's D 120 under a window that binds and in fp32; RMSNorm
-   at 4096 x 4096) against autograd of their twins, beside autograd
-   through SDPA and ``F.rms_norm``.  Steps/s, tokens/s, peak memory and a
+   shape, at h2o's D 120 under a window that binds, in fp32, and without a
+   causal mask at whisper's two training calls; RMSNorm at 4096 x 4096)
+   against autograd of their twins, beside autograd through SDPA and
+   ``F.rms_norm``.  Steps/s, tokens/s, peak memory and a
    trace of one step are reported;
-6. prints the kernels' JSON line and, last, the device line.
+6. holds every phase it timed against the card's roofline
+   (``_roofline_phase``): each arch's prefill and decode step at batch 4
+   (qwen2-vl prompt 384), gemma3's 1 x 2048 long leg, xlstm's scoring
+   forward and the granite training step, each at or above max(model FLOPs
+   / bf16 peak, least bytes / HBM bandwidth) over the card's
+   ``HardwareSpec`` (chosen by the card's name in phase 1, where its
+   memory is held within 8 % of the card's; phase 2's bounds read the same
+   spec), printing ``mfu``, the HBM share and the FLOPs ``launch/count.py``
+   counts for the same step on ``meta``;
+7. prints the kernels' JSON line and, last, the device line.
 
 Any failure raises, and the script exits non-zero without the last line.
 The build prints each kernel instantiation's registers and spills (ptxas).
@@ -137,12 +147,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# published H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16
-# tensor-core FLOP/s, fp32 CUDA-core FLOP/s
-HBM_BPS = 3.35e12
-BF16_FLOPS = 989e12
-FP32_FLOPS = 67e12
 TOL = 2e-2                  # reference bf16 tolerance, tests/test_kernels.py:17-19
+# the card's HardwareSpec must state its memory within this share of what
+# the card reports (the spec's 80 GiB against the part's usable memory)
+HBM_SPEC_SHARE = 0.08
 BWD_FLOOR = 1e-6            # the backward kernels' absolute floor, of the twin's largest
 # the bf16 kernel path may drift from the fp32 plain run at most this many
 # times as far as the bf16 plain path does on the same weights and tokens
@@ -364,8 +372,12 @@ def _check(name: str, got, want, floor: float = 0.0) -> tuple[float, float]:
     return float(err.max()), share
 
 
-def _bound_ms(nbytes: float, flops: float, peak_flops: float) -> tuple[float, str]:
-    t_bytes, t_ops = nbytes / HBM_BPS, flops / peak_flops
+def _bound_ms(nbytes: float, flops: float, peak: str, hw) -> tuple[float, str]:
+    """The least time for ``nbytes`` and ``flops`` on the card ``hw`` (its
+    ``HardwareSpec``), at its ``peak`` rate: "bf16" (tensor cores) or
+    "fp32" (CUDA cores)."""
+    rate = hw.peak_flops_bf16 if peak == "bf16" else hw.peak_flops_fp32
+    t_bytes, t_ops = nbytes / hw.hbm_bw, flops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -382,7 +394,7 @@ def _rmsnorm_case(rows: int, d: int, gen):
         kernel=lambda: ops.rmsnorm(x, s, use_kernel=True),
         twin=lambda: ref.rmsnorm_ref(x, s),
         library=lambda: F.rms_norm(x, (d,), weight=weight, eps=1e-6),
-        nbytes=2 * (2 * rows * d + d), flops=4 * rows * d, peak=FP32_FLOPS)
+        nbytes=2 * (2 * rows * d + d), flops=4 * rows * d, peak="fp32")
 
 
 def _flash_case(b: int, sq: int, skv: int, hq: int, hkv: int, d: int, gen, window: int = 0,
@@ -430,47 +442,51 @@ def _flash_case(b: int, sq: int, skv: int, hq: int, hkv: int, d: int, gen, windo
         twin=lambda: ref.flash_attention_ref(q, k, v, **kw),
         library=lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib_kw),
         nbytes=2 * (b * sq * hq * (d + dv) + b * skv * hkv * (d + dv)),
-        flops=2 * (d + dv) * b * hq * visible, peak=BF16_FLOPS)
+        flops=2 * (d + dv) * b * hq * visible, peak="bf16")
 
 
 def _flash_bwd_case(b: int, s: int, hq: int, hkv: int, d: int, gen, window: int = 0,
-                    dtype=None):
+                    dtype=None, causal: bool = True, skv: int = 0):
     """The backward kernel alone on the training forward's log-sum-exp and
     fp32 output, against the twin's gradient (autograd in fp32); the
     library call is the backward of SDPA (autograd of one forward, kept).
-    The bound counts the five S x S x D products over the visible pairs,
-    and each of q, k, v, dO, lse and the fp32 output read once and dq, dk,
-    dv written once."""
+    ``causal`` False (whisper's encoder, and with ``skv`` keys its
+    cross-attention): every query sees every key, and SDPA runs with no
+    mask.  The bound counts the five Sq x Skv x D products over the visible
+    pairs, and each of q, k, v, dO, lse and the fp32 output read once and
+    dq, dk, dv written once."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     dtype = dtype or torch.bfloat16
+    skv = skv or s
     q = torch.randn(b, s, hq, d, device="cuda", generator=gen).to(dtype)
-    k, v = (torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(dtype) for _ in range(2))
+    k, v = (torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
+            for _ in range(2))
     do = torch.randn(b, s, hq, d, device="cuda", generator=gen).to(dtype)
-    _, lse, o32 = fa.forward_for_training(q, k, v, True, window, d ** -0.5)
-    pos = torch.arange(s, device="cuda")
-    mask = pos[None, :] <= pos[:, None]
+    _, lse, o32 = fa.forward_for_training(q, k, v, causal, window, d ** -0.5)
+    qpos, kpos = torch.arange(s, device="cuda")[:, None], torch.arange(skv, device="cuda")[None, :]
+    mask = kpos <= qpos if causal else torch.ones((s, skv), dtype=torch.bool, device="cuda")
     if window:
-        mask &= pos[None, :] > pos[:, None] - window
+        mask &= kpos > qpos - window
     visible = int(mask.sum())
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-    o_lib = (F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
-             if window else F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                          enable_gqa=True))
+    lib_kw = (dict(attn_mask=mask) if window else dict(is_causal=True)) if causal else {}
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **lib_kw)
     do_t = do.transpose(1, 2)
-    kw = dict(causal=True, window=window)
+    kw = dict(causal=causal, window=window)
     size = 2 if dtype == torch.bfloat16 else 4
     return dict(
-        shape=f"q ({b},{s},{hq},{d}) kv {hkv} causal" + (f" window {window}" if window else "")
-              + (" bf16" if size == 2 else " fp32"),
+        shape=f"q ({b},{s},{hq},{d}) kv {hkv}" + (f" x {skv} rows" if skv != s else "")
+              + (" causal" if causal else " non-causal")
+              + (f" window {window}" if window else "") + (" bf16" if size == 2 else " fp32"),
         kernel=lambda: ops.flash_attention_bwd(q, k, v, do, lse, o32, use_kernel=True, **kw),
         twin=lambda: ref.flash_attention_bwd_ref(q, k, v, do, **kw),
         library=lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t, retain_graph=True),
         capturable=False,
-        nbytes=size * (3 * b * s * hq * d + 4 * b * s * hkv * d) + 4 * b * hq * s * (d + 1),
-        flops=10 * d * b * hq * visible, peak=BF16_FLOPS if size == 2 else FP32_FLOPS,
+        nbytes=size * (3 * b * s * hq * d + 4 * b * skv * hkv * d) + 4 * b * hq * s * (d + 1),
+        flops=10 * d * b * hq * visible, peak="bf16" if size == 2 else "fp32",
         floor=BWD_FLOOR)
 
 
@@ -496,7 +512,7 @@ def _rmsnorm_bwd_case(rows: int, d: int, gen):
         library=lambda: torch.autograd.grad(y_lib, (xl, wl), g, retain_graph=True),
         capturable=False,
         nbytes=2 * 3 * rows * d + 4 * rows + 2 * 2 * d,
-        flops=8 * rows * d, peak=FP32_FLOPS, floor=BWD_FLOOR)
+        flops=8 * rows * d, peak="fp32", floor=BWD_FLOOR)
 
 
 def _decode_case(lens: list, s: int, hq: int, hkv: int, d: int, gen):
@@ -517,7 +533,7 @@ def _decode_case(lens: list, s: int, hq: int, hkv: int, d: int, gen):
         library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                        enable_gqa=True),
         nbytes=2 * (2 * b * hq * d + 2 * sum(lens) * hkv * d) + 4 * b,
-        flops=4 * d * hq * sum(lens), peak=BF16_FLOPS)
+        flops=4 * d * hq * sum(lens), peak="bf16")
 
 
 def _ssm_case(b: int, s: int, h: int, p: int, n: int, chunk: int, gen):
@@ -541,7 +557,7 @@ def _ssm_case(b: int, s: int, h: int, p: int, n: int, chunk: int, gen):
         twin=lambda: ops.ssd_chunked(x, dt, A, bm, cm, chunk=chunk),
         library=None,           # no single PyTorch call computes the scan
         nbytes=2 * (2 * b * s * h * p + b * s * h + 2 * b * s * n) + 4 * h + 4 * b * h * p * n,
-        flops=5 * b * s * h * p * n, peak=BF16_FLOPS)
+        flops=5 * b * s * h * p * n, peak="bf16")
 
 
 def _mlstm_case(b: int, s: int, h: int, d: int, chunk: int, gen):
@@ -562,16 +578,16 @@ def _mlstm_case(b: int, s: int, h: int, d: int, chunk: int, gen):
         twin=lambda: ops.mlstm_scan(q, k, v, li, lf, chunk=chunk, use_kernel=False),
         library=None,           # no single PyTorch call computes the scan
         nbytes=2 * 4 * b * s * h * d + 4 * 2 * b * s * h,
-        flops=4 * b * s * h * d * d, peak=BF16_FLOPS)
+        flops=4 * b * s * h * d * d, peak="bf16")
 
 
-def _run_case(name: str, case: dict, iters: int) -> dict:
+def _run_case(name: str, case: dict, iters: int, hw) -> dict:
     got, want = case["kernel"](), case["twin"]()
     if not isinstance(got, tuple):
         got, want = (got,), (want,)
     checks = [_check(f"{name} output {i}", g, w, case.get("floor", 0.0))
               for i, (g, w) in enumerate(zip(got, want))]
-    bound, by = _bound_ms(case["nbytes"], case["flops"], case["peak"])
+    bound, by = _bound_ms(case["nbytes"], case["flops"], case["peak"], hw)
     lib = case["library"]
     device_ms, source, per_call, _ = _device_ms(case["kernel"], iters)
     lib_dev = _device_ms(lib, iters, case.get("capturable", True)) if lib is not None else None
@@ -678,6 +694,15 @@ def main() -> int:
     card = smi[0].strip()
     print(card)
     report["card"] = card
+    # the card's peaks, for every bound below: its HardwareSpec, by its name
+    from repro_torch.clouds.profiles import hardware_for
+    hw = hardware_for(torch.cuda.get_device_name(0))
+    memory = torch.cuda.get_device_properties(0).total_memory
+    print(f"{card}: {hw} (data-sheet peaks); the card reports {memory} bytes of memory")
+    if abs(hw.hbm_bytes - memory) > HBM_SPEC_SHARE * memory:
+        raise AssertionError(f"{hw.name}: hbm_bytes {hw.hbm_bytes} more than "
+                             f"{HBM_SPEC_SHARE:.0%} off the card's {memory}")
+    report["hardware"] = {**dataclasses.asdict(hw), "device_memory_bytes": memory}
     t0 = time.perf_counter()
     built = native.build(ptxas_verbose=True)
     build_s = time.perf_counter() - t0
@@ -762,6 +787,14 @@ def main() -> int:
                                                 gen, window=512), 5),
         ("flash_attention_bwd", _flash_bwd_case(1, 256, 8, 2, 64, gen,
                                                 dtype=torch.float32), 5),
+        # whisper's training calls at batch 4 x PROMPT, no causal mask: the
+        # encoder's over its 1500 frame rows, the decoder's cross-attention
+        # (PROMPT queries over those rows)
+        ("flash_attention_bwd", _flash_bwd_case(BATCH, wb.encoder_len, wb.n_heads, wb.n_kv_heads,
+                                                wb.head_dim, gen, causal=False), 5),
+        ("flash_attention_bwd", _flash_bwd_case(BATCH, PROMPT, wb.n_heads, wb.n_kv_heads,
+                                                wb.head_dim, gen, causal=False,
+                                                skv=wb.encoder_len), 10),
         # deepseek's MLA prefill at a long prompt: D 192 through the
         # 320-column tile, v zero-padded, against SDPA's fused backends
         ("flash_attention", _flash_case(1, 2048, 2048, ds.n_heads, ds.n_kv_heads, ds_qk, gen,
@@ -838,8 +871,8 @@ def main() -> int:
                                                     g.n_kv_heads, g.head_dim, gen), 5),
             "rmsnorm_bwd": (_rmsnorm_bwd_case(TRAIN_BATCH * TRAIN_SEQ, g.d_model, gen), 20)},
     }
-    cases = [_run_case(n, c, it) for n, c, it in long_cases]
-    path = {label: {n: _run_case(n, c, it) for n, (c, it) in per.items()}
+    cases = [_run_case(n, c, it, hw) for n, c, it in long_cases]
+    path = {label: {n: _run_case(n, c, it, hw) for n, (c, it) in per.items()}
             for label, per in path_cases.items()}
     for r in cases + [r for per in path.values() for r in per.values()]:
         print(f"{r['kernel']:<17} {r['shape']}: err {r['max_abs_err']:.3g} "
@@ -871,6 +904,9 @@ def main() -> int:
 
     # -- LM training: both ways through the kernels --------------------------
     report["lm_train_leg"] = _lm_train_leg(card)
+
+    # -- the roofline: every timed phase at or above its bound ---------------
+    report["roofline_phase"] = _roofline_phase(report, hw, card)
 
     # -- phase 4: report -----------------------------------------------------
     totals = {n: sum(r["launches_run"][n] for r in report["paths"].values())
@@ -1796,7 +1832,10 @@ def _mnist_leg(card: str) -> dict:
       trained model's Predictor -> a profile-planned split deploy, run twice
       as a recurring pipeline over one tracer, metrics registry and capacity
       market, then 512 Poisson requests at half the fleet ceiling; gated
-      by the example's own ``check``;
+      by the example's own ``check``; then its registry-model leg
+      (``registry_leg``: gemma3-4b profiled analytically by
+      ``roofline_fields``, deployed behind a ``ProfiledBackend``, 24
+      requests), gated by the reference example's asserts;
     - the trained model: every reported loss finite, the last below the
       first, holdout accuracy > 0.5;
     - the card against the port's CPU path on one init (a CPU generator)
@@ -1816,7 +1855,8 @@ def _mnist_leg(card: str) -> dict:
     from repro_torch.clouds.profiles import get_profile
     from repro_torch.core.trainjob import train_step
     from repro_torch.data.mnist import Batches, make_dataset
-    from repro_torch.examples.e2e_train_to_serve import check, lenet_predictor, train_to_serve
+    from repro_torch.examples.e2e_train_to_serve import (check, lenet_predictor, registry_leg,
+                                                         train_to_serve)
     from repro_torch.kernels import native
     from repro_torch.launch.profile import trace
     from repro_torch.models import lenet
@@ -1832,6 +1872,7 @@ def _mnist_leg(card: str) -> dict:
                          lr_space=(MNIST_LR / 2, MNIST_LR * 2), tune_steps=10,
                          train_steps=MNIST_STEPS)
     orchestrated = check(out)
+    orchestrated["registry_model"] = registry_leg(out)
     leg_s = time.perf_counter() - t0
     trained = out["trained"]
     params = trained["params"]
@@ -1853,6 +1894,11 @@ def _mnist_leg(card: str) -> dict:
           f"{orchestrated['planned_from']['service_time_s'] * 1e6:.2f} us/request; stress p50 "
           f"{orchestrated['stress']['p50_s']:.6f} s p99 {orchestrated['stress']['p99_s']:.6f} s; "
           f"{orchestrated['leases']} leases, {orchestrated['preempts']} preempts  [{card}]")
+    reg = orchestrated["registry_model"]
+    print(f"{label}: registry-model leg, {reg['model']} profiled by roofline_fields (analytic, "
+          f"the H100's data-sheet peaks: {reg['service_time_s'] * 1e3:.3f} ms a request), "
+          f"placed {reg['placement']}, {reg['requests']} Poisson requests p50 {reg['p50_s']:.4f} s "
+          f"p99 {reg['p99_s']:.4f} s (simulated)")
 
     # the card against the port's CPU path, one init, the same batches
     init = {d: lenet.init_params(torch.Generator().manual_seed(0), width=MNIST_WIDTH, device=d)
@@ -2132,6 +2178,91 @@ def _lm_train_leg(card: str) -> dict:
             "history": history, "resumed": resumed["history"], "recorded": recorded,
             "bf16_kernel_vs_plain": bf16, "fp32_kernel_vs_plain": fp32, "trace": traced,
             "leg_s": total_s, "launches": launches}
+
+
+def _cache_read_bytes(cfg, batch: int, cache_len: int, pos: int) -> int:
+    """The cache bytes one decode step at position ``pos`` must read: rows
+    0..pos of every row cache (of a ring, its last min(pos + 1, size)),
+    whisper's cached encoder rows whole, every recurrent state whole."""
+    from repro_torch.models import lm
+    total = 0
+    for path, t in _named(lm.init_cache(cfg, batch, cache_len, device="meta")):
+        key = path.rsplit("/", 1)[-1]
+        if key in ("k", "v", "c_kv", "k_rope"):          # (groups, B, rows, ...)
+            total += t[:, :, :min(pos + 1, t.shape[2])].numel() * t.element_size()
+        elif key != "enc_len":
+            total += t.numel() * t.element_size()
+    return total
+
+
+def _roofline_phase(report: dict, hw, card: str) -> list:
+    """Every phase the paths timed against the least time the card ``hw``
+    could take for it: max(model FLOPs / bf16 peak, least bytes / HBM
+    bandwidth).  Model FLOPs are ``launch.roofline.model_flops`` (2 N D a
+    forward, 6 N D a training step, N the active non-embedding
+    parameters); the least bytes are the active weights in the served
+    dtype read once plus the cache a decode step reads (averaged over the
+    GEN steps), and for the training step the fp32 masters and AdamW's two
+    moments, each read and written once.  A measured time below its bound
+    is a wrong count or a wrong spec: the run fails.  Printed per phase:
+    ``mfu`` (model FLOPs over time x peak), the HBM share (least bytes
+    over time x bandwidth), and the FLOPs ``launch/count.py`` counts on
+    ``meta`` for the same step at the same shape on the plain path (a
+    decode step against the full cache), with their ratio to the model's."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.registry import InputShape
+    from repro_torch.launch.dryrun import count_step
+    from repro_torch.launch.roofline import model_flops
+
+    t0 = time.perf_counter()
+    phases = []                 # (label, phase, cfg, kind, batch, seq or cache rows, ms, bytes)
+    for label, arch, run, *_ in PATHS:
+        res = report["paths"][label]
+        cfg = registry.get_config(arch)
+        weights = cfg.approx_active_params() * cfg.compute_dtype.itemsize
+        legs = [(res, "")] + ([(res["long_leg"], "long ")] if res.get("long_leg") else [])
+        for leg, tag in legs if run == "serve" else []:
+            b, prompt = leg["batch"], leg["prompt"]
+            rows = prompt + GEN + (0 if tag else 1)
+            reads = sum(_cache_read_bytes(cfg, b, rows, prompt + i) for i in range(GEN)) / GEN
+            phases += [(label, f"{tag}prefill", cfg, "prefill", b, prompt, leg["prefill_ms"],
+                        weights),
+                       (label, f"{tag}decode step", cfg, "decode", b, rows,
+                        leg["decode_ms_per_token"], weights + reads)]
+        if run == "score":
+            phases.append((label, "forward", cfg, "prefill", res["batch"], res["tokens"],
+                           res["forward_ms"], weights))
+    leg = report["lm_train_leg"]
+    cfg = registry.get_config("granite_3_8b").replace(n_layers=TRAIN_LAYERS)
+    phases.append((TRAIN_PATH, "step", cfg, "train", TRAIN_BATCH, TRAIN_SEQ,
+                   leg["train_s"] / TRAIN_STEPS * 1e3, 24 * cfg.approx_active_params()))
+    rows_out, low, counts = [], [], {}
+    for label, phase, cfg, kind, b, seq, ms, nbytes in phases:
+        mf = model_flops(cfg, kind, b, seq)
+        t_ops, t_bytes = mf / hw.peak_flops_bf16 * 1e3, nbytes / hw.hbm_bw * 1e3
+        bound = max(t_ops, t_bytes)
+        key = (cfg, kind, b, seq)           # xlstm's scoring forward is its serving prefill
+        if key not in counts:
+            counts[key] = count_step(cfg, InputShape(phase, seq, b, kind),
+                                     serve_bf16=True)["flops"]
+        counted = counts[key]
+        row = {"path": label, "phase": phase, "batch": b, "tokens_or_rows": seq, "ms": ms,
+               "bound_ms": bound, "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+               "model_flops": mf, "least_bytes": nbytes, "mfu": t_ops / ms,
+               "hbm_share": t_bytes / ms, "counted_flops": counted,
+               "counted_over_model": counted / mf}
+        rows_out.append(row)
+        print(f"{label} {phase}: {ms:.3f} ms, bound {bound:.4f} ms ({row['bound_by']}); mfu "
+              f"{row['mfu']:.4f}, HBM share {row['hbm_share']:.4f}; model FLOPs {mf:.4g}, "
+              f"counted {counted:.4g} (x{row['counted_over_model']:.3f})  [{card}]")
+        if ms < bound:
+            low.append(f"{label} {phase} {ms} ms < {bound} ms")
+    if low:
+        raise AssertionError("measured below the roofline bound (a wrong count or spec): "
+                             + "; ".join(low))
+    print(f"roofline phase: {len(rows_out)} phases at or above their bounds, counted on meta "
+          f"in {time.perf_counter() - t0:.1f} s  [{card}]")
+    return rows_out
 
 
 def _named(tree: dict, prefix: str = ""):

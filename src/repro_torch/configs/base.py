@@ -77,8 +77,8 @@ class ArchConfig:
     dtype: str = "bfloat16"          # activation/compute dtype
     param_dtype: str = "float32"
     use_kernels: bool = False        # dispatch to the hand-written CUDA / Triton kernels
-    fused_attention: bool = False    # chunked online-softmax attention (no
-                                     # S^2 materialisation; not ported yet)
+    fused_attention: bool = False    # plain path: chunked online-softmax
+                                     # attention (no S^2 materialisation)
     attn_chunk: int = 1024           # kv-chunk for fused attention
     sharding_profile: str = "tp"     # "tp" (model axis active) | "dp" (pure
                                      # data-parallel; batch spans model axis)

@@ -1,4 +1,5 @@
-"""Config registry: --arch <id> resolution for the archs the port runs.
+"""Config registry: --arch <id> resolution for the archs the port runs, and
+the four assigned input shapes of the dry-run matrix.
 
 The reference knows ten archs, and the port builds all ten.  An arch in
 ``PENDING`` (none now) would raise a ``KeyError`` that names the ROADMAP
@@ -6,6 +7,7 @@ item that ports it.
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 from .base import ArchConfig
@@ -33,6 +35,22 @@ PENDING: dict = {}
 ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 
 
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str          # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
 def _normalize(arch: str) -> str:
     """Accept module names, --arch ids, and display names (dots/dashes)."""
     name = ALIASES.get(arch, arch).replace("-", "_").replace(".", "_")
@@ -55,3 +73,11 @@ def get_smoke_config(arch: str) -> ArchConfig:
 
 def list_archs():
     return list(PORTED)
+
+
+def runnable(cfg: ArchConfig, shape: InputShape) -> tuple[bool, str]:
+    """Is (arch, shape) in the dry-run matrix?  DESIGN.md §long_500k."""
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("pure full-attention arch: no sub-quadratic/bounded-cache "
+                       "decode mode (DESIGN.md skip)")
+    return True, ""

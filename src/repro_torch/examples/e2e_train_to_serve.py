@@ -5,8 +5,11 @@ model per cloud into Model-CI artifacts, hands it to the serving gateway
 through a terminal ``deploy`` step with a SPLIT placement planned from those
 artifacts (gcp capacity-pinned, spill to ibm), then stress-tests the
 deployed model -- pipeline -> profile -> placement -> live serving in one
-run.  Twin of ``examples/e2e_train_to_serve.py`` without its registry-model
-leg (``roofline_fields`` waits for ROADMAP.md queue 1 item 1.10).
+run.  Then the registry-model leg (``registry_leg``): gemma3-4b profiled
+analytically (``roofline_fields`` over the card's ``HardwareSpec``) on gcp
+and ibm into the same store and deployed on ibm behind a
+``ProfiledBackend``, with no hand-tuned number anywhere.  Twin of
+``examples/e2e_train_to_serve.py``.
 
 The second recurring firing reuses every training and profiling artifact
 from the cross-run cache (only the deploy step re-executes: the handoff is
@@ -18,7 +21,8 @@ the recorded training leases (spot semantics).
 Stage compute and the Predictor's service times are MEASURED on
 ``--device`` (the card by default, synchronised before each clock read);
 startup / RTT / transfer / dollar figures derive from the CloudProfile
-constants and are simulation outputs.
+constants and are simulation outputs, and the registry model's service
+time is a closed form of its config and the H100's data-sheet peaks.
 
     python -m repro_torch.examples.e2e_train_to_serve --device cpu
     python -m repro_torch.examples.e2e_train_to_serve               # on the card
@@ -32,10 +36,11 @@ import torch
 
 from ..clouds.capacity import CapacityMarket
 from ..clouds.profiles import get_profile
+from ..configs.registry import get_config
 from ..core.pipeline import Pipeline
 from ..core.trainjob import SupervisedTrainJob
 from ..data.mnist import Batches, make_dataset
-from ..modelci import ProfileSpec, ProfileStore, measure
+from ..modelci import ProfiledBackend, ProfileSpec, ProfileStore, measure, roofline_fields
 from ..models import lenet
 from ..models.modules import require_device
 from ..pipelines import ArtifactCache, DeploySpec, Orchestrator, PipelineRuns
@@ -138,7 +143,8 @@ def train_to_serve(imgs, labels, *, device, width=8, lr_space=(0.01, 0.05), tune
     served = gw.run([TrafficSpec("mnist", 512, arrival="poisson", rate=rate)], seed=0)
     return {"recs": recs, "store": store, "log": log, "tracer": tracer,
             "registry": registry, "market": market, "served": served,
-            "backend": backend, "rate": rate, "requests": 512, "trained": trained}
+            "backend": backend, "rate": rate, "requests": 512, "trained": trained,
+            "orchestrator": orch, "gateway": gw}
 
 
 def check(out: dict) -> dict:
@@ -195,6 +201,53 @@ def check(out: dict) -> dict:
             "spans": len(tracer.spans)}
 
 
+def registry_leg(out: dict) -> dict:
+    """The registry-model leg, after ``check`` on the same orchestrator,
+    store and gateway: gemma3-4b profiled analytically on gcp and ibm
+    (``roofline_fields``: every term a closed form of the config and the
+    ``HardwareSpec``), per-cloud artifacts committed into the SAME store,
+    and deployed on ibm behind a ``ProfiledBackend`` whose cost model IS the
+    artifact (gcp's 2 market slots are held by the MNIST serving floor);
+    then 24 Poisson requests at half its service rate.  The reference
+    example's asserts; returns what they were made on."""
+    store, orch, gw = out["store"], out["orchestrator"], out["gateway"]
+    cfg = get_config("gemma3_4b")
+
+    def roofline_profile():
+        return roofline_fields(cfg)
+
+    gpipe = Pipeline("profile-gemma")
+    gprofs = [gpipe.step(roofline_profile, name=f"profile_{c}", kind="profile", pin=c,
+                         payload=ProfileSpec(cfg.name, store, max_batch=1))
+              for c in ("gcp", "ibm")]
+    gpipe.step(lambda *_: ProfiledBackend(store.worst(cfg.name)), *gprofs,
+               name="deploy", kind="deploy",
+               payload=DeploySpec(
+                   cfg.name,
+                   clouds=[CloudCapacity(get_profile("ibm"), 4, 1.4)],
+                   load_erlangs=1.0, objective="cost", split=True,
+                   autoscaler=AutoscalerConfig(min_replicas=2, max_replicas=3,
+                                               target_queue=4, idle_window_s=2.0),
+                   max_batch=1, profile=store))
+    grec = orch.execute(gpipe.compile(), gateway=gw)
+    gout = grec.outputs["deploy"]
+    gprof = store.worst(cfg.name)
+    gserved = gw.run([TrafficSpec(cfg.name, 24, arrival="poisson",
+                                  rate=0.5 / gprof.service_time_s)], seed=0)
+    gres = gserved.per_model[cfg.name]
+    assert grec.status == "succeeded"
+    assert gout["profiled"] and gprof.source == "roofline"
+    assert gres.n_requests == 24
+    # the analytic profile is derived, not typed in: its terms reproduce
+    # from the config alone
+    assert gprof.roofline is not None and gprof.memory_bytes == \
+        2 * cfg.approx_active_params()
+    return {"model": cfg.name, "key": gprof.key, "service_time_s": gprof.service_time_s,
+            "memory_bytes": gprof.memory_bytes, "placement": gout["weights"],
+            "requests": gres.n_requests, "p50_s": gres.p50, "p99_s": gres.p99,
+            "sim_cost_usd": gserved.total_cost_usd}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="cuda")
@@ -209,6 +262,11 @@ def main(argv=None):
             print(f"   {name:12s} {r.cloud or '-':4s} {r.duration_s:8.3f}s "
                   f"{'cached' if r.cached else f'x{len(r.attempts)}'}")
     summary = check(out)
+    summary["registry_model"] = reg = registry_leg(out)
+    print(f"\nregistry model {reg['model']}: roofline profile {reg['key']} "
+          f"({reg['service_time_s'] * 1e3:.1f} ms/req, {reg['memory_bytes'] / 1e9:.1f} GB "
+          f"weights) -> placement {json.dumps(reg['placement'])}; 24 requests p50 "
+          f"{reg['p50_s']:.3f} s p99 {reg['p99_s']:.3f} s sim ${reg['sim_cost_usd']:.6f}")
     print()
     print(run_table(out["tracer"], out["recs"][0].span_id))
     print()

@@ -12,10 +12,15 @@ The attention and norm twins live in ``ref``.  ``flash_attention`` and
 kernels through their ``autograd.Function`` and backward kernels, which
 ``flash_attention_bwd`` and ``rmsnorm_bwd`` below also expose (the
 twins: ``ref.flash_attention_bwd_ref``, ``ref.rmsnorm_bwd_ref``).  The
-other kernels raise under grad.  The two scans' twins are the
-chunked forms below (``ssd_chunked``, ``mlstm_chunked``), counterparts of
-the reference's ``ops.ssd_chunked_jnp`` and ``models/ssm._mlstm_chunked``;
-``ref`` holds their sequential oracles.
+other kernels raise under grad.  ``flash_chunked`` is the reference's
+"fused attention" twin (``ops.flash_chunked_jnp``): plain code that the
+plain path runs when ``chunked`` is asked for (``cfg.fused_attention``), so
+that a long prefill counted on the plain path (``launch/count.py``) never
+holds the whole score matrix; on the card the kernel runs whatever
+``chunked`` says.  The two scans' twins are the chunked forms below
+(``ssd_chunked``, ``mlstm_chunked``), counterparts of the reference's
+``ops.ssd_chunked_jnp`` and ``models/ssm._mlstm_chunked``; ``ref`` holds
+their sequential oracles.
 """
 from __future__ import annotations
 
@@ -46,12 +51,55 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0, scale: float | None = None,
-                    use_kernel: bool = False) -> torch.Tensor:
+                    use_kernel: bool = False, chunked: bool = False,
+                    chunk_k: int = 1024) -> torch.Tensor:
     if _plain(use_kernel, q):
+        if chunked:
+            return flash_chunked(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                                 chunk_k=chunk_k, scale=scale)
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        scale=scale, q_offset=q_offset)
     return _flash_kernel(q, k, v, causal=causal, window=window,
                          scale=scale, q_offset=q_offset)
+
+
+def flash_chunked(q, k, v, *, causal: bool = True, window: int = 0, q_offset: int = 0,
+                  chunk_k: int = 1024, scale: float | None = None) -> torch.Tensor:
+    """Online-softmax attention, one loop step per chunk of ``chunk_k`` keys,
+    in fp32: the (Sq, Skv) score matrix never exists whole, only (Sq,
+    chunk_k) of it.  q (B,Sq,Hq,D); k (B,Skv,Hkv,D); v (B,Skv,Hkv,Dv), Dv may
+    differ from D (MLA) -> (B,Sq,Hq,Dv) in q's dtype.  Twin of the
+    reference's ``flash_chunked_jnp``, with its finite mask value, so a row
+    whose keys are all masked averages uniformly."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group = max(hq // hkv, 1)
+    t = min(chunk_k, skv)
+    scale = scale if scale is not None else d ** -0.5
+    qf = q.float() * scale
+    qpos = torch.arange(sq, device=q.device)[:, None] + q_offset              # (Sq,1)
+    acc = torch.zeros((b, hq, sq, v.shape[-1]), dtype=torch.float32, device=q.device)
+    m = torch.full((b, hq, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
+    for c0 in range(0, skv, t):
+        kb = k[:, c0:c0 + t].float().repeat_interleave(group, dim=2)          # (B,t,Hq,D)
+        vb = v[:, c0:c0 + t].float().repeat_interleave(group, dim=2)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb)
+        kpos = torch.arange(c0, c0 + kb.shape[1], device=q.device)[None, :]
+        mask = torch.ones((sq, kb.shape[1]), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos <= qpos
+        if window > 0:
+            mask &= kpos > qpos - window
+        s = torch.where(mask[None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def rmsnorm_bwd(x, scale, g, rstd, *, eps: float = 1e-6, use_kernel: bool = False):

@@ -4,14 +4,15 @@ versioned per-(model, cloud) profile artifacts produced by ``kind=
 ArtifactCache, consumed by placement (``ProfileStore.demand`` ->
 ``ModelDemand``) and watched at serving time by the drift monitor
 (telemetry/drift.py).  Every demand number in the system becomes a
-measured, monitored quantity.  The port's copy of ``repro.modelci``, without
-``roofline_fields`` (``modelci.profile.roofline_fields`` raises: ROADMAP.md
-queue 1 item 1.10)."""
+measured, monitored quantity.  The port's copy of ``repro.modelci``; its
+``roofline_fields`` prices a registry model on the port's card (the H100
+SXM ``HardwareSpec``)."""
 import dataclasses
 from typing import Any, Optional
 
 from .backends import ProfiledBackend
-from .profile import ModelProfile, ProfileStore, finalize, measure
+from .profile import (ModelProfile, ProfileStore, finalize, measure,
+                      roofline_fields)
 
 
 @dataclasses.dataclass
@@ -35,4 +36,4 @@ class ProfileSpec:
 
 
 __all__ = ["ModelProfile", "ProfileSpec", "ProfileStore", "ProfiledBackend",
-           "finalize", "measure"]
+           "finalize", "measure", "roofline_fields"]

@@ -27,8 +27,8 @@ cloud-independent, the constants are not.
 
 The port's copy of ``repro.modelci.profile``: ``measure`` sizes the weights
 through the port's ``payload_bytes`` (tensor leaves included);
-``roofline_fields`` raises until its HardwareSpec is ported (ROADMAP.md
-queue 1 item 1.10).
+``roofline_fields`` is the reference's closed form over the port's
+``launch/roofline.py`` and a ``HardwareSpec`` (default: the H100 SXM).
 """
 from __future__ import annotations
 
@@ -38,7 +38,8 @@ import json
 import math
 from typing import Any, Optional
 
-from ..clouds.profiles import PROFILES, CloudProfile
+from ..clouds.profiles import H100_SXM, PROFILES, CloudProfile, HardwareSpec
+from ..launch.roofline import model_flops, roofline
 from ..pipelines.artifacts import (ArtifactCache, best_transfer,
                                    payload_bytes)
 from ..serving.gateway.placement import ModelDemand
@@ -136,13 +137,25 @@ def measure(backend, *, max_batch: int = 32,
     return fields
 
 
-def roofline_fields(cfg, **_):
-    """The analytic (registry-model) profile needs a HardwareSpec and
-    ``launch/roofline.model_flops``; the port carries no accelerator
-    constants yet."""
-    raise NotImplementedError("modelci.roofline_fields is not ported yet: ROADMAP.md "
-                              "queue 1 item 1.10 (the H100 HardwareSpec and "
-                              "launch/roofline.py)")
+def roofline_fields(cfg, *, shape_kind: str = "decode", batch: int = 1,
+                    seq: int = 1, gen_tokens: int = 32, chips: int = 1,
+                    hw: HardwareSpec = H100_SXM) -> dict:
+    """Analytic profile fields for a registry ArchConfig, no compilation:
+    compute from ``model_flops`` (closed form of the config), memory from
+    streaming the active weights once per token (the decode bandwidth
+    bound), zero collective bytes per chip at chips=1.  A decode-shaped
+    request costs ``gen_tokens`` roofline-bound steps.  This is the
+    zero-hand-tuned-numbers path: every term derives from the config and
+    the HardwareSpec constants."""
+    per_tok_flops = model_flops(cfg, shape_kind, batch, seq) / chips
+    weight_bytes = 2.0 * cfg.approx_active_params() / chips   # bf16 stream
+    terms = roofline(per_tok_flops, weight_bytes, 0.0, chips, hw=hw)
+    svc = terms.total_s * gen_tokens / max(batch, 1)
+    return {"service_time_s": float(svc),
+            "max_batch": int(batch),
+            "memory_bytes": int(2 * cfg.approx_active_params()),
+            "roofline": terms.as_dict(),
+            "source": "roofline"}
 
 
 def finalize(fields: dict, model: str, cloud: CloudProfile) -> ModelProfile:

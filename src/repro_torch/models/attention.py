@@ -121,10 +121,13 @@ def _qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
 def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
                 *, window: int = 0, causal: bool = True, return_kv: bool = False):
     """Full-sequence attention (prefill; whisper's encoder with ``causal``
-    False). x: (B,S,D); positions (B,S) or (B,3,S)."""
+    False). x: (B,S,D); positions (B,S) or (B,3,S).  ``cfg.fused_attention``
+    puts the plain path on ``ops.flash_chunked`` (the kernel path ignores
+    it)."""
     q, k, v = _qkv(p, x, positions, cfg)
     o = ops.flash_attention(q, k, v, causal=causal, window=window,
-                            use_kernel=cfg.use_kernels)
+                            use_kernel=cfg.use_kernels, chunked=cfg.fused_attention,
+                            chunk_k=cfg.attn_chunk)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
     return (out, (k, v)) if return_kv else out
 
@@ -315,7 +318,8 @@ def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConf
     """Prefill / training: decompress to MHA at qk head dim dn + dr and run
     flash attention.  The kernel path zero-pads v from dv to that width
     (the kernel takes one head dim), passes the qk dim's scale and cuts
-    the output back to dv; the plain path attends with v at its own width.
+    the output back to dv; the plain path attends with v at its own width
+    (through ``ops.flash_chunked`` under ``cfg.fused_attention``).
     With ``return_cache`` also the compressed rows {c_kv, k_rope}."""
     c_kv, k_rope = _mla_compress(p, x, positions, cfg)
     q_nope, q_rope = _mla_queries(p, x, positions, cfg)
@@ -329,7 +333,8 @@ def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConf
         o = ops.flash_attention(q, k, v_p, causal=True, scale=_mla_scale(cfg),
                                 use_kernel=True)[..., :dv]
     else:
-        o = ops.flash_attention(q, k, v, causal=True, use_kernel=False)
+        o = ops.flash_attention(q, k, v, causal=True, use_kernel=False,
+                                chunked=cfg.fused_attention, chunk_k=cfg.attn_chunk)
     out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
     return (out, {"c_kv": c_kv, "k_rope": k_rope}) if return_cache else out
 

@@ -102,11 +102,13 @@ def init_params(cfg: ArchConfig, *, seed: int = 0, device="cuda",
     ``dtype`` is, as the reference initialises it (``moe.router_logits``
     rounds it to the compute dtype, as the reference's ``cast_tree`` does).
     Whisper's decoder slots carry ``norm_x`` and ``cross``; its encoder is
-    ``p["encoder"]``, ``encoder_layers`` global/MLP slots stacked."""
+    ``p["encoder"]``, ``encoder_layers`` global/MLP slots stacked.  On
+    ``meta`` (the dry-run's device, which has no generator) the tree holds
+    shapes and dtypes only, and nothing is allocated."""
     plan = blocks.build_plan(cfg)
     dev = require_device(device)
     dtype = dtype or cfg.compute_dtype
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = None if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
     kw = dict(generator=gen, device=dev)
     p: dict = {
         "embed": dense_init((cfg.vocab_size, cfg.d_model), fan_in=cfg.d_model,
@@ -133,7 +135,8 @@ def init_cache(cfg: ArchConfig, batch: int, length: int, *, device="cuda") -> di
     """Zeroed decode caches (structure mirrors forward(collect_cache)): KV and
     MLA's compressed rows in the compute dtype, recurrent states in fp32;
     audio adds each slot's ``cross_k``/``cross_v`` of ``encoder_len`` rows
-    and the top-level ``enc_len`` (B,) int32."""
+    and the top-level ``enc_len`` (B,) int32.  On ``meta``, shapes and
+    dtypes only."""
     dev = require_device(device)
 
     def zeros(n: int, shapes: dict, dtype) -> dict:

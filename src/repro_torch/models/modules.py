@@ -14,13 +14,14 @@ import torch
 import torch.nn.functional as F
 
 
-def dense_init(shape: Sequence[int], *, generator: torch.Generator,
+def dense_init(shape: Sequence[int], *, generator: torch.Generator | None,
                fan_in: int | None = None, dtype: torch.dtype = torch.float32,
                device="cuda") -> torch.Tensor:
     """Normal truncated at +-2 std, scaled by 1/sqrt(fan_in) (LeCun-ish).
 
     The draw happens in fp32 on ``device`` (the generator must live there
-    too) and is cast to ``dtype`` afterwards."""
+    too) and is cast to ``dtype`` afterwards.  On ``meta``, which draws
+    nothing, ``generator`` is None."""
     if fan_in is None:
         fan_in = shape[0] if len(shape) > 1 else shape[-1]
     std = 1.0 / math.sqrt(max(fan_in, 1))

@@ -959,3 +959,14 @@ def test_kernels_without_a_backward_raise_under_grad_on_gpu(cuda):
     with torch.no_grad():
         ops.decode_attention(q, kc, kc, lens, use_kernel=True)
         ops.flash_attention(wide, wide, wide, use_kernel=True)
+
+
+@pytest.mark.gpu
+def test_the_card_has_a_hardware_spec_on_gpu(cuda):
+    """The card's reported name resolves to its HardwareSpec, whose memory
+    is within 8 % of what the card reports (chip_smoke.py's gate)."""
+    from repro_torch.clouds.profiles import hardware_for
+    hw = hardware_for(torch.cuda.get_device_name(0))
+    memory = torch.cuda.get_device_properties(0).total_memory
+    assert abs(hw.hbm_bytes - memory) <= 0.08 * memory
+    assert hw.peak_flops_bf16 > hw.peak_flops_fp32 > 0 and hw.hbm_bw > 0

@@ -673,10 +673,11 @@ def test_profile_planned_deploy_infeasible_without_artifacts():
 
 
 def test_modelci_does_not_export_roofline_fields():
-    """The reference's package exports it; the port's waits for 1.10 (its
-    refusal is held in tests/test_torch_port.py)."""
+    """Until 1.10's single-card half the port's package lacked it; now both
+    packages export ``roofline_fields``, the port's over the card's
+    HardwareSpec (held to the reference's in tests/test_torch_roofline.py)."""
     assert "roofline_fields" in jmodelci.__all__
-    assert "roofline_fields" not in modelci.__all__ and not hasattr(modelci, "roofline_fields")
+    assert "roofline_fields" in modelci.__all__ and callable(modelci.roofline_fields)
 
 
 def test_orchestrator_profile_constants_equal_the_reference():
