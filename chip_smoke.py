@@ -116,7 +116,20 @@ Run from the root of a checkout.  It imports only the port
    against autograd of their twins, beside autograd through SDPA and
    ``F.rms_norm``.  Steps/s, tokens/s, peak memory and a
    trace of one step are reported;
-6. holds every phase it timed against the card's roofline
+6. trains granite-3-8b data-parallel (``_dp_train_leg``): DP_RANKS ranks
+   share the card through a gloo group (``torch.multiprocessing``, a file
+   store), full width cut to DP_LAYERS layers, each on its rows of the
+   training leg's global batch.  Gated: one fp32 step on the kernel path
+   against the one-process step on the same masters and batch (the loss
+   and every all-reduced gradient leaf, DP_LIMITS); ZeRO-1's update bit
+   for bit plain DP's; DP_STEPS bf16 steps of ``LMTrainJob(mesh=...)``
+   with ZeRO-1 (finite falling losses, the first batch's loss taken again
+   below its loss at the init, the training leg's launch set, every
+   replica bit for bit rank 0's, each rank's moments half the whole).
+   Each rank's peak memory, steps/s, tokens/s and one gradient
+   all-reduce's time are reported: host-staged gloo on one card measures
+   correctness, not scaling;
+7. holds every phase it timed against the card's roofline
    (``_roofline_phase``): each arch's prefill and decode step at batch 4
    (qwen2-vl prompt 384), gemma3's 1 x 2048 long leg, xlstm's scoring
    forward and the granite training step, each at or above max(model FLOPs
@@ -125,7 +138,7 @@ Run from the root of a checkout.  It imports only the port
    memory is held within 8 % of the card's; phase 2's bounds read the same
    spec), printing ``mfu``, the HBM share and the FLOPs ``launch/count.py``
    counts for the same step on ``meta``;
-7. prints the kernels' JSON line and, last, the device line.
+8. prints the kernels' JSON line and, last, the device line.
 
 Any failure raises, and the script exits non-zero without the last line.
 The build prints each kernel instantiation's registers and spills (ptxas).
@@ -208,6 +221,19 @@ TRAIN_PATH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = \
     "granite-3-8b training", 8, 4, 1024, 20
 TRAIN_LIMITS = {"bf16_loss": 2e-2, "bf16_grad_norm": 2e-2, "fp32_grad_leaf": 1e-3}
 TRAIN_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd")
+# granite-3-8b data-parallel training (``_dp_train_leg``): DP_RANKS gloo
+# ranks sharing the one card, full width, DP_LAYERS layers, the training
+# leg's global batch (TRAIN_BATCH / DP_RANKS rows a rank).  Gate (a), one
+# fp32 step on the kernel path against one process on the same masters and
+# global batch: the loss and every all-reduced gradient leaf at DP_LIMITS;
+# gate (b), ZeRO-1's update bit for bit plain DP's; gate (c), DP_STEPS bf16
+# steps of ``LMTrainJob(mesh=...)`` with ZeRO-1.  Over so few steps at full
+# width the loss on each fresh batch stays within batch noise (an H100 read
+# 11.1894 to 11.2123 over five), so (c) also takes the first batch's loss
+# again with the trained parameters: it must fall below its loss at the
+# init.  An H100 read 0 and 6.4e-6 in gate (a)
+DP_PATH, DP_RANKS, DP_LAYERS, DP_STEPS = "granite-3-8b data-parallel training", 2, 2, 5
+DP_LIMITS = {"fp32_loss": 1e-5, "fp32_grad_leaf": 1e-4}
 # (label, arch, run, the kernels that run must launch (no other may launch),
 # limits on the logits' rel error of kernel path vs plain path in bf16 and
 # with the weights in fp32; None reports without gating).  The fp32 limits
@@ -905,13 +931,16 @@ def main() -> int:
     # -- LM training: both ways through the kernels --------------------------
     report["lm_train_leg"] = _lm_train_leg(card)
 
+    # -- data-parallel LM training: two ranks on the card ---------------------
+    report["dp_train_leg"] = _dp_train_leg(card)
+
     # -- the roofline: every timed phase at or above its bound ---------------
     report["roofline_phase"] = _roofline_phase(report, hw, card)
 
     # -- phase 4: report -----------------------------------------------------
     totals = {n: sum(r["launches_run"][n] for r in report["paths"].values())
               + report["mnist_leg"]["launches"][n] + report["lm_train_leg"]["launches"][n]
-              for n in META}
+              + report["dp_train_leg"]["launches"][n] for n in META}
     kernels = []
     for n, (route, src, rep, label, _) in META.items():
         r = path[label][n]
@@ -2178,6 +2207,209 @@ def _lm_train_leg(card: str) -> dict:
             "history": history, "resumed": resumed["history"], "recorded": recorded,
             "bf16_kernel_vs_plain": bf16, "fp32_kernel_vs_plain": fp32, "trace": traced,
             "leg_s": total_s, "launches": launches}
+
+
+def _dp_train_leg(card: str) -> dict:
+    """granite-3-8b at full width, DP_LAYERS layers, trained data-parallel
+    by DP_RANKS ranks that share the card through a gloo group (processes
+    from ``torch.multiprocessing``, a file store under the ignored
+    ``experiments/``), each on its rows of the training leg's global batch
+    (``_dp_rank``).  Gated: (a) one fp32 step on the kernel path, ZeRO-1
+    off, against the one-process step on the same masters and global batch
+    (loss and every all-reduced gradient leaf at DP_LIMITS); (b) the same
+    step's update with ZeRO-1, its parameters and gathered moments bit for
+    bit plain DP's; (c) DP_STEPS bf16 steps of ``LMTrainJob(mesh=...)``
+    with ZeRO-1: finite losses that fall (``examples/train_llm.py``'s
+    condition), the first batch's loss taken again with the trained
+    parameters below its loss at the init, the launch set of the training
+    leg (RMSNorm and flash attention, forward and backward) and no other,
+    every replica's parameters bit for bit rank 0's, and each rank's moment
+    bytes half the whole moments' (within one leaf).  Reported: each
+    rank's peak memory, steps/s and tokens/s of the two-rank run, and the
+    time of one gradient all-reduce.  Two ranks on one card through
+    host-staged gloo measure correctness, not scaling."""
+    import shutil
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))          # the ranks' launcher, shared with the tests
+    from _ranks import spawn_ranks
+
+    label = DP_PATH
+    print(f"{label}: granite-3-8b at full width, {DP_LAYERS} layers, {DP_RANKS} gloo ranks on "
+          f"one card, batch {TRAIN_BATCH} x {TRAIN_SEQ} ({TRAIN_BATCH // DP_RANKS} rows a rank), "
+          f"fp32 masters  [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "experiments" / "chip_smoke_dp"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks(_dp_rank, DP_RANKS, out_dir=out_dir, timeout_s=900)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    leg_s = time.perf_counter() - t0
+
+    a = ranks[0]["a"]
+    worst = max(a["leaves"], key=a["leaves"].get)
+    print(f"{label} (a), one fp32 step on {DP_RANKS} ranks vs one process: loss rel "
+          f"{a['loss']:.4g} (limit {DP_LIMITS['fp32_loss']}), all-reduced gradient leaf rel up "
+          f"to {a['leaves'][worst]:.4g} ({worst}; limit {DP_LIMITS['fp32_grad_leaf']})  [{card}]")
+    over = ([f"loss {a['loss']}"] if a["loss"] > DP_LIMITS["fp32_loss"] else []) + [
+        f"{n} {r}" for n, r in a["leaves"].items() if r > DP_LIMITS["fp32_grad_leaf"]]
+    if over:
+        raise AssertionError(f"{label} (a): {DP_RANKS} ranks vs one process over the limits: "
+                             + "; ".join(over))
+    for r in ranks:
+        if r["b_differ"] or not r["b_split"]:
+            raise AssertionError(f"{label} (b), rank {r['rank']}: ZeRO-1 split {r['b_split']} "
+                                 f"moment leaves; leaves not bit for bit plain DP's: "
+                                 f"{r['b_differ']}")
+    print(f"{label} (b): ZeRO-1's parameters and gathered moments bit for bit plain DP's on every "
+          f"rank ({ranks[0]['b_split']} moment leaves split)  [{card}]")
+
+    history, again = ranks[0]["history"], ranks[0]["first_again"]
+    if not all(math.isfinite(v) for v in history) or not min(history[1:]) < history[0]:
+        raise AssertionError(f"{label} (c): losses not finite and falling: {history}")
+    if not again < history[0]:
+        raise AssertionError(f"{label} (c): the first batch's loss with the trained parameters, "
+                             f"{again}, is not below its loss at the init, {history[0]}")
+    for r in ranks:
+        _expect(f"{label}, rank {r['rank']}", r["launches"], TRAIN_KERNELS)
+        if r["history"] != history:
+            raise AssertionError(f"{label} (c): rank {r['rank']} reports {r['history']}, rank 0 "
+                                 f"{history}")
+        if r["replica_differ"]:
+            raise AssertionError(f"{label} (c): rank {r['rank']}'s parameters differ from rank "
+                                 f"0's: {r['replica_differ']}")
+        half = r["whole_moment_bytes"] / DP_RANKS
+        if not half <= r["moment_bytes"] <= half + r["largest_leaf_bytes"]:
+            raise AssertionError(f"{label} (c): rank {r['rank']} holds {r['moment_bytes']} moment "
+                                 f"bytes, not half of {r['whole_moment_bytes']}")
+    train_s = ranks[0]["train_s"]
+    tokens = DP_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    launches = {n: sum(r["launches"][n] for r in ranks) for n in META}
+    print(f"{label} (c): {DP_STEPS} bf16 steps with ZeRO-1 in {train_s:.3f} s "
+          f"({DP_STEPS / train_s:.4f} steps/s, {tokens / train_s:.1f} tokens/s), losses "
+          f"{[round(v, 4) for v in history]}, the first batch again {again:.4f}, replicas bit for "
+          f"bit rank 0's, moment bytes a rank "
+          f"{ranks[0]['moment_bytes']} of {ranks[0]['whole_moment_bytes']}; one gradient "
+          f"all-reduce ({ranks[0]['grad_bytes']} bytes) {ranks[0]['allreduce_s']:.3f} s; peak "
+          f"memory by rank " + ", ".join(f"{r['peak_gib']:.2f} GiB" for r in ranks)
+          + f"; launches (both ranks) {launches}; the whole leg {leg_s:.1f} s  [{card}]")
+    return {"ranks": DP_RANKS, "layers": DP_LAYERS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": DP_STEPS, "a": a, "b_split": ranks[0]["b_split"], "history": history,
+            "first_again": again,
+            "train_s": train_s, "steps_per_s": DP_STEPS / train_s,
+            "tokens_per_s": tokens / train_s, "allreduce_s": ranks[0]["allreduce_s"],
+            "grad_bytes": ranks[0]["grad_bytes"], "peak_gib": [r["peak_gib"] for r in ranks],
+            "moment_bytes": [r["moment_bytes"] for r in ranks],
+            "whole_moment_bytes": ranks[0]["whole_moment_bytes"], "leg_s": leg_s,
+            "launches": launches}
+
+
+def _dp_rank(rank: int) -> dict:
+    """One rank of ``_dp_train_leg``, in its own process on the card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.core.trainjob import LMTrainJob
+    from repro_torch.data.tokens import lm_batches
+    from repro_torch.kernels import native
+    from repro_torch.launch import shardings
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm, steps
+    from repro_torch.models import sharding as msh
+    from repro_torch.optim import adamw
+    from repro_torch.telemetry.events import EventLog
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_local_mesh("cuda")
+    full = registry.get_config("granite_3_8b")
+    out: dict = {"rank": rank}
+
+    # (a) one fp32 step on the kernel path, against one process on rank 0
+    cfg32 = full.replace(n_layers=DP_LAYERS, dtype="float32", use_kernels=True)
+    params = lm.init_params(cfg32, seed=0, device="cuda", dtype=torch.float32)
+    whole = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(lm_batches(cfg32, TRAIN_BATCH, TRAIN_SEQ, seed=3)).items()}
+    bspecs = shardings.batch_shardings(whole, mesh)
+    rows = {k: msh.local_slice(v, bspecs[k], mesh) for k, v in whole.items()}
+    loss, _, grads = steps.dp_grads(params, rows, cfg=cfg32)
+    copy = [g.clone() for g in adamw.tree_leaves(grads)]
+    out["grad_bytes"] = sum(g.numel() * g.element_size() for g in copy)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for g in copy:
+        dist.all_reduce(g)
+    torch.cuda.synchronize()
+    out["allreduce_s"] = time.perf_counter() - t0
+    del copy
+    if rank == 0:
+        leaves = adamw.tree_map(lambda t: t.detach().requires_grad_(), params)
+        one, _ = steps.loss_fn(leaves, cfg32, whole)
+        names = [n for n, _ in _named(params)]
+        want = torch.autograd.grad(one, adamw.tree_leaves(leaves))
+        one = float(one.detach())
+        out["a"] = {"loss": abs(float(loss) - one) / abs(one),
+                    "leaves": {n: _rel(g, w) for n, g, w in
+                               zip(names, adamw.tree_leaves(grads), want)}}
+        del leaves, one, want
+        torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (b) the update from the same gradients, plain and ZeRO-1
+    runs = {}
+    for zero1 in (False, True):
+        p = adamw.tree_map(torch.clone, params)
+        mu_specs = shardings.opt_shardings(None, p, mesh, zero1=zero1)["mu"]
+        opt = steps.dp_opt_state(p, mu_specs, mesh)
+        steps.dp_update_(p, grads, opt, specs=mu_specs, mesh=mesh)
+        runs[zero1] = (p, opt, mu_specs)
+    del params, grads
+    (p0, o0, _), (p1, o1, s1) = runs[False], runs[True]
+    differ = [n for (n, a), b in zip(_named(p0), adamw.tree_leaves(p1)) if not torch.equal(a, b)]
+    for key in ("mu", "nu"):
+        differ += [f"{key}/{n}" for (n, a), b, s in zip(
+            _named(o0[key]), adamw.tree_leaves(o1[key]), adamw.tree_leaves(s1))
+            if not torch.equal(a, msh.gather_leaf(b, s, mesh))]
+    out["b_differ"] = differ
+    out["b_split"] = sum(bool(msh.splits(s, mesh)) for s in adamw.tree_leaves(s1))
+    del runs, p0, o0, p1, o1
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (c) bf16 steps with ZeRO-1 through the entry point, launches counted
+    cfg = full.replace(n_layers=DP_LAYERS, use_kernels=True, zero1=True)
+    log = EventLog()
+    native.reset_launches()
+    res = LMTrainJob(cfg, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, n_steps=DP_STEPS, mesh=mesh,
+                     log=log, device="cuda").run()
+    torch.cuda.synchronize()
+    out["launches"] = dict(native.LAUNCHES)
+    out["history"], out["train_s"] = res["history"], log.totals()["tfjob:train"]
+    first = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ)).items()}
+    rows = {k: msh.local_slice(v, bspecs[k], mesh) for k, v in first.items()}
+    out["first_again"] = float(steps.dp_grads(res["params"], rows, cfg=cfg)[0])
+    differ = []
+    for n, t in _named(res["params"]):
+        first = t.clone()
+        dist.broadcast(first, src=0)
+        if not torch.equal(first, t):
+            differ.append(n)
+    out["replica_differ"] = differ
+    sizes = [t.numel() * 4 for t in _leaves(res["params"])]
+    out["whole_moment_bytes"], out["largest_leaf_bytes"] = 2 * sum(sizes), 2 * max(sizes)
+    out["moment_bytes"] = sum(t.numel() * t.element_size() for key in ("mu", "nu")
+                              for t in _leaves(res["opt_state"][key]))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
 
 
 def _cache_read_bytes(cfg, batch: int, cache_len: int, pos: int) -> int:

@@ -88,6 +88,10 @@ class ArtifactStore:
     def _path(self, name: str) -> str:
         return os.path.join(self.root, name)
 
+    def tree_uri(self, name: str) -> str:
+        """The URI ``save_tree(name, ...)`` writes to and returns."""
+        return f"file://{self._path(f'{name}.npz')}"
+
     # -- trees (params, optimizer states) ------------------------------------
     def save_tree(self, name: str, tree: Any, meta: Optional[dict] = None) -> str:
         flat = _flatten(tree)
@@ -98,7 +102,7 @@ class ArtifactStore:
                   "leaves": len(flat)}
         with open(self._path(f"{name}.json"), "w") as f:
             json.dump(record, f)
-        return f"file://{path}"
+        return self.tree_uri(name)
 
     def load_tree(self, name: str, like: Any) -> Any:
         """Restore into the structure of ``like``: each leaf takes the dtype

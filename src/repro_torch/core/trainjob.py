@@ -5,12 +5,18 @@ Two flavours, as in the reference:
     on ``device``: an eager step of ``lenet.loss_fn``,
     ``torch.autograd.grad`` and ``adamw_update``;
   * ``LMTrainJob`` trains any ported LM arch on the synthetic token
-    pipeline (``data.tokens.lm_batches``): fp32 master parameters,
-    ``steps.train_step`` (autograd through the kernels' backward where
-    ``cfg.use_kernels`` is set, AdamW in place) under the reference's
-    warmup-cosine schedule, and resume from a checkpoint with its
-    optimizer state.  One card: a ``mesh`` raises (ROADMAP.md queue 1
-    item 1.10).
+    pipeline (``data.tokens.lm_batches``, every field of its batches):
+    fp32 master parameters, ``steps.train_step`` (autograd through the
+    kernels' backward where ``cfg.use_kernels`` is set, AdamW in place)
+    under the reference's warmup-cosine schedule, and resume from a
+    checkpoint with its optimizer state.  With a ``mesh``
+    (``launch.mesh``) it trains data-parallel over the ranks of the
+    process group: rank 0's parameters broadcast to every rank, each rank
+    on its rows of every global batch (``launch.shardings``), under
+    ``cfg.sharding_profile`` and, with ``cfg.zero1``, AdamW's moments split
+    over the data axis (``steps.dp_train_step``).  A mesh that would
+    shard a parameter (the ``tp`` profile on a model axis larger than 1)
+    raises: tensor parallelism is ROADMAP.md queue 1 item 1.13.
 Both log through the EventLog, checkpoint into the ArtifactStore (PVC
 analog), and time their stages for the Tables 4/5 repro.
 """
@@ -21,11 +27,13 @@ import time
 from typing import Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..checkpoint.store import ArtifactStore
 from ..configs.base import ArchConfig
 from ..data import tokens as token_data
-from ..models import lenet, lm, steps
+from ..launch import shardings
+from ..models import lenet, lm, sharding as msh, steps
 from ..models.modules import require_device
 from ..optim import adamw
 from ..optim.schedules import warmup_cosine
@@ -95,8 +103,9 @@ class SupervisedTrainJob:
 
 
 class LMTrainJob:
-    """LM training on one card: the reference's signature (``mesh`` must be
-    None here), plus the device it runs on."""
+    """LM training: the reference's signature, plus the device it runs on.
+    ``mesh``: a ``launch.mesh.Mesh`` over the process group's ranks, this
+    process one of them; ``device`` is then this rank's card."""
 
     def __init__(self, cfg: ArchConfig, *, batch_size: int, seq_len: int,
                  n_steps: int, lr: float = 3e-4, seed: int = 0,
@@ -118,41 +127,124 @@ class LMTrainJob:
             resume_from: Optional[str] = None) -> dict:
         """resume_from: checkpoint name in the store -- restores params AND
         optimizer state, continuing the step counter (preemption recovery,
-        the Kubernetes-rescheduling analog)."""
-        if self.mesh is not None:
-            raise NotImplementedError("LMTrainJob on a device mesh is not ported yet: "
-                                      "ROADMAP.md queue 1 item 1.10 (sharding)")
-        cfg = self.cfg
+        the Kubernetes-rescheduling analog).  Under a mesh every rank loads
+        the whole tree and keeps its moment blocks, and rank 0 saves the
+        whole tree (the moments gathered) while the others wait: a
+        checkpoint loads at any world size.  Returns the loss history, the
+        parameters and ``opt_state`` (under ZeRO-1, this rank's blocks)."""
+        cfg, mesh = self.cfg, self.mesh
+        if mesh is not None:
+            _refuse_sharded_params(cfg, mesh)
         dev = require_device(self.device)
         opt_cfg = adamw.AdamWConfig(lr=self.lr)
         schedule = functools.partial(warmup_cosine, warmup=max(self.n_steps // 10, 1),
                                      total=self.n_steps)
-        with self.log.stage("tfjob:init"):
-            params = lm.init_params(cfg, seed=self.seed, device=dev,
-                                    dtype=getattr(torch, cfg.param_dtype))
-            opt = adamw.init_opt_state(params)
-            if resume_from and self.store:
-                params = self.store.load_tree(resume_from, params)
-                if self.store.exists(f"{resume_from}_opt"):
-                    opt = self.store.load_tree(f"{resume_from}_opt", opt)
-        data = token_data.lm_batches(cfg, self.batch_size, self.seq_len, seed=self.seed)
-        history = []
-        with self.log.stage("tfjob:train"):
-            for i, batch in enumerate(data):
-                if i >= self.n_steps:
-                    break
-                batch = {k: torch.as_tensor(batch[k], device=dev) for k in ("tokens", "labels")}
-                params, opt, metrics = steps.train_step(params, opt, batch, cfg=cfg,
-                                                        opt_cfg=opt_cfg, lr_scale=schedule(i))
-                loss = float(metrics["loss"])
-                history.append(loss)
-                if report:
-                    report(i + 1, loss)
-        out = {"loss": history[-1] if history else float("nan"), "history": history}
-        if self.store and checkpoint_name:
-            with self.log.stage("tfjob:checkpoint"):
-                out["checkpoint"] = self.store.save_tree(checkpoint_name, params,
-                                                         meta={"loss": out["loss"]})
-                self.store.save_tree(f"{checkpoint_name}_opt", opt)
+        with msh.use_profile(cfg.sharding_profile), msh.use_mesh(mesh):
+            with self.log.stage("tfjob:init"):
+                params, opt, specs = self._init(dev, resume_from)
+            data = token_data.lm_batches(cfg, self.batch_size, self.seq_len, seed=self.seed)
+            history = []
+            with self.log.stage("tfjob:train"):
+                for i, batch in enumerate(data):
+                    if i >= self.n_steps:
+                        break
+                    batch = self._rows(batch, dev)
+                    if mesh is None:
+                        params, opt, metrics = steps.train_step(
+                            params, opt, batch, cfg=cfg, opt_cfg=opt_cfg, lr_scale=schedule(i))
+                    else:
+                        params, opt, metrics = steps.dp_train_step(
+                            params, opt, batch, cfg=cfg, specs=specs, mesh=mesh,
+                            opt_cfg=opt_cfg, lr_scale=schedule(i))
+                    loss = float(metrics["loss"])
+                    history.append(loss)
+                    if report:
+                        report(i + 1, loss)
+            out = {"loss": history[-1] if history else float("nan"), "history": history}
+            if self.store and checkpoint_name:
+                with self.log.stage("tfjob:checkpoint"):
+                    out["checkpoint"] = self._save(checkpoint_name, params, opt, specs,
+                                                   {"loss": out["loss"]})
         out["params"] = params
+        out["opt_state"] = opt
         return out
+
+    def _init(self, dev: torch.device, resume_from: Optional[str]):
+        """(params, opt, the moments' specs under the mesh, else None)."""
+        cfg, mesh, store = self.cfg, self.mesh, self.store
+        dtype = getattr(torch, cfg.param_dtype)
+        if mesh is None:
+            params = lm.init_params(cfg, seed=self.seed, device=dev, dtype=dtype)
+            opt = adamw.init_opt_state(params)
+            if resume_from and store:
+                params = store.load_tree(resume_from, params)
+                if store.exists(f"{resume_from}_opt"):
+                    opt = store.load_tree(f"{resume_from}_opt", opt)
+            return params, opt, None
+        # rank 0 draws the parameters, every other rank receives them
+        first = dist.get_rank() == 0
+        params = lm.init_params(cfg, seed=self.seed, device=dev if first else "meta",
+                                dtype=dtype)
+        if not first:
+            params = adamw.tree_map(lambda t: torch.empty_like(t, device=dev), params)
+        for t in adamw.tree_leaves(params):
+            dist.broadcast(t, src=0)
+        specs = shardings.opt_shardings(None, params, mesh, zero1=cfg.zero1)["mu"]
+        opt = steps.dp_opt_state(params, specs, mesh)
+        if resume_from and store:
+            params = store.load_tree(resume_from, params)
+            if store.exists(f"{resume_from}_opt"):
+                host = adamw.tree_map(lambda p: torch.empty(0), params)    # dtype and device
+                whole = store.load_tree(f"{resume_from}_opt", {
+                    "mu": host, "nu": host, "step": torch.empty(0, dtype=torch.int32)})
+                for key in ("mu", "nu"):
+                    adamw.tree_map(lambda b, w, s: b.copy_(msh.local_slice(w, s, mesh)),
+                                   opt[key], whole[key], specs)
+                opt["step"] = whole["step"].to(dev)
+        return params, opt, specs
+
+    def _rows(self, batch: dict, dev: torch.device) -> dict:
+        """A global batch of ``lm_batches`` -> this rank's rows of every
+        field on ``dev`` (``launch.shardings.batch_shardings``)."""
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
+        if self.mesh is not None:
+            specs = shardings.batch_shardings(batch, self.mesh)
+            batch = {k: msh.local_slice(v, specs[k], self.mesh) for k, v in batch.items()}
+        return {k: v.to(dev) for k, v in batch.items()}
+
+    def _save(self, name: str, params: dict, opt: dict, specs, meta: dict) -> str:
+        """The whole tree under the reference's names (``name``,
+        ``f"{name}_opt"``); under a mesh the moments are gathered (each leaf
+        to the host in turn), rank 0 writes and the other ranks wait."""
+        if self.mesh is None:
+            uri = self.store.save_tree(name, params, meta=meta)
+            self.store.save_tree(f"{name}_opt", opt)
+            return uri
+        whole = {key: adamw.tree_map(
+            lambda b, s: msh.gather_leaf(b, s, self.mesh).cpu(), opt[key], specs)
+            for key in ("mu", "nu")}
+        whole["step"] = opt["step"]
+        if dist.get_rank() == 0:
+            self.store.save_tree(name, params, meta=meta)
+            self.store.save_tree(f"{name}_opt", whole)
+        dist.barrier()
+        return self.store.tree_uri(name)
+
+
+def _refuse_sharded_params(cfg: ArchConfig, mesh) -> None:
+    """Data parallelism only: every parameter whole on every rank.  A mesh
+    and profile whose rules split a parameter raise, before any work."""
+    meta = lm.init_params(cfg, device="meta", dtype=getattr(torch, cfg.param_dtype))
+    with msh.use_profile(cfg.sharding_profile):
+        specs = msh.param_shardings(meta, mesh)
+    flat: list = []
+    msh.map_with_path(lambda path, spec: flat.append(("/".join(path), spec)), specs)
+    split = [(path, spec) for path, spec in flat if any(msh.axis_size(mesh, e) > 1 for e in spec)]
+    if split:
+        path, spec = split[0]
+        raise NotImplementedError(
+            f"LMTrainJob: the {cfg.sharding_profile!r} profile on mesh {dict(mesh.shape)} "
+            f"shards {len(split)} parameter leaves (first {path} as {spec}); tensor "
+            "parallelism is ROADMAP.md queue 1 item 1.13. Train data-parallel: a model axis "
+            "of 1, or sharding_profile='dp'")
+

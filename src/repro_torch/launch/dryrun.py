@@ -14,8 +14,8 @@ path, and the counts become the roofline terms over ``H100_SXM``.
 whole (Sq, Skv) score matrix at a time; it does the same products, and its
 eager chunks write every score once, so the counts barely move.  The
 reference lowers and compiles the same steps with XLA and reads its cost
-analysis instead; its production meshes have no counterpart on one card,
-so ``mesh_kind="multi"`` raises.  Records go to
+analysis instead; its production meshes have no counterpart here yet, so
+``mesh_kind="multi"`` raises (ROADMAP.md queue 1 item 1.14).  Records go to
 ``experiments/torch_dryrun/<arch>_<shape>_<mesh>.json``;
 ``launch/report.py`` renders them.
 
@@ -132,8 +132,8 @@ def run_one(arch: str, shape_name: str, mesh_kind: str = "single", *, fused_attn
     ``smoke``: the arch's reduced config (the CPU tests' size)."""
     if mesh_kind != "single":
         raise NotImplementedError(f"dry-run mesh {mesh_kind!r}: the port counts one card; "
-                                  "multi-card meshes wait for ROADMAP.md queue 1 item 1.10 "
-                                  "(sharding)")
+                                  "per-card counts on a production mesh are ROADMAP.md queue 1 "
+                                  "item 1.14")
     cfg = registry.get_smoke_config(arch) if smoke else registry.get_config(arch)
     shape = registry.INPUT_SHAPES[shape_name]
     rec = {"arch": arch, "shape": shape_name, "mesh": mesh_kind}

@@ -1,0 +1,336 @@
+"""Sharding rules: logical axes of parameters and activations onto a mesh,
+counterpart of ``repro.models.sharding``.
+
+A mesh is read through two attributes, ``shape`` (axis name -> size) and
+``axis_names``: an :class:`AbstractMesh` here (the production meshes, which
+start no process), or ``launch.mesh.Mesh`` over the ranks of a
+``torch.distributed`` group.  The production mesh has axes ("data",
+"model"), or ("pod", "data", "model") across pods (``launch/mesh.py``).
+
+A spec is a :class:`P`, the port's ``PartitionSpec``: one entry per leading
+dim of a leaf, each ``None`` (replicated), a mesh-axis name, or a tuple of
+axis names (the dim split over their product, the first the major one).
+Parameter sharding is rule-based: a leaf's key (``wq``, ``w_down``,
+``experts_up`` ...) maps through ``SHARDING_RULES`` to a spec *tail* over
+its trailing dims, the leading layer-stack dims replicated.  ``fit_pspec``
+makes a spec legal for a shape: an entry that does not divide its dim is
+moved to the largest divisible dim or dropped.
+
+``local_slice`` maps a leaf and its fitted spec to this rank's block (a
+view, by ``narrow``, of the leaf's own rank; the mesh's ``coordinate``
+places the rank), and ``gather_leaf`` rebuilds the whole leaf from every
+rank's block: the data-parallel step shards its batch and its ZeRO-1
+moments through them.
+
+``constrain`` (the reference's ``with_sharding_constraint``) has no twin
+yet: under data parallelism a rank's tensor already is its own batch shard
+(tensor parallelism, ROADMAP.md queue 1 item 1.13).
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Any, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+
+class P(tuple):
+    """PartitionSpec: ``P(None, "model")`` is the tuple ``(None, "model")``."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's axes and sizes, with no devices behind them."""
+    axis_sizes: tuple
+    axis_names: tuple
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+
+def abstract_mesh(shape: Sequence[int], names: Sequence[str]) -> AbstractMesh:
+    """The reference's constructor shim, for rule resolution without devices."""
+    return AbstractMesh(tuple(shape), tuple(names))
+
+
+_state = threading.local()
+
+# Logical axis -> mesh axis (or tuple of mesh axes).  "batch" spans the pod
+# axis too when present so the global batch shards over every data-parallel
+# rank.
+LOGICAL_AXES = {
+    "batch": ("pod", "data"),
+    "model": ("model",),
+    "expert": ("model",),   # expert-parallel rides the model axis
+    None: None,
+}
+
+# "dp" profile: the model axis carries batch instead -- params replicated,
+# no per-layer activation collectives.
+DP_AXES = {
+    "batch": ("pod", "data", "model"),
+    "model": None,
+    "expert": None,
+    None: None,
+}
+
+
+def current_profile() -> str:
+    return getattr(_state, "profile", "tp")
+
+
+@contextlib.contextmanager
+def use_profile(profile: str):
+    prev = current_profile()
+    _state.profile = profile
+    try:
+        yield
+    finally:
+        _state.profile = prev
+
+
+def axis_table() -> dict:
+    return DP_AXES if current_profile() == "dp" else LOGICAL_AXES
+
+
+def current_mesh():
+    return getattr(_state, "mesh", None)
+
+
+@contextlib.contextmanager
+def use_mesh(mesh):
+    """Activate ``mesh`` for the rules.  None deactivates."""
+    prev = current_mesh()
+    _state.mesh = mesh
+    try:
+        yield mesh
+    finally:
+        _state.mesh = prev
+
+
+def _resolve(spec: Sequence[Any], mesh) -> P:
+    """Map logical axis names to mesh axes present on ``mesh``."""
+    table = axis_table()
+    out = []
+    for ax in spec:
+        mesh_axes = table.get(ax, (ax,) if ax else None)
+        if mesh_axes is None:
+            out.append(None)
+            continue
+        present = tuple(a for a in mesh_axes if a in mesh.axis_names)
+        out.append(present if len(present) > 1 else (present[0] if present else None))
+    return P(*out)
+
+
+def axis_size(mesh, entry) -> int:
+    if entry is None:
+        return 1
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+    return n
+
+
+def fit_pspec(shape: tuple, spec: Sequence[Any], mesh, *, relocate: bool = True,
+              min_relocate_bytes: int = 0) -> P:
+    """Make a spec legal for ``shape``: every sharded dim must divide
+    exactly, so non-dividing assignments are moved to the largest divisible
+    unassigned dim (relocate=True) or dropped.
+
+    min_relocate_bytes: skip relocation for small tensors (counted at 4
+    bytes an element) -- replicating a small projection is free, while
+    relocating it to its *input* dim turns every consumer matmul into a
+    partial sum and an all-reduce."""
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    entries = entries[:len(shape)]
+    # dedup: a mesh axis may appear once; keep the first (leftmost) use so
+    # specs can express fallbacks like ("expert", ..., "model") where both
+    # resolve to the model axis and only one survives
+    used: set = set()
+    for i, e in enumerate(entries):
+        if e is None:
+            continue
+        axes = e if isinstance(e, tuple) else (e,)
+        if any(a in used for a in axes):
+            entries[i] = None
+            continue
+        if shape[i] % axis_size(mesh, e) == 0:
+            used.update(axes)
+    homeless = []
+    for i, e in enumerate(entries):
+        if e is not None and shape[i] % axis_size(mesh, e) != 0:
+            homeless.append(e)
+            entries[i] = None
+    if relocate and min_relocate_bytes:
+        elems = 1
+        for d in shape:
+            elems *= d
+        if elems * 4 < min_relocate_bytes:
+            relocate = False
+    if relocate:
+        placed: set = set()
+        for cur in entries:
+            if cur is not None:
+                placed.update(cur if isinstance(cur, tuple) else (cur,))
+        for e in homeless:
+            axes = e if isinstance(e, tuple) else (e,)
+            if any(a in placed for a in axes):
+                continue            # fallback entry already claimed this axis
+            cand = [i for i, (d, cur) in enumerate(zip(shape, entries))
+                    if cur is None and d % axis_size(mesh, e) == 0
+                    and d >= axis_size(mesh, e)]
+            if cand:
+                best = max(cand, key=lambda i: shape[i])
+                entries[best] = e
+                placed.update(axes)
+    return P(*entries)
+
+
+def map_with_path(fn, tree: Any, path: tuple = ()) -> Any:
+    """``fn(path, leaf)`` over a nested dict, ``path`` the tuple of keys."""
+    if isinstance(tree, dict):
+        return {k: map_with_path(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+# ---------------------------------------------------------------------------
+# Parameter sharding rules.  Key -> spec tail over the *trailing* dims of the
+# leaf (leading layer-stack dims padded with None).
+# ---------------------------------------------------------------------------
+SHARDING_RULES: dict[str, Optional[tuple]] = {
+    # embeddings / output head: vocab over model
+    "embed": ("model", None),
+    "lm_head": (None, "model"),
+    # attention: heads over model
+    "wq": (None, "model", None),          # (D, Hq, hd)
+    "wk": (None, "model", None),          # (D, Hkv, hd)
+    "wv": (None, "model", None),
+    "wo": ("model", None, None),          # (Hq, hd, D)
+    # MLA (deepseek): low-rank kv path; shard the decompression over heads
+    "w_dq": (None, None),                 # (D, q_lora) -- small, replicated
+    "w_uq": (None, "model", None),        # (q_lora|D, Hq, qk_head)
+    "w_dkv": (None, None),                # (D, kv_lora + rope) replicated (small)
+    "w_uk": (None, "model", None),        # (kv_lora, Hq, qk_nope)
+    "w_uv": (None, "model", None),        # (kv_lora, Hq, v_head)
+    "w_qr": (None, "model", None),        # rope-part q proj
+    # MLP
+    "w_gate": (None, "model"),            # (D, F)
+    "w_up": (None, "model"),
+    "w_down": ("model", None),            # (F, D)
+    # MoE: experts over model axis (expert-parallel)
+    "router": (None, None),               # (D, E) small, replicated
+    "experts_gate": ("expert", None, None),   # (E, D, F)
+    "experts_up": ("expert", None, None),
+    "experts_down": ("expert", None, None),   # (E, F, D)
+    "shared_gate": (None, "model"),
+    "shared_up": (None, "model"),
+    "shared_down": ("model", None),
+    # SSM / xLSTM: inner dim over model
+    "in_proj": (None, "model"),           # (D, inner)
+    "out_proj": ("model", None),          # (inner, D)
+    "conv_w": (None, "model"),            # (k, inner)
+    "conv_b": ("model",),
+    "xbc_proj": (None, "model"),
+    "dt_proj": (None, "model"),
+    "A_log": ("model",),
+    "D_skip": ("model",),
+    "gate_proj": (None, "model"),
+    "ssm_norm": ("model",),
+    # sLSTM / mLSTM gates
+    "w_i": (None, "model"), "w_f": (None, "model"), "w_o": (None, "model"),
+    "w_z": (None, "model"), "w_qx": (None, "model"), "w_kx": (None, "model"),
+    "w_vx": (None, "model"),
+    "r_i": (None, None), "r_f": (None, None), "r_o": (None, None), "r_z": (None, None),
+    # norms / scalars: replicated
+    "scale": (None,), "bias": (None,), "b_i": (None,), "b_f": (None,),
+    "b_o": (None,), "b_z": (None,), "alpha": (None,),
+    # conv stubs / lenet
+    "w": None, "b": None,
+}
+
+
+def leaf_spec(path: tuple, leaf: Any) -> tuple:
+    """Spec entries for one param leaf, from the last string key of its
+    path (the port's key paths are the reference's: ``models/transplant``)."""
+    key = next((p for p in reversed(path) if isinstance(p, str)), None)
+    rule = SHARDING_RULES.get(key)
+    ndim = len(leaf.shape)
+    if rule is None:
+        return (None,) * ndim
+    if len(rule) > ndim:            # e.g. scalar stored where rule expects vector
+        return (None,) * ndim
+    return (None,) * (ndim - len(rule)) + tuple(rule)
+
+
+def param_pspecs(params: Any) -> Any:
+    """Tree of specs (logical names) mirroring ``params``."""
+    return map_with_path(lambda path, leaf: P(*leaf_spec(path, leaf)), params)
+
+
+def param_shardings(params: Any, mesh, *, min_relocate_bytes: int = 0) -> Any:
+    """Tree of fitted specs for ``params`` on ``mesh`` (logical axes
+    resolved, fitted to divisibility with relocation to the largest
+    divisible dim; tensors under min_relocate_bytes replicate instead of
+    relocating)."""
+    return map_with_path(
+        lambda path, leaf: fit_pspec(tuple(leaf.shape), _resolve(leaf_spec(path, leaf), mesh),
+                                     mesh, min_relocate_bytes=min_relocate_bytes),
+        params)
+
+
+# ---------------------------------------------------------------------------
+# A rank's block of a leaf under a fitted spec, and the whole leaf back.
+# ---------------------------------------------------------------------------
+def splits(spec: P, mesh) -> list:
+    """(dim, axes, ways, this rank's index) of every dim ``spec`` splits
+    more than one way; the index runs over the entry's axes, the first the
+    major one (JAX's layout of a tuple of axes)."""
+    out = []
+    for dim, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        ways, idx = 1, 0
+        for a in axes:
+            ways, idx = ways * mesh.shape[a], idx * mesh.shape[a] + mesh.coordinate[a]
+        if ways > 1:
+            out.append((dim, axes, ways, idx))
+    return out
+
+
+def local_slice(leaf: torch.Tensor, spec: P, mesh) -> torch.Tensor:
+    """This rank's block of ``leaf`` under ``spec``: a view of the same rank
+    (``narrow`` on every split dim, so a 2-D weight stays 2-D).  A spec
+    that splits nothing returns ``leaf`` itself."""
+    for dim, _, ways, idx in splits(spec, mesh):
+        n = leaf.shape[dim] // ways
+        leaf = leaf.narrow(dim, idx * n, n)
+    return leaf
+
+
+def gather_leaf(local: torch.Tensor, spec: P, mesh, out: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """The whole leaf from every rank's ``local_slice`` (``all_gather``
+    over the group of each split axis), written into ``out`` when given.
+    Each split dim must be split over one mesh axis (ZeRO-1's "data")."""
+    for dim, axes, ways, _ in reversed(splits(spec, mesh)):
+        if len(axes) != 1:
+            raise NotImplementedError(f"gathering a dim split over {axes}: one axis a dim")
+        parts = [torch.empty_like(local, memory_format=torch.contiguous_format)
+                 for _ in range(ways)]
+        dist.all_gather(parts, local.contiguous(), group=mesh.group(axes[0]))
+        local = torch.cat(parts, dim)
+    if out is None:
+        return local
+    return out.copy_(local)

@@ -70,10 +70,14 @@ def adamw_update(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
 
 @torch.no_grad()
 def adamw_update_(params: Any, grads: Any, state: dict, cfg: AdamWConfig,
-                  lr_scale: torch.Tensor | float = 1.0) -> dict:
+                  lr_scale: torch.Tensor | float = 1.0,
+                  gnorm: torch.Tensor | None = None) -> dict:
     """One AdamW step in place: the parameters, ``mu`` and ``nu`` are
-    overwritten and ``state["step"]`` replaced.  Returns the metrics."""
-    gnorm = global_norm(grads)
+    overwritten and ``state["step"]`` replaced.  Returns the metrics.
+    ``gnorm``: the norm the clip factor is taken from, where ``grads`` is a
+    part of the gradient (a ZeRO-1 rank's blocks); by default theirs."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state["step"] + 1
     stepf = step.float()

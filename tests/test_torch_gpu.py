@@ -970,3 +970,110 @@ def test_the_card_has_a_hardware_spec_on_gpu(cuda):
     memory = torch.cuda.get_device_properties(0).total_memory
     assert abs(hw.hbm_bytes - memory) <= 0.08 * memory
     assert hw.peak_flops_bf16 > hw.peak_flops_fp32 > 0 and hw.hbm_bw > 0
+
+
+def _dp_rank_on_card(rank, batch):
+    """One data-parallel step of granite's fp32 smoke config on the kernel
+    path, this rank's rows of ``batch``, over a gloo group on ``cuda:0``:
+    the global loss and gradients, the launches, and the update twice from
+    the same gradients, plain and ZeRO-1, compared bit for bit."""
+    from repro_torch.configs import registry
+    from repro_torch.launch import shardings
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import lm, steps
+    from repro_torch.models import sharding as msh
+    from repro_torch.optim import adamw
+    mesh = make_local_mesh("cuda")
+    cfg = registry.get_smoke_config("granite_3_8b").replace(use_kernels=True)
+    params = lm.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    whole = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    specs = shardings.batch_shardings(whole, mesh)
+    rows = {k: msh.local_slice(v, specs[k], mesh) for k, v in whole.items()}
+    native.reset_launches()
+    loss, _, grads = steps.dp_grads(params, rows, cfg=cfg)
+    torch.cuda.synchronize()
+    launches = {k for k, n in native.LAUNCHES.items() if n}
+    runs = {}
+    for zero1 in (False, True):
+        p = adamw.tree_map(torch.clone, params)
+        mu_specs = shardings.opt_shardings(None, p, mesh, zero1=zero1)["mu"]
+        opt = steps.dp_opt_state(p, mu_specs, mesh)
+        steps.dp_update_(p, grads, opt, specs=mu_specs, mesh=mesh)
+        runs[zero1] = {"params": p, **{k: adamw.tree_map(
+            lambda b, s: msh.gather_leaf(b, s, mesh), opt[k], mu_specs)
+            for k in ("mu", "nu")}}
+        if zero1:
+            split = sum(bool(msh.splits(s, mesh)) for s in adamw.tree_leaves(mu_specs))
+    differ = [i for i, (a, b) in enumerate(zip(*(adamw.tree_leaves(runs[z]) for z in runs)))
+              if not torch.equal(a, b)]
+    return {"loss": float(loss), "grads": [g.cpu() for g in adamw.tree_leaves(grads)],
+            "launches": launches, "differ": differ, "split": split}
+
+
+@pytest.fixture(scope="module")
+def dp_on_card(tmp_path_factory):
+    """Two gloo ranks sharing the card, each on 2 of 4 rows, against the
+    one-process step on the same masters and batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA / Triton kernels run only on the card")
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import lm_batches
+    from _ranks import spawn_ranks
+    from repro_torch.models import lm, steps
+    from repro_torch.optim import adamw
+    cfg = registry.get_smoke_config("granite_3_8b").replace(use_kernels=True)
+    batch = next(lm_batches(cfg, 4, 64, seed=1))
+    batch["labels"][:2, 10:] = -1                  # the ranks' masks differ
+    ranks = spawn_ranks(_dp_rank_on_card, 2, batch, out_dir=tmp_path_factory.mktemp("dp"),
+                        timeout_s=300)
+    params = lm.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    leaves = adamw.tree_map(lambda p: p.requires_grad_(), params)
+    loss, _ = steps.loss_fn(leaves, cfg, {k: torch.as_tensor(v, device="cuda")
+                                          for k, v in batch.items()})
+    grads = torch.autograd.grad(loss, adamw.tree_leaves(leaves))
+    return ranks, float(loss.detach()), [g.cpu() for g in grads]
+
+
+@pytest.mark.gpu
+def test_data_parallel_step_on_two_ranks_matches_one_process_on_gpu(cuda, dp_on_card):
+    """chip_smoke.py's gate (a) at a small width: the loss within 1e-5, every
+    all-reduced gradient leaf within 1e-4 (max |diff| / max |one| per
+    leaf), through the four training kernels."""
+    ranks, loss, grads = dp_on_card
+    for r in ranks:
+        assert abs(r["loss"] - loss) <= 1e-5 * abs(loss)
+        assert len(r["grads"]) == len(grads)
+        assert max(_rel(a, b) for a, b in zip(r["grads"], grads)) <= 1e-4
+        assert r["launches"] == {"rmsnorm", "rmsnorm_bwd", "flash_attention",
+                                 "flash_attention_bwd"}
+
+
+@pytest.mark.gpu
+def test_zero1_update_is_bitwise_plain_data_parallelism_on_gpu(cuda, dp_on_card):
+    """chip_smoke.py's gate (b): from the same all-reduced gradients, the
+    parameters and the gathered moments with ZeRO-1 equal plain DP's bit
+    for bit, and ZeRO-1 split moments."""
+    for r in dp_on_card[0]:
+        assert r["split"] > 0 and r["differ"] == []
+
+
+@pytest.mark.gpu
+def test_launcher_mesh_local_defaults_to_a_one_rank_nccl_group_on_gpu(cuda, tmp_path,
+                                                                      monkeypatch):
+    """``launch.train --mesh local`` run plainly on the card, with no
+    ``--dist-backend``: a one-rank nccl group on ``cuda:0``, whose losses are
+    the one-process launcher's (the first bit for bit: one rank's sums are
+    its own; the last within the trajectory tolerance, 1e-3)."""
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    backends = []
+    join = dist.init_process_group
+    monkeypatch.setattr(dist, "init_process_group",
+                        lambda backend, **kw: (backends.append(backend), join(backend, **kw)))
+    args = ["--arch", "granite_3_8b", "--smoke", "--steps", "3"]
+    dp = train.main(args + ["--mesh", "local", "--store", str(tmp_path / "dp")])
+    assert backends == ["nccl"] and not dist.is_initialized()
+    one = train.main(args + ["--store", str(tmp_path / "one")])
+    assert dp["history"][0] == one["history"][0]
+    assert abs(dp["loss"] - one["loss"]) <= 1e-3 * abs(one["loss"])
+    assert dp["params"]["embed"].device == torch.device("cuda", 0)

@@ -19,6 +19,7 @@ from repro_torch.examples import (continuous_batching, e2e_mnist_pipeline,  # no
                                   serve_llm, slo_failover, train_llm)
 from repro_torch.launch import dryrun, serve, train  # noqa: E402
 from repro_torch.models import blocks, lenet, lm  # noqa: E402
+from repro_torch.models.sharding import abstract_mesh  # noqa: E402
 from repro_torch.modelci.profile import roofline_fields  # noqa: E402
 from repro_torch.models.transplant import transplant, transplant_lenet  # noqa: E402
 from repro_torch.serving.continuous import ContinuousBatcher  # noqa: E402
@@ -123,17 +124,28 @@ def test_cuda_entry_points_raise_without_a_card(no_cuda, entry):
         entry(registry.get_smoke_config("granite_3_8b"))
 
 
+def _train_main_on_a_sharding_mesh(monkeypatch, tmp_path):
+    """``--mesh local`` with the local mesh swapped for one whose model axis
+    would shard the parameters: the launcher hands it to ``LMTrainJob``,
+    which refuses it (the launcher makes no such decision itself)."""
+    monkeypatch.setattr(train, "make_local_mesh",
+                        lambda device_type: abstract_mesh((1, 2), ("data", "model")))
+    train.main(["--arch", "granite_3_8b", "--smoke", "--device", "cpu", "--steps", "1",
+                "--mesh", "local", "--dist-backend", "gloo", "--store", str(tmp_path)])
+
+
 @pytest.mark.parametrize("entry,item", [
-    (lambda: dryrun.run_one("gemma3_4b", "decode_32k", "multi"), "1.10"),
-    (lambda: train.main(["--arch", "granite_3_8b", "--smoke", "--device", "cpu", "--steps",
-                         "1", "--mesh", "local"]), "1.10"),
-    (lambda: LMTrainJob(registry.get_smoke_config("granite_3_8b"), batch_size=1, seq_len=8,
-                        n_steps=1, mesh="local", device="cpu").run(), "1.10"),
+    (lambda monkeypatch, tmp_path: dryrun.run_one("gemma3_4b", "decode_32k", "multi"), "1.14"),
+    (_train_main_on_a_sharding_mesh, "1.13"),
+    (lambda monkeypatch, tmp_path: LMTrainJob(
+        registry.get_smoke_config("granite_3_8b"), batch_size=1, seq_len=8, n_steps=1,
+        mesh=abstract_mesh((1, 2), ("data", "model")), device="cpu").run(), "1.13"),
 ], ids=["dryrun_multi_mesh", "train_main_mesh", "lm_trainjob_mesh"])
-def test_unported_entry_points_name_their_roadmap_item(entry, item):
-    """What is left of 1.10 needs more than one card: the meshes."""
+def test_unported_entry_points_name_their_roadmap_item(entry, item, monkeypatch, tmp_path):
+    """What is left of the meshes: tensor parallelism (a mesh that shards
+    the parameters, 1.13) and the dry-run's production meshes (1.14)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 item {item}"):
-        entry()
+        entry(monkeypatch, tmp_path)
 
 
 def test_registry_names_the_roadmap_item_for_unported_archs():

@@ -2,8 +2,8 @@
 properties of tests/test_properties.py whose code the port holds (RoPE,
 ``softmax_xent``, attention's causality and sliding window, decode
 attention's ``cache_len``, ``tree_hash``, the Katib space round trip, MoE
-capacity and the sinusoid positions), and M-RoPE on equal streams being
-RoPE.  ``fit_pspec`` waits for its module (ROADMAP.md queue 1 item 1.10).
+capacity, the sinusoid positions and ``fit_pspec``'s divisibility), and
+M-RoPE on equal streams being RoPE.
 Inputs are drawn with
 numpy from seeds the strategies give; tolerances are the reference's.
 The reference's tensors and tree leaves are numpy here; torch tensors and
@@ -22,9 +22,28 @@ from repro_torch.configs import registry  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.attention import apply_mrope, apply_rope  # noqa: E402
+from repro_torch.models import sharding as msh  # noqa: E402
 from repro_torch.models.lm import sinusoid  # noqa: E402
 from repro_torch.models.steps import softmax_xent  # noqa: E402
 from repro_torch.tuning import katib  # noqa: E402
+
+
+MESH = msh.abstract_mesh((4, 2), ("data", "model"))
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.lists(st.integers(1, 97), min_size=1, max_size=4),
+       st.integers(0, 3))
+def test_fit_pspec_always_divisible(dims, which):
+    """Twin of tests/test_properties.py::test_fit_pspec_always_divisible:
+    fit_pspec's output is always a legal argument sharding."""
+    shape = tuple(dims)
+    spec_entries = [None] * len(shape)
+    spec_entries[min(which, len(shape) - 1)] = "model"
+    fitted = msh.fit_pspec(shape, msh.P(*spec_entries), MESH)
+    for dim, entry in zip(shape, tuple(fitted) + (None,) * len(shape)):
+        if entry is not None:
+            assert dim % msh.axis_size(MESH, entry) == 0
 
 
 def _normal(seed: int, *shape) -> torch.Tensor:

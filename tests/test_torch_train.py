@@ -454,6 +454,31 @@ def test_lm_trainjob_resume_continues_from_checkpoint(tmp_path):
 
 
 def test_lm_trainjob_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1.10"):
-        LMTrainJob(_smoke_t("granite_3_8b"), batch_size=1, seq_len=8, n_steps=1,
-                   mesh="local", device="cpu").run()
+    """Data parallelism only: a mesh whose rules would shard a parameter
+    (the tp profile on a model axis of 2) raises before any work, naming
+    tensor parallelism's item; the dp profile on that mesh shards none."""
+    from repro_torch.models.sharding import abstract_mesh
+    cfg = _smoke_t("granite_3_8b")
+    mesh = abstract_mesh((1, 2), ("data", "model"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1.13"):
+        LMTrainJob(cfg, batch_size=1, seq_len=8, n_steps=1, mesh=mesh, device="cpu").run()
+    assert trainjob._refuse_sharded_params(cfg.replace(sharding_profile="dp"), mesh) is None
+
+
+@pytest.mark.parametrize("arch", ["qwen2_vl_7b", "whisper_base"])
+def test_lm_trainjob_feeds_every_field_of_the_batch(arch, monkeypatch):
+    """``LMTrainJob`` passes every field ``lm_batches`` emits (M-RoPE
+    positions, vision rows, frames) to the step, as the reference's does:
+    it once passed tokens and labels alone, and both archs raised
+    ``KeyError`` (ROADMAP.md queue 3).  Three steps from the reference's
+    init, every loss within the trajectory tolerance."""
+    cfg_j = jreg.get_smoke_config(arch)
+    kw = dict(batch_size=B, seq_len=S, n_steps=3, lr=2e-3)
+    ref = JLMTrainJob(cfg_j, **kw).run()["history"]
+    init = _reference_params(cfg_j, 0)
+    monkeypatch.setattr(trainjob.lm, "init_params",
+                        lambda cfg, seed, device, dtype: transplant(init, device=device,
+                                                                   dtype=dtype))
+    got = LMTrainJob(registry.get_smoke_config(arch), **kw, device="cpu").run()["history"]
+    assert len(got) == 3
+    assert max(abs(a - b) / abs(b) for a, b in zip(got, ref)) <= TRAJ_REL
