@@ -129,6 +129,22 @@ Run from the root of a checkout.  It imports only the port
    Each rank's peak memory, steps/s, tokens/s and one gradient
    all-reduce's time are reported: host-staged gloo on one card measures
    correctness, not scaling;
+6b. trains granite-3-8b tensor-parallel (``_tp_train_leg``): TP_RANKS
+   ranks share the card through a gloo group on a (1, TP_RANKS) mesh over
+   ("data", "model"), full width cut to TP_LAYERS layers, each rank on the
+   whole global batch and its shard of every parameter under the ``tp``
+   rules (heads, d_ff over the model axis; granite's odd vocabulary puts
+   the embedding and the head on D).  Gated: (a) one fp32 step on the
+   kernel path, the gradients gathered whole, against one process on rank
+   0 (the loss and every leaf at DP_LIMITS); (b) TP_STEPS bf16 steps of
+   ``LMTrainJob(mesh=...)``: the training leg's launch set, every flash
+   call at the local heads (16 query over 4 kv heads), every whole leaf
+   bit for bit on both ranks, finite losses, and the first batch's loss
+   taken again with the trained parameters below its loss at the init.
+   The fitted specs of ``embed`` and ``lm_head``, each rank's parameter
+   and moment bytes against the whole, its peak memory and one activation
+   all-reduce's time are reported; phase 2 holds the flash kernel forward
+   and backward at the local shape;
 7. holds every phase it timed against the card's roofline
    (``_roofline_phase``): each arch's prefill and decode step at batch 4
    (qwen2-vl prompt 384), gemma3's 1 x 2048 long leg, xlstm's scoring
@@ -234,6 +250,12 @@ TRAIN_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_bwd", "flash_attention_b
 # init.  An H100 read 0 and 6.4e-6 in gate (a)
 DP_PATH, DP_RANKS, DP_LAYERS, DP_STEPS = "granite-3-8b data-parallel training", 2, 2, 5
 DP_LIMITS = {"fp32_loss": 1e-5, "fp32_grad_leaf": 1e-4}
+# granite-3-8b tensor-parallel training (``_tp_train_leg``): TP_RANKS gloo
+# ranks sharing the one card on a (1, TP_RANKS) mesh, full width, TP_LAYERS
+# layers, the training leg's global batch on every rank.  Gate (a) holds one
+# fp32 step at DP_LIMITS; gate (b) runs TP_STEPS bf16 steps of
+# ``LMTrainJob(mesh=...)``
+TP_PATH, TP_RANKS, TP_LAYERS, TP_STEPS = "granite-3-8b tensor-parallel training", 2, 2, 5
 # (label, arch, run, the kernels that run must launch (no other may launch),
 # limits on the logits' rel error of kernel path vs plain path in bf16 and
 # with the weights in fp32; None reports without gating).  The fp32 limits
@@ -896,6 +918,13 @@ def main() -> int:
             "flash_attention_bwd": (_flash_bwd_case(TRAIN_BATCH, TRAIN_SEQ, g.n_heads,
                                                     g.n_kv_heads, g.head_dim, gen), 5),
             "rmsnorm_bwd": (_rmsnorm_bwd_case(TRAIN_BATCH * TRAIN_SEQ, g.d_model, gen), 20)},
+        TP_PATH: {                                # a rank's heads: Hq / TP_RANKS, Hkv / TP_RANKS
+            "flash_attention": (_flash_case(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ,
+                                            g.n_heads // TP_RANKS, g.n_kv_heads // TP_RANKS,
+                                            g.head_dim, gen), 10),
+            "flash_attention_bwd": (_flash_bwd_case(TRAIN_BATCH, TRAIN_SEQ, g.n_heads // TP_RANKS,
+                                                    g.n_kv_heads // TP_RANKS, g.head_dim,
+                                                    gen), 5)},
     }
     cases = [_run_case(n, c, it, hw) for n, c, it in long_cases]
     path = {label: {n: _run_case(n, c, it, hw) for n, (c, it) in per.items()}
@@ -934,13 +963,17 @@ def main() -> int:
     # -- data-parallel LM training: two ranks on the card ---------------------
     report["dp_train_leg"] = _dp_train_leg(card)
 
+    # -- tensor-parallel LM training: two ranks on the card -------------------
+    report["tp_train_leg"] = _tp_train_leg(card)
+
     # -- the roofline: every timed phase at or above its bound ---------------
     report["roofline_phase"] = _roofline_phase(report, hw, card)
 
     # -- phase 4: report -----------------------------------------------------
     totals = {n: sum(r["launches_run"][n] for r in report["paths"].values())
               + report["mnist_leg"]["launches"][n] + report["lm_train_leg"]["launches"][n]
-              + report["dp_train_leg"]["launches"][n] for n in META}
+              + report["dp_train_leg"]["launches"][n] + report["tp_train_leg"]["launches"][n]
+              for n in META}
     kernels = []
     for n, (route, src, rep, label, _) in META.items():
         r = path[label][n]
@@ -2367,8 +2400,9 @@ def _dp_rank(rank: int) -> dict:
     for zero1 in (False, True):
         p = adamw.tree_map(torch.clone, params)
         mu_specs = shardings.opt_shardings(None, p, mesh, zero1=zero1)["mu"]
-        opt = steps.dp_opt_state(p, mu_specs, mesh)
-        steps.dp_update_(p, grads, opt, specs=mu_specs, mesh=mesh)
+        with msh.use_mesh(mesh):
+            opt = steps.dp_opt_state(p, mu_specs)
+            steps.dp_update_(p, grads, opt, specs=mu_specs)
         runs[zero1] = (p, opt, mu_specs)
     del params, grads
     (p0, o0, _), (p1, o1, s1) = runs[False], runs[True]
@@ -2406,6 +2440,213 @@ def _dp_rank(rank: int) -> dict:
     out["replica_differ"] = differ
     sizes = [t.numel() * 4 for t in _leaves(res["params"])]
     out["whole_moment_bytes"], out["largest_leaf_bytes"] = 2 * sum(sizes), 2 * max(sizes)
+    out["moment_bytes"] = sum(t.numel() * t.element_size() for key in ("mu", "nu")
+                              for t in _leaves(res["opt_state"][key]))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _tp_train_leg(card: str) -> dict:
+    """granite-3-8b at full width, TP_LAYERS layers, trained tensor-parallel
+    by TP_RANKS ranks that share the card through a gloo group on a (1,
+    TP_RANKS) mesh (processes from ``torch.multiprocessing``, a file store
+    under the ignored ``experiments/``), each on the whole global batch and
+    its shard of every parameter (``_tp_rank``).  Gated: (a) one fp32 step
+    on the kernel path, the gradients gathered whole, against the
+    one-process step on rank 0 (the loss and every leaf at DP_LIMITS); (b)
+    TP_STEPS bf16 steps of ``LMTrainJob(mesh=...)``: the training leg's
+    launch set and no other, every flash call at Hq / TP_RANKS query and
+    Hkv / TP_RANKS kv heads, every whole leaf bit for bit equal on every
+    rank, finite losses, and the first batch's loss taken again with the
+    trained parameters below its loss at the init.  Reported: the fitted
+    specs of ``embed`` and ``lm_head``, each rank's parameter and moment
+    bytes against the whole, peak memory, steps/s, and one activation
+    all-reduce's time.  Ranks sharing one card through host-staged gloo
+    measure correctness, not scaling."""
+    import shutil
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))          # the ranks' launcher, shared with the tests
+    from _ranks import spawn_ranks
+    from repro_torch.configs import registry
+
+    label = TP_PATH
+    g = registry.get_config("granite_3_8b")
+    heads = (g.n_heads // TP_RANKS, g.n_kv_heads // TP_RANKS)
+    print(f"{label}: granite-3-8b at full width, {TP_LAYERS} layers, {TP_RANKS} gloo ranks on "
+          f"one card on a (1, {TP_RANKS}) mesh, batch {TRAIN_BATCH} x {TRAIN_SEQ} on every rank, "
+          f"{heads[0]}/{heads[1]} heads a rank, fp32 masters  [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "experiments" / "chip_smoke_tp"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks(_tp_rank, TP_RANKS, out_dir=out_dir, timeout_s=900)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    leg_s = time.perf_counter() - t0
+
+    first = ranks[0]
+    print(f"{label}: fitted specs embed {first['specs']['embed']}, lm_head "
+          f"{first['specs']['lm_head']} (vocab {g.vocab_size}); parameter bytes a rank "
+          + ", ".join(str(r["param_bytes"]) for r in ranks) + f" of {first['whole_param_bytes']}, "
+          "moment bytes a rank " + ", ".join(str(r["moment_bytes"]) for r in ranks)
+          + f" of {2 * first['whole_param_bytes']}  [{card}]")
+    a = first["a"]
+    worst = max(a["leaves"], key=a["leaves"].get)
+    print(f"{label} (a), one fp32 step on {TP_RANKS} ranks vs one process: loss rel "
+          f"{a['loss']:.4g} (limit {DP_LIMITS['fp32_loss']}), gathered gradient leaf rel up "
+          f"to {a['leaves'][worst]:.4g} ({worst}; limit {DP_LIMITS['fp32_grad_leaf']})  [{card}]")
+    over = ([f"loss {a['loss']}"] if a["loss"] > DP_LIMITS["fp32_loss"] else []) + [
+        f"{n} {r}" for n, r in a["leaves"].items() if r > DP_LIMITS["fp32_grad_leaf"]]
+    if over:
+        raise AssertionError(f"{label} (a): {TP_RANKS} ranks vs one process over the limits: "
+                             + "; ".join(over))
+    history, again = first["history"], first["first_again"]
+    if not all(math.isfinite(v) for v in history):
+        raise AssertionError(f"{label} (b): losses not finite: {history}")
+    if not again < history[0]:
+        raise AssertionError(f"{label} (b): the first batch's loss with the trained parameters, "
+                             f"{again}, is not below its loss at the init, {history[0]}")
+    for r in ranks:
+        _expect(f"{label}, rank {r['rank']}", r["launches"], TRAIN_KERNELS)
+        if r["history"] != history:
+            raise AssertionError(f"{label} (b): rank {r['rank']} reports {r['history']}, rank 0 "
+                                 f"{history}")
+        if r["whole_differ"]:
+            raise AssertionError(f"{label} (b): rank {r['rank']}'s whole leaves differ from rank "
+                                 f"0's: {r['whole_differ']}")
+        if set(r["flash_heads"]) != {heads}:
+            raise AssertionError(f"{label} (b): rank {r['rank']}'s flash calls at (query, kv) "
+                                 f"heads {sorted(set(r['flash_heads']))}, not {heads}")
+        if not r["whole_param_bytes"] / TP_RANKS <= r["param_bytes"] < \
+                r["whole_param_bytes"] / TP_RANKS * 1.01:
+            raise AssertionError(f"{label}: rank {r['rank']} holds {r['param_bytes']} parameter "
+                                 f"bytes, not 1/{TP_RANKS} of {r['whole_param_bytes']}")
+    train_s = first["train_s"]
+    tokens = TP_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    launches = {n: sum(r["launches"][n] for r in ranks) for n in META}
+    print(f"{label} (b): {TP_STEPS} bf16 steps in {train_s:.3f} s ({TP_STEPS / train_s:.4f} "
+          f"steps/s, {tokens / train_s:.1f} tokens/s), losses {[round(v, 4) for v in history]}, "
+          f"the first batch again {again:.4f}, {first['whole_leaves']} whole leaves bit for bit on "
+          f"every rank, {len(first['flash_heads'])} flash calls a rank at {heads[0]}/{heads[1]} "
+          f"heads; one activation all-reduce ({first['act_bytes']} bytes) "
+          f"{first['allreduce_s']:.4f} s; peak memory by rank "
+          + ", ".join(f"{r['peak_gib']:.2f} GiB" for r in ranks)
+          + f"; launches (both ranks) {launches}; the whole leg {leg_s:.1f} s  [{card}]")
+    return {"ranks": TP_RANKS, "layers": TP_LAYERS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": TP_STEPS, "specs": first["specs"], "a": a, "history": history,
+            "first_again": again, "train_s": train_s, "steps_per_s": TP_STEPS / train_s,
+            "tokens_per_s": tokens / train_s, "allreduce_s": first["allreduce_s"],
+            "act_bytes": first["act_bytes"], "peak_gib": [r["peak_gib"] for r in ranks],
+            "param_bytes": [r["param_bytes"] for r in ranks],
+            "moment_bytes": [r["moment_bytes"] for r in ranks],
+            "whole_param_bytes": first["whole_param_bytes"], "leg_s": leg_s,
+            "launches": launches}
+
+
+def _tp_rank(rank: int) -> dict:
+    """One rank of ``_tp_train_leg``, in its own process on the card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.core.trainjob import LMTrainJob
+    from repro_torch.data.tokens import lm_batches
+    from repro_torch.kernels import native, ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm, steps
+    from repro_torch.models import sharding as msh
+    from repro_torch.optim import adamw
+    from repro_torch.telemetry.events import EventLog
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh((1, TP_RANKS), ("data", "model"), "cuda")
+    full = registry.get_config("granite_3_8b")
+    out: dict = {"rank": rank}
+
+    # (a) one fp32 step on the kernel path, the gradients gathered whole,
+    # against one process on rank 0
+    cfg32 = full.replace(n_layers=TP_LAYERS, dtype="float32", use_kernels=True)
+    params = lm.init_params(cfg32, seed=0, device="cuda", dtype=torch.float32)
+    whole = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(lm_batches(cfg32, TRAIN_BATCH, TRAIN_SEQ, seed=3)).items()}
+    with msh.use_mesh(mesh):
+        pspecs = msh.param_shardings(params, mesh)
+        out["specs"] = {k: str(s) for k, s in pspecs.items() if k in ("embed", "lm_head")}
+        local = adamw.tree_map(lambda t, s: msh.local_slice(t, s, mesh).clone(), params, pspecs)
+        loss, _, grads = steps.dp_grads(local, whole, cfg=cfg32)
+        del local
+        grads = adamw.tree_map(lambda t, s: msh.gather_leaf(t, s, mesh), grads, pspecs)
+        act = torch.randn((TRAIN_BATCH, TRAIN_SEQ, full.d_model), device="cuda",
+                          dtype=torch.bfloat16)
+        out["act_bytes"] = act.numel() * act.element_size()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        dist.all_reduce(act, group=msh.model_group())
+        torch.cuda.synchronize()
+        out["allreduce_s"] = time.perf_counter() - t0
+        del act
+    if rank == 0:
+        leaves = adamw.tree_map(lambda t: t.detach().requires_grad_(), params)
+        one, _ = steps.loss_fn(leaves, cfg32, whole)
+        names = [n for n, _ in _named(params)]
+        want = torch.autograd.grad(one, adamw.tree_leaves(leaves))
+        one = float(one.detach())
+        out["a"] = {"loss": abs(float(loss) - one) / abs(one),
+                    "leaves": {n: _rel(g, w) for n, g, w in
+                               zip(names, adamw.tree_leaves(grads), want)}}
+        del leaves, want
+    del params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # (b) bf16 steps through the entry point, launches and flash heads counted
+    cfg = full.replace(n_layers=TP_LAYERS, use_kernels=True)
+    heads = []
+    kernel = ops._flash_kernel
+
+    def spy(q, k, v, **kw):
+        heads.append((q.shape[2], k.shape[2]))
+        return kernel(q, k, v, **kw)
+
+    log = EventLog()
+    native.reset_launches()
+    ops._flash_kernel = spy
+    try:
+        res = LMTrainJob(cfg, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, n_steps=TP_STEPS,
+                         mesh=mesh, log=log, device="cuda").run()
+    finally:
+        ops._flash_kernel = kernel
+    torch.cuda.synchronize()
+    out["launches"] = dict(native.LAUNCHES)
+    out["flash_heads"] = heads
+    out["history"], out["train_s"] = res["history"], log.totals()["tfjob:train"]
+    first = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ)).items()}
+    with msh.use_mesh(mesh):
+        out["first_again"] = float(steps.dp_grads(res["params"], first, cfg=cfg)[0])
+        pspecs = msh.param_shardings(lm.init_params(cfg, device="meta", dtype=torch.float32),
+                                     mesh)
+    differ, n_whole = [], 0
+    for (n, t), s in zip(_named(res["params"]), adamw.tree_leaves(pspecs)):
+        if msh.splits(s, mesh):
+            continue
+        n_whole += 1
+        ref = t.clone()
+        dist.broadcast(ref, src=0)
+        if not torch.equal(ref, t):
+            differ.append(n)
+    out["whole_differ"], out["whole_leaves"] = differ, n_whole
+    out["param_bytes"] = sum(t.numel() * t.element_size() for t in _leaves(res["params"]))
+    out["whole_param_bytes"] = sum(
+        t.numel() * 4 for t in _leaves(lm.init_params(cfg, device="meta", dtype=torch.float32)))
     out["moment_bytes"] = sum(t.numel() * t.element_size() for key in ("mu", "nu")
                               for t in _leaves(res["opt_state"][key]))
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30

@@ -10,13 +10,16 @@ Two flavours, as in the reference:
     kernels' backward where ``cfg.use_kernels`` is set, AdamW in place)
     under the reference's warmup-cosine schedule, and resume from a
     checkpoint with its optimizer state.  With a ``mesh``
-    (``launch.mesh``) it trains data-parallel over the ranks of the
-    process group: rank 0's parameters broadcast to every rank, each rank
-    on its rows of every global batch (``launch.shardings``), under
-    ``cfg.sharding_profile`` and, with ``cfg.zero1``, AdamW's moments split
-    over the data axis (``steps.dp_train_step``).  A mesh that would
-    shard a parameter (the ``tp`` profile on a model axis larger than 1)
-    raises: tensor parallelism is ROADMAP.md queue 1 item 1.13.
+    (``launch.mesh``) it trains over the ranks of the process group under
+    ``cfg.sharding_profile``: rank 0's parameters broadcast to every rank,
+    each rank keeping its block of each leaf under the fitted spec
+    (``models.sharding.param_shardings``: the whole leaf under data
+    parallelism, its shard on a model axis larger than 1 under ``tp``:
+    tensor parallelism, the dense and VLM archs), each rank on its rows of
+    every global batch (``launch.shardings``) and, with ``cfg.zero1``,
+    AdamW's moments split over the data axis too (``steps.dp_train_step``).
+    The other families refuse a mesh that would shard one of their
+    parameters, naming their ROADMAP.md queue 1 item (1.13b-d).
 Both log through the EventLog, checkpoint into the ArtifactStore (PVC
 analog), and time their stages for the Tables 4/5 repro.
 """
@@ -128,10 +131,11 @@ class LMTrainJob:
         """resume_from: checkpoint name in the store -- restores params AND
         optimizer state, continuing the step counter (preemption recovery,
         the Kubernetes-rescheduling analog).  Under a mesh every rank loads
-        the whole tree and keeps its moment blocks, and rank 0 saves the
-        whole tree (the moments gathered) while the others wait: a
-        checkpoint loads at any world size.  Returns the loss history, the
-        parameters and ``opt_state`` (under ZeRO-1, this rank's blocks)."""
+        the whole tree and keeps its blocks, and rank 0 saves the whole
+        tree (parameter shards and moment blocks gathered) while the others
+        wait: a checkpoint loads at any mesh.  Returns the loss history,
+        the parameters (under tensor parallelism, this rank's shards) and
+        ``opt_state`` (this rank's moment blocks)."""
         cfg, mesh = self.cfg, self.mesh
         if mesh is not None:
             _refuse_sharded_params(cfg, mesh)
@@ -141,7 +145,7 @@ class LMTrainJob:
                                      total=self.n_steps)
         with msh.use_profile(cfg.sharding_profile), msh.use_mesh(mesh):
             with self.log.stage("tfjob:init"):
-                params, opt, specs = self._init(dev, resume_from)
+                params, opt, specs, pspecs = self._init(dev, resume_from)
             data = token_data.lm_batches(cfg, self.batch_size, self.seq_len, seed=self.seed)
             history = []
             with self.log.stage("tfjob:train"):
@@ -154,8 +158,8 @@ class LMTrainJob:
                             params, opt, batch, cfg=cfg, opt_cfg=opt_cfg, lr_scale=schedule(i))
                     else:
                         params, opt, metrics = steps.dp_train_step(
-                            params, opt, batch, cfg=cfg, specs=specs, mesh=mesh,
-                            opt_cfg=opt_cfg, lr_scale=schedule(i))
+                            params, opt, batch, cfg=cfg, specs=specs, opt_cfg=opt_cfg,
+                            lr_scale=schedule(i))
                     loss = float(metrics["loss"])
                     history.append(loss)
                     if report:
@@ -164,13 +168,18 @@ class LMTrainJob:
             if self.store and checkpoint_name:
                 with self.log.stage("tfjob:checkpoint"):
                     out["checkpoint"] = self._save(checkpoint_name, params, opt, specs,
-                                                   {"loss": out["loss"]})
+                                                   pspecs, {"loss": out["loss"]})
         out["params"] = params
         out["opt_state"] = opt
         return out
 
     def _init(self, dev: torch.device, resume_from: Optional[str]):
-        """(params, opt, the moments' specs under the mesh, else None)."""
+        """(params, opt, the moments' and the parameters' specs under the
+        mesh, else None and None).  Under a mesh each leaf is broadcast
+        whole from rank 0 (or read whole from the checkpoint) in turn, and
+        every rank keeps its block of it (``local_slice``, cloned so the
+        whole leaf is freed); the moments' blocks are read against that
+        shard (``steps.dp_opt_state``)."""
         cfg, mesh, store = self.cfg, self.mesh, self.store
         dtype = getattr(torch, cfg.param_dtype)
         if mesh is None:
@@ -180,28 +189,40 @@ class LMTrainJob:
                 params = store.load_tree(resume_from, params)
                 if store.exists(f"{resume_from}_opt"):
                     opt = store.load_tree(f"{resume_from}_opt", opt)
-            return params, opt, None
-        # rank 0 draws the parameters, every other rank receives them
-        first = dist.get_rank() == 0
-        params = lm.init_params(cfg, seed=self.seed, device=dev if first else "meta",
-                                dtype=dtype)
-        if not first:
-            params = adamw.tree_map(lambda t: torch.empty_like(t, device=dev), params)
-        for t in adamw.tree_leaves(params):
-            dist.broadcast(t, src=0)
-        specs = shardings.opt_shardings(None, params, mesh, zero1=cfg.zero1)["mu"]
-        opt = steps.dp_opt_state(params, specs, mesh)
+            return params, opt, None, None
+        meta = lm.init_params(cfg, device="meta", dtype=dtype)
+        pspecs = msh.param_shardings(meta, mesh)
+        specs = shardings.opt_shardings(None, meta, mesh, zero1=cfg.zero1)["mu"]
+        host = adamw.tree_map(lambda p: torch.empty(0, dtype=p.dtype), meta)   # dtypes, host
+
+        def own(whole, spec):
+            block = msh.local_slice(whole, spec, mesh)
+            return block.clone() if block is not whole else whole
+
         if resume_from and store:
-            params = store.load_tree(resume_from, params)
-            if store.exists(f"{resume_from}_opt"):
-                host = adamw.tree_map(lambda p: torch.empty(0), params)    # dtype and device
-                whole = store.load_tree(f"{resume_from}_opt", {
-                    "mu": host, "nu": host, "step": torch.empty(0, dtype=torch.int32)})
-                for key in ("mu", "nu"):
-                    adamw.tree_map(lambda b, w, s: b.copy_(msh.local_slice(w, s, mesh)),
-                                   opt[key], whole[key], specs)
-                opt["step"] = whole["step"].to(dev)
-        return params, opt, specs
+            params = adamw.tree_map(lambda w, s: own(w, s).to(dev),
+                                    store.load_tree(resume_from, host), pspecs)
+        else:
+            # rank 0 draws the parameters, every other rank receives them
+            first = dist.get_rank() == 0
+            drawn = lm.init_params(cfg, seed=self.seed, device=dev if first else "meta",
+                                   dtype=dtype)
+
+            def receive(t, spec):
+                whole = t if first else torch.empty_like(t, device=dev)
+                dist.broadcast(whole, src=0)
+                return own(whole, spec)
+            params = adamw.tree_map(receive, drawn, pspecs)
+            del drawn
+        opt = steps.dp_opt_state(params, specs)
+        if resume_from and store and store.exists(f"{resume_from}_opt"):
+            whole = store.load_tree(f"{resume_from}_opt", {
+                "mu": host, "nu": host, "step": torch.empty(0, dtype=torch.int32)})
+            for key in ("mu", "nu"):
+                adamw.tree_map(lambda b, w, s: b.copy_(msh.local_slice(w, s, mesh)),
+                               opt[key], whole[key], specs)
+            opt["step"] = whole["step"].to(dev)
+        return params, opt, specs, pspecs
 
     def _rows(self, batch: dict, dev: torch.device) -> dict:
         """A global batch of ``lm_batches`` -> this rank's rows of every
@@ -212,39 +233,54 @@ class LMTrainJob:
             batch = {k: msh.local_slice(v, specs[k], self.mesh) for k, v in batch.items()}
         return {k: v.to(dev) for k, v in batch.items()}
 
-    def _save(self, name: str, params: dict, opt: dict, specs, meta: dict) -> str:
+    def _save(self, name: str, params: dict, opt: dict, specs, pspecs, meta: dict) -> str:
         """The whole tree under the reference's names (``name``,
-        ``f"{name}_opt"``); under a mesh the moments are gathered (each leaf
-        to the host in turn), rank 0 writes and the other ranks wait."""
+        ``f"{name}_opt"``); under a mesh the parameter shards (over the
+        model axis) and the moment blocks (over data and model) are
+        gathered, each leaf to the host in turn, rank 0 writes and the
+        other ranks wait."""
         if self.mesh is None:
             uri = self.store.save_tree(name, params, meta=meta)
             self.store.save_tree(f"{name}_opt", opt)
             return uri
-        whole = {key: adamw.tree_map(
-            lambda b, s: msh.gather_leaf(b, s, self.mesh).cpu(), opt[key], specs)
-            for key in ("mu", "nu")}
-        whole["step"] = opt["step"]
+
+        def whole(tree, spec_tree):
+            return adamw.tree_map(lambda b, s: msh.gather_leaf(b, s, self.mesh).cpu(),
+                                  tree, spec_tree)
+        params = whole(params, pspecs)
+        moments = {key: whole(opt[key], specs) for key in ("mu", "nu")}
+        moments["step"] = opt["step"]
         if dist.get_rank() == 0:
             self.store.save_tree(name, params, meta=meta)
-            self.store.save_tree(f"{name}_opt", whole)
+            self.store.save_tree(f"{name}_opt", moments)
         dist.barrier()
         return self.store.tree_uri(name)
 
 
+# the families tensor parallelism covers; the others -> (their ROADMAP.md
+# queue 1 item, what it ports), 1.13 for a family not named here
+TP_FAMILIES = ("dense", "vlm")
+_MOE, _SSM = ("1.13b", "MoE expert parallelism and MLA"), ("1.13c", "the SSM, hybrid and "
+                                                              "xLSTM mixers")
+TP_ITEMS = {"moe": _MOE, "ssm": _SSM, "hybrid": _SSM,
+            "audio": ("1.13d", "enc-dec (the encoder and cross-attention)")}
+
+
 def _refuse_sharded_params(cfg: ArchConfig, mesh) -> None:
-    """Data parallelism only: every parameter whole on every rank.  A mesh
-    and profile whose rules split a parameter raise, before any work."""
+    """Tensor parallelism covers the families of ``TP_FAMILIES``.  Any
+    other, on a mesh and profile whose rules split one of its parameters,
+    raises before any work, naming its item."""
     meta = lm.init_params(cfg, device="meta", dtype=getattr(torch, cfg.param_dtype))
     with msh.use_profile(cfg.sharding_profile):
         specs = msh.param_shardings(meta, mesh)
     flat: list = []
-    msh.map_with_path(lambda path, spec: flat.append(("/".join(path), spec)), specs)
+    msh.map_with_path(lambda path, spec: flat.append((path, spec)), specs)
     split = [(path, spec) for path, spec in flat if any(msh.axis_size(mesh, e) > 1 for e in spec)]
-    if split:
-        path, spec = split[0]
+    if split and cfg.family not in TP_FAMILIES:
+        (path, spec) = split[0]
+        item, what = TP_ITEMS.get(cfg.family, ("1.13", f"the {cfg.family!r} family"))
         raise NotImplementedError(
             f"LMTrainJob: the {cfg.sharding_profile!r} profile on mesh {dict(mesh.shape)} "
-            f"shards {len(split)} parameter leaves (first {path} as {spec}); tensor "
-            "parallelism is ROADMAP.md queue 1 item 1.13. Train data-parallel: a model axis "
-            "of 1, or sharding_profile='dp'")
-
+            f"shards {len(split)} parameter leaves (first {'/'.join(path)} as {spec}); tensor "
+            f"parallelism of {what} is ROADMAP.md queue 1 item {item}. Train data-parallel: "
+            "a model axis of 1, or sharding_profile='dp'")

@@ -11,6 +11,7 @@ and ``axis_names``; ``coordinate`` is this rank's index on each axis.
 """
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch.distributed as dist
@@ -26,11 +27,31 @@ class Mesh:
         self.axis_names = tuple(device_mesh.mesh_dim_names)
         self.shape = dict(zip(self.axis_names, device_mesh.mesh.shape))
         self.coordinate = dict(zip(self.axis_names, device_mesh.get_coordinate()))
+        self._groups: dict = {}
 
-    def group(self, axis: str):
+    def group(self, axes):
         """The process group of the ranks that differ from this one on
-        ``axis`` alone, ordered by their coordinate there."""
-        return self.device_mesh.get_group(axis)
+        ``axes`` alone (one axis name, or a tuple of them: ``"batch"``'s
+        ("pod", "data"), in the mesh's order), ordered by their coordinate
+        there, the first axis the major one.  A tuple's groups are made
+        (``new_group``) at its first use, which every rank of the mesh must
+        reach in the same order."""
+        if isinstance(axes, str) or len(axes) == 1:
+            return self.device_mesh.get_group(axes if isinstance(axes, str) else axes[0])
+        axes = tuple(axes)
+        if axes not in self._groups:
+            # the mesh's ranks with ``axes`` last, in their order: each row
+            # is one group; every rank makes every group, as new_group asks
+            dims = [self.axis_names.index(a) for a in axes]
+            rest = [d for d in range(len(self.axis_names)) if d not in dims]
+            rows = self.device_mesh.mesh.permute(*rest, *dims).reshape(-1, math.prod(
+                self.shape[a] for a in axes)).tolist()
+            me = dist.get_rank()
+            for row in rows:
+                group = dist.new_group(row)
+                if me in row:
+                    self._groups[axes] = group
+        return self._groups[axes]
 
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str], device_type: str = "cuda") -> Mesh:

@@ -24,7 +24,10 @@ ring has wrapped) and one engine step with all four slots decoding.  For
 each it prints the host wall time, the device busy time (union of kernel
 intervals), the device's idle share of the span between its first and
 last kernel, and device time by kernel group (the port's kernels, matrix
-products, sorts and indexed gathers and scatters, the rest).  The chrome traces go to ``--out`` (default
+products, sorts and indexed gathers and scatters, the rest), and the
+median and least host time of ``UNTRACED`` runs of each without the
+profiler (host clock around the run and a ``torch.cuda.synchronize``),
+which the profiler's own cost leaves out.  The traces go to ``--out`` (default
 ``chiprun_out/profile``).
 """
 from __future__ import annotations
@@ -45,6 +48,7 @@ from ..serving.continuous import ContinuousBatcher
 
 BATCH, PROMPT = 4, 128          # chip_smoke.py's serving shape
 MAX_LEN, CHUNK = 4608, 256      # chip_smoke.py's batcher
+UNTRACED = 20
 
 GROUPS = (("flash_attention", ("flash_fwd",)), ("decode_attention", ("decode_fwd",)),
           ("flash_attention_bwd", ("flash_bwd",)),
@@ -99,6 +103,20 @@ def trace(fn, out: Path, label: str) -> dict:
             "kernels": len(kernels),
             "by_group_ms": {k: {"ms": v[0], "n": v[1]}
                             for k, v in sorted(by_group.items(), key=lambda kv: -kv[1][0])}}
+
+
+def host_times(fn, n: int) -> dict:
+    """Median and least host ms of ``n`` runs of ``fn``, each ending in a
+    ``torch.cuda.synchronize``, with no profiler."""
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    ms.sort()
+    return {"n": n, "median_ms": ms[n // 2], "min_ms": ms[0]}
 
 
 def main(argv=None):
@@ -159,6 +177,8 @@ def main(argv=None):
         res = {"arch": cfg.name, "batch": BATCH, "prompt": args.prompt,
                "device": torch.cuda.get_device_name(dev),
                **{label: trace(fn, out, label) for label, fn in runs.items()}}
+        for label, fn in runs.items():
+            res[label]["untraced"] = host_times(fn, UNTRACED)
     print(json.dumps(res, indent=1))
 
 

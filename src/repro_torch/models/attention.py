@@ -9,6 +9,11 @@ cross-attends the encoder's rows: ``cross_kv`` projects them once a
 prefill, ``cross_forward`` runs non-causal flash attention over them and
 ``cross_decode`` decode attention with every row's length the encoder's.
 
+Under tensor parallelism (``models/sharding``) ``gqa_forward`` runs on
+this rank's heads: q/k/v column parallel, both attention kernels on the
+local heads (k and v sliced for them where their heads do not divide the
+model axis), ``wo`` row parallel and its partial sum reduced.
+
 Parameters keep the reference's einsum layouts: ``wq (d,Hq,hd)``,
 ``wk``/``wv (d,Hkv,hd)``, ``wo (Hq,hd,d)``.  Decode and chunked prefill
 write their new K/V rows into the cache tensors they are given, in place,
@@ -41,6 +46,7 @@ import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..kernels import ops
+from . import sharding as msh
 from .modules import dense_init
 
 NEG_INF = -1e30
@@ -112,10 +118,54 @@ def gqa_init(cfg: ArchConfig, dtype: torch.dtype, *, generator: torch.Generator,
 
 
 def _qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    """Roped q, k and v of x (B,S,D); under tensor parallelism ``_split_qkv``."""
+    if msh.model_ways() == 1:
+        q, k, v = (torch.einsum("bsd,dhk->bshk", x, p[n]) for n in ("wq", "wk", "wv"))
+    else:
+        q, k, v = _split_qkv(p, x, cfg)
     return _rope(q, positions, cfg), _rope(k, positions, cfg), v
+
+
+def _split_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig):
+    """q, k and v under tensor parallelism: x goes through one ``copy``,
+    each projection runs on this rank's block of its weight, and each
+    output is constrained as the reference constrains q and k (heads over
+    the model axis where they divide it, else whole) before the rotation,
+    which needs whole sums: a block split on D gives a partial sum,
+    reduced here."""
+    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = msh.copy(x)
+    out = []
+    for name, h in (("wq", hq), ("wk", hkv), ("wv", hkv)):
+        t, layout = msh.project("bsd,dhk->bshk", x, msh.WHOLE, p[name], (d, h, hd))
+        out.append(msh.constrain(t, "batch", None, "model", layout=layout))
+    return out
+
+
+def _local_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig):
+    """The kv heads this rank's query heads read.  Under tensor parallelism
+    with q split on heads and k, v whole (their heads do not divide the
+    model axis), each rank takes the kv heads of its own query heads (head
+    h reads kv head h // (Hq/Hkv)) after a ``copy``, so the kernel's dk and
+    dv, partial over the ranks that share a kv head, are summed; one kv
+    head a query head where the ranks' query heads do not split evenly
+    over kv heads.  Otherwise k and v as they are."""
+    hq = q.shape[2]
+    if hq == cfg.n_heads or k.shape[2] < cfg.n_kv_heads:
+        return k, v
+    idx = torch.tensor(kv_heads(msh.model_index() * hq, hq, cfg.n_heads // cfg.n_kv_heads),
+                       device=k.device)
+    return (torch.index_select(msh.copy(k), 2, idx), torch.index_select(msh.copy(v), 2, idx))
+
+
+def kv_heads(first: int, hq: int, group: int) -> list:
+    """The kv heads query heads ``first`` .. ``first + hq - 1`` read (head h
+    reads h // ``group``), each once where every one of them serves the
+    same number of those query heads (a local group of hq / their count),
+    else one a query head (a local group of 1)."""
+    heads = [(first + j) // group for j in range(hq)]
+    kv = sorted(set(heads))
+    return kv if all(heads.count(h) * len(kv) == hq for h in kv) else heads
 
 
 def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig,
@@ -125,10 +175,18 @@ def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConf
     puts the plain path on ``ops.flash_chunked`` (the kernel path ignores
     it)."""
     q, k, v = _qkv(p, x, positions, cfg)
+    k, v = _local_kv(q, k, v, cfg)
     o = ops.flash_attention(q, k, v, causal=causal, window=window,
                             use_kernel=cfg.use_kernels, chunked=cfg.fused_attention,
                             chunk_k=cfg.attn_chunk)
-    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    if msh.model_ways() == 1:
+        out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    else:
+        split = q.shape[2] < cfg.n_heads                # o on this rank's heads
+        out, layout = msh.project("bshk,hkd->bsd", o if split else msh.copy(o),
+                                  msh.Layout(2) if split else msh.WHOLE, p["wo"],
+                                  (cfg.n_heads, cfg.head_dim, cfg.d_model))
+        out = msh.constrain(out, "batch", None, None, layout=layout)
     return (out, (k, v)) if return_kv else out
 
 

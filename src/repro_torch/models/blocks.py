@@ -18,8 +18,10 @@ cache is no longer than the window.  The ``audio`` (whisper) and ``vlm``
 decoder slots (``cross=True``) add a cross-attention sub-layer between the
 mixer and the ffn, ``x + cross(norm_x(x), enc_kv)``.
 The norm sites go through ``ops.rmsnorm`` (the kernel when
-``cfg.use_kernels``).  Decode and chunked prefill update their cache in
-place: attention writes its rows, recurrent mixers their whole state.
+``cfg.use_kernels``), on the whole residual under tensor parallelism too,
+so a norm scale's gradient is whole on every rank.  Decode and chunked
+prefill update their cache in place: attention writes its rows, recurrent
+mixers their whole state.
 The MoE ffn routes with capacity in the full-sequence forward and in
 decode, and with ``no_drop`` in chunked prefill (so a chunk routes each
 token as its decode step would); ``slot_forward`` returns its aux loss.
@@ -34,6 +36,7 @@ from ..configs.base import ArchConfig
 from ..kernels import ops
 from . import attention as attn
 from . import moe as moe_mod
+from . import sharding as msh
 from . import ssm
 from .modules import ACTIVATIONS, dense_init, swiglu
 
@@ -101,12 +104,41 @@ def mlp_init(cfg: ArchConfig, dtype: torch.dtype, *, generator: torch.Generator,
 
 
 def mlp_forward(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The MLP; under tensor parallelism ``_split_mlp``."""
+    if msh.model_ways() > 1:
+        return _split_mlp(p, x, cfg)
     h = x @ p["w_up"]
     if cfg.mlp_act == "swiglu":
         h = swiglu(h, x @ p["w_gate"])
     else:
         h = ACTIVATIONS[cfg.mlp_act](h)
     return h @ p["w_down"]
+
+
+def _split_mlp(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The MLP under tensor parallelism: x goes through one ``copy``,
+    ``w_up``/``w_gate`` are column parallel and ``w_down`` row parallel (a
+    block split on D instead gives a partial sum, reduced before the
+    activation, or a split output, gathered), and the output is whole."""
+    d, f = cfg.d_model, cfg.d_ff
+    spec = ("batch", None, "model")
+    x = msh.copy(x)
+
+    def up(name):
+        t, layout = msh.project("...d,df->...f", x, msh.WHOLE, p[name], (d, f), op=torch.matmul)
+        return msh.constrain(t, *spec, layout=layout)
+
+    h = up("w_up")
+    if cfg.mlp_act == "swiglu":
+        h = swiglu(h, up("w_gate"))
+    else:
+        h = ACTIVATIONS[cfg.mlp_act](h)
+    layout = msh.fitted_layout((*h.shape[:-1], f), *spec)
+    h = msh.constrain(h, *spec, layout=layout)
+    split = layout.dim is not None                       # h on this rank's block of d_ff
+    out, layout = msh.project("...f,fd->...d", h if split else msh.copy(h), layout, p["w_down"],
+                              (f, d), op=torch.matmul)
+    return msh.constrain(out, "batch", None, None, layout=layout)
 
 
 # ---------------------------------------------------------------------------

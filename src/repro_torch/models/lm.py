@@ -31,8 +31,18 @@ entry, as the reference's ``nn.cast_tree`` does on every call; for a tree
 already in the compute dtype the cast returns the same tensors.  With
 ``cfg.remat`` each group's body runs under ``torch.utils.checkpoint`` when
 gradients are recorded (the reference's ``jax.checkpoint`` around its
-scanned group).  ``decode_step`` and ``prefill_chunk`` update the cache in place.
-The shared block's per-group KV caches sit under ``phase*/shared``.
+scanned group), bound to the active mesh and profile so that the rerun in
+the backward shards as the forward did.  ``decode_step`` and
+``prefill_chunk`` update the cache in place.  The shared block's per-group
+KV caches sit under ``phase*/shared``.
+
+Under tensor parallelism (an active mesh with a model axis, ``tp``
+profile: ``models/sharding``) each leaf is this rank's block under its
+fitted spec; the embedding and the head run on their blocks (``_lookup``,
+``_head``), the residual stream stays whole on every rank, and ``forward``
+returns this rank's block of the vocabulary where the head is split on V.
+``constrain`` stands where the reference's does; with no mesh it returns
+its input.
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ArchConfig
 from . import attention as attn
 from . import blocks
+from . import sharding as msh
 from .modules import dense_init, require_device
 
 
@@ -188,19 +199,49 @@ def _embed(params: dict, cfg: ArchConfig, tokens: torch.Tensor) -> torch.Tensor:
     the product in fp32 and round once, parting from the reference.  The
     0-d factor stays on the host: torch passes it to a CUDA kernel as a
     scalar, with no copy to the card per call."""
-    x = params["embed"][tokens.long()].to(cfg.compute_dtype)
+    x = _lookup(params["embed"], tokens, cfg).to(cfg.compute_dtype)
     if cfg.scale_embed:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
 
 
+def _lookup(table: torch.Tensor, tokens: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Rows of the embedding table.  Under tensor parallelism from this
+    rank's block: split on V, a lookup of the ids the block holds (zeros
+    elsewhere), then ``reduce``; split on D, a lookup, then ``gather``."""
+    ids = tokens.long()
+    dim = msh.weight_split(table, (cfg.vocab_size, cfg.d_model)) if msh.model_ways() > 1 else None
+    if dim is None:
+        return table[ids]
+    if dim == 1:
+        return msh.gather(table[ids], -1)
+    n = table.shape[0]
+    local = ids - msh.model_index() * n
+    rows = table[local.clamp(0, n - 1)]
+    own = ((local >= 0) & (local < n))[..., None]
+    return msh.reduce(torch.where(own, rows, torch.zeros((), dtype=rows.dtype,
+                                                            device=rows.device)))
+
+
 def _head(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     """Final norm, then the head; tied: ``x @ embed.T`` (the reference's
-    ``"...d,vd->...v"``) through a transposed view, no copy of the table."""
+    ``"...d,vd->...v"``) through a transposed view, no copy of the table.
+    Under tensor parallelism the head takes this rank's block: split on V
+    it gives this rank's block of the vocabulary (``steps.loss_fn`` reads
+    it so), split on D a partial sum, reduced to the whole logits."""
     x = blocks.norm(x, params["final_norm"], cfg)
+    if msh.model_ways() == 1:
+        if cfg.tie_embeddings:
+            return x @ params["embed"].to(x.dtype).T
+        return x @ params["lm_head"].to(x.dtype)
+    x, v, d = msh.copy(x), cfg.vocab_size, cfg.d_model
     if cfg.tie_embeddings:
-        return x @ params["embed"].to(x.dtype).T
-    return x @ params["lm_head"].to(x.dtype)
+        logits, layout = msh.project("...d,vd->...v", x, msh.WHOLE, params["embed"].to(x.dtype),
+                                     (v, d), op=lambda a, b: a @ b.T)
+    else:
+        logits, layout = msh.project("...d,dv->...v", x, msh.WHOLE,
+                                     params["lm_head"].to(x.dtype), (d, v), op=torch.matmul)
+    return msh.reduce(logits) if layout.partial else logits
 
 
 def _arange(b: int, s: int, device) -> torch.Tensor:
@@ -241,7 +282,7 @@ def _inputs(params: dict, cfg: ArchConfig, batch: dict) -> torch.Tensor:
     if cfg.family == "audio":
         b, s = batch["tokens"].shape
         x = x + sinusoid(_arange(b, s, x.device), cfg.d_model).to(x.dtype)
-    return x
+    return msh.constrain(x, "batch", None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -295,9 +336,10 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, collect_cache: bool =
                                                   "mlp", collect_cache=collect_cache)
                     if collect_cache:
                         _put(pcache, "shared", g, phase.n_groups, c, shared, cache_len, cfg)
-                return x, a
+                return msh.constrain(x, "batch", None, None), a
 
-            x, aux = checkpoint(group, x, aux, use_reentrant=False) if remat else group(x, aux)
+            x, aux = (checkpoint(msh.bind_active(group), x, aux, use_reentrant=False) if remat
+                      else group(x, aux))
         if collect_cache:
             cache[f"phase{pi}"] = pcache
     if collect_cache and enc_out is not None:
@@ -380,6 +422,7 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     x = _embed(params, cfg, tokens)
     if cfg.family == "audio":
         x = x + sinusoid(positions[:, None], cfg.d_model).to(x.dtype)
+    x = msh.constrain(x, "batch", None, None)
     x = _run_cached(params, cfg, x, positions, cache, blocks.slot_decode)
     return _head(params, cfg, x[:, 0]), cache
 
@@ -393,6 +436,6 @@ def prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     encoder's and the full forward's."""
     if cfg.family == "audio":
         raise NotImplementedError("chunked prefill: audio enc-dec unsupported")
-    x = _run_cached(params, cfg, _embed(params, cfg, tokens), positions, cache,
-                    blocks.slot_prefill)
+    x = msh.constrain(_embed(params, cfg, tokens), "batch", None, None)
+    x = _run_cached(params, cfg, x, positions, cache, blocks.slot_prefill)
     return _head(params, cfg, x), cache

@@ -20,11 +20,27 @@ moved to the largest divisible dim or dropped.
 view, by ``narrow``, of the leaf's own rank; the mesh's ``coordinate``
 places the rank), and ``gather_leaf`` rebuilds the whole leaf from every
 rank's block: the data-parallel step shards its batch and its ZeRO-1
-moments through them.
+moments through them, and a tensor-parallel rank holds each parameter as
+its ``local_slice`` under the fitted spec.
 
-``constrain`` (the reference's ``with_sharding_constraint``) has no twin
-yet: under data parallelism a rank's tensor already is its own batch shard
-(tensor parallelism, ROADMAP.md queue 1 item 1.13).
+Tensor parallelism (the ``tp`` profile on a model axis larger than 1) runs
+each layer on the rank's shards with explicit collectives over the model
+axis's group, where the reference lets GSPMD insert them.  A tensor's place
+on that axis is a :class:`Layout`: whole on every rank, split on one dim,
+or a partial sum.  Four ``autograd.Function`` s move between them, the
+Megatron pairs: ``copy`` (identity, all-reduce backward), ``reduce``
+(all-reduce, identity backward), ``gather`` (all-gather, keep this rank's
+slice backward) and ``scatter`` (this rank's slice, all-gather backward).
+A whole tensor's gradient is whole on every rank; one that enters
+rank-local work (a product with a split weight, a slice of its heads) goes
+through ``copy`` first, so the ranks' partial gradients are summed.
+``constrain`` (the reference's ``with_sharding_constraint``) fits a logical
+spec with ``fit_pspec(..., relocate=False)`` and moves a tensor from its
+layout to that one; ``project`` multiplies by a weight split on any one of
+its dims and gives the product's layout.  With no mesh, a model axis of 1,
+or the ``dp`` profile, all of them return their input and run no
+collective.  A rank's rows of the batch need no collective here: they are
+the rank's own already, and the step sums over the batch axes' group.
 """
 from __future__ import annotations
 
@@ -116,6 +132,19 @@ def use_mesh(mesh):
         yield mesh
     finally:
         _state.mesh = prev
+
+
+def bind_active(fn):
+    """``fn`` run under the mesh and profile active now, on whatever
+    thread calls it: the active pair is per thread, and a checkpointed
+    forward is rerun by the autograd engine, on its own thread for CUDA
+    tensors, where none is active."""
+    mesh, profile = current_mesh(), current_profile()
+
+    def bound(*args, **kwargs):
+        with use_profile(profile), use_mesh(mesh):
+            return fn(*args, **kwargs)
+    return bound
 
 
 def _resolve(spec: Sequence[Any], mesh) -> P:
@@ -323,7 +352,8 @@ def gather_leaf(local: torch.Tensor, spec: P, mesh, out: torch.Tensor | None = N
                 ) -> torch.Tensor:
     """The whole leaf from every rank's ``local_slice`` (``all_gather``
     over the group of each split axis), written into ``out`` when given.
-    Each split dim must be split over one mesh axis (ZeRO-1's "data")."""
+    Each split dim must be split over one mesh axis ("data" or "model":
+    no ``tp`` spec splits a dim over two)."""
     for dim, axes, ways, _ in reversed(splits(spec, mesh)):
         if len(axes) != 1:
             raise NotImplementedError(f"gathering a dim split over {axes}: one axis a dim")
@@ -334,3 +364,246 @@ def gather_leaf(local: torch.Tensor, spec: P, mesh, out: torch.Tensor | None = N
     if out is None:
         return local
     return out.copy_(local)
+
+
+def without_axis(spec: P, axis: str) -> P:
+    """``spec`` with ``axis`` taken out of every entry: the spec of a
+    rank's block relative to its block on ``axis`` (a tensor-parallel
+    rank's moments read against its parameter shard)."""
+    out = []
+    for entry in spec:
+        axes = tuple(a for a in (entry if isinstance(entry, tuple) else (entry,))
+                     if a is not None and a != axis)
+        out.append(axes if len(axes) > 1 else (axes[0] if axes else None))
+    return P(*out)
+
+
+def batch_group(mesh) -> tuple:
+    """(process group, ways) of the ranks that hold other rows of the
+    batch than this one (the batch axes under the active profile): the
+    group None, the whole world, where they are every rank (no mesh, a
+    model axis of 1, the ``dp`` profile)."""
+    world = dist.get_world_size()
+    if mesh is None:
+        return None, world
+    entry = _resolve(("batch",), mesh)[0]
+    ways = axis_size(mesh, entry)
+    if ways == world:
+        return None, world
+    return (mesh.group(entry) if ways > 1 else None), ways
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: layouts on the model axis, the four Functions,
+# ``constrain`` and ``project``.
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """A tensor's place on the model axis: ``dim`` split over it (None:
+    whole on every rank), or ``partial``: each rank holds a partial sum."""
+    dim: Optional[int] = None
+    partial: bool = False
+
+
+WHOLE = Layout()
+PARTIAL = Layout(partial=True)
+
+
+def model_ways() -> int:
+    """The model axis's size under the active mesh and the ``tp`` profile;
+    1 with no mesh, no model axis, or the ``dp`` profile."""
+    mesh = current_mesh()
+    if mesh is None or current_profile() == "dp" or "model" not in mesh.axis_names:
+        return 1
+    return mesh.shape["model"]
+
+
+def model_group():
+    """The process group of the ranks that differ from this one on the
+    model axis alone."""
+    return current_mesh().group("model")
+
+
+def model_index() -> int:
+    """This rank's coordinate on the model axis."""
+    return current_mesh().coordinate["model"]
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _all_gather(x: torch.Tensor, dim: int, group, ways: int) -> torch.Tensor:
+    parts = [torch.empty_like(x, memory_format=torch.contiguous_format) for _ in range(ways)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim)
+
+
+def _own(x: torch.Tensor, dim: int, index: int, ways: int) -> torch.Tensor:
+    n = x.shape[dim] // ways
+    return x.narrow(dim, index * n, n).contiguous()
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, index, ways):
+        ctx.dim, ctx.index, ctx.ways = dim, index, ways
+        return _all_gather(x, dim, group, ways)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _own(g, ctx.dim, ctx.index, ctx.ways), None, None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, index, ways):
+        ctx.dim, ctx.group, ctx.ways = dim, group, ways
+        return _own(x, dim, index, ways)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.dim, ctx.group, ctx.ways), None, None, None, None
+
+
+def copy(x: torch.Tensor) -> torch.Tensor:
+    """Identity; backward all-reduces the gradient over the model group."""
+    return x if model_ways() == 1 else _Copy.apply(x, model_group())
+
+
+def reduce(x: torch.Tensor) -> torch.Tensor:
+    """All-reduce of a partial sum over the model group; identity backward
+    (the downstream gradient is already whole on every rank: an all-reduce
+    there would count it once a rank)."""
+    return x if model_ways() == 1 else _Reduce.apply(x, model_group())
+
+
+def gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The whole tensor from the ranks' blocks on ``dim``; backward keeps
+    this rank's block of the gradient."""
+    ways = model_ways()
+    if ways == 1:
+        return x
+    return _Gather.apply(x, dim % x.ndim, model_group(), model_index(), ways)
+
+
+def scatter(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's block of ``dim``; backward all-gathers the gradient."""
+    ways = model_ways()
+    if ways == 1:
+        return x
+    return _Scatter.apply(x, dim % x.ndim, model_group(), model_index(), ways)
+
+
+def fitted_layout(shape: Sequence[int], *spec: Any) -> Layout:
+    """The layout the logical ``spec`` asks of a whole tensor of ``shape``
+    (``fit_pspec(..., relocate=False)``: a model entry that does not divide
+    its dim is dropped, and the tensor stays whole).  WHOLE where
+    ``model_ways()`` is 1."""
+    if model_ways() == 1:
+        return WHOLE
+    mesh = current_mesh()
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    fitted = fit_pspec(tuple(shape), _resolve(spec, mesh), mesh, relocate=False)
+    for dim, entry in enumerate(fitted):
+        if entry is not None and "model" in (entry if isinstance(entry, tuple) else (entry,)):
+            return Layout(dim)
+    return WHOLE
+
+
+def constrain(x: torch.Tensor, *spec: Any, layout: Layout = WHOLE) -> torch.Tensor:
+    """The reference's ``with_sharding_constraint`` against the active mesh:
+    ``x``, whose layout is ``layout``, moved to the layout that ``spec``
+    (logical axes, one entry a leading dim) fits to on the model axis.  The
+    batch entry needs nothing (the rows are this rank's).  A partial sum is
+    reduced, then a split gathered or scattered.  Returns ``x``
+    itself with no mesh, a model axis of 1, or the ``dp`` profile."""
+    ways = model_ways()
+    if ways == 1:
+        return x
+    shape = list(x.shape)
+    if layout.dim is not None:
+        shape[layout.dim] *= ways
+    dst = fitted_layout(shape, *spec)
+    if layout.partial:                   # a partial sum is summed first
+        x, layout = reduce(x), WHOLE
+    if layout.dim is not None and dst.dim is not None and layout.dim % x.ndim == dst.dim:
+        return x
+    if layout.dim is not None:
+        x = gather(x, layout.dim)
+    return x if dst.dim is None else scatter(x, dst.dim)
+
+
+def weight_split(w: torch.Tensor, whole: Sequence[int]) -> Optional[int]:
+    """The dim of ``whole`` that this rank's block ``w`` of a weight is
+    split on over the model axis (None: whole)."""
+    diff = [d for d, (a, b) in enumerate(zip(w.shape, whole)) if a != b]
+    if w.ndim != len(whole) or len(diff) > 1 or \
+            any(w.shape[d] * model_ways() != whole[d] for d in diff):
+        raise ValueError(f"a block {tuple(w.shape)} of a {tuple(whole)} weight is not one dim "
+                         f"split {model_ways()} ways")
+    return diff[0] if diff else None
+
+
+def project(eq: str, x: torch.Tensor, layout: Layout, w: torch.Tensor, whole: Sequence[int],
+            op=None) -> tuple:
+    """(``op(x, w)``, its layout): the product ``eq`` (an einsum equation,
+    ``...`` allowed at the front of the input's and output's letters) of
+    ``x`` under ``layout`` and this rank's block ``w`` of a weight whose
+    whole shape is ``whole``; ``op`` computes it (default
+    ``torch.einsum(eq, ...)``).  A weight split on an output dim (column
+    parallel) takes a whole ``x`` and gives the product split there; one
+    split on a contracted dim (row parallel) takes ``x`` split on that dim,
+    or whole, and then its block of it, and gives a partial sum.  A whole
+    ``x`` must have come through ``copy``: its gradient here is this rank's
+    part."""
+    op = op or (lambda a, b: torch.einsum(eq, a, b))
+    if model_ways() == 1:
+        return op(x, w), WHOLE
+    dim = weight_split(w, whole)
+    if dim is None or layout.partial:
+        raise NotImplementedError(f"{eq} of a {layout} input and a {tuple(whole)} weight whole "
+                                  "on the model axis: no tp rule gives either")
+    ins, out = eq.split("->")
+    xs, ws = ins.split(",")
+    letter = ws[dim]
+
+    def at(spec: str, t_ndim: int, c: str) -> int:       # index of ``c`` in a tensor of ``spec``
+        body = spec[3:] if spec.startswith("...") else spec
+        return t_ndim - len(body) + body.index(c)
+
+    xdim = None if layout.dim is None else layout.dim % x.ndim
+    if letter in out and letter not in xs:               # column parallel
+        if xdim is not None:
+            raise NotImplementedError(f"{eq}: input split on dim {xdim}, weight on {letter!r}")
+        y = op(x, w)
+        return y, Layout(at(out, y.ndim, letter))
+    if letter in xs and letter not in out:               # row parallel
+        k = at(xs, x.ndim, letter)
+        if xdim is None:
+            x = _own(x, k, model_index(), model_ways())
+        elif xdim != k:
+            raise NotImplementedError(f"{eq}: input split on dim {xdim}, weight on {letter!r}")
+        return op(x, w), PARTIAL
+    raise NotImplementedError(f"{eq}: a weight split on {letter!r}")

@@ -997,8 +997,9 @@ def _dp_rank_on_card(rank, batch):
     for zero1 in (False, True):
         p = adamw.tree_map(torch.clone, params)
         mu_specs = shardings.opt_shardings(None, p, mesh, zero1=zero1)["mu"]
-        opt = steps.dp_opt_state(p, mu_specs, mesh)
-        steps.dp_update_(p, grads, opt, specs=mu_specs, mesh=mesh)
+        with msh.use_mesh(mesh):
+            opt = steps.dp_opt_state(p, mu_specs)
+            steps.dp_update_(p, grads, opt, specs=mu_specs)
         runs[zero1] = {"params": p, **{k: adamw.tree_map(
             lambda b, s: msh.gather_leaf(b, s, mesh), opt[k], mu_specs)
             for k in ("mu", "nu")}}
@@ -1077,3 +1078,115 @@ def test_launcher_mesh_local_defaults_to_a_one_rank_nccl_group_on_gpu(cuda, tmp_
     assert dp["history"][0] == one["history"][0]
     assert abs(dp["loss"] - one["loss"]) <= 1e-3 * abs(one["loss"])
     assert dp["params"]["embed"].device == torch.device("cuda", 0)
+
+
+# (b, s, local query heads, kv heads whole, head dim, kv heads sliced for the
+# local query heads): a tensor-parallel rank's flash calls where the kv heads
+# do not divide the model axis (granite's smoke config on 4 ranks, qwen2-vl's
+# full width on 4 ranks: one kv head for 7 query heads), and granite's full
+# width on 2 ranks, whose kv heads split with the query heads
+FLASH_TP_CASES = [(2, 64, 2, 2, 16, (0,)), (1, 256, 7, 4, 128, (1,)),
+                  (1, 256, 16, 8, 128, (4, 5, 6, 7))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,hq,hkv,d,kv", FLASH_TP_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_kernel_on_a_ranks_local_heads_on_gpu(cuda, b, s, hq, hkv, d, kv, dtype):
+    """The flash forward and backward kernels on a tensor-parallel rank's
+    heads: q at the local query heads, k and v the kv heads they read,
+    sliced from the whole (``index_select``, as ``attention._local_kv``
+    does); the output and the gradients of q and of the whole k and v
+    against the twin's."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    td = DTYPES[dtype]
+    q = torch.randn(b, s, hq, d, device=cuda, generator=g).to(td)
+    k, v = (torch.randn(b, s, hkv, d, device=cuda, generator=g).to(td) for _ in range(2))
+    do = torch.randn(b, s, hq, d, device=cuda, generator=g).to(td)
+    idx = torch.tensor(kv, device=cuda)
+
+    def run(use_kernel):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = ops.flash_attention(leaves[0], *(torch.index_select(t, 2, idx) for t in leaves[1:]),
+                                  use_kernel=use_kernel, causal=True)
+        return out, torch.autograd.grad(out, leaves, do)
+
+    native.reset_launches()
+    out, got = run(True)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["flash_attention"] == native.LAUNCHES["flash_attention_bwd"] == 1
+    q32, k32, v32 = (t.float().detach().requires_grad_() for t in (q, k, v))
+    want_out = ops.flash_attention(q32, *(torch.index_select(t, 2, idx) for t in (k32, v32)),
+                                   use_kernel=False, causal=True)
+    want = torch.autograd.grad(want_out, (q32, k32, v32), do.float())
+    _close(out.detach(), want_out.detach().to(td), dtype)
+    for a, w in zip(got, want):
+        _close(a, w.to(td), dtype)
+
+
+def _tp_rank_on_card(rank, batch, remat):
+    """One tensor-parallel step of granite's fp32 smoke config on the
+    kernel path (``remat``: each group checkpointed, so the backward reruns
+    it on the autograd engine's own thread), over a gloo group of 2 ranks
+    sharing ``cuda:0`` on a (1, 2) mesh: the loss, the gradients gathered
+    whole, and the launches."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm, steps
+    from repro_torch.models import sharding as msh
+    from repro_torch.optim import adamw
+    mesh = make_mesh((1, 2), ("data", "model"), "cuda")
+    cfg = registry.get_smoke_config("granite_3_8b").replace(use_kernels=True, remat=remat)
+    params = lm.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    whole = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
+    with msh.use_mesh(mesh):
+        specs = msh.param_shardings(params, mesh)
+        local = adamw.tree_map(lambda t, s: msh.local_slice(t, s, mesh).clone(), params, specs)
+        native.reset_launches()
+        loss, _, grads = steps.dp_grads(local, whole, cfg=cfg)
+        torch.cuda.synchronize()
+        launches = {k for k, n in native.LAUNCHES.items() if n}
+        grads = adamw.tree_map(lambda g_, s: msh.gather_leaf(g_, s, mesh), grads, specs)
+    return {"loss": float(loss), "grads": [g_.cpu() for g_ in adamw.tree_leaves(grads)],
+            "launches": launches}
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_step_on_two_ranks_matches_one_process_on_gpu(cuda, tmp_path):
+    """chip_smoke.py's tensor-parallel gate (a) at a small width: 2 gloo
+    ranks on the card, each on its shards and the whole batch, the loss
+    within 1e-5 and every gradient leaf, gathered whole, within 1e-4 of one
+    process, through the four training kernels."""
+    _tp_on_card_matches_one_process(tmp_path, remat=False)
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_step_with_remat_on_two_ranks_matches_one_process_on_gpu(cuda, tmp_path):
+    """The same with each group checkpointed: on the card the backward
+    reruns a group on the autograd engine's own thread, which must shard
+    as the forward did (no active mesh there would give the same shapes
+    and other values, silently)."""
+    _tp_on_card_matches_one_process(tmp_path, remat=True)
+
+
+def _tp_on_card_matches_one_process(tmp_path, *, remat):
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import lm_batches
+    from _ranks import spawn_ranks
+    from repro_torch.models import lm, steps
+    from repro_torch.optim import adamw
+    cfg = registry.get_smoke_config("granite_3_8b").replace(use_kernels=True)
+    batch = next(lm_batches(cfg, 4, 64, seed=1))
+    ranks = spawn_ranks(_tp_rank_on_card, 2, batch, remat, out_dir=tmp_path, timeout_s=300)
+    params = lm.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    leaves = adamw.tree_map(lambda p: p.requires_grad_(), params)
+    loss, _ = steps.loss_fn(leaves, cfg, {k: torch.as_tensor(v, device="cuda")
+                                          for k, v in batch.items()})
+    grads = [g.cpu() for g in torch.autograd.grad(loss, adamw.tree_leaves(leaves))]
+    loss = float(loss.detach())
+    for r in ranks:
+        assert abs(r["loss"] - loss) <= 1e-5 * abs(loss)
+        assert len(r["grads"]) == len(grads)
+        assert max(_rel(a, b) for a, b in zip(r["grads"], grads)) <= 1e-4
+        assert r["launches"] == {"rmsnorm", "rmsnorm_bwd", "flash_attention",
+                                 "flash_attention_bwd"}
