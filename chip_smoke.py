@@ -145,6 +145,22 @@ Run from the root of a checkout.  It imports only the port
    and moment bytes against the whole, its peak memory and one activation
    all-reduce's time are reported; phase 2 holds the flash kernel forward
    and backward at the local shape;
+6c. trains the MoE archs tensor-parallel (``_tp_moe_leg``) on the same
+   ranks, mesh, depth and batch, full width: granite-moe-3b-a800m on the
+   kernel path (20 of its 40 experts a rank, 12/4 heads a rank: a local
+   GQA group of 3), gated as 6b ((a) against one process, the plain run
+   replaying the split run's expert ids; (b) TP_STEPS bf16 steps, the
+   training launch set, every flash call at 12/4 heads, every MoE
+   routing's expert ids equal on both ranks, whole leaves bit for bit, the
+   first batch again below its init loss), every kernel call of one
+   recorded step held to its twin; and deepseek-v2-lite-16b (a dense MLA
+   layer and an MoE layer of 64 experts, 2 shared) on the plain path,
+   gate (a) only, after its kernel path under grad raised the error that
+   names ROADMAP.md item 2.1 (no backward kernel at MLA's D 192).  The
+   expert leaves' fitted specs, the bytes and time of one MoE layer's
+   collectives, a rank's parameter and moment bytes, peak memory and
+   steps/s are reported; phase 2 holds flash forward and backward at
+   (4, 1024, 12, 64) over 4 kv heads;
 7. holds every phase it timed against the card's roofline
    (``_roofline_phase``): each arch's prefill and decode step at batch 4
    (qwen2-vl prompt 384), gemma3's 1 x 2048 long leg, xlstm's scoring
@@ -256,6 +272,12 @@ DP_LIMITS = {"fp32_loss": 1e-5, "fp32_grad_leaf": 1e-4}
 # fp32 step at DP_LIMITS; gate (b) runs TP_STEPS bf16 steps of
 # ``LMTrainJob(mesh=...)``
 TP_PATH, TP_RANKS, TP_LAYERS, TP_STEPS = "granite-3-8b tensor-parallel training", 2, 2, 5
+# the MoE archs trained tensor-parallel (``_tp_moe_leg``) on the same ranks,
+# mesh, depth, batch and steps: granite-moe on the kernel path (gates (a)
+# and (b)), deepseek on the plain path (gate (a); its MLA flash call at D
+# 192 has no backward kernel, so the kernel path must raise under grad)
+TP_MOE_PATH = "granite-moe-3b-a800m tensor-parallel training"
+TP_MLA_PATH = "deepseek-v2-lite-16b tensor-parallel training"
 # (label, arch, run, the kernels that run must launch (no other may launch),
 # limits on the logits' rel error of kernel path vs plain path in bf16 and
 # with the weights in fp32; None reports without gating).  The fp32 limits
@@ -925,6 +947,14 @@ def main() -> int:
             "flash_attention_bwd": (_flash_bwd_case(TRAIN_BATCH, TRAIN_SEQ, g.n_heads // TP_RANKS,
                                                     g.n_kv_heads // TP_RANKS, g.head_dim,
                                                     gen), 5)},
+        TP_MOE_PATH: {                            # a rank's heads: 12 over 4, a local group of 3
+            "flash_attention": (_flash_case(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ,
+                                            gmo.n_heads // TP_RANKS, gmo.n_kv_heads // TP_RANKS,
+                                            gmo.head_dim, gen), 10),
+            "flash_attention_bwd": (_flash_bwd_case(TRAIN_BATCH, TRAIN_SEQ,
+                                                    gmo.n_heads // TP_RANKS,
+                                                    gmo.n_kv_heads // TP_RANKS, gmo.head_dim,
+                                                    gen), 5)},
     }
     cases = [_run_case(n, c, it, hw) for n, c, it in long_cases]
     path = {label: {n: _run_case(n, c, it, hw) for n, (c, it) in per.items()}
@@ -966,6 +996,9 @@ def main() -> int:
     # -- tensor-parallel LM training: two ranks on the card -------------------
     report["tp_train_leg"] = _tp_train_leg(card)
 
+    # -- tensor-parallel training of the MoE archs: two ranks on the card ------
+    report["tp_moe_train_leg"] = _tp_moe_leg(card)
+
     # -- the roofline: every timed phase at or above its bound ---------------
     report["roofline_phase"] = _roofline_phase(report, hw, card)
 
@@ -973,6 +1006,7 @@ def main() -> int:
     totals = {n: sum(r["launches_run"][n] for r in report["paths"].values())
               + report["mnist_leg"]["launches"][n] + report["lm_train_leg"]["launches"][n]
               + report["dp_train_leg"]["launches"][n] + report["tp_train_leg"]["launches"][n]
+              + report["tp_moe_train_leg"]["launches"][n]
               for n in META}
     kernels = []
     for n, (route, src, rep, label, _) in META.items():
@@ -2650,6 +2684,334 @@ def _tp_rank(rank: int) -> dict:
     out["moment_bytes"] = sum(t.numel() * t.element_size() for key in ("mu", "nu")
                               for t in _leaves(res["opt_state"][key]))
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def _tp_moe_leg(card: str) -> dict:
+    """The MoE archs at full width, TP_LAYERS layers, trained
+    tensor-parallel by TP_RANKS ranks sharing the card through a gloo group
+    on a (1, TP_RANKS) mesh, each on the whole global batch and its shard
+    of every parameter (``_tp_moe_rank``): granite-moe on the kernel path,
+    gates (a) and (b) of ``_tp_train_leg``, with every MoE routing's expert
+    ids equal on both ranks, 20 of 40 experts a rank and every flash call
+    at 12/4 heads; deepseek on the plain path, gate (a), after its kernel
+    path under grad raised the error naming ROADMAP.md item 2.1.  Gate (a)
+    runs the one process on the split run's expert ids (``_routing``): a
+    near tie that the split run's summation order decides otherwise would
+    move a token's whole gate; the decisions it would have made otherwise
+    are counted and printed.  Ranks sharing one card through host-staged
+    gloo measure correctness, not scaling."""
+    import shutil
+
+    import torch
+
+    sys.path.insert(0, str(ROOT / "tests"))          # the ranks' launcher, shared with the tests
+    from _ranks import spawn_ranks
+    from repro_torch.configs import registry
+
+    gm = registry.get_config("granite_moe_3b_a800m")
+    ds = registry.get_config("deepseek_v2_lite_16b")
+    heads = (gm.n_heads // TP_RANKS, gm.n_kv_heads // TP_RANKS)
+    experts = gm.n_experts // TP_RANKS
+    print(f"{TP_MOE_PATH}: granite-moe at full width (d {gm.d_model}, {gm.n_experts} experts top "
+          f"{gm.top_k}, expert width {gm.moe_d_ff}), {TP_LAYERS} layers, and {TP_MLA_PATH}: "
+          f"deepseek at full width (MLA, {ds.n_experts} experts top {ds.top_k} + "
+          f"{ds.n_shared_experts} shared), {TP_LAYERS} layers (the dense MLA layer and one MoE "
+          f"layer); {TP_RANKS} gloo ranks on one card on a (1, {TP_RANKS}) mesh, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} on every rank, fp32 masters  [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "experiments" / "chip_smoke_tp_moe"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks(_tp_moe_rank, TP_RANKS, out_dir=out_dir, timeout_s=900)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    leg_s = time.perf_counter() - t0
+
+    first = ranks[0]
+    for label, key in ((TP_MOE_PATH, "granite_moe_a"), (TP_MLA_PATH, "deepseek_a")):
+        a = first[key]
+        worst = max(a["leaves"], key=a["leaves"].get)
+        print(f"{label} (a), one fp32 step on {TP_RANKS} ranks vs one process: loss rel "
+              f"{a['loss']:.4g} (limit {DP_LIMITS['fp32_loss']}), gathered gradient leaf rel up "
+              f"to {a['leaves'][worst]:.4g} ({worst}; limit {DP_LIMITS['fp32_grad_leaf']}); "
+              f"routing decisions the one process would have made otherwise (replayed): "
+              f"{a['flips']}  [{card}]")
+        over = ([f"loss {a['loss']}"] if a["loss"] > DP_LIMITS["fp32_loss"] else []) + [
+            f"{n} {r}" for n, r in a["leaves"].items() if r > DP_LIMITS["fp32_grad_leaf"]]
+        if over:
+            raise AssertionError(f"{label} (a): {TP_RANKS} ranks vs one process over the "
+                                 "limits: " + "; ".join(over))
+    for r in ranks:
+        if "ROADMAP.md queue 2 item 2.1" not in (r["deepseek_kernel_raise"] or ""):
+            raise AssertionError(f"{TP_MLA_PATH}: rank {r['rank']}'s kernel path under grad did "
+                                 f"not raise item 2.1: {r['deepseek_kernel_raise']!r}")
+    print(f"{TP_MLA_PATH}: the kernel path under grad raised on every rank: "
+          f"{first['deepseek_kernel_raise']}  [{card}]")
+
+    label = TP_MOE_PATH
+    history, again = first["history"], first["first_again"]
+    if not all(math.isfinite(v) for v in history):
+        raise AssertionError(f"{label} (b): losses not finite: {history}")
+    if not again < history[0]:
+        raise AssertionError(f"{label} (b): the first batch's loss with the trained parameters, "
+                             f"{again}, is not below its loss at the init, {history[0]}")
+    for r in ranks:
+        _expect(f"{label}, rank {r['rank']}", r["launches"], TRAIN_KERNELS)
+        if r["history"] != history:
+            raise AssertionError(f"{label} (b): rank {r['rank']} reports {r['history']}, rank 0 "
+                                 f"{history}")
+        if r["whole_differ"]:
+            raise AssertionError(f"{label} (b): rank {r['rank']}'s whole leaves differ from rank "
+                                 f"0's: {r['whole_differ']}")
+        if set(r["flash_heads"]) != {heads}:
+            raise AssertionError(f"{label} (b): rank {r['rank']}'s flash calls at (query, kv) "
+                                 f"heads {sorted(set(r['flash_heads']))}, not {heads}")
+        if set(r["local_experts"].values()) != {experts}:
+            raise AssertionError(f"{label} (b): rank {r['rank']} holds {r['local_experts']} "
+                                 f"experts a leaf, not {experts}")
+        if len(r["route_ids"]) != len(first["route_ids"]) or not all(
+                torch.equal(a, b) for a, b in zip(r["route_ids"], first["route_ids"])):
+            raise AssertionError(f"{label} (b): rank {r['rank']} routes otherwise than rank 0")
+        if not r["whole_param_bytes"] / TP_RANKS <= r["param_bytes"] < \
+                r["whole_param_bytes"] / TP_RANKS * 1.01:
+            raise AssertionError(f"{label}: rank {r['rank']} holds {r['param_bytes']} parameter "
+                                 f"bytes, not 1/{TP_RANKS} of {r['whole_param_bytes']}")
+    train_s = first["train_s"]
+    tokens = TP_STEPS * TRAIN_BATCH * TRAIN_SEQ
+    launches = {n: sum(r["launches"][n] for r in ranks) for n in META}
+    moe = first["moe_layer"]
+    print(f"{label}: fitted specs " + ", ".join(f"{k} {v}" for k, v in first["specs"].items())
+          + "; parameter bytes a rank " + ", ".join(str(r["param_bytes"]) for r in ranks)
+          + f" of {first['whole_param_bytes']}, moment bytes a rank "
+          + ", ".join(str(r["moment_bytes"]) for r in ranks)
+          + f" of {2 * first['whole_param_bytes']}  [{card}]")
+    print(f"{label}: one MoE layer's forward and backward at {TRAIN_BATCH} x {TRAIN_SEQ} (bf16) "
+          f"moves {moe['bytes']} bytes through {moe['collectives']} ({moe['calls']}); one "
+          f"all-reduce of {moe['reduce_bytes']} bytes {moe['reduce_s']:.4f} s  [{card}]")
+    print(f"{label} (b): {TP_STEPS} bf16 steps in {train_s:.3f} s ({TP_STEPS / train_s:.4f} "
+          f"steps/s, {tokens / train_s:.1f} tokens/s), losses {[round(v, 4) for v in history]}, "
+          f"the first batch again {again:.4f}, {first['whole_leaves']} whole leaves bit for bit on "
+          f"every rank, {len(first['route_ids'])} routings equal on every rank, "
+          f"{len(first['flash_heads'])} flash calls a rank at {heads[0]}/{heads[1]} heads, "
+          f"{experts} experts a rank; peak memory by rank "
+          + ", ".join(f"{r['peak_gib']:.2f} GiB" for r in ranks)
+          + f"; launches (both ranks) {launches}; the whole leg {leg_s:.1f} s  [{card}]")
+    return {"ranks": TP_RANKS, "layers": TP_LAYERS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": TP_STEPS, "specs": first["specs"], "granite_moe_a": first["granite_moe_a"],
+            "deepseek_a": first["deepseek_a"],
+            "deepseek_kernel_raise": first["deepseek_kernel_raise"], "history": history,
+            "first_again": again, "train_s": train_s, "steps_per_s": TP_STEPS / train_s,
+            "tokens_per_s": tokens / train_s, "moe_layer": moe,
+            "recorded": [r["recorded"] for r in ranks], "peak_gib": [r["peak_gib"] for r in ranks],
+            "param_bytes": [r["param_bytes"] for r in ranks],
+            "moment_bytes": [r["moment_bytes"] for r in ranks],
+            "whole_param_bytes": first["whole_param_bytes"], "leg_s": leg_s,
+            "launches": launches}
+
+
+def _tp_parity(rank: int, mesh, cfg32, params: dict) -> dict | None:
+    """Gate (a) of the tensor-parallel legs on a MoE arch: one fp32 step of
+    ``steps.dp_grads`` on this rank's shards of ``params`` and the whole
+    batch, the gradients gathered whole, against one process on rank 0 run
+    on the split run's expert ids.  Returns rank 0's rel errors (None on
+    the others)."""
+    import torch
+    from repro_torch.data.tokens import lm_batches
+    from repro_torch.models import sharding as msh
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw
+
+    whole = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(lm_batches(cfg32, TRAIN_BATCH, TRAIN_SEQ, seed=3)).items()}
+    with msh.use_mesh(mesh):
+        pspecs = msh.param_shardings(params, mesh)
+        local = adamw.tree_map(lambda t, s: msh.local_slice(t, s, mesh).clone(), params, pspecs)
+        with _routing() as ids:
+            loss, _, grads = steps.dp_grads(local, whole, cfg=cfg32)
+        del local
+        grads = adamw.tree_map(lambda t, s: msh.gather_leaf(t, s, mesh), grads, pspecs)
+    out = None
+    if rank == 0:
+        leaves = adamw.tree_map(lambda t: t.detach().requires_grad_(), params)
+        with _routing(replay=ids) as own:
+            one, _ = steps.loss_fn(leaves, cfg32, whole)
+        want = torch.autograd.grad(one, adamw.tree_leaves(leaves))
+        one = float(one.detach())
+        out = {"loss": abs(float(loss) - one) / abs(one), "flips": _flips(own, ids),
+               "leaves": {n: _rel(g, w) for (n, _), g, w in
+                          zip(_named(params), adamw.tree_leaves(grads), want)}}
+        del leaves, want
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _collective_bytes(fn) -> tuple[int, dict]:
+    """(bytes, {collective: calls}) of every all-reduce and all-gather
+    ``fn`` runs, forward and backward (``torch.distributed`` wrapped)."""
+    import torch.distributed as dist
+    seen, calls = [0], {}
+    saved = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+
+    def counting(name):
+        def call(t, *args, **kw):
+            x = args[0] if name == "all_gather" else t
+            seen[0] += x.numel() * x.element_size()
+            calls[name] = calls.get(name, 0) + 1
+            return saved[name](t, *args, **kw)
+        return call
+
+    for n in saved:
+        setattr(dist, n, counting(n))
+    try:
+        fn()
+    finally:
+        for n, f in saved.items():
+            setattr(dist, n, f)
+    return seen[0], calls
+
+
+def _tp_moe_rank(rank: int) -> dict:
+    """One rank of ``_tp_moe_leg``, in its own process on the card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.core.trainjob import LMTrainJob
+    from repro_torch.data.tokens import lm_batches
+    from repro_torch.kernels import native, ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm, moe, steps
+    from repro_torch.models import sharding as msh
+    from repro_torch.optim import adamw
+    from repro_torch.telemetry.events import EventLog
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh((1, TP_RANKS), ("data", "model"), "cuda")
+    gm = registry.get_config("granite_moe_3b_a800m")
+    out: dict = {"rank": rank}
+
+    # granite-moe (a): one fp32 step on the kernel path against one process
+    cfg32 = gm.replace(n_layers=TP_LAYERS, dtype="float32", use_kernels=True)
+    params = lm.init_params(cfg32, seed=0, device="cuda", dtype=torch.float32)
+    out["granite_moe_a"] = _tp_parity(rank, mesh, cfg32, params)
+    del params
+    dist.barrier()
+
+    # one MoE layer at the leg's shape in bf16: the bytes its collectives
+    # move, forward and backward, and one all-reduce of its (B, S, D) output
+    cfg = gm.replace(n_layers=TP_LAYERS, use_kernels=True)
+    with msh.use_mesh(mesh):
+        whole = lm.init_params(cfg.replace(n_layers=1), seed=0, device="cuda",
+                               dtype=torch.bfloat16)["phase0"]["slot0"]["ffn"]
+        layer = {k: msh.local_slice(t[0], msh.param_shardings({k: t[0]}, mesh)[k], mesh)
+                 for k, t in whole.items()}
+        gen = torch.Generator(device="cuda").manual_seed(7)
+        x = torch.randn((TRAIN_BATCH, TRAIN_SEQ, gm.d_model), device="cuda",
+                        dtype=torch.bfloat16, generator=gen).requires_grad_()
+
+        def layer_step():
+            y, aux = moe.moe_forward(layer, x, cfg)
+            (y.float().square().mean() + aux).backward()
+        nbytes, calls = _collective_bytes(layer_step)
+        act = torch.randn((TRAIN_BATCH, TRAIN_SEQ, gm.d_model), device="cuda",
+                          dtype=torch.bfloat16, generator=gen)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        dist.all_reduce(act, group=msh.model_group())
+        torch.cuda.synchronize()
+        out["moe_layer"] = {"bytes": nbytes, "calls": calls, "collectives": sum(calls.values()),
+                            "reduce_bytes": act.numel() * act.element_size(),
+                            "reduce_s": time.perf_counter() - t0}
+        del whole, layer, x, act
+    dist.barrier()
+
+    # granite-moe (b): bf16 steps through the entry point, launches, flash
+    # heads and expert ids recorded
+    heads = []
+    kernel = ops._flash_kernel
+
+    def spy(q, k, v, **kw):
+        heads.append((q.shape[2], k.shape[2]))
+        return kernel(q, k, v, **kw)
+
+    log = EventLog()
+    native.reset_launches()
+    ops._flash_kernel = spy
+    try:
+        with _routing() as ids:
+            res = LMTrainJob(cfg, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, n_steps=TP_STEPS,
+                             mesh=mesh, log=log, device="cuda").run()
+    finally:
+        ops._flash_kernel = kernel
+    torch.cuda.synchronize()
+    out["launches"] = dict(native.LAUNCHES)
+    out["flash_heads"] = heads
+    out["route_ids"] = [t.cpu() for t in ids]
+    out["history"], out["train_s"] = res["history"], log.totals()["tfjob:train"]
+    first = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(lm_batches(cfg, TRAIN_BATCH, TRAIN_SEQ)).items()}
+    meta = lm.init_params(cfg, device="meta", dtype=torch.float32)
+    with msh.use_mesh(mesh):
+        out["first_again"] = float(steps.dp_grads(res["params"], first, cfg=cfg)[0])
+        pspecs = msh.param_shardings(meta, mesh)
+        # every kernel call of one recorded step against its twin
+        with _recording(TRAIN_KERNELS) as calls:
+            steps.dp_grads(res["params"], first, cfg=cfg)
+        out["recorded"] = _hold_recorded(f"{TP_MOE_PATH}, rank {rank}", cfg, calls)
+        del calls
+    out["specs"] = {n: str(s) for n, s in _named(pspecs)
+                    if n.startswith("phase0/slot0/ffn/")}
+    out["local_experts"] = {n: t.shape[1] for n, t in _named(res["params"])
+                            if n.rsplit("/", 1)[-1].startswith("experts_")}
+    differ, n_whole = [], 0
+    for (n, t), s in zip(_named(res["params"]), adamw.tree_leaves(pspecs)):
+        if msh.splits(s, mesh):
+            continue
+        n_whole += 1
+        ref = t.clone()
+        dist.broadcast(ref, src=0)
+        if not torch.equal(ref, t):
+            differ.append(n)
+    out["whole_differ"], out["whole_leaves"] = differ, n_whole
+    out["param_bytes"] = sum(t.numel() * t.element_size() for t in _leaves(res["params"]))
+    out["whole_param_bytes"] = sum(t.numel() * 4 for t in _leaves(meta))
+    out["moment_bytes"] = sum(t.numel() * t.element_size() for key in ("mu", "nu")
+                              for t in _leaves(res["opt_state"][key]))
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del res, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    # deepseek: the kernel path under grad raises (MLA's flash at D 192 has
+    # no backward kernel); gate (a) on the plain path
+    ds = registry.get_config("deepseek_v2_lite_16b").replace(n_layers=TP_LAYERS,
+                                                             dtype="float32")
+    params = lm.init_params(ds, seed=0, device="cuda", dtype=torch.float32)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(lm_batches(ds, TRAIN_BATCH, TRAIN_SEQ, seed=3)).items()}
+    with msh.use_mesh(mesh):
+        local = adamw.tree_map(lambda t, s: msh.local_slice(t, s, mesh).clone(), params,
+                               msh.param_shardings(params, mesh))
+        try:
+            steps.dp_grads(local, batch, cfg=ds.replace(use_kernels=True))
+            out["deepseek_kernel_raise"] = None
+        except ValueError as e:
+            out["deepseek_kernel_raise"] = str(e)
+        del local, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    out["deepseek_a"] = _tp_parity(rank, mesh, ds.replace(use_kernels=False), params)
+    out["peak_gib"] = max(out["peak_gib"], torch.cuda.max_memory_allocated() / 2**30)
     return out
 
 

@@ -15,11 +15,12 @@ Two flavours, as in the reference:
     each rank keeping its block of each leaf under the fitted spec
     (``models.sharding.param_shardings``: the whole leaf under data
     parallelism, its shard on a model axis larger than 1 under ``tp``:
-    tensor parallelism, the dense and VLM archs), each rank on its rows of
-    every global batch (``launch.shardings``) and, with ``cfg.zero1``,
-    AdamW's moments split over the data axis too (``steps.dp_train_step``).
-    The other families refuse a mesh that would shard one of their
-    parameters, naming their ROADMAP.md queue 1 item (1.13b-d).
+    tensor parallelism, the dense, VLM and MoE archs), each rank on its
+    rows of every global batch (``launch.shardings``) and, with
+    ``cfg.zero1``, AdamW's moments split over the data axis too
+    (``steps.dp_train_step``).  The other families refuse a mesh that would
+    shard one of their parameters, naming their ROADMAP.md queue 1 item
+    (1.13c-d).
 Both log through the EventLog, checkpoint into the ArtifactStore (PVC
 analog), and time their stages for the Tables 4/5 repro.
 """
@@ -259,10 +260,9 @@ class LMTrainJob:
 
 # the families tensor parallelism covers; the others -> (their ROADMAP.md
 # queue 1 item, what it ports), 1.13 for a family not named here
-TP_FAMILIES = ("dense", "vlm")
-_MOE, _SSM = ("1.13b", "MoE expert parallelism and MLA"), ("1.13c", "the SSM, hybrid and "
-                                                              "xLSTM mixers")
-TP_ITEMS = {"moe": _MOE, "ssm": _SSM, "hybrid": _SSM,
+TP_FAMILIES = ("dense", "vlm", "moe")
+_SSM = ("1.13c", "the SSM, hybrid and xLSTM mixers")
+TP_ITEMS = {"ssm": _SSM, "hybrid": _SSM,
             "audio": ("1.13d", "enc-dec (the encoder and cross-attention)")}
 
 

@@ -13,6 +13,8 @@ Under tensor parallelism (``models/sharding``) ``gqa_forward`` runs on
 this rank's heads: q/k/v column parallel, both attention kernels on the
 local heads (k and v sliced for them where their heads do not divide the
 model axis), ``wo`` row parallel and its partial sum reduced.
+``mla_forward`` does the same with MLA's queries and decompression
+(``_split_mla``), its compression whole on every rank.
 
 Parameters keep the reference's einsum layouts: ``wq (d,Hq,hd)``,
 ``wk``/``wv (d,Hkv,hd)``, ``wo (Hq,hd,d)``.  Decode and chunked prefill
@@ -179,15 +181,22 @@ def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConf
     o = ops.flash_attention(q, k, v, causal=causal, window=window,
                             use_kernel=cfg.use_kernels, chunked=cfg.fused_attention,
                             chunk_k=cfg.attn_chunk)
-    if msh.model_ways() == 1:
-        out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
-    else:
-        split = q.shape[2] < cfg.n_heads                # o on this rank's heads
-        out, layout = msh.project("bshk,hkd->bsd", o if split else msh.copy(o),
-                                  msh.Layout(2) if split else msh.WHOLE, p["wo"],
-                                  (cfg.n_heads, cfg.head_dim, cfg.d_model))
-        out = msh.constrain(out, "batch", None, None, layout=layout)
+    out = _out_proj(p, o, cfg, cfg.head_dim)
     return (out, (k, v)) if return_kv else out
+
+
+def _out_proj(p: dict, o: torch.Tensor, cfg: ArchConfig, hd: int) -> torch.Tensor:
+    """``wo`` (H,hd,D) on the attention output o (B,S,h,hd).  Under tensor
+    parallelism o holds this rank's heads (h < H: ``wo`` row parallel, its
+    partial sum reduced) or every head (``wo`` relocated: o through
+    ``copy``); the output is whole."""
+    if msh.model_ways() == 1:
+        return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    split = o.shape[2] < cfg.n_heads                    # o on this rank's heads
+    out, layout = msh.project("bshk,hkd->bsd", o if split else msh.copy(o),
+                              msh.Layout(2) if split else msh.WHOLE, p["wo"],
+                              (cfg.n_heads, hd, cfg.d_model))
+    return msh.constrain(out, "batch", None, None, layout=layout)
 
 
 def gqa_decode(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
@@ -380,11 +389,15 @@ def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConf
     (through ``ops.flash_chunked`` under ``cfg.fused_attention``).
     With ``return_cache`` also the compressed rows {c_kv, k_rope}."""
     c_kv, k_rope = _mla_compress(p, x, positions, cfg)
-    q_nope, q_rope = _mla_queries(p, x, positions, cfg)
-    k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"])
-    v = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uv"])
+    if msh.model_ways() == 1:
+        q_nope, q_rope = _mla_queries(p, x, positions, cfg)
+        k_nope = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uk"])
+        v = torch.einsum("bsr,rhk->bshk", c_kv, p["w_uv"])
+        kr = k_rope
+    else:
+        q_nope, q_rope, k_nope, v, kr = _split_mla(p, x, c_kv, k_rope, positions, cfg)
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand_as(q_rope)], dim=-1)
+    k = torch.cat([k_nope, kr[:, :, None, :].expand_as(q_rope)], dim=-1)
     dqk, dv = q.shape[-1], v.shape[-1]
     if cfg.use_kernels:
         v_p = F.pad(v, (0, dqk - dv)) if dv < dqk else v
@@ -393,8 +406,36 @@ def mla_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConf
     else:
         o = ops.flash_attention(q, k, v, causal=True, use_kernel=False,
                                 chunked=cfg.fused_attention, chunk_k=cfg.attn_chunk)
-    out = torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    out = _out_proj(p, o, cfg, dv)
     return (out, {"c_kv": c_kv, "k_rope": k_rope}) if return_cache else out
+
+
+def _split_mla(p: dict, x: torch.Tensor, c_kv: torch.Tensor, k_rope: torch.Tensor,
+               positions: torch.Tensor, cfg: ArchConfig):
+    """MLA's queries and decompression under tensor parallelism: (q_nope,
+    roped q_rope, k_nope, v, the k_rope to attend with).  ``c_kv`` and
+    ``k_rope`` are whole (``w_dkv`` is replicated).  x and ``c_kv`` each go
+    through one ``copy``, each product runs on this rank's block of its
+    weight, and each output is constrained as the reference constrains q
+    (heads over the model axis where they divide it, else whole): a block
+    split on D (``w_uq``, ``w_qr``) or on r (``w_uk``, ``w_uv``) gives a
+    partial sum, reduced before the rotation and the concatenation.  On
+    this rank's heads k_rope, shared by every head, goes through ``copy``
+    too; with every head on every rank it stays as it is."""
+    d, h = cfg.d_model, cfg.n_heads
+    r, dr, dn, dv = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
+    xc, cc = msh.copy(x), msh.copy(c_kv)
+
+    def heads(eq, t, name, whole):
+        y, layout = msh.project(eq, t, msh.WHOLE, p[name], whole)
+        return msh.constrain(y, "batch", None, "model", layout=layout)
+
+    q_nope = heads("bsd,dhk->bshk", xc, "w_uq", (d, h, dn))
+    q_rope = apply_rope(heads("bsd,dhk->bshk", xc, "w_qr", (d, h, dr)), positions,
+                        cfg.rope_theta)
+    k_nope = heads("bsr,rhk->bshk", cc, "w_uk", (r, h, dn))
+    v = heads("bsr,rhk->bshk", cc, "w_uv", (r, h, dv))
+    return q_nope, q_rope, k_nope, v, msh.copy(k_rope) if q_nope.shape[2] < h else k_rope
 
 
 def _mla_absorbed(p: dict, x: torch.Tensor, q_nope: torch.Tensor, q_rope: torch.Tensor,

@@ -38,7 +38,7 @@ from . import attention as attn
 from . import moe as moe_mod
 from . import sharding as msh
 from . import ssm
-from .modules import ACTIVATIONS, dense_init, swiglu
+from .modules import ACTIVATIONS, dense_init, split_mlp, swiglu
 
 KV_KINDS = ("global", "local")       # GQA; ``mla`` keeps a compressed cache
 CACHE_KINDS = KV_KINDS + ("mla",)    # caches of rows by position; the rest: recurrent states
@@ -116,28 +116,9 @@ def mlp_forward(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 
 
 def _split_mlp(p: dict, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    """The MLP under tensor parallelism: x goes through one ``copy``,
-    ``w_up``/``w_gate`` are column parallel and ``w_down`` row parallel (a
-    block split on D instead gives a partial sum, reduced before the
-    activation, or a split output, gathered), and the output is whole."""
-    d, f = cfg.d_model, cfg.d_ff
-    spec = ("batch", None, "model")
-    x = msh.copy(x)
-
-    def up(name):
-        t, layout = msh.project("...d,df->...f", x, msh.WHOLE, p[name], (d, f), op=torch.matmul)
-        return msh.constrain(t, *spec, layout=layout)
-
-    h = up("w_up")
-    if cfg.mlp_act == "swiglu":
-        h = swiglu(h, up("w_gate"))
-    else:
-        h = ACTIVATIONS[cfg.mlp_act](h)
-    layout = msh.fitted_layout((*h.shape[:-1], f), *spec)
-    h = msh.constrain(h, *spec, layout=layout)
-    split = layout.dim is not None                       # h on this rank's block of d_ff
-    out, layout = msh.project("...f,fd->...d", h if split else msh.copy(h), layout, p["w_down"],
-                              (f, d), op=torch.matmul)
+    """The MLP under tensor parallelism: x goes through one ``copy``, then
+    ``modules.split_mlp``, and the output is whole."""
+    out, layout = split_mlp(p, msh.copy(x), cfg.d_model, cfg.d_ff, cfg.mlp_act)
     return msh.constrain(out, "batch", None, None, layout=layout)
 
 

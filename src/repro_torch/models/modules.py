@@ -4,6 +4,8 @@ Counterpart of ``repro.models.modules``.  ``dense_init`` draws from a
 ``torch.Generator`` and therefore never reproduces the reference's JAX
 random stream: parity with the reference goes through
 ``models.transplant``, which loads the reference's own parameters.
+``split_mlp`` is the MLP under tensor parallelism, shared by the dense
+MLP (``blocks``) and the MoE layer's shared experts (``moe``).
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ from typing import Callable, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from . import sharding as msh
 
 
 def dense_init(shape: Sequence[int], *, generator: torch.Generator | None,
@@ -57,6 +61,31 @@ ACTIVATIONS: dict[str, Callable] = {
     "squared_relu": squared_relu,
     "silu": F.silu,
 }
+
+
+def split_mlp(p: dict, x: torch.Tensor, d: int, f: int, act: str,
+              names: Sequence[str] = ("w_gate", "w_up", "w_down")) -> tuple:
+    """(out, its layout on the model axis): an MLP of width ``f`` under
+    tensor parallelism on this rank's blocks of its leaves ``names`` (gate,
+    up, down; the gate only under ``swiglu``).  ``x`` (.., d) is whole and
+    has come through ``copy``.  Up and gate are column parallel and down
+    row parallel, which gives a partial sum; a block split on D instead
+    gives a partial sum, reduced before the activation, or a split
+    output."""
+    gate, up_name, down = names
+    spec = ("batch", None, "model")
+
+    def up(name):
+        t, layout = msh.project("...d,df->...f", x, msh.WHOLE, p[name], (d, f), op=torch.matmul)
+        return msh.constrain(t, *spec, layout=layout)
+
+    h = up(up_name)
+    h = swiglu(h, up(gate)) if act == "swiglu" else ACTIVATIONS[act](h)
+    layout = msh.fitted_layout((*h.shape[:-1], f), *spec)
+    h = msh.constrain(h, *spec, layout=layout)
+    split = layout.dim is not None                       # h on this rank's block of f
+    return msh.project("...f,fd->...d", h if split else msh.copy(h), layout, p[down], (f, d),
+                       op=torch.matmul)
 
 
 def require_device(device) -> torch.device:

@@ -27,7 +27,8 @@ from typing import NamedTuple
 import torch
 
 from ..configs.base import ArchConfig
-from .modules import dense_init, swiglu
+from . import sharding as msh
+from .modules import dense_init, split_mlp, swiglu
 
 
 class Route(NamedTuple):
@@ -86,11 +87,11 @@ def _top_k(probs: torch.Tensor, k: int):
     return gates[..., :k], ids[..., :k]
 
 
-def _route_group(x: torch.Tensor, logits: torch.Tensor, cfg: ArchConfig, cap: int):
-    """Every row's dispatch. x (B,S,D), logits (B,S,n_experts) fp32 ->
-    (buffers (B,E,C,D), Route, router probs (B,S,n_experts)).  Padded
-    experts get no router logit, so they are never picked."""
-    b, s, d = x.shape
+def _route(logits: torch.Tensor, cfg: ArchConfig, cap: int):
+    """Every row's routing: logits (B,S,n_experts) fp32 -> (Route, router
+    probs (B,S,n_experts)).  Padded experts get no router logit, so they
+    are never picked."""
+    b, s, _ = logits.shape
     e, k = _epad(cfg), cfg.top_k
     probs = torch.softmax(logits, dim=-1)
     gates, ids = _top_k(probs, k)                                      # (B,S,k)
@@ -99,22 +100,46 @@ def _route_group(x: torch.Tensor, logits: torch.Tensor, cfg: ArchConfig, cap: in
     flat_ids = ids.reshape(b, s * k)
     order = torch.argsort(flat_ids, dim=-1, stable=True)
     sorted_ids = torch.gather(flat_ids, 1, order)
-    counts = torch.zeros((b, e), dtype=torch.long, device=x.device).scatter_add_(
+    counts = torch.zeros((b, e), dtype=torch.long, device=logits.device).scatter_add_(
         1, flat_ids, torch.ones_like(flat_ids))                        # bincount per row
     starts = torch.cumsum(counts, dim=-1) - counts
-    pos_in_expert = torch.arange(s * k, device=x.device)[None] - torch.gather(starts, 1,
-                                                                             sorted_ids)
+    pos_in_expert = torch.arange(s * k, device=logits.device)[None] - torch.gather(
+        starts, 1, sorted_ids)
     keep = pos_in_expert < cap
     slot = torch.where(keep, sorted_ids * cap + pos_in_expert, e * cap)  # overflow row
+    return Route(order, slot, keep, order // k, gates, ids), probs
 
-    tok_idx = order // k                                               # source token
-    rows = torch.gather(x, 1, tok_idx[..., None].expand(b, s * k, d))
-    rows = torch.where(keep[..., None], rows, torch.zeros((), dtype=x.dtype, device=x.device))
-    flat = (torch.arange(b, device=x.device)[:, None] * (e * cap + 1) + slot).reshape(-1)
-    buf = torch.zeros((b * (e * cap + 1), d), dtype=x.dtype, device=x.device).index_put(
+
+def _dispatch(x: torch.Tensor, route: Route, n_slots: int) -> torch.Tensor:
+    """(B,n_slots,D) buffers: each kept assignment's token row of x (B,S,D)
+    at its slot, zeros elsewhere (dropped ones land in the overflow row
+    ``n_slots``, cut off)."""
+    b, sk = route.slot.shape
+    d = x.shape[-1]
+    rows = torch.gather(x, 1, route.tok_idx[..., None].expand(b, sk, d))
+    rows = torch.where(route.keep[..., None], rows,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+    flat = (torch.arange(b, device=x.device)[:, None] * (n_slots + 1) + route.slot).reshape(-1)
+    buf = torch.zeros((b * (n_slots + 1), d), dtype=x.dtype, device=x.device).index_put(
         (flat,), rows.reshape(-1, d))
-    buf = buf.reshape(b, e * cap + 1, d)[:, :-1].reshape(b, e, cap, d)
-    return buf, Route(order, slot, keep, tok_idx, gates, ids), probs
+    return buf.reshape(b, n_slots + 1, d)[:, :-1]
+
+
+def _route_group(x: torch.Tensor, logits: torch.Tensor, cfg: ArchConfig, cap: int):
+    """Every row's dispatch. x (B,S,D), logits (B,S,n_experts) fp32 ->
+    (buffers (B,E,C,D), Route, router probs (B,S,n_experts))."""
+    b, _, d = x.shape
+    e = _epad(cfg)
+    route, probs = _route(logits, cfg, cap)
+    return _dispatch(x, route, e * cap).reshape(b, e, cap, d), route, probs
+
+
+def _own_slots(route: Route, lo: int, n: int) -> Route:
+    """``route`` cut to the buffer slots lo .. lo + n - 1 (one rank's
+    experts), renumbered from 0; every other assignment is dropped into the
+    overflow slot ``n``."""
+    own = route.keep & (route.slot >= lo) & (route.slot < lo + n)
+    return route._replace(keep=own, slot=torch.where(own, route.slot - lo, n))
 
 
 def _combine_group(buf_out: torch.Tensor, route: Route, s: int, k: int,
@@ -133,15 +158,26 @@ def _combine_group(buf_out: torch.Tensor, route: Route, s: int, k: int,
     return (unsorted.reshape(b, s, k, d) * route.gates[..., None].to(dtype)).sum(dim=2)
 
 
+def _aux(logits: torch.Tensor, probs: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The Switch-style load-balance loss, averaged over the rows."""
+    b, s, e = logits.shape
+    me = probs.mean(dim=1)                                             # (B,E)
+    top1 = torch.argmax(logits, dim=-1)
+    ce = torch.zeros((b, e), dtype=torch.float32, device=logits.device).scatter_add_(
+        1, top1, torch.ones(top1.shape, dtype=torch.float32, device=logits.device)) / s
+    return (e * torch.mean(torch.sum(me * ce, dim=-1))).float()
+
+
 def moe_forward(p: dict, x: torch.Tensor, cfg: ArchConfig, *, no_drop: bool = False):
     """x (B,S,D) -> (y (B,S,D), aux fp32 scalar).
 
     ``no_drop``: capacity S*k, so no assignment overflows; chunked prefill
     uses it to stay equivalent to one-token decode, where capacity never
-    binds."""
-    b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
+    binds.  Under tensor parallelism ``_split_moe``."""
+    s, k = x.shape[1], cfg.top_k
     cap = s * k if no_drop else capacity(cfg, s)
+    if msh.model_ways() > 1:
+        return _split_moe(p, x, cfg, cap)
     logits = router_logits(p, x)
     bufs, route, probs = _route_group(x, logits, cfg, cap)
 
@@ -149,15 +185,64 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ArchConfig, *, no_drop: bool = Fa
     h_up = torch.einsum("becd,edf->becf", bufs, p["experts_up"])
     out_buf = torch.einsum("becf,efd->becd", swiglu(h_up, h_gate), p["experts_down"])
     y = _combine_group(out_buf, route, s, k, x.dtype)
-
-    # Switch-style load-balance loss, averaged over the groups
-    me = probs.mean(dim=1)                                             # (B,E)
-    top1 = torch.argmax(logits, dim=-1)
-    ce = torch.zeros((b, e), dtype=torch.float32, device=x.device).scatter_add_(
-        1, top1, torch.ones(top1.shape, dtype=torch.float32, device=x.device)) / s
-    aux = e * torch.mean(torch.sum(me * ce, dim=-1))
+    aux = _aux(logits, probs, cfg)
 
     if cfg.n_shared_experts:
         sh = swiglu(x @ p["shared_up"], x @ p["shared_gate"])
         y = y + sh @ p["shared_down"]
-    return y, aux.float()
+    return y, aux
+
+
+def _split_moe(p: dict, x: torch.Tensor, cfg: ArchConfig, cap: int):
+    """``moe_forward`` under tensor parallelism, on this rank's blocks of the
+    expert leaves.  The router is whole, and x is the same bits on every
+    rank of the model group, so every rank routes alike (``Route``) and
+    takes the whole aux loss, whose gradient is the router's whole one.
+    The (B,E,C,D) buffers take the reference's constraint ("batch",
+    "expert", None, "model"), fitted without relocation:
+
+    - E divides the model axis: each rank dispatches into its own experts'
+      slots only (``_own_slots``), runs their three products and combines
+      their kept rows, weighted by their gates, into a (B,S,D) partial sum;
+    - else D does: each rank dispatches its block of x's columns, the gate
+      and up products are partial sums, reduced together before the
+      SwiGLU, ``experts_down`` (split on its output D) gives this rank's
+      columns of the buffers, combined into its columns of y, gathered.
+
+    x and the gates enter that rank-local work through ``copy``.  The
+    shared experts are ``modules.split_mlp`` on the same ``copy`` of x;
+    their partial sum and the routed one are reduced together."""
+    b, s, d = x.shape
+    e, k, f = _epad(cfg), cfg.top_k, cfg.moe_d_ff
+    logits = router_logits(p, x)
+    route, probs = _route(logits, cfg, cap)
+    route = route._replace(gates=msh.copy(route.gates))
+    xc = msh.copy(x)
+    layout = msh.fitted_layout((b, e, cap, d), "batch", "expert", None, "model")
+    if layout.dim == 1:                                  # this rank's experts
+        n = e // msh.model_ways()
+        route = _own_slots(route, msh.model_index() * n * cap, n * cap)
+        bufs = _dispatch(xc, route, n * cap).reshape(b, n, cap, d)
+    else:                                                # this rank's columns, or whole
+        src = xc if layout.dim is None else msh.block(xc, -1)
+        bufs = _dispatch(src, route, e * cap).reshape(b, e, cap, -1)
+    h_gate, hl = msh.project("becd,edf->becf", bufs, layout, p["experts_gate"], (e, d, f))
+    h_up, _ = msh.project("becd,edf->becf", bufs, layout, p["experts_up"], (e, d, f))
+    if hl.partial:                                       # gate and up on D: one reduce
+        h_gate, h_up = msh.reduce(torch.stack([h_gate, h_up])).unbind(0)
+        hl = msh.WHOLE
+    h = swiglu(h_up, h_gate)
+    out_buf, ol = msh.project("becf,efd->becd", h if hl.dim is not None else msh.copy(h), hl,
+                              p["experts_down"], (e, f, d))
+    y = _combine_group(out_buf, route, s, k, x.dtype)
+    yl = msh.Layout(2) if ol.dim == 3 else msh.PARTIAL   # y on this rank's columns, or a part
+    if cfg.n_shared_experts:
+        sh, sl = split_mlp(p, xc, d, f * cfg.n_shared_experts, "swiglu",
+                           ("shared_gate", "shared_up", "shared_down"))
+        if yl.partial and sl.partial:
+            y = y + sh
+        else:
+            y = msh.constrain(y, "batch", None, None, layout=yl) + \
+                msh.constrain(sh, "batch", None, None, layout=sl)
+            yl = msh.WHOLE
+    return msh.constrain(y, "batch", None, None, layout=yl), _aux(logits, probs, cfg)

@@ -41,6 +41,16 @@ its dims and gives the product's layout.  With no mesh, a model axis of 1,
 or the ``dp`` profile, all of them return their input and run no
 collective.  A rank's rows of the batch need no collective here: they are
 the rank's own already, and the step sums over the batch axes' group.
+
+The MoE layer (``moe._split_moe``) routes whole on every rank and runs
+its experts on the rank's block: with the experts on E, one all-reduce of
+its (B,S,D) output a layer forward (the routed and shared experts' partial
+sums together), and backward one of x's gradient and one of the gates';
+no expert buffer crosses ranks.  With the experts on D (E does not divide
+the axis) the (B,E,C,F) gate and up products' partial sums are reduced
+forward (in one all-reduce) and the SwiGLU's gradient backward, and the
+output's columns are gathered.  MLA (``attention._split_mla``) moves what
+a GQA layer moves, plus the gradients of its whole compressed rows.
 """
 from __future__ import annotations
 
@@ -499,6 +509,14 @@ def reduce(x: torch.Tensor) -> torch.Tensor:
     return x if model_ways() == 1 else _Reduce.apply(x, model_group())
 
 
+def block(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """This rank's block of ``dim`` of a whole ``x`` that has come through
+    ``copy``: a slice, whose gradient is this rank's block of the whole
+    one (zeros elsewhere, summed over the ranks by the ``copy``)."""
+    ways = model_ways()
+    return x if ways == 1 else _own(x, dim % x.ndim, model_index(), ways)
+
+
 def gather(x: torch.Tensor, dim: int) -> torch.Tensor:
     """The whole tensor from the ranks' blocks on ``dim``; backward keeps
     this rank's block of the gradient."""
@@ -575,9 +593,11 @@ def project(eq: str, x: torch.Tensor, layout: Layout, w: torch.Tensor, whole: Se
     ``torch.einsum(eq, ...)``).  A weight split on an output dim (column
     parallel) takes a whole ``x`` and gives the product split there; one
     split on a contracted dim (row parallel) takes ``x`` split on that dim,
-    or whole, and then its block of it, and gives a partial sum.  A whole
-    ``x`` must have come through ``copy``: its gradient here is this rank's
-    part."""
+    or whole, and then its block of it, and gives a partial sum; one split
+    on a dim that ``x`` and the output share (the experts of
+    ``becd,edf->becf``) takes ``x`` split there, or its block of a whole
+    ``x``, and gives the product split there.  A whole ``x`` must have come
+    through ``copy``: its gradient here is this rank's part."""
     op = op or (lambda a, b: torch.einsum(eq, a, b))
     if model_ways() == 1:
         return op(x, w), WHOLE
@@ -599,11 +619,12 @@ def project(eq: str, x: torch.Tensor, layout: Layout, w: torch.Tensor, whole: Se
             raise NotImplementedError(f"{eq}: input split on dim {xdim}, weight on {letter!r}")
         y = op(x, w)
         return y, Layout(at(out, y.ndim, letter))
-    if letter in xs and letter not in out:               # row parallel
+    if letter in xs:                                     # row parallel, or batched on it
         k = at(xs, x.ndim, letter)
         if xdim is None:
             x = _own(x, k, model_index(), model_ways())
         elif xdim != k:
             raise NotImplementedError(f"{eq}: input split on dim {xdim}, weight on {letter!r}")
-        return op(x, w), PARTIAL
+        y = op(x, w)
+        return (y, Layout(at(out, y.ndim, letter))) if letter in out else (y, PARTIAL)
     raise NotImplementedError(f"{eq}: a weight split on {letter!r}")

@@ -103,7 +103,10 @@ def dp_grads(params: dict, batch: dict, *, cfg: ArchConfig):
     (``sharding.batch_group``) is every rank with no active mesh; under tensor
     parallelism it leaves out the model axis, whose ranks hold the same
     rows, one shard of each split leaf (its gradient that shard's), and
-    every whole leaf's whole gradient; a group of one rank sums nothing."""
+    every whole leaf's whole gradient; a group of one rank sums nothing.
+    So the MoE auxiliary loss, whole on every model rank (each routes the
+    same rows whole), enters each rank's loss once at its row share over
+    the batch group, never once a model rank."""
     group, ways = sharding.batch_group(sharding.current_mesh())
     labels, rows = batch["labels"][:, 1:], batch["tokens"].shape[0]
     counts = torch.tensor([0.0, float(rows)], device=labels.device)

@@ -1083,10 +1083,11 @@ def test_launcher_mesh_local_defaults_to_a_one_rank_nccl_group_on_gpu(cuda, tmp_
 # (b, s, local query heads, kv heads whole, head dim, kv heads sliced for the
 # local query heads): a tensor-parallel rank's flash calls where the kv heads
 # do not divide the model axis (granite's smoke config on 4 ranks, qwen2-vl's
-# full width on 4 ranks: one kv head for 7 query heads), and granite's full
-# width on 2 ranks, whose kv heads split with the query heads
+# full width on 4 ranks: one kv head for 7 query heads), and granite's and
+# granite-moe's full widths on 2 ranks, whose kv heads split with the query
+# heads (granite-moe's 12 query heads over 4 kv heads: a local group of 3)
 FLASH_TP_CASES = [(2, 64, 2, 2, 16, (0,)), (1, 256, 7, 4, 128, (1,)),
-                  (1, 256, 16, 8, 128, (4, 5, 6, 7))]
+                  (1, 256, 16, 8, 128, (4, 5, 6, 7)), (1, 256, 12, 8, 64, (4, 5, 6, 7))]
 
 
 @pytest.mark.gpu
@@ -1124,8 +1125,8 @@ def test_flash_kernel_on_a_ranks_local_heads_on_gpu(cuda, b, s, hq, hkv, d, kv, 
         _close(a, w.to(td), dtype)
 
 
-def _tp_rank_on_card(rank, batch, remat):
-    """One tensor-parallel step of granite's fp32 smoke config on the
+def _tp_rank_on_card(rank, arch, batch, remat):
+    """One tensor-parallel step of ``arch``'s fp32 smoke config on the
     kernel path (``remat``: each group checkpointed, so the backward reruns
     it on the autograd engine's own thread), over a gloo group of 2 ranks
     sharing ``cuda:0`` on a (1, 2) mesh: the loss, the gradients gathered
@@ -1136,7 +1137,7 @@ def _tp_rank_on_card(rank, batch, remat):
     from repro_torch.models import sharding as msh
     from repro_torch.optim import adamw
     mesh = make_mesh((1, 2), ("data", "model"), "cuda")
-    cfg = registry.get_smoke_config("granite_3_8b").replace(use_kernels=True, remat=remat)
+    cfg = registry.get_smoke_config(arch).replace(use_kernels=True, remat=remat)
     params = lm.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
     whole = {k: torch.as_tensor(v, device="cuda") for k, v in batch.items()}
     with msh.use_mesh(mesh):
@@ -1169,15 +1170,25 @@ def test_tensor_parallel_step_with_remat_on_two_ranks_matches_one_process_on_gpu
     _tp_on_card_matches_one_process(tmp_path, remat=True)
 
 
-def _tp_on_card_matches_one_process(tmp_path, *, remat):
+@pytest.mark.gpu
+def test_moe_tensor_parallel_step_on_two_ranks_matches_one_process_on_gpu(cuda, tmp_path):
+    """The same for granite-moe: each rank on half of the experts, its
+    flash calls at a local GQA group (4 query over 2 kv heads), the loss
+    within 1e-5 and every gathered gradient leaf within 1e-4 of one
+    process, through the four training kernels."""
+    _tp_on_card_matches_one_process(tmp_path, remat=False, arch="granite_moe_3b_a800m")
+
+
+def _tp_on_card_matches_one_process(tmp_path, *, remat, arch="granite_3_8b"):
     from repro_torch.configs import registry
     from repro_torch.data.tokens import lm_batches
     from _ranks import spawn_ranks
     from repro_torch.models import lm, steps
     from repro_torch.optim import adamw
-    cfg = registry.get_smoke_config("granite_3_8b").replace(use_kernels=True)
+    cfg = registry.get_smoke_config(arch).replace(use_kernels=True)
     batch = next(lm_batches(cfg, 4, 64, seed=1))
-    ranks = spawn_ranks(_tp_rank_on_card, 2, batch, remat, out_dir=tmp_path, timeout_s=300)
+    ranks = spawn_ranks(_tp_rank_on_card, 2, arch, batch, remat, out_dir=tmp_path,
+                        timeout_s=300)
     params = lm.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
     leaves = adamw.tree_map(lambda p: p.requires_grad_(), params)
     loss, _ = steps.loss_fn(leaves, cfg, {k: torch.as_tensor(v, device="cuda")

@@ -127,25 +127,25 @@ def test_cuda_entry_points_raise_without_a_card(no_cuda, entry):
 def _train_main_on_a_sharding_mesh(monkeypatch, tmp_path):
     """``--mesh local`` with the local mesh swapped for one whose model axis
     would shard the parameters of an arch outside tensor parallelism's
-    slice (granite-moe): the launcher hands it to ``LMTrainJob``, which
-    refuses it (the launcher makes no such decision itself)."""
+    slice (zamba2): the launcher hands it to ``LMTrainJob``, which refuses
+    it (the launcher makes no such decision itself)."""
     monkeypatch.setattr(train, "make_local_mesh",
                         lambda device_type: abstract_mesh((1, 2), ("data", "model")))
-    train.main(["--arch", "granite_moe_3b_a800m", "--smoke", "--device", "cpu", "--steps", "1",
+    train.main(["--arch", "zamba2_1_2b", "--smoke", "--device", "cpu", "--steps", "1",
                 "--mesh", "local", "--dist-backend", "gloo", "--store", str(tmp_path)])
 
 
 @pytest.mark.parametrize("entry,item", [
     (lambda monkeypatch, tmp_path: dryrun.run_one("gemma3_4b", "decode_32k", "multi"), "1.14"),
-    (_train_main_on_a_sharding_mesh, "1.13b"),
+    (_train_main_on_a_sharding_mesh, "1.13c"),
     (lambda monkeypatch, tmp_path: LMTrainJob(
-        registry.get_smoke_config("granite_moe_3b_a800m"), batch_size=1, seq_len=8, n_steps=1,
-        mesh=abstract_mesh((1, 2), ("data", "model")), device="cpu").run(), "1.13b"),
+        registry.get_smoke_config("zamba2_1_2b"), batch_size=1, seq_len=8, n_steps=1,
+        mesh=abstract_mesh((1, 2), ("data", "model")), device="cpu").run(), "1.13c"),
 ], ids=["dryrun_multi_mesh", "train_main_mesh", "lm_trainjob_mesh"])
 def test_unported_entry_points_name_their_roadmap_item(entry, item, monkeypatch, tmp_path):
     """What is left of the meshes: tensor parallelism of the families
-    outside the dense and VLM slice (MoE here, 1.13b) and the dry-run's
-    production meshes (1.14)."""
+    outside the dense, VLM and MoE slice (the SSM and hybrid ones here,
+    1.13c) and the dry-run's production meshes (1.14)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 item {item}"):
         entry(monkeypatch, tmp_path)
 
