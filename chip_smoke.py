@@ -161,6 +161,26 @@ Run from the root of a checkout.  It imports only the port
    collectives, a rank's parameter and moment bytes, peak memory and
    steps/s are reported; phase 2 holds flash forward and backward at
    (4, 1024, 12, 64) over 4 kv heads;
+6d. serves tensor-parallel (``_tp_serve_leg``) on the same ranks and mesh:
+   granite-3-8b and granite-moe-3b-a800m at full width through
+   ``steps.prefill``, ``steps.serve_step`` and ``greedy_decode_loop``,
+   batch 4 x PROMPT, GEN new tokens, each rank on its shards and its block
+   of the cache (the kv heads split on 2).  Gated: (a) fp32 at
+   TP_SERVE_LAYERS layers on the kernel path, every rank's prefill logits
+   and all GEN decode steps' logits against one process within
+   TP_SERVE_REL, the tokens equal; (b) bf16 at full depth (40 and 32
+   layers): the launch set exactly flash attention, decode attention and
+   RMSNorm on each rank, every decode-attention call at the local heads
+   (16/4, 12/4), every recorded kernel call of one prefill and one decode
+   step under the phase-2 rule, a rank's cache half of the one process's;
+   (c) the collective bytes of one bf16 decode step, counted on the card
+   by wrapping ``torch.distributed``, equal by kind to what
+   ``launch/dryrun.py``'s counting mesh (a fake group in this process)
+   counts for the same step.  Token agreement with one process in bf16,
+   each rank's prefill and decode times, peak memory and cache bytes are
+   reported; phase 2 holds decode attention at a rank's shape, q
+   (4, 16, 128) over 4 kv heads of a 145-row cache, and at a pod rank's,
+   q (4, 2, 128) over a one-head view of an 8-head cache read in place;
 7. holds every phase it timed against the card's roofline
    (``_roofline_phase``): each arch's prefill and decode step at batch 4
    (qwen2-vl prompt 384), gemma3's 1 x 2048 long leg, xlstm's scoring
@@ -278,6 +298,23 @@ TP_PATH, TP_RANKS, TP_LAYERS, TP_STEPS = "granite-3-8b tensor-parallel training"
 # 192 has no backward kernel, so the kernel path must raise under grad)
 TP_MOE_PATH = "granite-moe-3b-a800m tensor-parallel training"
 TP_MLA_PATH = "deepseek-v2-lite-16b tensor-parallel training"
+# tensor-parallel serving (``_tp_serve_leg``): TP_RANKS gloo ranks on the
+# same (1, TP_RANKS) mesh serve batch BATCH x PROMPT and GEN new tokens for
+# each arch of TP_SERVE_ARCHS.  Gate (a): fp32 at TP_SERVE_LAYERS layers,
+# every rank's prefill and decode logits against one process within
+# TP_SERVE_REL (the card bound of the tensor-parallel leaves), the tokens
+# equal; gate (b): bf16 at full depth, the launch set TP_SERVE_KERNELS,
+# decode attention at the local heads, every recorded call under the
+# phase-2 rule, a rank's cache 1 / TP_RANKS of the whole; gate (c): the
+# collective bytes of one bf16 decode step equal to what
+# ``launch/dryrun.py``'s counting mesh counts for it
+TP_SERVE_PATH = "tensor-parallel serving"
+TP_SERVE_ARCHS = ("granite_3_8b", "granite_moe_3b_a800m")
+TP_SERVE_LAYERS, TP_SERVE_REL = 4, 1e-4
+TP_SERVE_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+# the 16 x 16 pod's model axis (``launch/dryrun.py``'s "pod"): phase 2's
+# decode case at a pod rank's heads
+POD_MODEL = 16
 # (label, arch, run, the kernels that run must launch (no other may launch),
 # limits on the logits' rel error of kernel path vs plain path in bf16 and
 # with the weights in fp32; None reports without gating).  The fp32 limits
@@ -585,19 +622,31 @@ def _rmsnorm_bwd_case(rows: int, d: int, gen):
         flops=8 * rows * d, peak="fp32", floor=BWD_FLOOR)
 
 
-def _decode_case(lens: list, s: int, hq: int, hkv: int, d: int, gen):
+def _decode_case(lens: list, s: int, hq: int, hkv: int, d: int, gen, row_heads: int = 0):
+    """Decode attention over a (B,s,hkv,d) cache; with ``row_heads``, the
+    cache is a range of hkv heads (from the middle one on) of a cache whose
+    rows hold ``row_heads`` heads, which the kernel reads in place."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.decode_attention import _row_heads
     b = len(lens)
+    hs = row_heads or hkv
     q = torch.randn(b, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
-    kc = torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
-    vc = torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+    kc = torch.randn(b, s, hs, d, device="cuda", generator=gen).to(torch.bfloat16)
+    vc = torch.randn(b, s, hs, d, device="cuda", generator=gen).to(torch.bfloat16)
+    view = ""
+    if row_heads:
+        kc, vc = kc.narrow(2, hs // 2, hkv), vc.narrow(2, hs // 2, hkv)
+        if _row_heads(kc) != hs or _row_heads(vc) != hs:
+            raise AssertionError(f"decode case: a {hkv}-head view of {hs}-head rows is not "
+                                 f"read in place (_row_heads {_row_heads(kc)})")
+        view = f" of rows of {hs} heads, read in place"
     cl = torch.tensor(lens, dtype=torch.int32, device="cuda")
     mask = (torch.arange(s, device="cuda")[None, :] < cl[:, None])[:, None, None, :]
     qt, kt, vt = q[:, :, None], kc.transpose(1, 2), vc.transpose(1, 2)
     return dict(
-        shape=f"q ({b},{hq},{d}) cache ({b},{s},{hkv},{d}) lens {lens} bf16",
+        shape=f"q ({b},{hq},{d}) cache ({b},{s},{hkv},{d}){view} lens {lens} bf16",
         kernel=lambda: ops.decode_attention(q, kc, vc, cl, use_kernel=True),
         twin=lambda: ref.decode_attention_ref(q, kc, vc, cl),
         library=lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
@@ -876,6 +925,12 @@ def main() -> int:
                                         wb.n_kv_heads, wb.head_dim, gen, causal=False), 20),
         ("decode_attention", _decode_case([PROMPT + 1] * BATCH, cache_len, wb.n_heads,
                                           wb.n_kv_heads, wb.head_dim, gen), 50),
+        # a rank of the 16 x 16 pod serving granite: its 2 query heads over
+        # the one kv head they read, a view of the whole cache (8 kv heads
+        # do not divide 16), which the kernel reads in place
+        ("decode_attention", _decode_case([PROMPT + 1] * BATCH, cache_len,
+                                          g.n_heads // POD_MODEL, 1, g.head_dim, gen,
+                                          row_heads=g.n_kv_heads), 50),
     ]
     # the shapes each path's run gives each kernel
     path_cases = {
@@ -947,6 +1002,10 @@ def main() -> int:
             "flash_attention_bwd": (_flash_bwd_case(TRAIN_BATCH, TRAIN_SEQ, g.n_heads // TP_RANKS,
                                                     g.n_kv_heads // TP_RANKS, g.head_dim,
                                                     gen), 5)},
+        TP_SERVE_PATH: {                          # a rank's heads and cache block: 16 over 4
+            "decode_attention": (_decode_case([PROMPT + 1] * BATCH, cache_len,
+                                              g.n_heads // TP_RANKS, g.n_kv_heads // TP_RANKS,
+                                              g.head_dim, gen), 50)},
         TP_MOE_PATH: {                            # a rank's heads: 12 over 4, a local group of 3
             "flash_attention": (_flash_case(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ,
                                             gmo.n_heads // TP_RANKS, gmo.n_kv_heads // TP_RANKS,
@@ -999,6 +1058,9 @@ def main() -> int:
     # -- tensor-parallel training of the MoE archs: two ranks on the card ------
     report["tp_moe_train_leg"] = _tp_moe_leg(card)
 
+    # -- tensor-parallel serving: two ranks on the card ------------------------
+    report["tp_serve_leg"] = _tp_serve_leg(card)
+
     # -- the roofline: every timed phase at or above its bound ---------------
     report["roofline_phase"] = _roofline_phase(report, hw, card)
 
@@ -1006,7 +1068,7 @@ def main() -> int:
     totals = {n: sum(r["launches_run"][n] for r in report["paths"].values())
               + report["mnist_leg"]["launches"][n] + report["lm_train_leg"]["launches"][n]
               + report["dp_train_leg"]["launches"][n] + report["tp_train_leg"]["launches"][n]
-              + report["tp_moe_train_leg"]["launches"][n]
+              + report["tp_moe_train_leg"]["launches"][n] + report["tp_serve_leg"]["launches"][n]
               for n in META}
     kernels = []
     for n, (route, src, rep, label, _) in META.items():
@@ -2851,9 +2913,13 @@ def _tp_parity(rank: int, mesh, cfg32, params: dict) -> dict | None:
     return out
 
 
-def _collective_bytes(fn) -> tuple[int, dict]:
+def _collective_bytes(fn, out: dict | None = None) -> tuple[int, dict]:
     """(bytes, {collective: calls}) of every all-reduce and all-gather
-    ``fn`` runs, forward and backward (``torch.distributed`` wrapped)."""
+    ``fn`` runs, forward and backward (``torch.distributed`` wrapped): the
+    bytes each call sends (an all-gather its own block).  ``out``, when
+    given, gathers the same calls in ``launch/count.py``'s convention, each
+    call's output buffer bytes by kind ({"all-reduce": [calls, bytes],
+    ...}: an all-gather counts its whole output)."""
     import torch.distributed as dist
     seen, calls = [0], {}
     saved = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
@@ -2863,6 +2929,11 @@ def _collective_bytes(fn) -> tuple[int, dict]:
             x = args[0] if name == "all_gather" else t
             seen[0] += x.numel() * x.element_size()
             calls[name] = calls.get(name, 0) + 1
+            if out is not None:
+                rec = out.setdefault(name.replace("_", "-"), [0, 0])
+                rec[0] += 1
+                rec[1] += sum(y.numel() * y.element_size()
+                              for y in (t if name == "all_gather" else (t,)))
             return saved[name](t, *args, **kw)
         return call
 
@@ -3012,6 +3083,278 @@ def _tp_moe_rank(rank: int) -> dict:
     dist.barrier()
     out["deepseek_a"] = _tp_parity(rank, mesh, ds.replace(use_kernels=False), params)
     out["peak_gib"] = max(out["peak_gib"], torch.cuda.max_memory_allocated() / 2**30)
+    return out
+
+
+def _tp_serve_leg(card: str) -> dict:
+    """Tensor-parallel serving: TP_RANKS ranks share the card through a gloo
+    group on a (1, TP_RANKS) mesh (``_tp_serve_rank``), each on its shards
+    of every parameter and its block of the cache, and serve batch BATCH x
+    PROMPT, GEN new tokens, through ``steps.prefill``, ``steps.serve_step``
+    and ``greedy_decode_loop``, for granite and granite-moe at full width.
+    Gated: (a) fp32 at TP_SERVE_LAYERS layers on the kernel path, every
+    rank's prefill logits and all GEN decode steps' logits (greedy) against
+    one process on rank 0 within TP_SERVE_REL, the tokens equal (granite-moe:
+    the one process replays rank 0's expert ids); (b) bf16 at full depth:
+    the launch set TP_SERVE_KERNELS on each rank and no other, every
+    decode-attention call at Hq / TP_RANKS query over Hkv / TP_RANKS kv
+    heads, every recorded kernel call of one prefill and one decode step
+    under the phase-2 rule, a rank's cache bytes 1 / TP_RANKS of the one
+    process's; (c) the collective bytes of one bf16 decode step, counted on
+    the card by wrapping ``torch.distributed`` (``_collective_bytes``) in
+    ``launch/count.py``'s convention, equal by kind to what
+    ``launch/dryrun.py``'s counting mesh counts for the same step, config
+    and mesh.  Reported: token agreement with one process in bf16, each
+    rank's prefill ms and decode ms a token, peak memory and cache bytes.
+    Ranks sharing one card through host-staged gloo measure correctness,
+    not scaling."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.registry import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.models import sharding as msh
+
+    sys.path.insert(0, str(ROOT / "tests"))          # the ranks' launcher, shared with the tests
+    from _ranks import spawn_ranks
+
+    label = TP_SERVE_PATH
+    cache_len = PROMPT + GEN + 1
+    print(f"{label}: {', '.join(TP_SERVE_ARCHS)} at full width, {TP_RANKS} gloo ranks on one card "
+          f"on a (1, {TP_RANKS}) mesh, batch {BATCH} x {PROMPT}, {GEN} new tokens; fp32 at "
+          f"{TP_SERVE_LAYERS} layers, bf16 at full depth  [{card}]")
+    # (c)'s yardstick: the counting mesh's count of the same bf16 decode step
+    counted = {}
+    for arch in TP_SERVE_ARCHS:
+        cfg = registry.get_config(arch)
+        shape = InputShape("tp_serve_decode", cache_len, BATCH, "decode")
+        with dryrun.counting_mesh((1, TP_RANKS), ("data", "model")) as mesh, \
+                msh.use_mesh(mesh):
+            coll = dryrun.count_step(dryrun._shape_cfg(cfg, shape), shape)["collectives"]
+        counted[arch] = {k: [c["calls"], c["bytes"]] for k, c in coll.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "experiments" / "chip_smoke_tp_serve"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks(_tp_serve_rank, TP_RANKS, out_dir=out_dir, timeout_s=900)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    leg_s = time.perf_counter() - t0
+
+    res = {}
+    for arch in TP_SERVE_ARCHS:
+        cfg = registry.get_config(arch)
+        heads = (cfg.n_heads // TP_RANKS, cfg.n_kv_heads // TP_RANKS)
+        one = ranks[0][arch]["one"]
+        # (a) fp32: every rank against one process
+        a = {}
+        for r in ranks:
+            got = r[arch]["a"]
+            rel = {"prefill": _rel(got["logits"][0], one["logits"][0]),
+                   "decode": max(_rel(g, w) for g, w in zip(got["logits"][1:],
+                                                            one["logits"][1:]))}
+            a[r["rank"]] = {**rel, "tokens_equal": torch.equal(got["tokens"], one["tokens"])}
+            print(f"{label} {arch} (a), fp32 at {TP_SERVE_LAYERS} layers, rank {r['rank']} vs one "
+                  f"process: prefill logits rel {rel['prefill']:.4g}, {GEN} decode steps' logits "
+                  f"rel up to {rel['decode']:.4g} (limit {TP_SERVE_REL}), tokens equal "
+                  f"{a[r['rank']]['tokens_equal']}; routing decisions the one process would have "
+                  f"made otherwise (replayed): {one['flips']}  [{card}]")
+            if max(rel.values()) > TP_SERVE_REL or not a[r["rank"]]["tokens_equal"]:
+                raise AssertionError(f"{label} {arch} (a): rank {r['rank']} vs one process: "
+                                     f"{a[r['rank']]} (limit {TP_SERVE_REL})")
+        # (b) bf16 at full depth
+        b = {}
+        whole_cache = ranks[0][arch]["b"]["whole_cache_bytes"]
+        for r in ranks:
+            got = r[arch]["b"]
+            _expect(f"{label} {arch}, rank {r['rank']}", got["launches"], TP_SERVE_KERNELS)
+            if set(got["decode_heads"]) != {heads}:
+                raise AssertionError(f"{label} {arch} (b): rank {r['rank']}'s decode attention at "
+                                     f"(query, kv) heads {sorted(set(got['decode_heads']))}, "
+                                     f"not {heads}")
+            if got["cache_bytes"] * TP_RANKS != whole_cache:
+                raise AssertionError(f"{label} {arch} (b): rank {r['rank']} holds "
+                                     f"{got['cache_bytes']} cache bytes, not 1/{TP_RANKS} of "
+                                     f"{whole_cache}")
+            b[r["rank"]] = {k: got[k] for k in ("prefill_ms", "decode_ms_per_token", "peak_gib",
+                                                "cache_bytes", "recorded")}
+        agree = float((ranks[0][arch]["b"]["tokens"] == one["bf16_tokens"]).float().mean())
+        print(f"{label} {arch} (b), bf16 at {cfg.n_layers} layers: launch set "
+              f"{sorted(TP_SERVE_KERNELS)} on every rank, "
+              f"{len(ranks[0][arch]['b']['decode_heads'])} decode-attention calls a rank at "
+              f"{heads[0]}/{heads[1]} heads; cache bytes a rank "
+              + ", ".join(str(v["cache_bytes"]) for v in b.values()) + f" of {whole_cache}; "
+              + "; ".join(f"rank {k}: prefill {v['prefill_ms']:.2f} ms, decode "
+                          f"{v['decode_ms_per_token']:.2f} ms/token, peak {v['peak_gib']:.2f} GiB"
+                          for k, v in b.items())
+              + f"; token agreement with one process {agree:.4f} (reported)  [{card}]")
+        # (c) the card's collective bytes of one decode step against the count
+        for r in ranks:
+            got = r[arch]["c"]
+            if got != counted[arch]:
+                raise AssertionError(f"{label} {arch} (c): rank {r['rank']}'s collectives of one "
+                                     f"decode step {got}, the counting mesh's {counted[arch]}")
+        print(f"{label} {arch} (c): one bf16 decode step's collectives on the card "
+              f"{ranks[0][arch]['c']} (calls, output bytes) equal the counting mesh's  [{card}]")
+        res[arch] = {"a": a, "b": b, "c": counted[arch], "bf16_token_agreement": agree,
+                     "whole_cache_bytes": whole_cache,
+                     "one_process": {k: one[k] for k in ("prefill_ms", "decode_ms_per_token",
+                                                         "flips")}}
+    launches = {n: sum(r["launches"][n] for r in ranks) for n in META}
+    print(f"{label}: launches (both ranks, bf16 runs) {launches}; the whole leg {leg_s:.1f} s  "
+          f"[{card}]")
+    return {"ranks": TP_RANKS, "archs": res, "leg_s": leg_s, "launches": launches}
+
+
+def _tp_serve_run(params, cfg, prompts, cache_len: int) -> dict:
+    """Prefill, then GEN greedy steps through ``steps.serve_step``, every
+    step's logits kept (fp32 on the host)."""
+    import torch
+    from repro_torch.models import steps
+    last, cache = steps.prefill(params, {"tokens": prompts}, cfg=cfg, cache_len=cache_len)
+    logits, toks = [last.float().cpu()], []
+    tok = torch.argmax(last, -1).to(torch.int32)[:, None]
+    pos = steps.start_positions(cfg, prompts.shape[0], prompts.shape[1], "cuda")
+    for t in range(GEN):
+        toks.append(tok)
+        step, cache = steps.serve_step(params, cache, tok, pos + t, cfg=cfg)
+        logits.append(step.float().cpu())
+        tok = torch.argmax(step, -1).to(torch.int32)[:, None]
+    return {"logits": logits, "tokens": torch.cat(toks, 1).cpu()}
+
+
+def _tp_serve_rank(rank: int) -> dict:
+    """One rank of ``_tp_serve_leg``, in its own process on the card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.kernels import native, ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm, steps
+    from repro_torch.models import sharding as msh
+    from repro_torch.optim import adamw
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh((1, TP_RANKS), ("data", "model"), "cuda")
+    cache_len = PROMPT + GEN + 1
+    out: dict = {"rank": rank, "launches": {n: 0 for n in META}}
+
+    def shards(params):
+        specs = msh.param_shardings(params, mesh)
+        return adamw.tree_map(lambda t, s: msh.local_slice(t, s, mesh).clone(), params, specs)
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+    for arch in TP_SERVE_ARCHS:
+        full = registry.get_config(arch)
+        prompts = _prompts(full, PROMPT).cuda()
+        res: dict = {}
+        # (a) fp32 at TP_SERVE_LAYERS layers: the split run, then (rank 0)
+        # one process replaying its expert ids
+        cfg32 = full.replace(n_layers=TP_SERVE_LAYERS, dtype="float32", use_kernels=True)
+        params = lm.init_params(cfg32, seed=0, device="cuda")
+        local = shards(params)
+        with torch.inference_mode(), msh.use_mesh(mesh), _routing() as ids:
+            res["a"] = _tp_serve_run(local, cfg32, prompts, cache_len)
+        del local
+        if rank == 0:
+            with torch.inference_mode(), _routing(replay=ids) as own:
+                one = _tp_serve_run(params, cfg32, prompts, cache_len)
+            one["flips"] = _flips(own, ids) if full.n_experts else None
+        del params, ids
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+        # (b) bf16 at full depth: timed, launches and decode-attention heads
+        # counted, one prefill and one decode step recorded
+        cfg = full.replace(use_kernels=True, dtype="bfloat16")
+        torch.cuda.reset_peak_memory_stats()
+        params = lm.init_params(cfg, seed=0, device="cuda")
+        local = shards(params)
+        if rank != 0:
+            del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        heads, kernel = [], ops._decode_kernel
+
+        def spy(q, k, v, *args, **kw):
+            heads.append((q.shape[1], k.shape[2]))
+            return kernel(q, k, v, *args, **kw)
+
+        b: dict = {}
+        start = steps.start_positions(cfg, BATCH, PROMPT, "cuda")
+        with torch.inference_mode(), msh.use_mesh(mesh):
+            native.reset_launches()
+            ops._decode_kernel = spy
+            try:
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                last, cache = steps.prefill(local, {"tokens": prompts}, cfg=cfg,
+                                            cache_len=cache_len)
+                torch.cuda.synchronize()
+                b["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+                first = torch.argmax(last, -1).to(torch.int32)[:, None]
+                b["cache_bytes"] = nbytes(cache)
+                t0 = time.perf_counter()
+                b["tokens"], cache = steps.greedy_decode_loop(local, cache, first, start, GEN,
+                                                              cfg=cfg)
+                torch.cuda.synchronize()
+                b["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / GEN
+            finally:
+                ops._decode_kernel = kernel
+            b["launches"] = dict(native.LAUNCHES)
+            b["decode_heads"] = heads
+            b["tokens"] = b["tokens"].cpu()
+            b["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            for n, c in b["launches"].items():
+                out["launches"][n] += c
+            del cache
+            # every kernel call of one prefill and one decode step against its twin
+            with _recording(TP_SERVE_KERNELS) as calls:
+                _, cache = steps.prefill(local, {"tokens": prompts}, cfg=cfg, cache_len=cache_len)
+                steps.serve_step(local, cache, first, start, cfg=cfg)
+            b["recorded"] = _hold_recorded(f"{TP_SERVE_PATH} {arch}, rank {rank}", cfg, calls)
+            del calls, cache
+            # (c) the collectives of one decode step, in the count's convention
+            _, cache = steps.prefill(local, {"tokens": prompts}, cfg=cfg, cache_len=cache_len)
+            coll: dict = {}
+            _collective_bytes(lambda: steps.serve_step(local, cache, first, start, cfg=cfg), coll)
+            res["c"] = coll
+            del cache
+        b["whole_cache_bytes"] = nbytes(lm.init_cache(cfg, BATCH, cache_len, device="meta"))
+        res["b"] = b
+        del local
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:                       # one process in bf16: its tokens, its times
+            with torch.inference_mode():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                last, cache = steps.prefill(params, {"tokens": prompts}, cfg=cfg,
+                                            cache_len=cache_len)
+                torch.cuda.synchronize()
+                one["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+                first = torch.argmax(last, -1).to(torch.int32)[:, None]
+                t0 = time.perf_counter()
+                toks, _ = steps.greedy_decode_loop(params, cache, first, start, GEN, cfg=cfg)
+                torch.cuda.synchronize()
+                one["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / GEN
+                one["bf16_tokens"] = toks.cpu()
+            res["one"] = one
+            del params, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        out[arch] = res
     return out
 
 

@@ -258,29 +258,8 @@ class LMTrainJob:
         return self.store.tree_uri(name)
 
 
-# the families tensor parallelism covers; the others -> (their ROADMAP.md
-# queue 1 item, what it ports), 1.13 for a family not named here
-TP_FAMILIES = ("dense", "vlm", "moe")
-_SSM = ("1.13c", "the SSM, hybrid and xLSTM mixers")
-TP_ITEMS = {"ssm": _SSM, "hybrid": _SSM,
-            "audio": ("1.13d", "enc-dec (the encoder and cross-attention)")}
-
-
 def _refuse_sharded_params(cfg: ArchConfig, mesh) -> None:
-    """Tensor parallelism covers the families of ``TP_FAMILIES``.  Any
-    other, on a mesh and profile whose rules split one of its parameters,
-    raises before any work, naming its item."""
-    meta = lm.init_params(cfg, device="meta", dtype=getattr(torch, cfg.param_dtype))
-    with msh.use_profile(cfg.sharding_profile):
-        specs = msh.param_shardings(meta, mesh)
-    flat: list = []
-    msh.map_with_path(lambda path, spec: flat.append((path, spec)), specs)
-    split = [(path, spec) for path, spec in flat if any(msh.axis_size(mesh, e) > 1 for e in spec)]
-    if split and cfg.family not in TP_FAMILIES:
-        (path, spec) = split[0]
-        item, what = TP_ITEMS.get(cfg.family, ("1.13", f"the {cfg.family!r} family"))
-        raise NotImplementedError(
-            f"LMTrainJob: the {cfg.sharding_profile!r} profile on mesh {dict(mesh.shape)} "
-            f"shards {len(split)} parameter leaves (first {'/'.join(path)} as {spec}); tensor "
-            f"parallelism of {what} is ROADMAP.md queue 1 item {item}. Train data-parallel: "
-            "a model axis of 1, or sharding_profile='dp'")
+    """``sharding.refuse_outside_tp`` under the job's mesh and profile:
+    before any work, as the serving steps refuse at entry."""
+    with msh.use_profile(cfg.sharding_profile), msh.use_mesh(mesh):
+        msh.refuse_outside_tp(cfg, "LMTrainJob")

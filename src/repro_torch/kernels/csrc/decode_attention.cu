@@ -6,7 +6,12 @@
 // the whole GQA group of query heads shares each K/V tile.
 //
 // Layout: q (B,Hq,D), k/v caches (B,S,Hkv,D), cache_len (B,) int32, o like
-// q; contiguous, bf16 or fp32; D <= 320, group = Hq/Hkv <= 16.  A row needs
+// q; bf16 or fp32; D <= 320, group = Hq/Hkv <= 16.  q, o and lengths are
+// contiguous; a cache row (one position of one batch row) holds Hs >= Hkv
+// heads of D contiguous elements, of which the kernel reads the Hkv from
+// its pointer on, and the batch rows are S such rows apart: Hs = Hkv for a
+// contiguous cache, more for a range of a larger cache's heads (a
+// tensor-parallel rank's kv heads, read in place).  A row needs
 // cache_len >= 1 (decode writes its own token before it attends); lengths
 // above S are clamped to S, and a row of length 0 gets zeros.
 //
@@ -169,7 +174,8 @@ template <typename T, bool VEC, int GC, int NCOL>
 __global__ void __launch_bounds__(Width<T, NCOL>::NT)
 decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
            const int* __restrict__ cache_len, T* __restrict__ o, float* __restrict__ part_acc,
-           float* __restrict__ part_ml, int S, int Hq, int Hkv, int D, int kc, float qscale) {
+           float* __restrict__ part_ml, int S, int Hq, int Hkv, int Hs, int D, int kc,
+           float qscale) {
   constexpr int VW = Geom<T>::VW;
   constexpr int NW = Width<T, NCOL>::NW, NT = Width<T, NCOL>::NT;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -195,7 +201,7 @@ decode_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   float* p_s = q_s + G * D;                     // [G][kc] scores, then probabilities
   float* ml_s = p_s + G * kc;                   // [max, sum][G], log2 domain
 
-  const size_t kv_row = static_cast<size_t>(Hkv) * D;
+  const size_t kv_row = static_cast<size_t>(Hs) * D;
   const size_t kv0 = static_cast<size_t>(b) * S * kv_row + static_cast<size_t>(hk) * D;
   // this warp's i-th tile (keys s0 + WK (warp + NW i) ...) into stage i % 2;
   // with VEC one cp.async group a call, empty past the last tile
@@ -396,8 +402,8 @@ decode_fwd_combine(const float* __restrict__ part_acc, const float* __restrict__
 
 template <typename T, bool VEC, int GC, int NCOL>
 cudaError_t launch_split(const T* q, const T* k, const T* v, const int* cache_len, T* o,
-                         float* part_acc, float* part_ml, int B, int S, int Hq, int Hkv, int D,
-                         int kc, int n_split, float scale, cudaStream_t stream) {
+                         float* part_acc, float* part_ml, int B, int S, int Hq, int Hkv, int Hs,
+                         int D, int kc, int n_split, float scale, cudaStream_t stream) {
   using W = Width<T, NCOL>;
   constexpr size_t smem_max = smem_bytes<T, W::NW>(GMAX, W::DMAX, KC_MAX);
   static_assert(smem_max <= 232448, "a block may use at most 227 KB of shared memory");
@@ -407,37 +413,37 @@ cudaError_t launch_split(const T* q, const T* k, const T* v, const int* cache_le
   if (err != cudaSuccess) return err;
   const size_t smem = smem_bytes<T, W::NW>(Hq / Hkv, D, kc);
   decode_fwd<T, VEC, GC, NCOL><<<dim3(n_split, Hkv, B), W::NT, smem, stream>>>(
-      q, k, v, cache_len, o, part_acc, part_ml, S, Hq, Hkv, D, kc, scale * rt::kLog2e);
+      q, k, v, cache_len, o, part_acc, part_ml, S, Hq, Hkv, Hs, D, kc, scale * rt::kLog2e);
   return cudaGetLastError();
 }
 
 template <typename T, bool VEC, int NCOL>
 cudaError_t launch_group(const T* q, const T* k, const T* v, const int* cache_len, T* o,
-                         float* part_acc, float* part_ml, int B, int S, int Hq, int Hkv, int D,
-                         int kc, int n_split, float scale, cudaStream_t stream) {
+                         float* part_acc, float* part_ml, int B, int S, int Hq, int Hkv, int Hs,
+                         int D, int kc, int n_split, float scale, cudaStream_t stream) {
   return Hq / Hkv <= 4
              ? launch_split<T, VEC, 4, NCOL>(q, k, v, cache_len, o, part_acc, part_ml, B, S, Hq,
-                                             Hkv, D, kc, n_split, scale, stream)
+                                             Hkv, Hs, D, kc, n_split, scale, stream)
              : launch_split<T, VEC, GMAX, NCOL>(q, k, v, cache_len, o, part_acc, part_ml, B, S,
-                                                Hq, Hkv, D, kc, n_split, scale, stream);
+                                                Hq, Hkv, Hs, D, kc, n_split, scale, stream);
 }
 
 template <typename T, bool VEC>
 cudaError_t launch_width(const T* q, const T* k, const T* v, const int* cache_len, T* o,
-                         float* part_acc, float* part_ml, int B, int S, int Hq, int Hkv, int D,
-                         int kc, int n_split, float scale, cudaStream_t stream) {
+                         float* part_acc, float* part_ml, int B, int S, int Hq, int Hkv, int Hs,
+                         int D, int kc, int n_split, float scale, cudaStream_t stream) {
   return D <= 128 ? launch_group<T, VEC, 4>(q, k, v, cache_len, o, part_acc, part_ml, B, S, Hq,
-                                            Hkv, D, kc, n_split, scale, stream)
+                                            Hkv, Hs, D, kc, n_split, scale, stream)
                   : launch_group<T, VEC, 10>(q, k, v, cache_len, o, part_acc, part_ml, B, S, Hq,
-                                             Hkv, D, kc, n_split, scale, stream);
+                                             Hkv, Hs, D, kc, n_split, scale, stream);
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* cache_len, void* o,
-           void* part_acc, void* part_ml, int B, int S, int Hq, int Hkv, int D, int kc,
+           void* part_acc, void* part_ml, int B, int S, int Hq, int Hkv, int Hs, int D, int kc,
            float scale, void* stream_) {
-  if (D < 1 || D > DMAX || Hkv < 1 || Hq % Hkv != 0 || Hq / Hkv > GMAX || S < 0 || kc < WK ||
-      kc > KC_MAX || kc % WK != 0)
+  if (D < 1 || D > DMAX || Hkv < 1 || Hs < Hkv || Hq % Hkv != 0 || Hq / Hkv > GMAX || S < 0 ||
+      kc < WK || kc > KC_MAX || kc % WK != 0)
     return cudaErrorInvalidValue;
   if (B == 0) return cudaSuccess;
   const int n_split = S > kc ? (S + kc - 1) / kc : 1;
@@ -452,10 +458,10 @@ int launch(const void* q, const void* k, const void* v, const void* cache_len, v
   const auto pm = static_cast<float*>(part_ml);
   const bool vec = (static_cast<size_t>(D) * sizeof(T)) % 16 == 0 &&
                    (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 == 0;
-  cudaError_t err = vec ? launch_width<T, true>(qt, kt, vt, lens, ot, pa, pm, B, S, Hq, Hkv, D,
-                                                kc, n_split, scale, stream)
-                        : launch_width<T, false>(qt, kt, vt, lens, ot, pa, pm, B, S, Hq, Hkv, D,
-                                                 kc, n_split, scale, stream);
+  cudaError_t err = vec ? launch_width<T, true>(qt, kt, vt, lens, ot, pa, pm, B, S, Hq, Hkv, Hs,
+                                                D, kc, n_split, scale, stream)
+                        : launch_width<T, false>(qt, kt, vt, lens, ot, pa, pm, B, S, Hq, Hkv, Hs,
+                                                 D, kc, n_split, scale, stream);
   if (err != cudaSuccess || n_split == 1) return err;
   decode_fwd_combine<T><<<dim3(Hq, B), COMBINE_NT, 0, stream>>>(pa, pm, lens, ot, S, Hq, D, kc,
                                                                 n_split);
@@ -464,22 +470,23 @@ int launch(const void* q, const void* k, const void* v, const void* cache_len, v
 
 }  // namespace
 
-// q, caches, lengths and output as above; part_acc (B,Hq,n_split,D) and
+// q, caches, lengths and output as above (Hs: the heads a cache row
+// holds, the row stride in units of D); part_acc (B,Hq,n_split,D) and
 // part_ml (B,Hq,n_split,2) fp32 scratch with n_split = ceil(S / kc), unused
 // (may be null) when S <= kc.  kc: a multiple of 16, at most KC_MAX.
 extern "C" int decode_attention_bf16(const void* q, const void* k, const void* v,
                                      const void* cache_len, void* o, void* part_acc,
-                                     void* part_ml, int B, int S, int Hq, int Hkv, int D, int kc,
-                                     float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, cache_len, o, part_acc, part_ml, B, S, Hq, Hkv, D, kc,
-                               scale, stream);
+                                     void* part_ml, int B, int S, int Hq, int Hkv, int Hs, int D,
+                                     int kc, float scale, void* stream) {
+  return launch<__nv_bfloat16>(q, k, v, cache_len, o, part_acc, part_ml, B, S, Hq, Hkv, Hs, D,
+                               kc, scale, stream);
 }
 
 extern "C" int decode_attention_f32(const void* q, const void* k, const void* v,
                                     const void* cache_len, void* o, void* part_acc,
-                                    void* part_ml, int B, int S, int Hq, int Hkv, int D, int kc,
-                                    float scale, void* stream) {
-  return launch<float>(q, k, v, cache_len, o, part_acc, part_ml, B, S, Hq, Hkv, D, kc, scale,
+                                    void* part_ml, int B, int S, int Hq, int Hkv, int Hs, int D,
+                                    int kc, float scale, void* stream) {
+  return launch<float>(q, k, v, cache_len, o, part_acc, part_ml, B, S, Hq, Hkv, Hs, D, kc, scale,
                        stream);
 }
 

@@ -25,7 +25,7 @@ MAX_GROUP = 16
 # row; caches longer than this are split and merged by a second kernel
 SPLIT_KEYS = 512
 _ENTRY = {torch.bfloat16: "decode_attention_bf16", torch.float32: "decode_attention_f32"}
-_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float]
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float]
              + [ctypes.c_void_p])
 
 
@@ -35,11 +35,24 @@ def n_splits(s: int) -> int:
     return max(1, -(-s // SPLIT_KEYS))
 
 
+def _row_heads(t: torch.Tensor) -> int | None:
+    """The heads a row of the cache ``t`` (B,S,Hkv,D) holds in memory, Hs:
+    Hkv for a contiguous cache, more for a range of a larger cache's heads
+    (a ``narrow`` on dim 2, which the kernel reads in place).  None for any
+    other layout (the wrapper makes it contiguous)."""
+    b, s, hkv, d = t.shape
+    if t.stride(3) != 1 or t.stride(2) != d or t.stride(1) % d:
+        return None
+    hs = t.stride(1) // d
+    return hs if hs >= hkv and (b == 1 or t.stride(0) == s * hs * d) else None
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                      cache_len: torch.Tensor, *,
                      scale: float | None = None) -> torch.Tensor:
     """q (B,Hq,D); caches (B,S,Hkv,D); cache_len (B,) valid lengths, each
-    >= 1 -> (B,Hq,D)."""
+    >= 1 -> (B,Hq,D).  The caches are read in place where each is a range
+    of a contiguous cache's heads (``_row_heads``), alike for k and v."""
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     b, hq, d = q.shape
@@ -62,7 +75,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
                         f"{v_cache.dtype}; the kernel takes bfloat16 or float32, all alike")
     if not (k_cache.device == v_cache.device == cache_len.device == q.device):
         raise ValueError("decode_attention: inputs on different devices")
-    q, k_cache, v_cache = q.contiguous(), k_cache.contiguous(), v_cache.contiguous()
+    hs = _row_heads(k_cache)
+    if hs is None or _row_heads(v_cache) != hs:
+        k_cache, v_cache, hs = k_cache.contiguous(), v_cache.contiguous(), hkv
+    q = q.contiguous()
     lens = cache_len.to(torch.int32).contiguous()
     out = torch.empty_like(q)
     n = n_splits(s)
@@ -75,7 +91,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tens
     fn = native.function(SOURCE, _ENTRY[q.dtype], _ARGTYPES)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lens.data_ptr(),
-                 out.data_ptr(), *scratch, b, s, hq, hkv, d, SPLIT_KEYS, scale_,
+                 out.data_ptr(), *scratch, b, s, hq, hkv, hs, d, SPLIT_KEYS, scale_,
                  torch.cuda.current_stream().cuda_stream)
     native.check(SOURCE, err, "decode_attention")
     native.count_launch("decode_attention")

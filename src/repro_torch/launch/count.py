@@ -1,7 +1,7 @@
 """Operation and traffic counts of one eager call: the port's stand-in for
 XLA's ``cost_analysis``.
 
-    count(fn, *args, **kw) -> {"flops", "bytes", "ops", "bytes_by_device"}
+    count(fn, *args, **kw) -> {"flops", "bytes", "ops", "bytes_by_device", "collectives"}
 
 - ``flops``: what ``torch.utils.flop_counter.FlopCounterMode`` counts, the
   matrix products (``mm``, ``bmm``, ``addmm``, convolutions, and every
@@ -16,6 +16,19 @@ XLA's ``cost_analysis``.
   bytes out, not the whole tensor.
 - ``ops``: how many such aten ops ran (each is one kernel launch on the
   card, give or take a library's internal ones).
+- ``collectives``: the ``torch.distributed`` collectives the call ran
+  (the ``c10d`` ops: ``c10d.allreduce_``, ``c10d.allgather_`` ...), kept
+  out of ``bytes`` and ``ops``.  By kind, in the reference's names
+  (``all-reduce``, ``all-gather`` ...): the calls and the bytes, in the
+  reference's convention (``repro/launch/roofline.py`` ``collective_bytes``):
+  each call's output buffer bytes, so an all-gather counts its whole
+  output; and the same by the mesh axes of the group each ran over
+  (``"model"``, ``"pod+data"``; the axes along which the group's ranks'
+  coordinates differ on the active ``launch.mesh.Mesh``).  Barriers move
+  no data and are left out.  A collective runs on real ranks (a ``gloo``
+  or ``nccl`` group) or on ``meta`` tensors over a ``fake`` group that
+  lives in one process (``launch/dryrun.py``'s counting mesh): both reach
+  the same ``c10d`` ops.
 
 It counts on ``meta``, ``cpu`` and ``cuda`` tensors alike; on ``meta`` it
 allocates nothing and needs no card.  It sees only what runs through aten:
@@ -39,15 +52,65 @@ _ALLOCATE = {_aten.empty.memory_format, _aten.empty_strided.default,
 _WRITE_ROWS = {_aten.index_put_.default, _aten._index_put_impl_.default}
 
 
+# c10d op -> the reference's name of its kind (any other op keeps its own
+# name); a barrier moves no data
+_KINDS = {"allreduce_": "all-reduce", "allgather_": "all-gather",
+          "_allgather_base_": "all-gather", "reduce_scatter_": "reduce-scatter",
+          "_reduce_scatter_base_": "reduce-scatter", "alltoall_": "all-to-all",
+          "alltoall_base_": "all-to-all", "broadcast_": "broadcast"}
+
+
+def _group_axes(pg, mesh, memo: dict) -> str:
+    """The mesh axes the group ``pg`` (a ``c10d`` op's boxed process
+    group) spans: those on which its ranks' coordinates differ, joined by
+    ``+`` in the mesh's order; ``"world"`` with no mesh to read."""
+    import torch.distributed as dist
+    group = dist.ProcessGroup.unbox(pg)
+    name = group.group_name
+    if name not in memo:
+        layout = getattr(getattr(mesh, "device_mesh", None), "mesh", None)
+        if layout is None:
+            memo[name] = "world"
+        else:
+            coords = [torch.nonzero(layout == r)[0].tolist()
+                      for r in dist.get_process_group_ranks(group)]
+            memo[name] = "+".join(a for i, a in enumerate(mesh.axis_names)
+                                  if len({c[i] for c in coords}) > 1) or "none"
+    return memo[name]
+
+
 class _Traffic(TorchDispatchMode):
-    def __init__(self):
+    def __init__(self, mesh=None):
         super().__init__()
         self.bytes = 0
         self.ops = 0
         self.by_device: dict = {}
+        self.collectives: dict = {}
+        self.mesh = mesh
+        self._axes: dict = {}
+
+    def _collective(self, func, args) -> None:
+        op = func.__name__.split(".")[0]
+        if op == "barrier":
+            return
+        kind = _KINDS.get(op, op)
+        pg = next(a for a in args if isinstance(a, torch.ScriptObject)
+                  and "ProcessGroup" in str(a._type()))
+        axes = _group_axes(pg, self.mesh, self._axes)
+        nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(args[0])
+                     if isinstance(t, torch.Tensor))
+        rec = self.collectives.setdefault(kind, {"calls": 0, "bytes": 0, "by_axis": {}})
+        rec["calls"] += 1
+        rec["bytes"] += nbytes
+        ax = rec["by_axis"].setdefault(axes, {"calls": 0, "bytes": 0})
+        ax["calls"] += 1
+        ax["bytes"] += nbytes
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
+        if func.namespace == "c10d":
+            self._collective(func, args)
+            return out
         if func.is_view or func in _ALLOCATE:
             return out
         self.ops += 1
@@ -62,10 +125,19 @@ class _Traffic(TorchDispatchMode):
 
 def count(fn, *args, **kw) -> dict:
     """Run ``fn(*args, **kw)`` once under both counters; returns the counts
-    (the function's result is dropped)."""
+    (the function's result is dropped).  Collectives are read against the
+    active mesh (``models.sharding.current_mesh``)."""
+    from ..models.sharding import current_mesh
     flops = FlopCounterMode(display=False)
-    traffic = _Traffic()
+    traffic = _Traffic(current_mesh())
     with flops, traffic:
         fn(*args, **kw)
     return {"flops": float(flops.get_total_flops()), "bytes": float(traffic.bytes),
-            "ops": traffic.ops, "bytes_by_device": dict(traffic.by_device)}
+            "ops": traffic.ops, "bytes_by_device": dict(traffic.by_device),
+            "collectives": traffic.collectives}
+
+
+def collective_bytes(collectives: dict) -> float:
+    """The bytes of every kind of ``count``'s ``collectives``, summed: the
+    roofline's collective term's numerator."""
+    return float(sum(rec["bytes"] for rec in collectives.values()))

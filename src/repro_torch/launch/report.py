@@ -1,10 +1,11 @@
-"""Render the one-card dry-run's records (experiments/torch_dryrun/*.json)
-as markdown tables.  The port's copy of ``repro.launch.report``; a record
-carries the port's fields (``count_s``, ``counted``, ``memory``) where the
-reference's carries XLA's (``lower_s``, ``compile_s``, ``collectives``):
-on one card no collective runs.
+"""Render the dry-run's records (experiments/torch_dryrun/*.json) of one
+mesh as markdown tables.  The port's copy of ``repro.launch.report``; a
+record carries the port's fields (``count_s``, ``counted``, ``memory``)
+where the reference's carries XLA's (``lower_s``, ``compile_s``), and its
+``collectives`` as ``launch/count.py`` counts them (on one card none run).
+Every number is a card's.
 
-  python -m repro_torch.launch.report [--dir experiments/torch_dryrun] [--mesh single]
+  python -m repro_torch.launch.report [--dir experiments/torch_dryrun] [--mesh single|pod|multi]
 """
 from __future__ import annotations
 
@@ -55,25 +56,25 @@ def roofline_table(recs: list[dict]) -> str:
 
 def dryrun_table(recs: list[dict]) -> str:
     hdr = ("| arch | shape | status | chips | count_s | flops/chip | bytes/chip | "
-           "aten ops |")
-    sep = "|" + "---|" * 8
+           "collective bytes/chip | dominant | aten ops |")
+    sep = "|" + "---|" * 10
     lines = [hdr, sep]
     for r in recs:
         if r["status"] != "ok":
-            lines.append(f"| {r['arch']} | {r['shape']} | {r['status']} |" + " - |" * 5)
+            lines.append(f"| {r['arch']} | {r['shape']} | {r['status']} |" + " - |" * 7)
             continue
         t = r["roofline"]
         lines.append(
             f"| {r['arch']} | {r['shape']} | ok | {r['chips']} | {r['count_s']} | "
             f"{_fmt(t['flops'], 4)} | {_fmt(t['bytes_accessed'], 4)} | "
-            f"{r['counted']['ops']} |")
+            f"{_fmt(t['coll_bytes'], 4)} | {t['dominant']} | {r['counted']['ops']} |")
     return "\n".join(lines)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dir", default="experiments/torch_dryrun")
-    ap.add_argument("--mesh", default="single")
+    ap.add_argument("--mesh", choices=("single", "pod", "multi"), default="single")
     ap.add_argument("--kind", choices=("roofline", "dryrun"), default="roofline")
     args = ap.parse_args(argv)
     recs = load(args.dir, args.mesh)

@@ -1,10 +1,11 @@
 """Input, cache and optimizer sharding specs, counterpart of
 ``repro.launch.shardings``.
 
-Params use ``models.sharding``'s rule table; this module covers everything
-else: data batches (batch dim over pod+data), decode caches (batch over
-pod+data, heads/state over model), optimizer state (params' spec,
-optionally ZeRO-1 sharded over data).  Each function returns a fitted
+Params and decode caches use ``models.sharding``'s rule tables (the cache
+rule, ``cache_shardings``, is re-exported here: batch over pod+data,
+heads/state over model); this module covers the rest: data batches (batch
+dim over pod+data) and optimizer state (params' spec, optionally ZeRO-1
+sharded over data).  Each function returns a fitted
 ``P`` per leaf of the tree it is given (any leaf with a ``shape``).
 
 A rank takes its block of a leaf under such a spec, and rebuilds the
@@ -15,7 +16,7 @@ from __future__ import annotations
 from typing import Any
 
 from ..models import sharding as msh
-from ..models.sharding import P
+from ..models.sharding import P, cache_shardings  # noqa: F401  (the cache rule)
 from ..optim import adamw
 
 
@@ -41,43 +42,6 @@ def batch_shardings(batch_spec: Any, mesh) -> Any:
         ax = _axes(mesh, "batch") if shape and shape[0] % ways == 0 else None
         return P(*((ax,) + (None,) * (len(shape) - 1)))
     return msh.map_with_path(lambda path, leaf: f(leaf), batch_spec)
-
-
-# cache leaf key -> logical spec tail (after the leading group-stack dim and
-# the batch dim, which are fixed (None, batch)).
-_CACHE_RULES = {
-    "k": (None, "model", None),        # (G,B,S,Hkv,hd)
-    "v": (None, "model", None),
-    "cross_k": (None, "model", None),
-    "cross_v": (None, "model", None),
-    "c_kv": (None, None),              # (G,B,S,r) MLA compressed: replicated tail
-    "k_rope": (None, None),
-    "ssm": ("model", None, None),      # (G,B,H,P,N)
-    "conv": (None, "model"),           # (G,B,k,conv_dim)
-    "C": ("model", None, None),        # (G,B,H,hd,hd) mlstm
-    "n": ("model", None),
-    "m": ("model",),
-    "c": ("model", None),              # slstm
-    "h": ("model", None),
-}
-
-
-def cache_shardings(cache_spec: Any, mesh) -> Any:
-    ways = _batch_ways(mesh)
-
-    def f(path, leaf):
-        key = next((p for p in reversed(path) if isinstance(p, str)), None)
-        shape = tuple(leaf.shape)
-        ndim = len(shape)
-        if key == "enc_len":
-            return P(_axes(mesh, "batch") if shape[0] % ways == 0 else None)
-        tail = _CACHE_RULES.get(key, ())
-        tail = tail[:max(ndim - 2, 0)]
-        tail = tail + (None,) * (ndim - 2 - len(tail))
-        batch_ax = _axes(mesh, "batch") if ndim >= 2 and shape[1] % ways == 0 else None
-        spec = (None, batch_ax) + tuple(_axes(mesh, t) for t in tail)
-        return msh.fit_pspec(shape, spec[:ndim], mesh, relocate=False)
-    return msh.map_with_path(f, cache_spec)
 
 
 def opt_shardings(opt_spec: Any, params_spec_tree: Any, mesh, *, zero1: bool = False) -> dict:

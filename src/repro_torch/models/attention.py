@@ -145,19 +145,26 @@ def _split_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig):
 
 
 def _local_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig):
-    """The kv heads this rank's query heads read.  Under tensor parallelism
-    with q split on heads and k, v whole (their heads do not divide the
-    model axis), each rank takes the kv heads of its own query heads (head
-    h reads kv head h // (Hq/Hkv)) after a ``copy``, so the kernel's dk and
-    dv, partial over the ranks that share a kv head, are summed; one kv
-    head a query head where the ranks' query heads do not split evenly
+    """The kv heads this rank's query heads read, from k and v (B,S,Hkv,hd):
+    keys and values, or a decode cache.  Under tensor parallelism with q
+    split on heads and k, v whole (their heads do not divide the model
+    axis), each rank takes the kv heads of its own query heads (head h
+    reads kv head h // (Hq/Hkv)) after a ``copy``, so the kernel's dk and
+    dv, partial over the ranks that share a kv head, are summed: a view
+    (``narrow``) where they are a range of heads that each serve the same
+    number of those query heads, which copies nothing (a decode step reads
+    its rank's heads in place in the cache); one kv head a query head, by
+    ``index_select``, where the ranks' query heads do not split evenly
     over kv heads.  Otherwise k and v as they are."""
     hq = q.shape[2]
     if hq == cfg.n_heads or k.shape[2] < cfg.n_kv_heads:
         return k, v
-    idx = torch.tensor(kv_heads(msh.model_index() * hq, hq, cfg.n_heads // cfg.n_kv_heads),
-                       device=k.device)
-    return (torch.index_select(msh.copy(k), 2, idx), torch.index_select(msh.copy(v), 2, idx))
+    heads = kv_heads(msh.model_index() * hq, hq, cfg.n_heads // cfg.n_kv_heads)
+    k, v = msh.copy(k), msh.copy(v)
+    if heads == list(range(heads[0], heads[0] + len(heads))):
+        return k.narrow(2, heads[0], len(heads)), v.narrow(2, heads[0], len(heads))
+    idx = torch.tensor(heads, device=k.device)
+    return torch.index_select(k, 2, idx), torch.index_select(v, 2, idx)
 
 
 def kv_heads(first: int, hq: int, group: int) -> list:
@@ -175,10 +182,12 @@ def gqa_forward(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConf
     """Full-sequence attention (prefill; whisper's encoder with ``causal``
     False). x: (B,S,D); positions (B,S) or (B,3,S).  ``cfg.fused_attention``
     puts the plain path on ``ops.flash_chunked`` (the kernel path ignores
-    it)."""
+    it).  ``return_kv``: also (k, v) as a prefill caches them, under tensor
+    parallelism this rank's block of the cache (its kv heads where they
+    divide the model axis, else every one), not only those it read."""
     q, k, v = _qkv(p, x, positions, cfg)
-    k, v = _local_kv(q, k, v, cfg)
-    o = ops.flash_attention(q, k, v, causal=causal, window=window,
+    kl, vl = _local_kv(q, k, v, cfg)
+    o = ops.flash_attention(q, kl, vl, causal=causal, window=window,
                             use_kernel=cfg.use_kernels, chunked=cfg.fused_attention,
                             chunk_k=cfg.attn_chunk)
     out = _out_proj(p, o, cfg, cfg.head_dim)
@@ -206,7 +215,12 @@ def gqa_decode(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
     positions (B,), or (B,3) under M-RoPE, absolute position of the new
     token, whose temporal stream t indexes the cache.  Global: row t, keys
     0..t.  Ring (``window > 0``): row ``t % size``, the last
-    ``min(t + 1, size)`` keys.  Returns (out (B,1,D), cache)."""
+    ``min(t + 1, size)`` keys.  Under tensor parallelism the cache is this
+    rank's block (``sharding.cache_shardings``: its kv heads, or
+    every kv head where they do not divide the model axis), the rank's k
+    and v rows land in it, decode attention runs on the rank's query heads
+    over the kv heads they read (``_local_kv``: a view of the cache) and
+    ``_out_proj`` makes the output whole.  Returns (out (B,1,D), cache)."""
     b = x.shape[0]
     pos_seq = positions[:, :, None] if cfg.use_mrope else positions[:, None]
     q, k, v = _qkv(p, x, pos_seq, cfg)
@@ -221,9 +235,10 @@ def gqa_decode(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
     rows = slot.long()
     cache["k"][bidx, rows] = k[:, 0].to(cache["k"].dtype)
     cache["v"][bidx, rows] = v[:, 0].to(cache["v"].dtype)
-    o = ops.decode_attention(q[:, 0], cache["k"], cache["v"], eff_len.to(torch.int32),
+    kc, vc = _local_kv(q, cache["k"], cache["v"], cfg)
+    o = ops.decode_attention(q[:, 0], kc, vc, eff_len.to(torch.int32),
                              use_kernel=cfg.use_kernels)
-    return torch.einsum("bhk,hkd->bd", o, p["wo"])[:, None, :], cache
+    return _out_proj(p, o[:, None], cfg, cfg.head_dim), cache
 
 
 def _masked_softmax_attend(q: torch.Tensor, keys: torch.Tensor, vals: torch.Tensor,
@@ -260,7 +275,8 @@ def gqa_prefill(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
     chunk's rows, under a band mask, so memory is O((size + C) Hkv hd) a row
     plus Hq x C x (size + C) logits.  The ring ends holding, per slot, the
     last chunk position that maps there.  Plain code: the reference runs no
-    kernel here either.  Returns (out (B,C,D), cache)."""
+    kernel here either.  Under tensor parallelism the cache and the heads
+    are the rank's as in ``gqa_decode``.  Returns (out (B,C,D), cache)."""
     b, c, _ = x.shape
     q, k, v = _qkv(p, x, positions, cfg)
     k_cd, v_cd = k.to(cache["k"].dtype), v.to(cache["v"].dtype)
@@ -279,7 +295,7 @@ def gqa_prefill(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
         kpos = start - size + torch.arange(size + c, device=x.device)[None, :]
         valid = (kpos[:, None, :] <= pos[:, :, None]) & \
             (kpos[:, None, :] > pos[:, :, None] - size) & (kpos[:, None, :] >= 0)
-        o = _masked_softmax_attend(q, keys, vals, valid)
+        o = _masked_softmax_attend(q, *_local_kv(q, keys, vals, cfg), valid)
         last = pos[:, -1:]
         cand_f = last - ((last - slots[None, :]) % size)                 # (B,size)
         sel_f = (cand_f >= start)[..., None, None]
@@ -291,8 +307,8 @@ def gqa_prefill(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,
         cache["v"][b2, pos] = v_cd
         rows = torch.arange(cache["k"].shape[1], device=x.device)
         valid = rows[None, None, :] < (pos[:, :, None] + 1)
-        o = _masked_softmax_attend(q, cache["k"], cache["v"], valid)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"]), cache
+        o = _masked_softmax_attend(q, *_local_kv(q, cache["k"], cache["v"], cfg), valid)
+    return _out_proj(p, o, cfg, cfg.head_dim), cache
 
 
 def gqa_cache_shape(cfg: ArchConfig, batch: int, length: int, window: int = 0) -> dict:
@@ -373,7 +389,10 @@ def _mla_compress(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchCo
 
 
 def _mla_queries(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
-    """(q_nope (B,S,H,dn), roped q_rope (B,S,H,dr))."""
+    """(q_nope (B,S,H,dn), roped q_rope (B,S,H,dr)); under tensor
+    parallelism ``_split_mla_queries``."""
+    if msh.model_ways() > 1:
+        return _split_mla_queries(p, x, positions, cfg)
     q_nope = torch.einsum("bsd,dhk->bshk", x, p["w_uq"])
     q_rope = apply_rope(torch.einsum("bsd,dhk->bshk", x, p["w_qr"]), positions,
                         cfg.rope_theta)
@@ -422,20 +441,34 @@ def _split_mla(p: dict, x: torch.Tensor, c_kv: torch.Tensor, k_rope: torch.Tenso
     partial sum, reduced before the rotation and the concatenation.  On
     this rank's heads k_rope, shared by every head, goes through ``copy``
     too; with every head on every rank it stays as it is."""
-    d, h = cfg.d_model, cfg.n_heads
-    r, dr, dn, dv = cfg.kv_lora_rank, cfg.qk_rope_dim, cfg.qk_nope_dim, cfg.v_head_dim
-    xc, cc = msh.copy(x), msh.copy(c_kv)
-
-    def heads(eq, t, name, whole):
-        y, layout = msh.project(eq, t, msh.WHOLE, p[name], whole)
-        return msh.constrain(y, "batch", None, "model", layout=layout)
-
-    q_nope = heads("bsd,dhk->bshk", xc, "w_uq", (d, h, dn))
-    q_rope = apply_rope(heads("bsd,dhk->bshk", xc, "w_qr", (d, h, dr)), positions,
-                        cfg.rope_theta)
-    k_nope = heads("bsr,rhk->bshk", cc, "w_uk", (r, h, dn))
-    v = heads("bsr,rhk->bshk", cc, "w_uv", (r, h, dv))
+    h, r, dn, dv = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.v_head_dim
+    q_nope, q_rope = _split_mla_queries(p, x, positions, cfg)
+    cc = msh.copy(c_kv)
+    k_nope = _heads(p, "bsr,rhk->bshk", cc, "w_uk", (r, h, dn))
+    v = _heads(p, "bsr,rhk->bshk", cc, "w_uv", (r, h, dv))
     return q_nope, q_rope, k_nope, v, msh.copy(k_rope) if q_nope.shape[2] < h else k_rope
+
+
+def _heads(p: dict, eq: str, t: torch.Tensor, name: str, whole: tuple) -> torch.Tensor:
+    """``eq`` of a whole ``t`` (through ``copy``) and this rank's block of
+    ``p[name]``, constrained as the reference constrains q: heads over the
+    model axis where they divide it, else whole (a partial sum reduced, a
+    split gathered)."""
+    y, layout = msh.project(eq, t, msh.WHOLE, p[name], whole)
+    return msh.constrain(y, "batch", None, "model", layout=layout)
+
+
+def _split_mla_queries(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
+    """(q_nope, roped q_rope) under tensor parallelism: x goes through one
+    ``copy``; on this rank's heads, or whole where the heads do not divide
+    the model axis (``w_uq`` and ``w_qr`` split on D give partial sums,
+    reduced before the rotation)."""
+    d, h, dr, dn = cfg.d_model, cfg.n_heads, cfg.qk_rope_dim, cfg.qk_nope_dim
+    xc = msh.copy(x)
+    q_nope = _heads(p, "bsd,dhk->bshk", xc, "w_uq", (d, h, dn))
+    q_rope = apply_rope(_heads(p, "bsd,dhk->bshk", xc, "w_qr", (d, h, dr)), positions,
+                        cfg.rope_theta)
+    return q_nope, q_rope
 
 
 def _mla_absorbed(p: dict, x: torch.Tensor, q_nope: torch.Tensor, q_rope: torch.Tensor,
@@ -446,16 +479,36 @@ def _mla_absorbed(p: dict, x: torch.Tensor, q_nope: torch.Tensor, q_rope: torch.
     valid (B,C,S) -> (B,C,D).  Scores and the weighted sum of c_kv take
     their operands in the cache's dtype and accumulate in fp32 (the
     reference's ``preferred_element_type=f32``; a bf16 product would round
-    the scores)."""
-    q_abs = torch.einsum("bqhk,rhk->bqhr", q_nope, p["w_uk"])
+    the scores).  Under tensor parallelism q_nope and q_rope hold this
+    rank's heads (or every head, ``_split_mla_queries``), the compressed
+    rows are whole on every rank (``cache_shardings`` replicates them), the
+    absorptions run on the rank's blocks of ``w_uk`` and ``w_uv``
+    (``_split_absorb``) and ``_out_proj`` makes the output whole."""
+    q_abs = _split_absorb(p, q_nope, "bqhk,rhk->bqhr", "w_uk",
+                          (cfg.kv_lora_rank, cfg.n_heads, cfg.qk_nope_dim))
     logits = (torch.einsum("bqhr,bsr->bqhs", q_abs.to(c_kv.dtype).float(), c_kv.float())
               + torch.einsum("bqhk,bsk->bqhs", q_rope.to(k_rope.dtype).float(),
                              k_rope.float())) * _mla_scale(cfg)
     logits = torch.where(valid[:, :, None, :], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     o_c = torch.einsum("bqhs,bsr->bqhr", probs.to(c_kv.dtype).float(), c_kv.float())
-    o = torch.einsum("bqhr,rhk->bqhk", o_c.to(x.dtype), p["w_uv"])
-    return torch.einsum("bqhk,hkd->bqd", o, p["wo"])
+    o = _split_absorb(p, o_c.to(x.dtype), "bqhr,rhk->bqhk", "w_uv",
+                      (cfg.kv_lora_rank, cfg.n_heads, cfg.v_head_dim))
+    return _out_proj(p, o, cfg, cfg.v_head_dim)
+
+
+def _split_absorb(p: dict, t: torch.Tensor, eq: str, name: str, whole: tuple) -> torch.Tensor:
+    """``eq`` of t (B,C,h,.) on this rank's heads (h < H) or every head, and
+    this rank's block of ``p[name]`` (``w_uk`` or ``w_uv``, (r,H,.)): on the
+    rank's heads where they divide the model axis, the product's heads the
+    rank's; else the weight split on r or on its last dim, and the product
+    (a partial sum over r, or split on its last dim) made whole before it
+    goes on: q_abs reduced before the scores, o before ``wo``.  With no
+    mesh, the plain einsum."""
+    split = t.shape[2] < whole[1]
+    y, layout = msh.project(eq, t if split else msh.copy(t), msh.Layout(2) if split
+                            else msh.WHOLE, p[name], whole)
+    return msh.constrain(y, "batch", None, "model", None, layout=layout)
 
 
 def mla_decode(p: dict, x: torch.Tensor, cache: dict, positions: torch.Tensor,

@@ -42,7 +42,12 @@ fitted spec; the embedding and the head run on their blocks (``_lookup``,
 ``_head``), the residual stream stays whole on every rank, and ``forward``
 returns this rank's block of the vocabulary where the head is split on V.
 ``constrain`` stands where the reference's does; with no mesh it returns
-its input.
+its input.  The serving entry points run there too: ``init_cache`` gives
+the rank's block of the cache, ``forward(collect_cache=True)`` caches the
+rank's k and v blocks, and ``decode_step`` and ``prefill_chunk`` return
+logits whole over the vocabulary (``whole_vocab``).  A family outside
+``sharding.TP_FAMILIES`` raises under a model axis larger than 1
+(``sharding.refuse_outside_tp``).
 """
 from __future__ import annotations
 
@@ -147,8 +152,21 @@ def init_cache(cfg: ArchConfig, batch: int, length: int, *, device="cuda") -> di
     MLA's compressed rows in the compute dtype, recurrent states in fp32;
     audio adds each slot's ``cross_k``/``cross_v`` of ``encoder_len`` rows
     and the top-level ``enc_len`` (B,) int32.  On ``meta``, shapes and
-    dtypes only."""
+    dtypes only.  Under an active mesh, this rank's block of the cache of
+    ``batch`` rows: each leaf's shape under
+    ``sharding.cache_shardings`` (its rows of the batch, its kv
+    heads where they divide the model axis)."""
     dev = require_device(device)
+    mesh = msh.current_mesh()
+    if mesh is not None:
+        with msh.use_mesh(None):
+            whole = init_cache(cfg, batch, length, device="meta")
+
+        def block(t, spec):
+            if isinstance(t, dict):
+                return {k: block(v, spec[k]) for k, v in t.items()}
+            return torch.zeros(msh.local_slice(t, spec, mesh).shape, dtype=t.dtype, device=dev)
+        return block(whole, msh.cache_shardings(whole, mesh))
 
     def zeros(n: int, shapes: dict, dtype) -> dict:
         return {k: torch.zeros((n,) + shp, dtype=dtype, device=dev) for k, shp in shapes.items()}
@@ -244,6 +262,14 @@ def _head(params: dict, cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
     return msh.reduce(logits) if layout.partial else logits
 
 
+def whole_vocab(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Logits over the whole vocabulary on every rank of the model group:
+    a head split on V gives each rank its block (``_head``), gathered
+    here, as the reference's serving steps hand back whole logits at their
+    jit boundary; whole logits as they are."""
+    return msh.gather(logits, -1) if logits.shape[-1] < cfg.vocab_size else logits
+
+
 def _arange(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None].expand(b, s)
 
@@ -304,6 +330,7 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, collect_cache: bool =
     slots ``p % size`` (S rows, unplaced, when ``cache_len`` is 0).  Audio:
     each decoder slot's ``cross_k``/``cross_v`` (the encoder's rows,
     unpadded) beside them, and ``enc_len``."""
+    msh.refuse_outside_tp(cfg, "lm.forward")
     params = _cast_tree(params, cfg.compute_dtype)       # mixed precision
     shared = "local" if _shared_window(cfg, cache_len) else "global"
     tokens = batch["tokens"]
@@ -418,24 +445,28 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     """tokens (B,1); positions (B,) (or (B,3) under M-RoPE) absolute position
     of the new token; audio adds the sinusoid at that position.  Returns
     (logits (B,V), cache) with the cache updated in place (whisper's cross
-    rows and ``enc_len`` read, never written)."""
+    rows and ``enc_len`` read, never written).  Under tensor parallelism
+    the cache is this rank's block (``init_cache`` under the mesh) and the
+    logits are whole over the vocabulary (``whole_vocab``)."""
+    msh.refuse_outside_tp(cfg, "lm.decode_step")
     x = _embed(params, cfg, tokens)
     if cfg.family == "audio":
         x = x + sinusoid(positions[:, None], cfg.d_model).to(x.dtype)
     x = msh.constrain(x, "batch", None, None)
     x = _run_cached(params, cfg, x, positions, cache, blocks.slot_decode)
-    return _head(params, cfg, x[:, 0]), cache
+    return whole_vocab(_head(params, cfg, x[:, 0]), cfg), cache
 
 
 def prefill_chunk(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                   positions: torch.Tensor, cache: dict):
     """C prompt tokens at once against the decode cache: tokens (B,C);
     positions (B,C) (or (B,3,C) under M-RoPE) absolute, contiguous ascending
-    per row.  Returns (logits (B,C,V), cache) with the cache updated in
-    place.  Audio raises, as in the reference: its prefill is the
-    encoder's and the full forward's."""
+    per row.  Returns (logits (B,C,V), whole over the vocabulary, cache)
+    with the cache updated in place.  Audio raises, as in the reference:
+    its prefill is the encoder's and the full forward's."""
     if cfg.family == "audio":
         raise NotImplementedError("chunked prefill: audio enc-dec unsupported")
+    msh.refuse_outside_tp(cfg, "lm.prefill_chunk")
     x = msh.constrain(_embed(params, cfg, tokens), "batch", None, None)
     x = _run_cached(params, cfg, x, positions, cache, blocks.slot_prefill)
-    return _head(params, cfg, x), cache
+    return whole_vocab(_head(params, cfg, x), cfg), cache

@@ -328,6 +328,48 @@ def param_shardings(params: Any, mesh, *, min_relocate_bytes: int = 0) -> Any:
         params)
 
 
+# cache leaf key -> logical spec tail (after the leading group-stack dim and
+# the batch dim, which are fixed (None, batch)).
+_CACHE_RULES = {
+    "k": (None, "model", None),        # (G,B,S,Hkv,hd)
+    "v": (None, "model", None),
+    "cross_k": (None, "model", None),
+    "cross_v": (None, "model", None),
+    "c_kv": (None, None),              # (G,B,S,r) MLA compressed: replicated tail
+    "k_rope": (None, None),
+    "ssm": ("model", None, None),      # (G,B,H,P,N)
+    "conv": (None, "model"),           # (G,B,k,conv_dim)
+    "C": ("model", None, None),        # (G,B,H,hd,hd) mlstm
+    "n": ("model", None),
+    "m": ("model",),
+    "c": ("model", None),              # slstm
+    "h": ("model", None),
+}
+
+
+def cache_shardings(cache_spec: Any, mesh) -> Any:
+    """Tree of fitted specs for a decode cache on ``mesh`` (the reference's
+    ``launch.shardings.cache_shardings``): the batch dim over the batch
+    axes where their ways divide it, the tail by ``_CACHE_RULES``, fitted
+    without relocation (kv heads that do not divide the model axis stay
+    whole)."""
+    batch = _resolve(("batch",), mesh)[0]
+    ways = axis_size(mesh, batch)
+
+    def f(path, leaf):
+        key = next((p for p in reversed(path) if isinstance(p, str)), None)
+        shape = tuple(leaf.shape)
+        ndim = len(shape)
+        if key == "enc_len":
+            return P(batch if shape[0] % ways == 0 else None)
+        tail = _CACHE_RULES.get(key, ())[:max(ndim - 2, 0)]
+        tail = tail + (None,) * (ndim - 2 - len(tail))
+        batch_ax = batch if ndim >= 2 and shape[1] % ways == 0 else None
+        spec = (None, batch_ax) + tuple(_resolve(tail, mesh))
+        return fit_pspec(shape, spec[:ndim], mesh, relocate=False)
+    return map_with_path(f, cache_spec)
+
+
 # ---------------------------------------------------------------------------
 # A rank's block of a leaf under a fitted spec, and the whole leaf back.
 # ---------------------------------------------------------------------------
@@ -426,6 +468,32 @@ def model_ways() -> int:
     if mesh is None or current_profile() == "dp" or "model" not in mesh.axis_names:
         return 1
     return mesh.shape["model"]
+
+
+# the families tensor parallelism covers; the others -> (their ROADMAP.md
+# queue 1 item, what it ports), 1.13 for a family not named here
+TP_FAMILIES = ("dense", "vlm", "moe")
+_SSM = ("1.13c", "the SSM, hybrid and xLSTM mixers")
+TP_ITEMS = {"ssm": _SSM, "hybrid": _SSM,
+            "audio": ("1.13d", "enc-dec (the encoder and cross-attention)")}
+
+
+def refuse_outside_tp(cfg, entry: str) -> None:
+    """Tensor parallelism covers the families of ``TP_FAMILIES``.  Any
+    other raises, naming its item, where the active mesh and profile split
+    parameters over a model axis (``model_ways() > 1``): ``LMTrainJob``
+    before any work, ``lm.forward``, ``decode_step`` and ``prefill_chunk``
+    at entry, so that no such family trains or serves unsharded in
+    silence.  A model axis of 1, or the ``dp`` profile, refuses none."""
+    ways = model_ways()
+    if ways == 1 or cfg.family in TP_FAMILIES:
+        return
+    item, what = TP_ITEMS.get(cfg.family, ("1.13", f"the {cfg.family!r} family"))
+    raise NotImplementedError(
+        f"{entry}: the {current_profile()!r} profile on mesh {dict(current_mesh().shape)} "
+        f"splits {cfg.family!r} parameters over a model axis of {ways}; tensor parallelism of "
+        f"{what} (training and serving) is ROADMAP.md queue 1 item {item}. Run it "
+        "data-parallel: a model axis of 1, or sharding_profile='dp'")
 
 
 def model_group():

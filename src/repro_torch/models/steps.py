@@ -15,7 +15,14 @@ step on a batch sharded over the mesh): ``dp_grads`` then ``dp_update_``.
 They read the mesh the model's layers read, ``sharding.current_mesh()``
 (none active: every rank of the group holds its rows and every parameter).
 A head split on the vocabulary gives each rank its block of the logits,
-and ``vocab_parallel_xent`` takes the loss from them."""
+and ``vocab_parallel_xent`` takes the loss from them.
+
+The serving steps (``prefill``, ``serve_step``, ``greedy_decode_loop``)
+run under the same mesh: each rank holds its shards, its rows and its
+block of the cache, and gets logits whole over the vocabulary, so every
+rank of a model group takes the same argmax.  A family outside
+``sharding.TP_FAMILIES`` raises there under a model axis larger than 1,
+as ``LMTrainJob`` does."""
 from __future__ import annotations
 
 import torch
@@ -241,11 +248,13 @@ def start_positions(cfg: ArchConfig, b: int, pos: int, device) -> torch.Tensor:
 
 def prefill(params: dict, batch: dict, *, cfg: ArchConfig, cache_len: int = 0):
     """Full-sequence forward emitting a decode cache (padded to cache_len).
-    Returns (last-position logits (B,V), cache)."""
+    Returns (last-position logits (B,V), cache).  Under tensor parallelism
+    the cache is this rank's block and the logits are whole over the
+    vocabulary (``lm.whole_vocab``), as ``serve_step``'s are."""
     cache_len = cache_len or batch["tokens"].shape[1]
     logits, _, cache = lm.forward(params, cfg, batch, collect_cache=True,
                                   cache_len=cache_len)
-    return logits[:, -1], cache
+    return lm.whole_vocab(logits[:, -1], cfg), cache
 
 
 def serve_step(params: dict, cache: dict, tokens: torch.Tensor, positions: torch.Tensor,

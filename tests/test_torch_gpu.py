@@ -1201,3 +1201,89 @@ def _tp_on_card_matches_one_process(tmp_path, *, remat, arch="granite_3_8b"):
         assert max(_rel(a, b) for a, b in zip(r["grads"], grads)) <= 1e-4
         assert r["launches"] == {"rmsnorm", "rmsnorm_bwd", "flash_attention",
                                  "flash_attention_bwd"}
+
+
+# a range of a cache's kv heads, read in place by the decode kernel: (rows,
+# heads a row holds, first head, heads read, query heads, D); the serving
+# shapes of a tensor-parallel rank (granite on 16 ranks: 2 query heads over
+# one of 8 kv heads) and a split cache
+DECODE_RANGE_CASES = [(145, 8, 3, 1, 2, 128), (145, 8, 4, 4, 16, 128), (1300, 4, 1, 2, 14, 128),
+                      (700, 4, 2, 1, 8, 320)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,hs,first,n,hq,d", DECODE_RANGE_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_decode_kernel_reads_a_range_of_cache_heads_in_place_on_gpu(cuda, s, hs, first, n, hq,
+                                                                     d, dtype):
+    """Decode attention over a ``narrow`` of a contiguous cache's heads (a
+    tensor-parallel rank's kv heads in a cache whole on every rank): the
+    wrapper passes the view as it is (its row holds ``hs`` heads) and the
+    result is the twin's on the same view."""
+    from repro_torch.kernels import decode_attention as dec
+    g = torch.Generator(device=cuda).manual_seed(0)
+    td = DTYPES[dtype]
+    q = torch.randn(3, hq, d, device=cuda, generator=g).to(td)
+    kc, vc = (torch.randn(3, s, hs, d, device=cuda, generator=g).to(td).narrow(2, first, n)
+              for _ in range(2))
+    assert dec._row_heads(kc) == dec._row_heads(vc) == hs
+    lens = torch.tensor([s, s // 2, 1], dtype=torch.int32, device=cuda)
+    _close(ops.decode_attention(q, kc, vc, lens, use_kernel=True),
+           ref.decode_attention_ref(q, kc, vc, lens), dtype)
+
+
+def _tp_decode_rank_on_card(rank, arch, prompt, nxt):
+    """Prefill and one decode step of ``arch``'s fp32 smoke config on the
+    kernel path, over a gloo group of 2 ranks sharing ``cuda:0`` on a (1, 2)
+    mesh: each rank on its shards and its block of the cache; the whole
+    logits and the launches."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm, steps
+    from repro_torch.models import sharding as msh
+    from repro_torch.optim import adamw
+    mesh = make_mesh((1, 2), ("data", "model"), "cuda")
+    cfg = registry.get_smoke_config(arch).replace(use_kernels=True)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    prompt, nxt = torch.as_tensor(prompt, device="cuda"), torch.as_tensor(nxt, device="cuda")
+    with msh.use_mesh(mesh):
+        specs = msh.param_shardings(params, mesh)
+        local = adamw.tree_map(lambda t, s: msh.local_slice(t, s, mesh).clone(), params, specs)
+        native.reset_launches()
+        last, cache = steps.prefill(local, {"tokens": prompt}, cfg=cfg,
+                                    cache_len=prompt.shape[1] + 1)
+        pos = steps.start_positions(cfg, prompt.shape[0], prompt.shape[1], "cuda")
+        logits, cache = steps.serve_step(local, cache, nxt, pos, cfg=cfg)
+        torch.cuda.synchronize()
+    return {"prefill": last.cpu(), "decode": logits.cpu(),
+            "launches": {k for k, n in native.LAUNCHES.items() if n},
+            "cache_heads": cache["phase0"]["slot0"]["k"].shape[3]}
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_decode_on_two_ranks_matches_one_process_on_gpu(cuda, tmp_path):
+    """Tensor-parallel serving on the card: 2 gloo ranks, each on its
+    shards, its kv head of granite's smoke config (2 over 2 ranks) and its
+    block of the cache, run a prefill and one decode step through flash
+    attention, decode attention and RMSNorm; both ranks' whole logits
+    within 1e-4 of one process (fp32)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm, steps
+    from _ranks import spawn_ranks
+    arch = "granite_3_8b"
+    cfg = registry.get_smoke_config(arch).replace(use_kernels=True)
+    gen = np.random.default_rng(3)
+    prompt = gen.integers(0, cfg.vocab_size, (4, 16), dtype=np.int32)
+    nxt = gen.integers(0, cfg.vocab_size, (4, 1), dtype=np.int32)
+    ranks = spawn_ranks(_tp_decode_rank_on_card, 2, arch, prompt, nxt, out_dir=tmp_path,
+                        timeout_s=300)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    tokens = torch.as_tensor(prompt, device="cuda")
+    last, cache = steps.prefill(params, {"tokens": tokens}, cfg=cfg, cache_len=17)
+    logits, _ = steps.serve_step(params, cache, torch.as_tensor(nxt, device="cuda"),
+                                 steps.start_positions(cfg, 4, 16, "cuda"), cfg=cfg)
+    for r in ranks:
+        assert r["cache_heads"] == cfg.n_kv_heads // 2
+        assert r["launches"] == {"rmsnorm", "flash_attention", "decode_attention"}
+        assert _rel(r["prefill"], last.cpu()) <= 1e-4
+        assert _rel(r["decode"], logits.cpu()) <= 1e-4

@@ -18,8 +18,8 @@ from repro_torch.examples import (continuous_batching, e2e_mnist_pipeline,  # no
                                   e2e_train_to_serve, multi_model_serving, quickstart,
                                   serve_llm, slo_failover, train_llm)
 from repro_torch.launch import dryrun, serve, train  # noqa: E402
-from repro_torch.models import blocks, lenet, lm  # noqa: E402
-from repro_torch.models.sharding import abstract_mesh  # noqa: E402
+from repro_torch.models import blocks, lenet, lm, steps  # noqa: E402
+from repro_torch.models.sharding import abstract_mesh, use_mesh  # noqa: E402
 from repro_torch.modelci.profile import roofline_fields  # noqa: E402
 from repro_torch.models.transplant import transplant, transplant_lenet  # noqa: E402
 from repro_torch.serving.continuous import ContinuousBatcher  # noqa: E402
@@ -135,19 +135,60 @@ def _train_main_on_a_sharding_mesh(monkeypatch, tmp_path):
                 "--mesh", "local", "--dist-backend", "gloo", "--store", str(tmp_path)])
 
 
+def _dryrun_refused(arch: str, mesh: str) -> None:
+    """The dry-run's record of ``arch`` at decode_32k on a production mesh
+    under ``tp``: an error record, raised here with its message."""
+    rec = dryrun.run_one(arch, "decode_32k", mesh, smoke=True)
+    if rec["status"] == "error":
+        raise NotImplementedError(rec["error"])
+
+
+def _serving_on_a_model_axis(arch: str, step: str) -> None:
+    """``steps.prefill`` or ``steps.serve_step`` of ``arch``'s smoke config
+    under an active (1, 2) mesh's ``tp`` profile: refused at entry."""
+    cfg = registry.get_smoke_config(arch)
+    params = lm.init_params(cfg, device="cpu")
+    tokens = torch.zeros((2, 4), dtype=torch.int32)
+    cache = lm.init_cache(cfg, 2, 4, device="cpu")
+    with use_mesh(abstract_mesh((1, 2), ("data", "model"))):
+        if step == "prefill":
+            steps.prefill(params, steps.batch_inputs(cfg, tokens), cfg=cfg)
+        else:
+            steps.serve_step(params, cache, tokens[:, :1], steps.start_positions(cfg, 2, 0, "cpu"),
+                             cfg=cfg)
+
+
 @pytest.mark.parametrize("entry,item", [
-    (lambda monkeypatch, tmp_path: dryrun.run_one("gemma3_4b", "decode_32k", "multi"), "1.14"),
+    (lambda monkeypatch, tmp_path: _dryrun_refused("zamba2_1_2b", "multi"), "1.13c"),
     (_train_main_on_a_sharding_mesh, "1.13c"),
     (lambda monkeypatch, tmp_path: LMTrainJob(
         registry.get_smoke_config("zamba2_1_2b"), batch_size=1, seq_len=8, n_steps=1,
         mesh=abstract_mesh((1, 2), ("data", "model")), device="cpu").run(), "1.13c"),
-], ids=["dryrun_multi_mesh", "train_main_mesh", "lm_trainjob_mesh"])
+    (lambda monkeypatch, tmp_path: _dryrun_refused("whisper_base", "pod"), "1.13d"),
+    (lambda monkeypatch, tmp_path: _serving_on_a_model_axis("zamba2_1_2b", "serve_step"),
+     "1.13c"),
+    (lambda monkeypatch, tmp_path: _serving_on_a_model_axis("whisper_base", "prefill"),
+     "1.13d"),
+], ids=["dryrun_multi_mesh", "train_main_mesh", "lm_trainjob_mesh", "dryrun_pod_mesh_whisper",
+        "serve_step_mesh_zamba2", "prefill_mesh_whisper"])
 def test_unported_entry_points_name_their_roadmap_item(entry, item, monkeypatch, tmp_path):
     """What is left of the meshes: tensor parallelism of the families
-    outside the dense, VLM and MoE slice (the SSM and hybrid ones here,
-    1.13c) and the dry-run's production meshes (1.14)."""
+    outside the dense, VLM and MoE slice, the SSM and hybrid ones (1.13c)
+    and enc-dec (1.13d), in training, serving and the dry-run's production
+    meshes."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 item {item}"):
         entry(monkeypatch, tmp_path)
+
+
+@pytest.mark.parametrize("mesh,chips", [("pod", 256), ("multi", 512)])
+def test_dryrun_counts_a_production_mesh(mesh, chips):
+    """The dry-run's production meshes count one card of the mesh: gemma3's
+    smoke config at decode_32k is ``ok`` with a collective term, and the
+    counting group is gone afterwards."""
+    rec = dryrun.run_one("gemma3_4b", "decode_32k", mesh, smoke=True)
+    assert rec["status"] == "ok" and rec["chips"] == chips, rec
+    assert rec["roofline"]["coll_bytes"] > 0 and rec["collectives"]["all-reduce"]["calls"] > 0
+    assert not torch.distributed.is_initialized()
 
 
 def test_registry_names_the_roadmap_item_for_unported_archs():

@@ -245,8 +245,17 @@ def test_dryrun_matrix_rules():
     rec = dryrun.run_one("whisper_base", "train_4k", smoke=True)
     assert rec["status"] == "ok" and rec["memory"]["opt_state_bytes"] > 0
     assert 0 < rec["useful_flops_ratio"] < 1
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1.14"):
-        dryrun.run_one("granite_3_8b", "decode_32k", "multi")
+    # the production meshes count one card of 512: granite's smoke config
+    # with a collective term; under tp the families outside tensor
+    # parallelism's slice get an error record naming their item, under dp
+    # they count (each card decodes its rows alone: no collective)
+    rec = dryrun.run_one("granite_3_8b", "decode_32k", "multi", smoke=True)
+    assert rec["status"] == "ok" and rec["chips"] == 512 and rec["roofline"]["collective_s"] > 0
+    for arch, item in (("zamba2_1_2b", "1.13c"), ("whisper_base", "1.13d")):
+        rec = dryrun.run_one(arch, "decode_32k", "multi", smoke=True)
+        assert rec["status"] == "error" and f"ROADMAP.md queue 1 item {item}" in rec["error"]
+        rec = dryrun.run_one(arch, "decode_32k", "multi", smoke=True, profile="dp")
+        assert rec["status"] == "ok" and rec["chips"] == 512 and rec["collectives"] == {}, rec
     # the chunked attention twin does the same products, and its eager
     # chunks still write every score once: it bounds what is held at a
     # time, not the counted traffic
@@ -299,4 +308,4 @@ def test_report_tables_from_records(tmp_path):
     table = report.roofline_table(recs)
     assert "**memory**" in table and "skipped" in table and "90 (no)" in table
     dtable = report.dryrun_table(recs)
-    assert "1234" in dtable and "1.5" in dtable
+    assert "1234" in dtable and "1.5" in dtable and "| 0 | memory |" in dtable
