@@ -181,6 +181,26 @@ Run from the root of a checkout.  It imports only the port
    reported; phase 2 holds decode attention at a rank's shape, q
    (4, 16, 128) over 4 kv heads of a 145-row cache, and at a pod rank's,
    q (4, 2, 128) over a one-head view of an 8-head cache read in place;
+6e. runs the recurrent mixers tensor-parallel (``_tp_ssm_leg``) on the same
+   ranks and mesh: zamba2-1.2b (Mamba2 and its shared attention block) and
+   xlstm-1.3b (mLSTM and sLSTM) at full width, each rank on its heads (16
+   of 32, 2 of 4), its conv channel block and its block of every state.
+   Gated: (a) fp32 on the kernel path, zamba2 at 7 layers (a group of 6
+   with the shared block, and the remainder phase) and xlstm at 8 (one
+   sLSTM): every rank's prefill and GEN decode steps' logits against one
+   process within TP_SERVE_REL, the tokens equal, and xlstm's scoring loss;
+   one fp32 training step of each on the plain path, the loss and every
+   gathered gradient leaf at TP_SSM_LIMITS, after the kernel path under
+   grad raised items 2.2 and 2.3; (b) bf16 at full depth (38 and 48
+   layers): zamba2's serving launch set exactly RMSNorm, flash attention,
+   decode attention and ``ssm_scan``, every scan at 16 heads, a rank's
+   cache half the one process's; xlstm's scoring launch set exactly RMSNorm
+   and ``mlstm_scan``, every scan at 2 heads; every recorded kernel call of
+   one prefill, one decode step and one scoring forward under the phase-2
+   rule; (c) one zamba2 bf16 decode step's collectives equal by kind to the
+   counting mesh's.  Token agreement, times and peak memory are reported;
+   phase 2 holds ``ssm_scan`` at x (4, 128, 16, 128) and ``mlstm_scan`` at
+   q (4, 128, 2, 512), a rank's shapes;
 7. holds every phase it timed against the card's roofline
    (``_roofline_phase``): each arch's prefill and decode step at batch 4
    (qwen2-vl prompt 384), gemma3's 1 x 2048 long leg, xlstm's scoring
@@ -312,6 +332,31 @@ TP_SERVE_PATH = "tensor-parallel serving"
 TP_SERVE_ARCHS = ("granite_3_8b", "granite_moe_3b_a800m")
 TP_SERVE_LAYERS, TP_SERVE_REL = 4, 1e-4
 TP_SERVE_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
+# tensor parallelism of the recurrent mixers (``_tp_ssm_leg``): the same
+# ranks and mesh, zamba2 and xlstm at full width.  Gate (a): fp32 on the
+# kernel path at TP_SSM_LAYERS layers (zamba2: a group of 6 with its shared
+# block, and the one-layer remainder phase; xlstm: 7 mLSTM and its sLSTM),
+# serving held as TP_SERVE_ARCHS' is, plus xlstm's scoring loss; one fp32
+# training step of each at TRAIN_BATCH x TP_SSM_SEQ on the plain path (the
+# scans have no backward kernel: under grad the kernel path must raise
+# items 2.2 and 2.3), the loss at TP_SSM_LIMITS and every gathered gradient
+# leaf at the larger of TP_SSM_LIMITS and SENS_RATIO times the leaf's own
+# sensitivity: how far one process's gradient moves when every weight moves
+# by one ulp (the larger of two random nudges, ``_nudged``), measured in the
+# same run.  An H100 read zamba2's leaves within 8.5e-5 (its sensitivity up
+# to 8.8e-5) and xlstm's within 6.3e-3 (its sensitivity up to 0.11: one-ulp
+# weight changes move xlstm's fp32 gradient by 1e-3 through eight layers);
+# a leaf whose whole gradient is below ZERO_LEAF of the tree's largest is
+# held below that floor.  Gate (b): bf16 at full depth,
+# zamba2 serving with the launch set TP_SSM_SERVE_KERNELS, xlstm scoring
+# with TP_SSM_SCORE_KERNELS, every scan at the rank's heads.  Gate (c):
+# one zamba2 bf16 decode step's collectives against the counting mesh
+TP_SSM_PATH = "recurrent-mixer tensor parallelism"
+TP_SSM_LAYERS = {"zamba2_1_2b": 7, "xlstm_1_3b": 8}
+TP_SSM_SEQ, ZERO_LEAF, SENS_RATIO = 256, 1e-6, 4.0
+TP_SSM_LIMITS = {"fp32_loss": 1e-4, "fp32_grad_leaf": 1e-4}
+TP_SSM_SERVE_KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "ssm_scan")
+TP_SSM_SCORE_KERNELS = ("rmsnorm", "mlstm_scan")
 # the 16 x 16 pod's model axis (``launch/dryrun.py``'s "pod"): phase 2's
 # decode case at a pod rank's heads
 POD_MODEL = 16
@@ -1006,6 +1051,11 @@ def main() -> int:
             "decode_attention": (_decode_case([PROMPT + 1] * BATCH, cache_len,
                                               g.n_heads // TP_RANKS, g.n_kv_heads // TP_RANKS,
                                               g.head_dim, gen), 50)},
+        TP_SSM_PATH: {                            # a rank's heads: 16 of 32, 2 of 4
+            "ssm_scan": (_ssm_case(BATCH, PROMPT, z.n_heads // TP_RANKS, zp, z.ssm_state,
+                                   z.ssm_chunk, gen), 20),
+            "mlstm_scan": (_mlstm_case(BATCH, PROMPT, xl.n_heads // TP_RANKS, xhd, xl.ssm_chunk,
+                                       gen), 20)},
         TP_MOE_PATH: {                            # a rank's heads: 12 over 4, a local group of 3
             "flash_attention": (_flash_case(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ,
                                             gmo.n_heads // TP_RANKS, gmo.n_kv_heads // TP_RANKS,
@@ -1061,6 +1111,9 @@ def main() -> int:
     # -- tensor-parallel serving: two ranks on the card ------------------------
     report["tp_serve_leg"] = _tp_serve_leg(card)
 
+    # -- tensor parallelism of the recurrent mixers: two ranks on the card ------
+    report["tp_ssm_leg"] = _tp_ssm_leg(card)
+
     # -- the roofline: every timed phase at or above its bound ---------------
     report["roofline_phase"] = _roofline_phase(report, hw, card)
 
@@ -1069,6 +1122,7 @@ def main() -> int:
               + report["mnist_leg"]["launches"][n] + report["lm_train_leg"]["launches"][n]
               + report["dp_train_leg"]["launches"][n] + report["tp_train_leg"]["launches"][n]
               + report["tp_moe_train_leg"]["launches"][n] + report["tp_serve_leg"]["launches"][n]
+              + report["tp_ssm_leg"]["launches"][n]
               for n in META}
     kernels = []
     for n, (route, src, rep, label, _) in META.items():
@@ -3210,6 +3264,18 @@ def _tp_serve_leg(card: str) -> dict:
     return {"ranks": TP_RANKS, "archs": res, "leg_s": leg_s, "launches": launches}
 
 
+def _shards(params: dict, mesh) -> dict:
+    """This rank's block of every leaf under its fitted spec, a copy."""
+    from repro_torch.models import sharding as msh
+    from repro_torch.optim import adamw
+    specs = msh.param_shardings(params, mesh)
+    return adamw.tree_map(lambda t, s: msh.local_slice(t, s, mesh).clone(), params, specs)
+
+
+def _nbytes(tree: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in _leaves(tree))
+
+
 def _tp_serve_run(params, cfg, prompts, cache_len: int) -> dict:
     """Prefill, then GEN greedy steps through ``steps.serve_step``, every
     step's logits kept (fp32 on the host)."""
@@ -3236,20 +3302,12 @@ def _tp_serve_rank(rank: int) -> dict:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import lm, steps
     from repro_torch.models import sharding as msh
-    from repro_torch.optim import adamw
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = make_mesh((1, TP_RANKS), ("data", "model"), "cuda")
     cache_len = PROMPT + GEN + 1
     out: dict = {"rank": rank, "launches": {n: 0 for n in META}}
-
-    def shards(params):
-        specs = msh.param_shardings(params, mesh)
-        return adamw.tree_map(lambda t, s: msh.local_slice(t, s, mesh).clone(), params, specs)
-
-    def nbytes(tree):
-        return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
     for arch in TP_SERVE_ARCHS:
         full = registry.get_config(arch)
@@ -3259,7 +3317,7 @@ def _tp_serve_rank(rank: int) -> dict:
         # one process replaying its expert ids
         cfg32 = full.replace(n_layers=TP_SERVE_LAYERS, dtype="float32", use_kernels=True)
         params = lm.init_params(cfg32, seed=0, device="cuda")
-        local = shards(params)
+        local = _shards(params, mesh)
         with torch.inference_mode(), msh.use_mesh(mesh), _routing() as ids:
             res["a"] = _tp_serve_run(local, cfg32, prompts, cache_len)
         del local
@@ -3277,7 +3335,7 @@ def _tp_serve_rank(rank: int) -> dict:
         cfg = full.replace(use_kernels=True, dtype="bfloat16")
         torch.cuda.reset_peak_memory_stats()
         params = lm.init_params(cfg, seed=0, device="cuda")
-        local = shards(params)
+        local = _shards(params, mesh)
         if rank != 0:
             del params
         gc.collect()
@@ -3302,7 +3360,7 @@ def _tp_serve_rank(rank: int) -> dict:
                 torch.cuda.synchronize()
                 b["prefill_ms"] = (time.perf_counter() - t0) * 1e3
                 first = torch.argmax(last, -1).to(torch.int32)[:, None]
-                b["cache_bytes"] = nbytes(cache)
+                b["cache_bytes"] = _nbytes(cache)
                 t0 = time.perf_counter()
                 b["tokens"], cache = steps.greedy_decode_loop(local, cache, first, start, GEN,
                                                               cfg=cfg)
@@ -3329,7 +3387,7 @@ def _tp_serve_rank(rank: int) -> dict:
             _collective_bytes(lambda: steps.serve_step(local, cache, first, start, cfg=cfg), coll)
             res["c"] = coll
             del cache
-        b["whole_cache_bytes"] = nbytes(lm.init_cache(cfg, BATCH, cache_len, device="meta"))
+        b["whole_cache_bytes"] = _nbytes(lm.init_cache(cfg, BATCH, cache_len, device="meta"))
         res["b"] = b
         del local
         gc.collect()
@@ -3357,6 +3415,402 @@ def _tp_serve_rank(rank: int) -> dict:
         out[arch] = res
     return out
 
+
+
+def _tp_ssm_leg(card: str) -> dict:
+    """Tensor parallelism of the recurrent mixers: TP_RANKS ranks share the
+    card through a gloo group on a (1, TP_RANKS) mesh (``_tp_ssm_rank``),
+    each on its shards of every parameter and its block of every state,
+    for zamba2 and xlstm at full width.  Gated: (a) fp32 on the kernel path
+    at TP_SSM_LAYERS layers, every rank's prefill logits and GEN greedy
+    decode steps' logits against one process on rank 0 within
+    TP_SERVE_REL, the tokens equal, and xlstm's scoring loss
+    (``steps.loss_fn``); under grad the kernel path raises items 2.2 and
+    2.3, and one fp32 training step on the plain path holds the loss at
+    TP_SSM_LIMITS and every gathered gradient leaf at the larger of
+    TP_SSM_LIMITS and SENS_RATIO times its one-ulp sensitivity
+    (``_tp_ssm_parity``); (b) bf16 at full depth:
+    zamba2's serving launches exactly TP_SSM_SERVE_KERNELS on each rank,
+    every ``ssm_scan`` call at H / TP_RANKS heads, a rank's cache bytes
+    1 / TP_RANKS of the one process's; xlstm's scoring launches exactly
+    TP_SSM_SCORE_KERNELS, every ``mlstm_scan`` call at H / TP_RANKS heads;
+    every recorded kernel call of one prefill, one decode step and one
+    scoring forward under the phase-2 rule; (c) one zamba2 bf16 decode
+    step's collectives (``_collective_bytes``) equal by kind to what
+    ``launch/dryrun.py``'s counting mesh counts for the same step.
+    Reported: token agreement with one process in bf16, times and peak
+    memory.  Ranks sharing one card through host-staged gloo measure
+    correctness, not scaling."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.registry import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.models import sharding as msh
+
+    sys.path.insert(0, str(ROOT / "tests"))          # the ranks' launcher, shared with the tests
+    from _ranks import spawn_ranks
+
+    label = TP_SSM_PATH
+    cache_len = PROMPT + GEN + 1
+    z, xl = registry.get_config("zamba2_1_2b"), registry.get_config("xlstm_1_3b")
+    print(f"{label}: zamba2 and xlstm at full width, {TP_RANKS} gloo ranks on one card on a "
+          f"(1, {TP_RANKS}) mesh, batch {BATCH} x {PROMPT}, {GEN} new tokens; fp32 at "
+          f"{TP_SSM_LAYERS} layers, bf16 at full depth  [{card}]")
+    shape = InputShape("tp_ssm_decode", cache_len, BATCH, "decode")
+    with dryrun.counting_mesh((1, TP_RANKS), ("data", "model")) as mesh, msh.use_mesh(mesh):
+        coll = dryrun.count_step(dryrun._shape_cfg(z, shape), shape)["collectives"]
+    counted = {k: [c["calls"], c["bytes"]] for k, c in coll.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "experiments" / "chip_smoke_tp_ssm"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_ranks(_tp_ssm_rank, TP_RANKS, out_dir=out_dir, timeout_s=900)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    leg_s = time.perf_counter() - t0
+
+    res = {}
+    for arch, cfg, item in (("zamba2_1_2b", z, "2.2"), ("xlstm_1_3b", xl, "2.3")):
+        one = ranks[0][arch]["one"]
+        # (a) fp32 serving (and xlstm's scoring) on the kernel path
+        a = {}
+        for r in ranks:
+            got = r[arch]["a"]
+            rel = {"prefill": _rel(got["logits"][0], one["logits"][0]),
+                   "decode": max(_rel(g, w) for g, w in zip(got["logits"][1:],
+                                                            one["logits"][1:]))}
+            if "score" in one:
+                rel["score"] = abs(got["score"] - one["score"]) / abs(one["score"])
+            a[r["rank"]] = {**rel, "tokens_equal": torch.equal(got["tokens"], one["tokens"])}
+            print(f"{label} {arch} (a), fp32 at {TP_SSM_LAYERS[arch]} layers, rank {r['rank']} vs "
+                  f"one process: " + ", ".join(f"{k} rel {v:.4g}" for k, v in rel.items())
+                  + f" (limit {TP_SERVE_REL}), tokens equal {a[r['rank']]['tokens_equal']}  "
+                  f"[{card}]")
+            if max(rel.values()) > TP_SERVE_REL or not a[r["rank"]]["tokens_equal"]:
+                raise AssertionError(f"{label} {arch} (a): rank {r['rank']} vs one process: "
+                                     f"{a[r['rank']]} (limit {TP_SERVE_REL})")
+            if f"ROADMAP.md queue 2 item {item}" not in (r[arch]["kernel_raise"] or ""):
+                raise AssertionError(f"{label} {arch}: rank {r['rank']}'s kernel path under grad "
+                                     f"did not raise item {item}: {r[arch]['kernel_raise']!r}")
+        train = ranks[0][arch]["train"]
+        worst = max(train["leaves"], key=train["leaves"].get)
+        ratio = max(train["leaves"], key=lambda n: train["leaves"][n] / train["limits"][n])
+        print(f"{label} {arch} (a), one fp32 training step at {TRAIN_BATCH} x {TP_SSM_SEQ} on the "
+              f"plain path, {TP_RANKS} ranks vs one process: loss rel {train['loss']:.4g} (limit "
+              f"{TP_SSM_LIMITS['fp32_loss']}), gathered gradient leaf rel up to "
+              f"{train['leaves'][worst]:.4g} ({worst}: its limit {train['limits'][worst]:.4g}; "
+              f"the one process's one-ulp sensitivity up to {max(train['sens'].values()):.4g}); "
+              f"nearest its limit {ratio}, {train['leaves'][ratio]:.4g} of "
+              f"{train['limits'][ratio]:.4g}; {len(train['floored'])} leaves held at the floor; "
+              f"the kernel path under grad raised: {ranks[0][arch]['kernel_raise']}  [{card}]")
+        over = ([f"loss {train['loss']}"] if train["loss"] > TP_SSM_LIMITS["fp32_loss"] else []) \
+            + [f"{n} {v} (limit {train['limits'][n]})" for n, v in train["leaves"].items()
+               if v > train["limits"][n]]
+        if over:
+            raise AssertionError(f"{label} {arch} (a): one training step over the limits: "
+                                 + "; ".join(over))
+        # (b) bf16 at full depth
+        heads = cfg.n_heads // TP_RANKS
+        kernels = TP_SSM_SERVE_KERNELS if arch == "zamba2_1_2b" else TP_SSM_SCORE_KERNELS
+        b = {}
+        for r in ranks:
+            got = r[arch]["b"]
+            _expect(f"{label} {arch}, rank {r['rank']}", got["launches"], kernels)
+            if set(got["scan_heads"]) != {heads}:
+                raise AssertionError(f"{label} {arch} (b): rank {r['rank']}'s scans at heads "
+                                     f"{sorted(set(got['scan_heads']))}, not {heads}")
+            if "cache_bytes" in got and got["cache_bytes"] * TP_RANKS != got["whole_cache_bytes"]:
+                raise AssertionError(f"{label} {arch} (b): rank {r['rank']} holds "
+                                     f"{got['cache_bytes']} cache bytes, not 1/{TP_RANKS} of "
+                                     f"{got['whole_cache_bytes']}")
+            b[r["rank"]] = {k: v for k, v in got.items()
+                            if k not in ("launches", "tokens", "prefill_logits")}
+        if arch == "zamba2_1_2b":
+            agree = float((ranks[0][arch]["b"]["tokens"] == one["bf16_tokens"]).float().mean())
+            logits_rel = _rel(ranks[0][arch]["b"]["prefill_logits"], one["bf16_prefill_logits"])
+            print(f"{label} {arch} (b), bf16 at {cfg.n_layers} layers: launch set "
+                  f"{sorted(kernels)} on every rank, {len(ranks[0][arch]['b']['scan_heads'])} "
+                  f"ssm_scan calls a rank at {heads} heads; cache bytes a rank "
+                  + ", ".join(str(v["cache_bytes"]) for v in b.values())
+                  + f" of {b[0]['whole_cache_bytes']}; "
+                  + "; ".join(f"rank {k}: prefill {v['prefill_ms']:.2f} ms, decode "
+                              f"{v['decode_ms_per_token']:.2f} ms/token, peak "
+                              f"{v['peak_gib']:.2f} GiB" for k, v in b.items())
+                  + f"; one process: prefill {one['prefill_ms']:.2f} ms, decode "
+                  f"{one['decode_ms_per_token']:.2f} ms/token; token agreement with one process "
+                  f"{agree:.4f}, prefill logits rel {logits_rel:.4g} (reported)  [{card}]")
+            # (c) the card's collectives of one decode step against the count
+            for r in ranks:
+                if r[arch]["c"] != counted:
+                    raise AssertionError(f"{label} {arch} (c): rank {r['rank']}'s collectives of "
+                                         f"one decode step {r[arch]['c']}, the counting mesh's "
+                                         f"{counted}")
+            print(f"{label} {arch} (c): one bf16 decode step's collectives on the card "
+                  f"{ranks[0][arch]['c']} (calls, output bytes) equal the counting mesh's  "
+                  f"[{card}]")
+        else:
+            agree = abs(ranks[0][arch]["b"]["loss"] - one["bf16_loss"]) / abs(one["bf16_loss"])
+            print(f"{label} {arch} (b), bf16 scoring at {cfg.n_layers} layers, batch {BATCH} x "
+                  f"{PROMPT}: launch set {sorted(kernels)} on every rank, "
+                  f"{len(ranks[0][arch]['b']['scan_heads'])} mlstm_scan calls a rank at {heads} "
+                  "heads; " + "; ".join(f"rank {k}: loss {v['loss']:.5f}, forward "
+                                        f"{v['forward_ms']:.2f} ms, peak {v['peak_gib']:.2f} GiB"
+                                        for k, v in b.items())
+                  + f"; one process: loss {one['bf16_loss']:.5f}, forward "
+                  f"{one['forward_ms']:.2f} ms; loss rel to one process {agree:.4g} (reported)  "
+                  f"[{card}]")
+        res[arch] = {"a": a, "train": train, "kernel_raise": ranks[0][arch]["kernel_raise"],
+                     "b": b, "bf16_agreement": agree,
+                     "bf16_prefill_logits_rel": logits_rel if arch == "zamba2_1_2b" else None,
+                     "one_process": {k: v for k, v in one.items()
+                                     if k in ("prefill_ms", "decode_ms_per_token", "forward_ms",
+                                              "bf16_loss")}}
+    res["zamba2_1_2b"]["c"] = counted
+    launches = {n: sum(r["launches"][n] for r in ranks) for n in META}
+    print(f"{label}: launches (both ranks, bf16 runs) {launches}; the whole leg {leg_s:.1f} s  "
+          f"[{card}]")
+    return {"ranks": TP_RANKS, "archs": res, "leg_s": leg_s, "launches": launches}
+
+
+def _tp_ssm_parity(rank: int, mesh, cfg32, params: dict) -> dict | None:
+    """Gate (a)'s training step: one fp32 step of ``steps.dp_grads`` on
+    this rank's shards of ``params`` and the whole batch (TRAIN_BATCH x
+    TP_SSM_SEQ), the gradients gathered whole, against one process on rank
+    0.  Returns rank 0's rel errors (None on the others), each leaf's
+    sensitivity (``_nudged``) and its limit, the larger of TP_SSM_LIMITS
+    and SENS_RATIO times its sensitivity.  A leaf whose whole gradient is
+    below ZERO_LEAF of the tree's largest is listed in ``floored`` and
+    reads 0 if the split run's is below that floor too, else infinity."""
+    import torch
+    from repro_torch.data.tokens import lm_batches
+    from repro_torch.models import sharding as msh
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw
+
+    whole = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(lm_batches(cfg32, TRAIN_BATCH, TP_SSM_SEQ, seed=3)).items()}
+    with msh.use_mesh(mesh):
+        pspecs = msh.param_shardings(params, mesh)
+        local = adamw.tree_map(lambda t, s: msh.local_slice(t, s, mesh).clone(), params, pspecs)
+        loss, _, grads = steps.dp_grads(local, whole, cfg=cfg32)
+        del local
+        grads = adamw.tree_map(lambda t, s: msh.gather_leaf(t, s, mesh), grads, pspecs)
+    out = None
+    if rank == 0:
+        one, want = _one_step(params, cfg32, whole)
+        sens = {n: 0.0 for n, _ in _named(params)}
+        for seed in (1, 2):
+            _, nudged = _one_step(_nudged(params, seed), cfg32, whole)
+            for (n, _), g, w in zip(_named(params), nudged, want):
+                sens[n] = max(sens[n], _rel(g, w))
+            del nudged
+        floor = ZERO_LEAF * max(float(w.abs().max()) for w in want)
+        rels, floored = {}, []
+        for (n, _), g, w in zip(_named(params), adamw.tree_leaves(grads), want):
+            if float(w.abs().max()) < floor:
+                floored.append(n)
+                rels[n] = 0.0 if float(g.abs().max()) < floor else math.inf
+            else:
+                rels[n] = _rel(g, w)
+        limits = {n: max(TP_SSM_LIMITS["fp32_grad_leaf"], SENS_RATIO * v) for n, v in sens.items()}
+        out = {"loss": abs(float(loss) - one) / abs(one), "leaves": rels, "floored": floored,
+               "sens": sens, "limits": limits}
+        del want
+    del grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _one_step(params: dict, cfg, batch: dict) -> tuple:
+    """(loss, every leaf's gradient) of one process's step on ``batch``."""
+    import torch
+    from repro_torch.models import steps
+    from repro_torch.optim import adamw
+    leaves = adamw.tree_map(lambda t: t.detach().requires_grad_(), params)
+    loss, _ = steps.loss_fn(leaves, cfg, batch)
+    return float(loss.detach()), torch.autograd.grad(loss, adamw.tree_leaves(leaves))
+
+
+def _nudged(params: dict, seed: int) -> dict:
+    """``params`` with every element moved by one ulp, up or down at random."""
+    import torch
+    from repro_torch.optim import adamw
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def nudge(t):
+        up = torch.rand(t.shape, generator=gen, device=t.device) < 0.5
+        return torch.nextafter(t, torch.where(up, torch.inf, -torch.inf).to(t.dtype))
+    return adamw.tree_map(nudge, params)
+
+
+def _tp_ssm_rank(rank: int) -> dict:
+    """One rank of ``_tp_ssm_leg``, in its own process on the card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import lm_batches
+    from repro_torch.kernels import native, ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm, steps
+    from repro_torch.models import sharding as msh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh((1, TP_RANKS), ("data", "model"), "cuda")
+    cache_len = PROMPT + GEN + 1
+    out: dict = {"rank": rank, "launches": {n: 0 for n in META}}
+
+    def settle():
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+    for arch in ("zamba2_1_2b", "xlstm_1_3b"):
+        full = registry.get_config(arch)
+        prompts = _prompts(full, PROMPT).cuda()
+        scoring = {"tokens": prompts, "labels": prompts}
+        res: dict = {}
+        # (a) fp32 on the kernel path: serving (and xlstm's scoring), the
+        # split run, then (rank 0) one process
+        cfg32 = full.replace(n_layers=TP_SSM_LAYERS[arch], dtype="float32", use_kernels=True)
+        params = lm.init_params(cfg32, seed=0, device="cuda")
+        local = _shards(params, mesh)
+        with torch.inference_mode(), msh.use_mesh(mesh):
+            res["a"] = _tp_serve_run(local, cfg32, prompts, cache_len)
+            if arch == "xlstm_1_3b":
+                res["a"]["score"] = float(steps.loss_fn(local, cfg32, scoring)[0])
+        one: dict = {}
+        if rank == 0:
+            with torch.inference_mode():
+                one = _tp_serve_run(params, cfg32, prompts, cache_len)
+                if arch == "xlstm_1_3b":
+                    one["score"] = float(steps.loss_fn(params, cfg32, scoring)[0])
+        # the kernel path under grad raises; one training step on the plain path
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in next(lm_batches(cfg32, TRAIN_BATCH, TP_SSM_SEQ, seed=3)).items()}
+        with msh.use_mesh(mesh):
+            try:
+                steps.dp_grads(local, batch, cfg=cfg32)
+                res["kernel_raise"] = None
+            except RuntimeError as e:
+                res["kernel_raise"] = str(e)
+        del local, batch
+        settle()
+        res["train"] = _tp_ssm_parity(rank, mesh, cfg32.replace(use_kernels=False), params)
+        del params
+        settle()
+
+        # (b) bf16 at full depth: timed, launches and the scans' heads
+        # counted; one prefill and one decode step, or one scoring forward,
+        # recorded
+        cfg = full.replace(use_kernels=True, dtype="bfloat16")
+        torch.cuda.reset_peak_memory_stats()
+        params = lm.init_params(cfg, seed=0, device="cuda")
+        local = _shards(params, mesh)
+        if rank != 0:
+            del params
+        settle()
+        heads, name = [], "_ssm_kernel" if arch == "zamba2_1_2b" else "_mlstm_kernel"
+        kernel = getattr(ops, name)
+
+        def spy(x, *args, **kw):
+            heads.append(x.shape[2])
+            return kernel(x, *args, **kw)
+
+        b: dict = {}
+        start = steps.start_positions(cfg, BATCH, PROMPT, "cuda")
+        with torch.inference_mode(), msh.use_mesh(mesh):
+            native.reset_launches()
+            setattr(ops, name, spy)
+            try:
+                torch.cuda.synchronize()
+                dist.barrier()
+                t0 = time.perf_counter()
+                if arch == "zamba2_1_2b":
+                    last, cache = steps.prefill(local, {"tokens": prompts}, cfg=cfg,
+                                                cache_len=cache_len)
+                    torch.cuda.synchronize()
+                    b["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+                    b["prefill_logits"] = last.float().cpu()
+                    first = torch.argmax(last, -1).to(torch.int32)[:, None]
+                    b["cache_bytes"] = _nbytes(cache)
+                    t0 = time.perf_counter()
+                    b["tokens"], cache = steps.greedy_decode_loop(local, cache, first, start,
+                                                                  GEN, cfg=cfg)
+                    torch.cuda.synchronize()
+                    b["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / GEN
+                    b["tokens"] = b["tokens"].cpu()
+                    del cache
+                else:
+                    b["loss"] = float(steps.loss_fn(local, cfg, scoring)[0])
+                    torch.cuda.synchronize()
+                    b["forward_ms"] = (time.perf_counter() - t0) * 1e3
+            finally:
+                setattr(ops, name, kernel)
+            b["launches"] = dict(native.LAUNCHES)
+            b["scan_heads"] = heads
+            b["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            for n, c in b["launches"].items():
+                out["launches"][n] += c
+            # every kernel call of one prefill and one decode step, or of one
+            # scoring forward, against its twin
+            kernels = TP_SSM_SERVE_KERNELS if arch == "zamba2_1_2b" else TP_SSM_SCORE_KERNELS
+            with _recording(kernels) as calls:
+                if arch == "zamba2_1_2b":
+                    _, cache = steps.prefill(local, {"tokens": prompts}, cfg=cfg,
+                                             cache_len=cache_len)
+                    steps.serve_step(local, cache, first, start, cfg=cfg)
+                    del cache
+                else:
+                    steps.loss_fn(local, cfg, scoring)
+            b["recorded"] = _hold_recorded(f"{TP_SSM_PATH} {arch}, rank {rank}", cfg, calls)
+            del calls
+            if arch == "zamba2_1_2b":
+                # (c) the collectives of one decode step, in the count's convention
+                _, cache = steps.prefill(local, {"tokens": prompts}, cfg=cfg,
+                                         cache_len=cache_len)
+                coll: dict = {}
+                _collective_bytes(lambda: steps.serve_step(local, cache, first, start, cfg=cfg),
+                                  coll)
+                res["c"] = coll
+                del cache
+        if arch == "zamba2_1_2b":
+            b["whole_cache_bytes"] = _nbytes(lm.init_cache(cfg, BATCH, cache_len, device="meta"))
+        res["b"] = b
+        del local
+        settle()
+        if rank == 0:                       # one process in bf16: its tokens or loss, its times
+            with torch.inference_mode():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if arch == "zamba2_1_2b":
+                    last, cache = steps.prefill(params, {"tokens": prompts}, cfg=cfg,
+                                                cache_len=cache_len)
+                    torch.cuda.synchronize()
+                    one["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+                    one["bf16_prefill_logits"] = last.float().cpu()
+                    first = torch.argmax(last, -1).to(torch.int32)[:, None]
+                    t0 = time.perf_counter()
+                    toks, _ = steps.greedy_decode_loop(params, cache, first, start, GEN, cfg=cfg)
+                    torch.cuda.synchronize()
+                    one["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / GEN
+                    one["bf16_tokens"] = toks.cpu()
+                    del cache
+                else:
+                    one["bf16_loss"] = float(steps.loss_fn(params, cfg, scoring)[0])
+                    torch.cuda.synchronize()
+                    one["forward_ms"] = (time.perf_counter() - t0) * 1e3
+            del params
+        res["one"] = one
+        settle()
+        out[arch] = res
+    return out
 
 def _cache_read_bytes(cfg, batch: int, cache_len: int, pos: int) -> int:
     """The cache bytes one decode step at position ``pos`` must read: rows

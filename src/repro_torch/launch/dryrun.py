@@ -43,7 +43,7 @@ xlstm's sLSTM steps token by token: counted eagerly at 32k tokens that
 loop would run for many minutes, even on ``meta``.  Its steps are
 identical, so the dry-run runs the first step, lets its output stand for
 every step's, and adds the other S - 1 steps' recurrent products in closed
-form (``roofline.slstm_correction_flops``, for the card's rows); the
+form (``roofline.slstm_correction_flops``, for the card's rows and heads); the
 record's ``slstm`` says so.  Those steps' bytes are not counted.
 """
 from __future__ import annotations
@@ -165,19 +165,12 @@ def build(cfg, shape, *, device="meta", serve_bf16: bool = False, zero1: bool = 
             {"params": params, "opt_state": opt, "batch": batch})
 
 
-def _slstm_first_step(p, x, cfg, *, return_state: bool = False):
-    """``ssm.slstm_forward`` with its time loop cut to the first step, whose
-    hidden state stands for every step's (the dry-run counts shapes, not
-    values)."""
-    b, s, d = x.shape
-    h, hd = cfg.n_heads, d // cfg.n_heads
-    pre = ssm._slstm_preacts(p, x)
-    zeros = torch.zeros((b, h, hd), dtype=torch.float32, device=x.device)
-    carry = ssm._slstm_step(p, (zeros, zeros, torch.full_like(zeros, -1e30), zeros),
-                            tuple(g[:, 0] for g in pre))
-    y = carry[3][:, None].expand(b, s, h, hd).reshape(b, s, h * hd).to(x.dtype)
-    out = ssm._norm(y, p["scale"], cfg) @ p["out_proj"]
-    return (out, dict(zip(("c", "n", "m", "h"), carry))) if return_state else out
+def _slstm_first_step(r, pre, carry):
+    """``ssm._slstm_loop`` cut to its first step, whose hidden state stands
+    for every step's (the dry-run counts shapes, not values)."""
+    carry = ssm._slstm_step(r, carry, tuple(g[:, 0] for g in pre))
+    h = carry[3]
+    return h[:, None].expand(h.shape[0], pre[0].shape[1], *h.shape[1:]), carry
 
 
 def _tree_bytes(tree) -> int:
@@ -197,8 +190,10 @@ def count_step(cfg, shape, *, device="meta", serve_bf16: bool = False, zero1: bo
                                    min_relocate_bytes=min_relocate_bytes)
     s = shape.seq_len
     rows = held["batch"]["tokens"].shape[0] if "batch" in held else shape.global_batch
-    loop_fix = roofline.slstm_correction_flops(cfg, shape.kind, rows, s) * (s - 1) / s
-    cut = mock.patch.object(ssm, "slstm_forward", _slstm_first_step) if loop_fix \
+    # the card's heads: a block of them where they divide the model axis
+    heads = 1 / msh.model_ways() if ssm._split_heads(cfg.n_heads) else 1
+    loop_fix = roofline.slstm_correction_flops(cfg, shape.kind, rows, s) * heads * (s - 1) / s
+    cut = mock.patch.object(ssm, "_slstm_loop", _slstm_first_step) if loop_fix \
         else contextlib.nullcontext()
     with cut:
         counted = count(fn, *args, **kwargs)

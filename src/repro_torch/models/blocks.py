@@ -21,7 +21,7 @@ The norm sites go through ``ops.rmsnorm`` (the kernel when
 ``cfg.use_kernels``), on the whole residual under tensor parallelism too,
 so a norm scale's gradient is whole on every rank.  Decode and chunked
 prefill update their cache in place: attention writes its rows, recurrent
-mixers their whole state.
+mixers their state (the rank's block of it under tensor parallelism).
 The MoE ffn routes with capacity in the full-sequence forward and in
 decode, and with ``no_drop`` in chunked prefill (so a chunk routes each
 token as its decode step would); ``slot_forward`` returns its aux loss.
@@ -173,7 +173,9 @@ def window_of(cfg: ArchConfig, kind: str) -> int:
 
 
 def _store(cache: dict, new: dict) -> None:
-    """Write a recurrent mixer's new state into its cache, whole, in place."""
+    """Write a recurrent mixer's new state into its cache, in place: under
+    tensor parallelism the rank's block of each state into its cache block
+    (the mixers return the blocks ``cache_shardings`` gives)."""
     for name, t in new.items():
         cache[name].copy_(t)
 

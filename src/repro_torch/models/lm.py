@@ -44,7 +44,7 @@ returns this rank's block of the vocabulary where the head is split on V.
 ``constrain`` stands where the reference's does; with no mesh it returns
 its input.  The serving entry points run there too: ``init_cache`` gives
 the rank's block of the cache, ``forward(collect_cache=True)`` caches the
-rank's k and v blocks, and ``decode_step`` and ``prefill_chunk`` return
+rank's k and v blocks and its blocks of the recurrent states, and ``decode_step`` and ``prefill_chunk`` return
 logits whole over the vocabulary (``whole_vocab``).  A family outside
 ``sharding.TP_FAMILIES`` raises under a model axis larger than 1
 (``sharding.refuse_outside_tp``).

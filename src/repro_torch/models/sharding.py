@@ -51,6 +51,15 @@ the axis) the (B,E,C,F) gate and up products' partial sums are reduced
 forward (in one all-reduce) and the SwiGLU's gradient backward, and the
 output's columns are gathered.  MLA (``attention._split_mla``) moves what
 a GQA layer moves, plus the gradients of its whole compressed rows.
+
+The recurrent mixers (``models/ssm``) run their scans on the rank's heads
+where the heads divide the model axis, else on every head (q, k, v and
+the gates gathered whole, as the state caches then are).  Mamba2's conv
+runs on the rank's block of its conv_dim channels (the ``conv`` cache's
+block), which need not line up with its heads, and the conv's output is
+gathered whole before the rank takes its heads.  Each mixer's norm spans
+its whole inner row: the row is gathered and normed whole (the RMSNorm
+kernel on the path), and ``out_proj`` takes the rank's block of it.
 """
 from __future__ import annotations
 
@@ -472,10 +481,8 @@ def model_ways() -> int:
 
 # the families tensor parallelism covers; the others -> (their ROADMAP.md
 # queue 1 item, what it ports), 1.13 for a family not named here
-TP_FAMILIES = ("dense", "vlm", "moe")
-_SSM = ("1.13c", "the SSM, hybrid and xLSTM mixers")
-TP_ITEMS = {"ssm": _SSM, "hybrid": _SSM,
-            "audio": ("1.13d", "enc-dec (the encoder and cross-attention)")}
+TP_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+TP_ITEMS = {"audio": ("1.13d", "enc-dec (the encoder and cross-attention)")}
 
 
 def refuse_outside_tp(cfg, entry: str) -> None:
@@ -631,10 +638,19 @@ def constrain(x: torch.Tensor, *spec: Any, layout: Layout = WHOLE) -> torch.Tens
     shape = list(x.shape)
     if layout.dim is not None:
         shape[layout.dim] *= ways
-    dst = fitted_layout(shape, *spec)
+    return relayout(x, layout, fitted_layout(shape, *spec))
+
+
+def relayout(x: torch.Tensor, layout: Layout, dst: Layout) -> torch.Tensor:
+    """``x``, whose layout is ``layout``, moved to the layout ``dst``: a
+    partial sum is reduced, then a split gathered or scattered.  Returns
+    ``x`` itself where ``model_ways()`` is 1 or the two already agree."""
+    if model_ways() == 1:
+        return x
     if layout.partial:                   # a partial sum is summed first
         x, layout = reduce(x), WHOLE
-    if layout.dim is not None and dst.dim is not None and layout.dim % x.ndim == dst.dim:
+    if layout.dim is not None and dst.dim is not None and \
+            layout.dim % x.ndim == dst.dim % x.ndim:
         return x
     if layout.dim is not None:
         x = gather(x, layout.dim)

@@ -106,18 +106,22 @@ MLSTM_GPU_CASES = MLSTM_CASES + [(300, 2, 512, 256)]
 # (b, s, h, p, n) for the scans' own chunk (64 rows): zamba2's serving shape
 # and an S no chunk divides at full width (H 32, P 128, N 64); the smoke
 # configs' N 16 with P 8 and 16; S below one chunk; a P that no 64-column
-# tile and no 16-byte vector divides
+# tile and no 16-byte vector divides; a tensor-parallel rank's heads of
+# zamba2 on a model axis of 2 (16 of 32)
 SSM_TC_CASES = [(4, 128, 32, 128, 64), (1, 1000, 32, 128, 64), (2, 40, 4, 8, 16),
-                (2, 70, 4, 16, 16), (2, 20, 2, 64, 16), (1, 100, 2, 100, 12)]
+                (2, 70, 4, 16, 16), (2, 20, 2, 64, 16), (1, 100, 2, 100, 12),
+                (4, 128, 16, 128, 64)]
 # (b, s, h, d, logi scale, forget-gate offset, q and k drawn positive) for
 # the mLSTM's own chunk: xlstm's D 512 with S no chunk divides; strongly
 # negative logf with large input gates, so the stabiliser drops and rises
 # within and across chunks (q and k positive: with a memory a few tokens
 # long, random signs let |n . q| cancel until fp32 summation order alone
 # parts kernel and twin by 1e-3); S below one chunk; a D that no 16-byte
-# vector divides
+# vector divides; a tensor-parallel rank's heads of xlstm on a model axis of 2
+# (2 of 4) at the serving batch
 MLSTM_TC_CASES = [(1, 300, 2, 512, 0.5, 2.0, False), (2, 200, 2, 64, 4.0, -4.0, True),
-                  (2, 30, 1, 128, 0.5, 2.0, False), (1, 150, 2, 36, 0.5, 2.0, False)]
+                  (2, 30, 1, 128, 0.5, 2.0, False), (1, 150, 2, 36, 0.5, 2.0, False),
+                  (4, 128, 2, 512, 0.5, 2.0, False)]
 
 
 def tol(dtype_name):
@@ -1285,5 +1289,64 @@ def test_tensor_parallel_decode_on_two_ranks_matches_one_process_on_gpu(cuda, tm
     for r in ranks:
         assert r["cache_heads"] == cfg.n_kv_heads // 2
         assert r["launches"] == {"rmsnorm", "flash_attention", "decode_attention"}
+        assert _rel(r["prefill"], last.cpu()) <= 1e-4
+        assert _rel(r["decode"], logits.cpu()) <= 1e-4
+
+
+def _tp_ssm_rank_on_card(rank, arch, prompt, nxt):
+    """Prefill and one decode step of ``arch``'s fp32 smoke config on the
+    kernel path, over a gloo group of 2 ranks sharing ``cuda:0`` on a (1, 2)
+    mesh: each rank on its shards, its heads and its block of every state;
+    the whole logits, the launches and the state blocks' shapes."""
+    from repro_torch.configs import registry
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm, steps
+    from repro_torch.models import sharding as msh
+    from repro_torch.optim import adamw
+    mesh = make_mesh((1, 2), ("data", "model"), "cuda")
+    cfg = registry.get_smoke_config(arch).replace(use_kernels=True)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    prompt, nxt = torch.as_tensor(prompt, device="cuda"), torch.as_tensor(nxt, device="cuda")
+    with msh.use_mesh(mesh):
+        specs = msh.param_shardings(params, mesh)
+        local = adamw.tree_map(lambda t, s: msh.local_slice(t, s, mesh).clone(), params, specs)
+        native.reset_launches()
+        last, cache = steps.prefill(local, {"tokens": prompt}, cfg=cfg,
+                                    cache_len=prompt.shape[1] + 1)
+        pos = steps.start_positions(cfg, prompt.shape[0], prompt.shape[1], "cuda")
+        logits, cache = steps.serve_step(local, cache, nxt, pos, cfg=cfg)
+        torch.cuda.synchronize()
+    state = cache["phase0"]["slot0"]
+    return {"prefill": last.cpu(), "decode": logits.cpu(),
+            "launches": {k for k, n in native.LAUNCHES.items() if n},
+            "state": {k: tuple(t.shape) for k, t in state.items()}}
+
+
+@pytest.mark.gpu
+def test_zamba2_tensor_parallel_decode_on_two_ranks_matches_one_process_on_gpu(cuda, tmp_path):
+    """Tensor parallelism of Mamba2 on the card: 2 gloo ranks, each on 2 of
+    the smoke config's 4 heads, 144 of its 288 conv channels and its block
+    of every state, run a prefill and one decode step through ``ssm_scan``,
+    flash attention, decode attention (the shared block) and RMSNorm; both
+    ranks' whole logits within 1e-4 of one process (fp32)."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm, steps
+    from _ranks import spawn_ranks
+    arch = "zamba2_1_2b"
+    cfg = registry.get_smoke_config(arch).replace(use_kernels=True)
+    gen = np.random.default_rng(3)
+    prompt = gen.integers(0, cfg.vocab_size, (4, 16), dtype=np.int32)
+    nxt = gen.integers(0, cfg.vocab_size, (4, 1), dtype=np.int32)
+    ranks = spawn_ranks(_tp_ssm_rank_on_card, 2, arch, prompt, nxt, out_dir=tmp_path,
+                        timeout_s=300)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    tokens = torch.as_tensor(prompt, device="cuda")
+    last, cache = steps.prefill(params, {"tokens": tokens}, cfg=cfg, cache_len=17)
+    logits, _ = steps.serve_step(params, cache, torch.as_tensor(nxt, device="cuda"),
+                                 steps.start_positions(cfg, 4, 16, "cuda"), cfg=cfg)
+    conv = cfg.d_inner + 2 * cfg.ssm_state
+    for r in ranks:
+        assert r["state"]["ssm"][2] == cfg.n_heads // 2 and r["state"]["conv"][3] == conv // 2
+        assert r["launches"] == {"rmsnorm", "flash_attention", "decode_attention", "ssm_scan"}
         assert _rel(r["prefill"], last.cpu()) <= 1e-4
         assert _rel(r["decode"], logits.cpu()) <= 1e-4

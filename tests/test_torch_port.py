@@ -127,11 +127,11 @@ def test_cuda_entry_points_raise_without_a_card(no_cuda, entry):
 def _train_main_on_a_sharding_mesh(monkeypatch, tmp_path):
     """``--mesh local`` with the local mesh swapped for one whose model axis
     would shard the parameters of an arch outside tensor parallelism's
-    slice (zamba2): the launcher hands it to ``LMTrainJob``, which refuses
+    slice (whisper): the launcher hands it to ``LMTrainJob``, which refuses
     it (the launcher makes no such decision itself)."""
     monkeypatch.setattr(train, "make_local_mesh",
                         lambda device_type: abstract_mesh((1, 2), ("data", "model")))
-    train.main(["--arch", "zamba2_1_2b", "--smoke", "--device", "cpu", "--steps", "1",
+    train.main(["--arch", "whisper_base", "--smoke", "--device", "cpu", "--steps", "1",
                 "--mesh", "local", "--dist-backend", "gloo", "--store", str(tmp_path)])
 
 
@@ -159,23 +159,22 @@ def _serving_on_a_model_axis(arch: str, step: str) -> None:
 
 
 @pytest.mark.parametrize("entry,item", [
-    (lambda monkeypatch, tmp_path: _dryrun_refused("zamba2_1_2b", "multi"), "1.13c"),
-    (_train_main_on_a_sharding_mesh, "1.13c"),
+    (lambda monkeypatch, tmp_path: _dryrun_refused("whisper_base", "multi"), "1.13d"),
+    (_train_main_on_a_sharding_mesh, "1.13d"),
     (lambda monkeypatch, tmp_path: LMTrainJob(
-        registry.get_smoke_config("zamba2_1_2b"), batch_size=1, seq_len=8, n_steps=1,
-        mesh=abstract_mesh((1, 2), ("data", "model")), device="cpu").run(), "1.13c"),
+        registry.get_smoke_config("whisper_base"), batch_size=1, seq_len=8, n_steps=1,
+        mesh=abstract_mesh((1, 2), ("data", "model")), device="cpu").run(), "1.13d"),
     (lambda monkeypatch, tmp_path: _dryrun_refused("whisper_base", "pod"), "1.13d"),
-    (lambda monkeypatch, tmp_path: _serving_on_a_model_axis("zamba2_1_2b", "serve_step"),
-     "1.13c"),
+    (lambda monkeypatch, tmp_path: _serving_on_a_model_axis("whisper_base", "serve_step"),
+     "1.13d"),
     (lambda monkeypatch, tmp_path: _serving_on_a_model_axis("whisper_base", "prefill"),
      "1.13d"),
 ], ids=["dryrun_multi_mesh", "train_main_mesh", "lm_trainjob_mesh", "dryrun_pod_mesh_whisper",
-        "serve_step_mesh_zamba2", "prefill_mesh_whisper"])
+        "serve_step_mesh_whisper", "prefill_mesh_whisper"])
 def test_unported_entry_points_name_their_roadmap_item(entry, item, monkeypatch, tmp_path):
-    """What is left of the meshes: tensor parallelism of the families
-    outside the dense, VLM and MoE slice, the SSM and hybrid ones (1.13c)
-    and enc-dec (1.13d), in training, serving and the dry-run's production
-    meshes."""
+    """What is left of the meshes: tensor parallelism of the one family
+    outside the dense, VLM, MoE, SSM and hybrid slice, enc-dec (1.13d), in
+    training, serving and the dry-run's production meshes."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 item {item}"):
         entry(monkeypatch, tmp_path)
 

@@ -251,7 +251,7 @@ def test_dryrun_matrix_rules():
     # they count (each card decodes its rows alone: no collective)
     rec = dryrun.run_one("granite_3_8b", "decode_32k", "multi", smoke=True)
     assert rec["status"] == "ok" and rec["chips"] == 512 and rec["roofline"]["collective_s"] > 0
-    for arch, item in (("zamba2_1_2b", "1.13c"), ("whisper_base", "1.13d")):
+    for arch, item in (("whisper_base", "1.13d"),):
         rec = dryrun.run_one(arch, "decode_32k", "multi", smoke=True)
         assert rec["status"] == "error" and f"ROADMAP.md queue 1 item {item}" in rec["error"]
         rec = dryrun.run_one(arch, "decode_32k", "multi", smoke=True, profile="dp")

@@ -31,9 +31,9 @@ tokens (the port's init, drawn from a seed):
   process, ``meta`` tensors) equal to the count a real gloo rank takes of
   the same step: FLOPs, bytes, ops and collectives by kind and axis, on
   (1, 2) and (2, 2), every rank;
-- families outside the slice (zamba2: 1.13c, whisper: 1.13d) refusing the
-  serving steps under ``tp`` on (1, 2), and serving under ``dp`` as one
-  process does;
+- the family outside the slice (whisper: 1.13d) refusing the serving
+  steps under ``tp`` on (1, 2), and serving under ``dp`` as one process
+  does (zamba2 and xlstm serve under ``tp``: tests/test_torch_tp_ssm.py);
 - full-width dry-run records on the production meshes (``pod``, 16 x 16,
   and ``multi``, 2 x 16 x 16; a subprocess an arch, started with the
   ranks):
@@ -84,7 +84,7 @@ FOUR = {"2x2": ["granite_3_8b", "granite_moe_3b_a800m"],
         "2x1x2": ["granite_3_8b", "granite_moe_3b_a800m"]}
 MESHES = {"1x2": ((1, 2), ("data", "model")), "2x2": ((2, 2), ("data", "model")),
           "1x4": ((1, 4), ("data", "model")), "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
-OUTSIDE = {"zamba2_1_2b": "1.13c", "whisper_base": "1.13d"}
+OUTSIDE = {"whisper_base": "1.13d"}
 # the dry-run's count on a counting mesh against a real rank: (arch, kind)
 COUNTED = [("granite_3_8b", "decode"), ("granite_3_8b", "prefill"), ("granite_3_8b", "train"),
            ("granite_moe_3b_a800m", "decode")]
@@ -423,7 +423,7 @@ def test_counting_mesh_counts_what_a_real_rank_counts(two_ranks, four_ranks, key
 
 @pytest.mark.parametrize("arch", sorted(OUTSIDE))
 def test_families_outside_the_slice_refuse_tp_serving_and_serve_under_dp(two_ranks, arch):
-    """zamba2 (1.13c) and whisper (1.13d): ``steps.prefill`` and
+    """whisper (1.13d): ``steps.prefill`` and
     ``steps.serve_step`` under ``tp`` on (1, 2) raise naming the item;
     under ``dp`` each rank serves its rows as one process does."""
     cfg = _cfg(arch)
@@ -464,10 +464,10 @@ def test_run_one_leaves_no_process_group():
     process group remains in the calling process."""
     assert dryrun.run_one("granite_3_8b", "decode_32k", "pod", smoke=True)["status"] == "ok"
     assert not dist.is_initialized()
-    rec = dryrun.run_one("zamba2_1_2b", "decode_32k", "multi", smoke=True)
-    assert rec["status"] == "error" and "item 1.13c" in rec["error"]
+    rec = dryrun.run_one("whisper_base", "decode_32k", "multi", smoke=True)
+    assert rec["status"] == "error" and "item 1.13d" in rec["error"]
     assert not dist.is_initialized()
-    assert dryrun.run_one("zamba2_1_2b", "decode_32k", "multi", smoke=True,
+    assert dryrun.run_one("whisper_base", "decode_32k", "multi", smoke=True,
                           profile="dp")["status"] == "ok"
     assert not dist.is_initialized()
 

@@ -454,14 +454,14 @@ def test_lm_trainjob_resume_continues_from_checkpoint(tmp_path):
 
 
 def test_lm_trainjob_refuses_a_mesh():
-    """An arch outside tensor parallelism's slice (zamba2): a mesh whose
+    """An arch outside tensor parallelism's slice (whisper): a mesh whose
     rules would shard a parameter (the tp profile on a model axis of 2)
     raises before any work, naming its item; the dp profile on that mesh
     shards none."""
     from repro_torch.models.sharding import abstract_mesh
-    cfg = _smoke_t("zamba2_1_2b")
+    cfg = _smoke_t("whisper_base")
     mesh = abstract_mesh((1, 2), ("data", "model"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1.13c"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 1.13d"):
         LMTrainJob(cfg, batch_size=1, seq_len=8, n_steps=1, mesh=mesh, device="cpu").run()
     assert trainjob._refuse_sharded_params(cfg.replace(sharding_profile="dp"), mesh) is None
 
