@@ -201,6 +201,28 @@ Run from the root of a checkout.  It imports only the port
    counting mesh's.  Token agreement, times and peak memory are reported;
    phase 2 holds ``ssm_scan`` at x (4, 128, 16, 128) and ``mlstm_scan`` at
    q (4, 128, 2, 512), a rank's shapes;
+6f. runs whisper tensor-parallel (``_tp_encdec_leg``) on the same ranks and
+   mesh: whisper-base at full width and depth (6 + 6 layers), each rank on
+   its 4 of the 8 heads in the encoder, the decoder's self-attention and
+   its cross-attention, its block of the cross rows (``cross_k``/
+   ``cross_v``) and the embedding and head on D (51865 ids divide no
+   axis), batch 4 x PROMPT over 1500 seeded frame rows, GEN new tokens.
+   Gated: (a) fp32 on the kernel path, every rank's prefill and GEN decode
+   steps' logits against one process within TP_SERVE_REL, the tokens
+   equal, and one training step at TRAIN_BATCH x PROMPT through the
+   forward and backward kernels, the loss at TP_ENCDEC_LIMITS and every
+   gathered gradient leaf at the larger of TP_ENCDEC_LIMITS and SENS_RATIO
+   times its one-ulp sensitivity; (b) bf16: serving launches exactly
+   RMSNorm, flash attention and decode attention, one training step those
+   of TRAIN_KERNELS, every flash and decode-attention call at 4 heads, a
+   rank's cache half of one process's (``enc_len`` whole on both), every
+   recorded kernel call of one prefill, one decode step and one training
+   step under the phase-2 rule; (c) one bf16 decode step's collectives
+   equal by kind to the counting mesh's.  Token agreement, times and peak
+   memory are reported; phase 2 holds flash forward and backward at the
+   encoder's rank shape, q (4, 1500, 4, 64), and the cross-attention's,
+   q (4, 128, 4, 64) over 1500 rows, and decode attention at q (4, 4, 64)
+   over 1500 rows;
 7. holds every phase it timed against the card's roofline
    (``_roofline_phase``): each arch's prefill and decode step at batch 4
    (qwen2-vl prompt 384), gemma3's 1 x 2048 long leg, xlstm's scoring
@@ -357,6 +379,19 @@ TP_SSM_SEQ, ZERO_LEAF, SENS_RATIO = 256, 1e-6, 4.0
 TP_SSM_LIMITS = {"fp32_loss": 1e-4, "fp32_grad_leaf": 1e-4}
 TP_SSM_SERVE_KERNELS = ("rmsnorm", "flash_attention", "decode_attention", "ssm_scan")
 TP_SSM_SCORE_KERNELS = ("rmsnorm", "mlstm_scan")
+# whisper's encoder and cross-attention tensor-parallel (``_tp_encdec_leg``):
+# the same ranks and mesh, whisper-base at full width and depth, batch BATCH x
+# PROMPT over its 1500 seeded frame rows, GEN new tokens.  Gate (a): fp32 on
+# the kernel path, serving held as TP_SERVE_ARCHS' is, and one training step
+# at TRAIN_BATCH x PROMPT: the loss at TP_ENCDEC_LIMITS and every gathered
+# gradient leaf at the larger of TP_ENCDEC_LIMITS and SENS_RATIO times its
+# one-ulp sensitivity (``_tp_sens_parity``); gate (b): bf16, serving's launch
+# set TP_SERVE_KERNELS and a training step's TRAIN_KERNELS, every flash and
+# decode-attention call at the rank's heads, a rank's cache half of one
+# process's but ``enc_len``; gate (c): one bf16 decode step's collectives
+# against the counting mesh
+TP_ENCDEC_PATH = "whisper-base tensor parallelism"
+TP_ENCDEC_LIMITS = {"fp32_loss": 1e-5, "fp32_grad_leaf": 1e-4}
 # the 16 x 16 pod's model axis (``launch/dryrun.py``'s "pod"): phase 2's
 # decode case at a pod rank's heads
 POD_MODEL = 16
@@ -970,6 +1005,14 @@ def main() -> int:
                                         wb.n_kv_heads, wb.head_dim, gen, causal=False), 20),
         ("decode_attention", _decode_case([PROMPT + 1] * BATCH, cache_len, wb.n_heads,
                                           wb.n_kv_heads, wb.head_dim, gen), 50),
+        # whisper on a rank of (1, TP_RANKS): its prompt's queries over the
+        # 1500 encoder rows at 4 of the 8 heads, forward and backward
+        ("flash_attention", _flash_case(BATCH, PROMPT, wb.encoder_len, wb.n_heads // TP_RANKS,
+                                        wb.n_kv_heads // TP_RANKS, wb.head_dim, gen,
+                                        causal=False), 20),
+        ("flash_attention_bwd", _flash_bwd_case(BATCH, PROMPT, wb.n_heads // TP_RANKS,
+                                                wb.n_kv_heads // TP_RANKS, wb.head_dim, gen,
+                                                causal=False, skv=wb.encoder_len), 10),
         # a rank of the 16 x 16 pod serving granite: its 2 query heads over
         # the one kv head they read, a view of the whole cache (8 kv heads
         # do not divide 16), which the kernel reads in place
@@ -1056,6 +1099,16 @@ def main() -> int:
                                    z.ssm_chunk, gen), 20),
             "mlstm_scan": (_mlstm_case(BATCH, PROMPT, xl.n_heads // TP_RANKS, xhd, xl.ssm_chunk,
                                        gen), 20)},
+        TP_ENCDEC_PATH: {                         # a rank's heads: 4 of 8, the encoder's rows
+            "flash_attention": (_flash_case(BATCH, wb.encoder_len, wb.encoder_len,
+                                            wb.n_heads // TP_RANKS, wb.n_kv_heads // TP_RANKS,
+                                            wb.head_dim, gen, causal=False), 10),
+            "flash_attention_bwd": (_flash_bwd_case(BATCH, wb.encoder_len, wb.n_heads // TP_RANKS,
+                                                    wb.n_kv_heads // TP_RANKS, wb.head_dim, gen,
+                                                    causal=False), 5),
+            "decode_attention": (_decode_case([wb.encoder_len] * BATCH, wb.encoder_len,
+                                              wb.n_heads // TP_RANKS, wb.n_kv_heads // TP_RANKS,
+                                              wb.head_dim, gen), 50)},
         TP_MOE_PATH: {                            # a rank's heads: 12 over 4, a local group of 3
             "flash_attention": (_flash_case(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ,
                                             gmo.n_heads // TP_RANKS, gmo.n_kv_heads // TP_RANKS,
@@ -1114,6 +1167,9 @@ def main() -> int:
     # -- tensor parallelism of the recurrent mixers: two ranks on the card ------
     report["tp_ssm_leg"] = _tp_ssm_leg(card)
 
+    # -- tensor parallelism of enc-dec (whisper): two ranks on the card ---------
+    report["tp_encdec_leg"] = _tp_encdec_leg(card)
+
     # -- the roofline: every timed phase at or above its bound ---------------
     report["roofline_phase"] = _roofline_phase(report, hw, card)
 
@@ -1122,7 +1178,7 @@ def main() -> int:
               + report["mnist_leg"]["launches"][n] + report["lm_train_leg"]["launches"][n]
               + report["dp_train_leg"]["launches"][n] + report["tp_train_leg"]["launches"][n]
               + report["tp_moe_train_leg"]["launches"][n] + report["tp_serve_leg"]["launches"][n]
-              + report["tp_ssm_leg"]["launches"][n]
+              + report["tp_ssm_leg"]["launches"][n] + report["tp_encdec_leg"]["launches"][n]
               for n in META}
     kernels = []
     for n, (route, src, rep, label, _) in META.items():
@@ -3276,12 +3332,14 @@ def _nbytes(tree: dict) -> int:
     return sum(t.numel() * t.element_size() for t in _leaves(tree))
 
 
-def _tp_serve_run(params, cfg, prompts, cache_len: int) -> dict:
-    """Prefill, then GEN greedy steps through ``steps.serve_step``, every
+def _tp_serve_run(params, cfg, prompts, cache_len: int, **stubs) -> dict:
+    """Prefill (the family's ``stubs``, such as whisper's frames, beside the
+    tokens), then GEN greedy steps through ``steps.serve_step``, every
     step's logits kept (fp32 on the host)."""
     import torch
     from repro_torch.models import steps
-    last, cache = steps.prefill(params, {"tokens": prompts}, cfg=cfg, cache_len=cache_len)
+    last, cache = steps.prefill(params, {"tokens": prompts, **stubs}, cfg=cfg,
+                                cache_len=cache_len)
     logits, toks = [last.float().cpu()], []
     tok = torch.argmax(last, -1).to(torch.int32)[:, None]
     pos = steps.start_positions(cfg, prompts.shape[0], prompts.shape[1], "cuda")
@@ -3429,7 +3487,7 @@ def _tp_ssm_leg(card: str) -> dict:
     2.3, and one fp32 training step on the plain path holds the loss at
     TP_SSM_LIMITS and every gathered gradient leaf at the larger of
     TP_SSM_LIMITS and SENS_RATIO times its one-ulp sensitivity
-    (``_tp_ssm_parity``); (b) bf16 at full depth:
+    (``_tp_sens_parity``); (b) bf16 at full depth:
     zamba2's serving launches exactly TP_SSM_SERVE_KERNELS on each rank,
     every ``ssm_scan`` call at H / TP_RANKS heads, a rank's cache bytes
     1 / TP_RANKS of the one process's; xlstm's scoring launches exactly
@@ -3577,15 +3635,17 @@ def _tp_ssm_leg(card: str) -> dict:
     return {"ranks": TP_RANKS, "archs": res, "leg_s": leg_s, "launches": launches}
 
 
-def _tp_ssm_parity(rank: int, mesh, cfg32, params: dict) -> dict | None:
+def _tp_sens_parity(rank: int, mesh, cfg32, params: dict, seq: int,
+                    limits: dict) -> dict | None:
     """Gate (a)'s training step: one fp32 step of ``steps.dp_grads`` on
     this rank's shards of ``params`` and the whole batch (TRAIN_BATCH x
-    TP_SSM_SEQ), the gradients gathered whole, against one process on rank
+    ``seq``), the gradients gathered whole, against one process on rank
     0.  Returns rank 0's rel errors (None on the others), each leaf's
-    sensitivity (``_nudged``) and its limit, the larger of TP_SSM_LIMITS
-    and SENS_RATIO times its sensitivity.  A leaf whose whole gradient is
-    below ZERO_LEAF of the tree's largest is listed in ``floored`` and
-    reads 0 if the split run's is below that floor too, else infinity."""
+    sensitivity (``_nudged``) and its limit, the larger of ``limits``'
+    leaf limit and SENS_RATIO times its sensitivity.  A leaf whose whole
+    gradient is below ZERO_LEAF of the tree's largest is listed in
+    ``floored`` and reads 0 if the split run's is below that floor too,
+    else infinity."""
     import torch
     from repro_torch.data.tokens import lm_batches
     from repro_torch.models import sharding as msh
@@ -3593,7 +3653,7 @@ def _tp_ssm_parity(rank: int, mesh, cfg32, params: dict) -> dict | None:
     from repro_torch.optim import adamw
 
     whole = {k: torch.as_tensor(v, device="cuda")
-             for k, v in next(lm_batches(cfg32, TRAIN_BATCH, TP_SSM_SEQ, seed=3)).items()}
+             for k, v in next(lm_batches(cfg32, TRAIN_BATCH, seq, seed=3)).items()}
     with msh.use_mesh(mesh):
         pspecs = msh.param_shardings(params, mesh)
         local = adamw.tree_map(lambda t, s: msh.local_slice(t, s, mesh).clone(), params, pspecs)
@@ -3617,9 +3677,9 @@ def _tp_ssm_parity(rank: int, mesh, cfg32, params: dict) -> dict | None:
                 rels[n] = 0.0 if float(g.abs().max()) < floor else math.inf
             else:
                 rels[n] = _rel(g, w)
-        limits = {n: max(TP_SSM_LIMITS["fp32_grad_leaf"], SENS_RATIO * v) for n, v in sens.items()}
         out = {"loss": abs(float(loss) - one) / abs(one), "leaves": rels, "floored": floored,
-               "sens": sens, "limits": limits}
+               "sens": sens, "limits": {n: max(limits["fp32_grad_leaf"], SENS_RATIO * v)
+                                        for n, v in sens.items()}}
         del want
     del grads
     gc.collect()
@@ -3702,7 +3762,8 @@ def _tp_ssm_rank(rank: int) -> dict:
                 res["kernel_raise"] = str(e)
         del local, batch
         settle()
-        res["train"] = _tp_ssm_parity(rank, mesh, cfg32.replace(use_kernels=False), params)
+        res["train"] = _tp_sens_parity(rank, mesh, cfg32.replace(use_kernels=False), params,
+                                       TP_SSM_SEQ, TP_SSM_LIMITS)
         del params
         settle()
 
@@ -3811,6 +3872,298 @@ def _tp_ssm_rank(rank: int) -> dict:
         settle()
         out[arch] = res
     return out
+
+def _tp_encdec_leg(card: str) -> dict:
+    """Tensor parallelism of enc-dec: TP_RANKS ranks share the card through
+    a gloo group on a (1, TP_RANKS) mesh (``_tp_encdec_rank``), each on its
+    shards of every parameter and its block of the cache, for whisper-base
+    at full width and depth over BATCH x 1500 seeded frame rows.  Gated:
+    (a) fp32 on the kernel path, every rank's prefill logits and GEN greedy
+    decode steps' logits against one process on rank 0 within
+    TP_SERVE_REL, the tokens equal, and one training step through the
+    forward and backward kernels, the loss at TP_ENCDEC_LIMITS and every
+    gathered gradient leaf at the larger of TP_ENCDEC_LIMITS and SENS_RATIO
+    times its one-ulp sensitivity (``_tp_sens_parity``); (b) bf16: serving
+    launches exactly TP_SERVE_KERNELS on each rank and one training step
+    exactly TRAIN_KERNELS, every flash and decode-attention call at Hq /
+    TP_RANKS query over Hkv / TP_RANKS kv heads, a rank's cache half of one
+    process's apart from ``enc_len`` (whole on both), every recorded kernel
+    call of one prefill, one decode step and one training step under the
+    phase-2 rule; (c) one bf16 decode step's collectives
+    (``_collective_bytes``) equal by kind to what ``launch/dryrun.py``'s
+    counting mesh counts for the same step.  Reported: token agreement with
+    one process in bf16, times and peak memory.  Ranks sharing one card
+    through host-staged gloo measure correctness, not scaling."""
+    import shutil
+
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.configs.registry import InputShape
+    from repro_torch.launch import dryrun
+    from repro_torch.models import sharding as msh
+
+    sys.path.insert(0, str(ROOT / "tests"))          # the ranks' launcher, shared with the tests
+    from _ranks import spawn_ranks
+
+    label = TP_ENCDEC_PATH
+    cache_len = PROMPT + GEN + 1
+    wb = registry.get_config("whisper_base")
+    heads = (wb.n_heads // TP_RANKS, wb.n_kv_heads // TP_RANKS)
+    print(f"{label}: whisper-base at full width and depth ({wb.encoder_layers} + {wb.n_layers} "
+          f"layers, {wb.encoder_len} frame rows), {TP_RANKS} gloo ranks on one card on a "
+          f"(1, {TP_RANKS}) mesh, batch {BATCH} x {PROMPT}, {GEN} new tokens  [{card}]")
+    t0 = time.perf_counter()
+    shape = InputShape("tp_encdec_decode", cache_len, BATCH, "decode")
+    with dryrun.counting_mesh((1, TP_RANKS), ("data", "model")) as mesh, msh.use_mesh(mesh):
+        coll = dryrun.count_step(dryrun._shape_cfg(wb, shape), shape)["collectives"]
+    counted = {k: [c["calls"], c["bytes"]] for k, c in coll.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "experiments" / "chip_smoke_tp_encdec"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    try:
+        ranks = spawn_ranks(_tp_encdec_rank, TP_RANKS, out_dir=out_dir, timeout_s=900)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    leg_s = time.perf_counter() - t0
+
+    one = ranks[0]["one"]
+    # (a) fp32 on the kernel path: serving, then one training step
+    a = {}
+    for r in ranks:
+        got = r["a"]
+        rel = {"prefill": _rel(got["logits"][0], one["logits"][0]),
+               "decode": max(_rel(g, w) for g, w in zip(got["logits"][1:], one["logits"][1:]))}
+        a[r["rank"]] = {**rel, "tokens_equal": torch.equal(got["tokens"], one["tokens"])}
+        print(f"{label} (a), fp32 at full depth, rank {r['rank']} vs one process: prefill logits "
+              f"rel {rel['prefill']:.4g}, {GEN} decode steps' logits rel up to {rel['decode']:.4g} "
+              f"(limit {TP_SERVE_REL}), tokens equal {a[r['rank']]['tokens_equal']}  [{card}]")
+        if max(rel.values()) > TP_SERVE_REL or not a[r["rank"]]["tokens_equal"]:
+            raise AssertionError(f"{label} (a): rank {r['rank']} vs one process: "
+                                 f"{a[r['rank']]} (limit {TP_SERVE_REL})")
+    train = ranks[0]["train"]
+    worst = max(train["leaves"], key=train["leaves"].get)
+    ratio = max(train["leaves"], key=lambda n: train["leaves"][n] / train["limits"][n])
+    print(f"{label} (a), one fp32 training step at {TRAIN_BATCH} x {PROMPT} on the kernel path, "
+          f"{TP_RANKS} ranks vs one process: loss rel {train['loss']:.4g} (limit "
+          f"{TP_ENCDEC_LIMITS['fp32_loss']}), gathered gradient leaf rel up to "
+          f"{train['leaves'][worst]:.4g} ({worst}: its limit {train['limits'][worst]:.4g}); "
+          f"the one process's one-ulp sensitivity up to {max(train['sens'].values()):.4g}; "
+          f"nearest its limit {ratio}, {train['leaves'][ratio]:.4g} of "
+          f"{train['limits'][ratio]:.4g}; leaves over {TP_ENCDEC_LIMITS['fp32_grad_leaf']}: "
+          + (", ".join(f"{n} {v:.4g} (sensitivity {train['sens'][n]:.4g})"
+                       for n, v in train["leaves"].items()
+                       if v > TP_ENCDEC_LIMITS["fp32_grad_leaf"]) or "none")
+          + f"; {len(train['floored'])} leaves held at the floor  [{card}]")
+    over = ([f"loss {train['loss']}"] if train["loss"] > TP_ENCDEC_LIMITS["fp32_loss"] else []) \
+        + [f"{n} {v} (limit {train['limits'][n]})" for n, v in train["leaves"].items()
+           if v > train["limits"][n]]
+    if over:
+        raise AssertionError(f"{label} (a): one training step over the limits: "
+                             + "; ".join(over))
+    # (b) bf16: launch sets, heads, the cache block
+    b = {}
+    whole_cache, enc_bytes = ranks[0]["b"]["whole_cache_bytes"], ranks[0]["b"]["enc_len_bytes"]
+    for r in ranks:
+        got = r["b"]
+        _expect(f"{label} serving, rank {r['rank']}", got["serve_launches"], TP_SERVE_KERNELS)
+        _expect(f"{label} training, rank {r['rank']}", got["train_launches"], TRAIN_KERNELS)
+        for kind in ("flash_heads", "decode_heads"):
+            if set(got[kind]) != {heads}:
+                raise AssertionError(f"{label} (b): rank {r['rank']}'s {kind} at (query, kv) "
+                                     f"heads {sorted(set(got[kind]))}, not {heads}")
+        if (got["cache_bytes"] - enc_bytes) * TP_RANKS != whole_cache - enc_bytes:
+            raise AssertionError(f"{label} (b): rank {r['rank']} holds {got['cache_bytes']} cache "
+                                 f"bytes, not 1/{TP_RANKS} of {whole_cache} apart from enc_len's "
+                                 f"{enc_bytes}")
+        b[r["rank"]] = {k: v for k, v in got.items()
+                        if k not in ("tokens", "prefill_logits", "flash_heads", "decode_heads")}
+    agree = float((ranks[0]["b"]["tokens"] == one["bf16_tokens"]).float().mean())
+    logits_rel = _rel(ranks[0]["b"]["prefill_logits"], one["bf16_prefill_logits"])
+    print(f"{label} (b), bf16: serving launch set {sorted(TP_SERVE_KERNELS)} and a training "
+          f"step's {sorted(TRAIN_KERNELS)} on every rank, "
+          f"{len(ranks[0]['b']['flash_heads'])} flash and {len(ranks[0]['b']['decode_heads'])} "
+          f"decode-attention calls a rank, all at {heads[0]}/{heads[1]} heads; cache bytes a rank "
+          + ", ".join(str(v["cache_bytes"]) for v in b.values())
+          + f" of {whole_cache} ({ranks[0]['b']['cross_bytes']} of a rank's in cross_k/cross_v, "
+          f"enc_len {enc_bytes} whole); "
+          + "; ".join(f"rank {k}: prefill {v['prefill_ms']:.2f} ms, decode "
+                      f"{v['decode_ms_per_token']:.2f} ms/token, training step "
+                      f"{v['train_ms']:.2f} ms, peak {v['peak_gib']:.2f} GiB" for k, v in b.items())
+          + f"; one process: prefill {one['prefill_ms']:.2f} ms, decode "
+          f"{one['decode_ms_per_token']:.2f} ms/token; token agreement with one process "
+          f"{agree:.4f}, prefill logits rel {logits_rel:.4g} (reported)  [{card}]")
+    # (c) the card's collectives of one decode step against the count
+    for r in ranks:
+        if r["c"] != counted:
+            raise AssertionError(f"{label} (c): rank {r['rank']}'s collectives of one decode step "
+                                 f"{r['c']}, the counting mesh's {counted}")
+    print(f"{label} (c): one bf16 decode step's collectives on the card {ranks[0]['c']} (calls, "
+          f"output bytes) equal the counting mesh's  [{card}]")
+    launches = {n: sum(r["launches"][n] for r in ranks) for n in META}
+    print(f"{label}: launches (both ranks, bf16 runs) {launches}; the whole leg {leg_s:.1f} s  "
+          f"[{card}]")
+    return {"ranks": TP_RANKS, "a": a, "train": train, "b": b, "c": counted,
+            "whole_cache_bytes": whole_cache, "bf16_token_agreement": agree,
+            "bf16_prefill_logits_rel": logits_rel,
+            "one_process": {k: one[k] for k in ("prefill_ms", "decode_ms_per_token")},
+            "leg_s": leg_s, "launches": launches}
+
+
+def _tp_encdec_rank(rank: int) -> dict:
+    """One rank of ``_tp_encdec_leg``, in its own process on the card."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import lm_batches
+    from repro_torch.kernels import native, ops
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import lm, steps
+    from repro_torch.models import sharding as msh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh((1, TP_RANKS), ("data", "model"), "cuda")
+    cache_len = PROMPT + GEN + 1
+    full = registry.get_config("whisper_base")
+    out: dict = {"rank": rank, "launches": {n: 0 for n in META}}
+
+    def settle():
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+    prompts = _prompts(full, PROMPT).cuda()
+    inputs, start = _gate_inputs(full, prompts)
+    frames = inputs["frames"]
+    # (a) fp32 on the kernel path: serving, the split run, then (rank 0) one
+    # process; one training step through the forward and backward kernels
+    cfg32 = full.replace(dtype="float32", use_kernels=True)
+    params = lm.init_params(cfg32, seed=0, device="cuda")
+    local = _shards(params, mesh)
+    with torch.inference_mode(), msh.use_mesh(mesh):
+        out["a"] = _tp_serve_run(local, cfg32, prompts, cache_len, frames=frames)
+    del local
+    one: dict = {}
+    if rank == 0:
+        with torch.inference_mode():
+            one = _tp_serve_run(params, cfg32, prompts, cache_len, frames=frames)
+    settle()
+    out["train"] = _tp_sens_parity(rank, mesh, cfg32, params, PROMPT, TP_ENCDEC_LIMITS)
+    del params
+    settle()
+
+    # (b) bf16: serving timed, launches and the attention kernels' heads
+    # counted; one training step on fp32 masters; one prefill, one decode
+    # step and one training step recorded
+    cfg = full.replace(use_kernels=True, dtype="bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    masters = lm.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    params = lm._cast_tree(masters, torch.bfloat16)
+    local, local32 = _shards(params, mesh), _shards(masters, mesh)
+    del masters
+    if rank != 0:
+        del params
+    settle()
+    flash_heads, decode_heads = [], []
+    flash, decode = ops._flash_kernel, ops._decode_kernel
+
+    def flash_spy(q, k, v, **kw):
+        flash_heads.append((q.shape[2], k.shape[2]))
+        return flash(q, k, v, **kw)
+
+    def decode_spy(q, k, v, *args, **kw):
+        decode_heads.append((q.shape[1], k.shape[2]))
+        return decode(q, k, v, *args, **kw)
+
+    b: dict = {}
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(lm_batches(cfg, TRAIN_BATCH, PROMPT, seed=3)).items()}
+    ops._flash_kernel, ops._decode_kernel = flash_spy, decode_spy
+    try:
+        with torch.inference_mode(), msh.use_mesh(mesh):
+            native.reset_launches()
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            last, cache = steps.prefill(local, inputs, cfg=cfg, cache_len=cache_len)
+            torch.cuda.synchronize()
+            b["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            b["prefill_logits"] = last.float().cpu()
+            first = torch.argmax(last, -1).to(torch.int32)[:, None]
+            b["cache_bytes"] = _nbytes(cache)
+            b["cross_bytes"] = sum(t.numel() * t.element_size() for n, t in _named(cache)
+                                   if n.rsplit("/", 1)[-1] in ("cross_k", "cross_v"))
+            t0 = time.perf_counter()
+            b["tokens"], cache = steps.greedy_decode_loop(local, cache, first, start, GEN,
+                                                          cfg=cfg)
+            torch.cuda.synchronize()
+            b["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / GEN
+            b["serve_launches"] = dict(native.LAUNCHES)
+            b["tokens"] = b["tokens"].cpu()
+            del cache
+        with msh.use_mesh(mesh):
+            native.reset_launches()
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            steps.dp_grads(local32, batch, cfg=cfg)
+            torch.cuda.synchronize()
+            b["train_ms"] = (time.perf_counter() - t0) * 1e3
+            b["train_launches"] = dict(native.LAUNCHES)
+    finally:
+        ops._flash_kernel, ops._decode_kernel = flash, decode
+    b["flash_heads"], b["decode_heads"] = flash_heads, decode_heads
+    b["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    for launches in (b["serve_launches"], b["train_launches"]):
+        for n, c in launches.items():
+            out["launches"][n] += c
+    with msh.use_mesh(mesh):
+        # every kernel call of one prefill and one decode step, and of one
+        # training step, against its twin
+        with torch.inference_mode(), _recording(TP_SERVE_KERNELS) as calls:
+            _, cache = steps.prefill(local, inputs, cfg=cfg, cache_len=cache_len)
+            steps.serve_step(local, cache, first, start, cfg=cfg)
+        b["recorded"] = _hold_recorded(f"{TP_ENCDEC_PATH} serving, rank {rank}", cfg, calls)
+        del calls, cache
+        with _recording(TRAIN_KERNELS) as calls:
+            steps.dp_grads(local32, batch, cfg=cfg)
+        b["recorded_train"] = _hold_recorded(f"{TP_ENCDEC_PATH} training, rank {rank}", cfg,
+                                             calls)
+        del calls
+        # (c) the collectives of one decode step, in the count's convention
+        with torch.inference_mode():
+            _, cache = steps.prefill(local, inputs, cfg=cfg, cache_len=cache_len)
+            coll: dict = {}
+            _collective_bytes(lambda: steps.serve_step(local, cache, first, start, cfg=cfg), coll)
+        out["c"] = coll
+        del cache
+    whole = lm.init_cache(cfg, BATCH, cache_len, device="meta")
+    b["whole_cache_bytes"] = _nbytes(whole)
+    b["enc_len_bytes"] = whole["enc_len"].numel() * whole["enc_len"].element_size()
+    out["b"] = b
+    del local, local32, batch
+    settle()
+    if rank == 0:                       # one process in bf16: its tokens, its times
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last, cache = steps.prefill(params, inputs, cfg=cfg, cache_len=cache_len)
+            torch.cuda.synchronize()
+            one["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+            one["bf16_prefill_logits"] = last.float().cpu()
+            first = torch.argmax(last, -1).to(torch.int32)[:, None]
+            t0 = time.perf_counter()
+            toks, _ = steps.greedy_decode_loop(params, cache, first, start, GEN, cfg=cfg)
+            torch.cuda.synchronize()
+            one["decode_ms_per_token"] = (time.perf_counter() - t0) * 1e3 / GEN
+            one["bf16_tokens"] = toks.cpu()
+        del params, cache
+    out["one"] = one
+    settle()
+    return out
+
 
 def _cache_read_bytes(cfg, batch: int, cache_len: int, pos: int) -> int:
     """The cache bytes one decode step at position ``pos`` must read: rows

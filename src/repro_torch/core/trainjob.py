@@ -15,11 +15,12 @@ Two flavours, as in the reference:
     each rank keeping its block of each leaf under the fitted spec
     (``models.sharding.param_shardings``: the whole leaf under data
     parallelism, its shard on a model axis larger than 1 under ``tp``:
-    tensor parallelism, the dense, VLM, MoE, SSM and hybrid archs), each
-    rank on its rows of every global batch (``launch.shardings``) and,
-    with ``cfg.zero1``, AdamW's moments split over the data axis too
-    (``steps.dp_train_step``).  Enc-dec refuses a mesh that would shard
-    one of its parameters, naming its ROADMAP.md queue 1 item (1.13d).
+    tensor parallelism, the dense, VLM, MoE, SSM, hybrid and enc-dec
+    archs), each rank on its rows of every global batch
+    (``launch.shardings``) and, with ``cfg.zero1``, AdamW's moments split
+    over the data axis too (``steps.dp_train_step``).  A family that
+    ``sharding.TP_FAMILIES`` does not list refuses a mesh that would shard
+    one of its parameters, naming ROADMAP.md queue 1 item 1.13.
     zamba2 and xlstm train on the card only with ``use_kernels=False``:
     their scans have no backward kernel yet (items 2.2 and 2.3).
 Both log through the EventLog, checkpoint into the ArtifactStore (PVC

@@ -211,8 +211,8 @@ def run_one(arch: str, shape_name: str, mesh_kind: str = "single", *, fused_attn
     (``MESHES``), and return its record.  ``smoke``: the arch's reduced
     config (the CPU tests' size).  ``profile``, ``zero1``, ``remat`` and
     ``min_relocate_bytes`` as the reference's ``run_one`` takes them.  A
-    family that tensor parallelism does not cover gets an ``error`` record
-    naming its item under ``tp`` on a mesh."""
+    family that ``sharding.TP_FAMILIES`` does not list gets an ``error``
+    record naming its item under ``tp`` on a mesh."""
     if mesh_kind not in MESHES:
         raise ValueError(f"dry-run mesh {mesh_kind!r}: one of {sorted(MESHES)}")
     cfg = registry.get_smoke_config(arch) if smoke else registry.get_config(arch)

@@ -12,7 +12,9 @@ prefill, ``cross_forward`` runs non-causal flash attention over them and
 Under tensor parallelism (``models/sharding``) ``gqa_forward`` runs on
 this rank's heads: q/k/v column parallel, both attention kernels on the
 local heads (k and v sliced for them where their heads do not divide the
-model axis), ``wo`` row parallel and its partial sum reduced.
+model axis), ``wo`` row parallel and its partial sum reduced.  The
+cross-attention does the same with its k and v projected from the
+encoder's rows (the rank's block of the cross cache).
 ``mla_forward`` does the same with MLA's queries and decompression
 (``_split_mla``), its compression whole on every rank.
 
@@ -120,28 +122,25 @@ def gqa_init(cfg: ArchConfig, dtype: torch.dtype, *, generator: torch.Generator,
 
 
 def _qkv(p: dict, x: torch.Tensor, positions: torch.Tensor, cfg: ArchConfig):
-    """Roped q, k and v of x (B,S,D); under tensor parallelism ``_split_qkv``."""
-    if msh.model_ways() == 1:
-        q, k, v = (torch.einsum("bsd,dhk->bshk", x, p[n]) for n in ("wq", "wk", "wv"))
-    else:
-        q, k, v = _split_qkv(p, x, cfg)
+    """Roped q, k and v of x (B,S,D) (``_project_heads``)."""
+    q, k, v = _project_heads(p, x, ("wq", "wk", "wv"), cfg)
     return _rope(q, positions, cfg), _rope(k, positions, cfg), v
 
 
-def _split_qkv(p: dict, x: torch.Tensor, cfg: ArchConfig):
-    """q, k and v under tensor parallelism: x goes through one ``copy``,
-    each projection runs on this rank's block of its weight, and each
-    output is constrained as the reference constrains q and k (heads over
-    the model axis where they divide it, else whole) before the rotation,
-    which needs whole sums: a block split on D gives a partial sum,
-    reduced here."""
-    d, hq, hkv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+def _project_heads(p: dict, x: torch.Tensor, names: tuple, cfg: ArchConfig) -> list:
+    """The projections ``names`` (of ``wq``, ``wk``, ``wv``) of x (B,S,D),
+    each (B,S,h,hd): x goes through one ``copy``, each projection runs on
+    this rank's block of its weight, and each output is constrained as the
+    reference constrains q and k (heads over the model axis where they
+    divide it, else whole), before any rotation, which needs whole sums: a
+    block split on D gives a partial sum, reduced here.  With no mesh, the
+    plain einsums."""
+    if msh.model_ways() == 1:
+        return [torch.einsum("bsd,dhk->bshk", x, p[n]) for n in names]
+    heads = {"wq": cfg.n_heads, "wk": cfg.n_kv_heads, "wv": cfg.n_kv_heads}
     x = msh.copy(x)
-    out = []
-    for name, h in (("wq", hq), ("wk", hkv), ("wv", hkv)):
-        t, layout = msh.project("bsd,dhk->bshk", x, msh.WHOLE, p[name], (d, h, hd))
-        out.append(msh.constrain(t, "batch", None, "model", layout=layout))
-    return out
+    return [_heads(p, "bsd,dhk->bshk", x, n, (cfg.d_model, heads[n], cfg.head_dim))
+            for n in names]
 
 
 def _local_kv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: ArchConfig):
@@ -334,30 +333,38 @@ def cross_init(cfg: ArchConfig, dtype: torch.dtype, *, generator: torch.Generato
     return gqa_init(cfg, dtype, generator=generator, device=device)
 
 
-def cross_kv(p: dict, enc_out: torch.Tensor):
-    """(k, v) (B,Senc,Hkv,hd) of the encoder's output (B,Senc,D)."""
-    return (torch.einsum("bsd,dhk->bshk", enc_out, p["wk"]),
-            torch.einsum("bsd,dhk->bshk", enc_out, p["wv"]))
+def cross_kv(p: dict, enc_out: torch.Tensor, cfg: ArchConfig):
+    """(k, v) (B,Senc,Hkv,hd) of the encoder's output (B,Senc,D), whole on
+    every rank.  Under tensor parallelism ``_project_heads``: this rank's
+    block of the rows as ``cache_shardings`` places ``cross_k`` and
+    ``cross_v`` (its kv heads where they divide the model axis, else every
+    head: the weights sit on D and the partial sums are reduced)."""
+    k, v = _project_heads(p, enc_out, ("wk", "wv"), cfg)
+    return k, v
 
 
 def cross_forward(p: dict, x: torch.Tensor, enc_kv: tuple, cfg: ArchConfig) -> torch.Tensor:
     """x (B,S,D) attends every encoder row (non-causal flash attention);
-    enc_kv = ``cross_kv`` of the encoder's output."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k, v = enc_kv
+    enc_kv = ``cross_kv`` of the encoder's output.  Under tensor
+    parallelism q is on this rank's heads (``_project_heads``), the kernel
+    runs on them over the kv heads they read (``_local_kv``) and
+    ``_out_proj`` makes the output whole."""
+    q, = _project_heads(p, x, ("wq",), cfg)
+    k, v = _local_kv(q, *enc_kv, cfg)
     o = ops.flash_attention(q, k, v, causal=False, use_kernel=cfg.use_kernels)
-    return torch.einsum("bshk,hkd->bsd", o, p["wo"])
+    return _out_proj(p, o, cfg, cfg.head_dim)
 
 
 def cross_decode(p: dict, x: torch.Tensor, enc_kv: tuple, cfg: ArchConfig) -> torch.Tensor:
     """One token a row, x (B,1,D), over the cached encoder rows: decode
     attention with every row's length the full ``k.shape[1]``.  Reads the
-    rows, never writes them."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])[:, 0]
-    k, v = enc_kv
+    rows in place, never writes them.  Under tensor parallelism as
+    ``cross_forward``, over this rank's block of the cached rows."""
+    q, = _project_heads(p, x, ("wq",), cfg)
+    k, v = _local_kv(q, *enc_kv, cfg)
     lens = torch.full((x.shape[0],), k.shape[1], dtype=torch.int32, device=x.device)
-    o = ops.decode_attention(q, k, v, lens, use_kernel=cfg.use_kernels)
-    return torch.einsum("bhk,hkd->bd", o, p["wo"])[:, None, :]
+    o = ops.decode_attention(q[:, 0], k, v, lens, use_kernel=cfg.use_kernels)
+    return _out_proj(p, o[:, None], cfg, cfg.head_dim)
 
 
 # ---------------------------------------------------------------------------

@@ -44,10 +44,12 @@ returns this rank's block of the vocabulary where the head is split on V.
 ``constrain`` stands where the reference's does; with no mesh it returns
 its input.  The serving entry points run there too: ``init_cache`` gives
 the rank's block of the cache, ``forward(collect_cache=True)`` caches the
-rank's k and v blocks and its blocks of the recurrent states, and ``decode_step`` and ``prefill_chunk`` return
-logits whole over the vocabulary (``whole_vocab``).  A family outside
-``sharding.TP_FAMILIES`` raises under a model axis larger than 1
-(``sharding.refuse_outside_tp``).
+rank's k and v blocks, its blocks of the recurrent states and whisper's
+cross rows (``attention.cross_kv``: the rank's heads of the encoder's
+whole output), and ``decode_step`` and ``prefill_chunk`` return logits
+whole over the vocabulary (``whole_vocab``).  A family outside
+``sharding.TP_FAMILIES`` (one named nowhere) raises under a model axis
+larger than 1 (``sharding.refuse_outside_tp``).
 """
 from __future__ import annotations
 
@@ -277,7 +279,10 @@ def _arange(b: int, s: int, device) -> torch.Tensor:
 def _encoder(params: dict, cfg: ArchConfig, frames: torch.Tensor) -> torch.Tensor:
     """Whisper's encoder over the frame embeddings (the conv/mel frontend is
     a stub, as in the reference): a sinusoid, then per layer non-causal
-    attention and the MLP, pre-norm residual."""
+    attention and the MLP, pre-norm residual.  Under tensor parallelism
+    each layer runs on the rank's heads and columns, and the output is
+    whole on every rank; its gradient sums every decoder layer's part
+    (each ``cross_kv`` passes it through ``copy``)."""
     x = frames.to(cfg.compute_dtype)
     pos = _arange(x.shape[0], x.shape[1], x.device)
     x = x + sinusoid(pos, cfg.d_model).to(x.dtype)
@@ -348,7 +353,7 @@ def forward(params: dict, cfg: ArchConfig, batch: dict, *, collect_cache: bool =
             def group(x, a, gp=gp, phase=phase, g=g, pcache=pcache):
                 for j, (kind, ffn) in enumerate(zip(phase.kinds, phase.ffns)):
                     sp = gp[f"slot{j}"]
-                    enc_kv = None if enc_out is None else attn.cross_kv(sp["cross"], enc_out)
+                    enc_kv = None if enc_out is None else attn.cross_kv(sp["cross"], enc_out, cfg)
                     x, c, aj = blocks.slot_forward(sp, x, positions, cfg, kind, ffn,
                                                    collect_cache=collect_cache, enc_kv=enc_kv)
                     if collect_cache:

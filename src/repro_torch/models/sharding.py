@@ -60,6 +60,14 @@ block), which need not line up with its heads, and the conv's output is
 gathered whole before the rank takes its heads.  Each mixer's norm spans
 its whole inner row: the row is gathered and normed whole (the RMSNorm
 kernel on the path), and ``out_proj`` takes the rank's block of it.
+
+Whisper's encoder runs its attention and MLP as the decoder does, its
+output whole on every rank.  Each decoder layer's cross-attention projects
+that output on the rank's heads (``attention.cross_kv``: the block of
+``cross_k``/``cross_v`` that ``cache_shardings`` places, or every head,
+reduced from a split on D, where the heads do not divide the model axis)
+and attends it with its queries' heads; the output's partial sum over the
+heads is reduced, as self-attention's is.
 """
 from __future__ import annotations
 
@@ -479,18 +487,20 @@ def model_ways() -> int:
     return mesh.shape["model"]
 
 
-# the families tensor parallelism covers; the others -> (their ROADMAP.md
-# queue 1 item, what it ports), 1.13 for a family not named here
-TP_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
-TP_ITEMS = {"audio": ("1.13d", "enc-dec (the encoder and cross-attention)")}
+# the families tensor parallelism covers: every family of the registry.  A
+# family named in neither (a new one) -> its ROADMAP.md queue 1 item, 1.13
+# unless ``TP_ITEMS`` names another
+TP_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "audio")
+TP_ITEMS: dict = {}
 
 
 def refuse_outside_tp(cfg, entry: str) -> None:
-    """Tensor parallelism covers the families of ``TP_FAMILIES``.  Any
-    other raises, naming its item, where the active mesh and profile split
+    """Tensor parallelism covers the families of ``TP_FAMILIES`` (dense,
+    VLM, MoE, SSM, hybrid and enc-dec).  A family named nowhere raises,
+    naming ROADMAP.md item 1.13, where the active mesh and profile split
     parameters over a model axis (``model_ways() > 1``): ``LMTrainJob``
     before any work, ``lm.forward``, ``decode_step`` and ``prefill_chunk``
-    at entry, so that no such family trains or serves unsharded in
+    at entry, so that no new family trains or serves unsharded in
     silence.  A model axis of 1, or the ``dp`` profile, refuses none."""
     ways = model_ways()
     if ways == 1 or cfg.family in TP_FAMILIES:

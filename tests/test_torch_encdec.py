@@ -134,7 +134,7 @@ def test_cross_attention_matches_reference(whisper):
     pt = lm._at(params_t["phase0"], 0)["slot0"]["cross"]
     x = np.random.default_rng(1).standard_normal((B, S, cfg_t.d_model), dtype=np.float32)
     kv_j = jattn.cross_kv(pj, jnp.asarray(frames))
-    kv_t = attention.cross_kv(pt, torch.from_numpy(frames))
+    kv_t = attention.cross_kv(pt, torch.from_numpy(frames), cfg_t)
     for got, want in zip(kv_t, kv_j):
         assert rel_err(got, want) < REL_MODULE
     want = jattn.cross_forward(pj, jnp.asarray(x), kv_j, cfg_j)

@@ -74,10 +74,12 @@ DECODE_CASES = [(128, 4, 4, 32, 64), (200, 8, 2, 64, 64), (64, 4, 1, 128, 32),
 # D 300 (bf16: the plain-load instantiation); granite-moe's group of 3 (24
 # query heads over 8 kv heads, D 64) at its serving cache and across splits;
 # whisper's cross-attention over its 1500 encoder rows, every row full
-# (three splits), and its self-attention cache; qwen2-vl's group of 7 (28
-# over 4, D 128) at its serving cache and across splits
+# (three splits), also at a tensor-parallel rank's 4 of its 8 heads, and
+# its self-attention cache; qwen2-vl's group of 7 (28 over 4, D 128) at its
+# serving cache and across splits
 DECODE_GPU_CASES = [
     ([1500, 1500, 1500, 1500], 1500, 8, 8, 64),
+    ([1500, 1500, 1500, 1500], 1500, 4, 4, 64),
     ([145, 130, 1, 145], 145, 8, 8, 64),
     ([401, 200, 1, 401], 401, 28, 4, 128),
     ([1300, 513, 2], 1300, 14, 2, 128),
@@ -693,9 +695,11 @@ FLASH_BWD_CASES = [
 
 # (sq, skv, hq, hkv, d) for the flash backward without a causal mask
 # (whisper's training): its encoder's 1500 frames (a multiple of no tile),
-# its decoder's 128 queries over them, the smoke config's, and a
-# cross-length call with a group of 2
+# its decoder's 128 queries over them, both also at a tensor-parallel
+# rank's 4 of its 8 heads, the smoke config's, and a cross-length call with
+# a group of 2
 FLASH_BWD_NONCAUSAL_CASES = [(1500, 1500, 8, 8, 64), (128, 1500, 8, 8, 64),
+                             (1500, 1500, 4, 4, 64), (128, 1500, 4, 4, 64),
                              (30, 30, 4, 4, 16), (100, 333, 4, 2, 64)]
 
 
@@ -1236,11 +1240,12 @@ def test_decode_kernel_reads_a_range_of_cache_heads_in_place_on_gpu(cuda, s, hs,
            ref.decode_attention_ref(q, kc, vc, lens), dtype)
 
 
-def _tp_decode_rank_on_card(rank, arch, prompt, nxt):
+def _tp_decode_rank_on_card(rank, arch, inputs, nxt):
     """Prefill and one decode step of ``arch``'s fp32 smoke config on the
     kernel path, over a gloo group of 2 ranks sharing ``cuda:0`` on a (1, 2)
-    mesh: each rank on its shards and its block of the cache; the whole
-    logits and the launches."""
+    mesh: each rank on its shards, its heads and its block of the cache;
+    the whole logits, the launches and the shapes of the first slot's
+    cache blocks."""
     from repro_torch.configs import registry
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import lm, steps
@@ -1249,19 +1254,48 @@ def _tp_decode_rank_on_card(rank, arch, prompt, nxt):
     mesh = make_mesh((1, 2), ("data", "model"), "cuda")
     cfg = registry.get_smoke_config(arch).replace(use_kernels=True)
     params = lm.init_params(cfg, seed=0, device="cuda")
-    prompt, nxt = torch.as_tensor(prompt, device="cuda"), torch.as_tensor(nxt, device="cuda")
+    inputs = {k: torch.as_tensor(v, device="cuda") for k, v in inputs.items()}
+    b, s = inputs["tokens"].shape
     with msh.use_mesh(mesh):
         specs = msh.param_shardings(params, mesh)
         local = adamw.tree_map(lambda t, s: msh.local_slice(t, s, mesh).clone(), params, specs)
         native.reset_launches()
-        last, cache = steps.prefill(local, {"tokens": prompt}, cfg=cfg,
-                                    cache_len=prompt.shape[1] + 1)
-        pos = steps.start_positions(cfg, prompt.shape[0], prompt.shape[1], "cuda")
-        logits, cache = steps.serve_step(local, cache, nxt, pos, cfg=cfg)
+        last, cache = steps.prefill(local, inputs, cfg=cfg, cache_len=s + 1)
+        logits, cache = steps.serve_step(local, cache, torch.as_tensor(nxt, device="cuda"),
+                                         steps.start_positions(cfg, b, s, "cuda"), cfg=cfg)
         torch.cuda.synchronize()
     return {"prefill": last.cpu(), "decode": logits.cpu(),
             "launches": {k for k, n in native.LAUNCHES.items() if n},
-            "cache_heads": cache["phase0"]["slot0"]["k"].shape[3]}
+            "cache": {k: tuple(t.shape) for k, t in cache["phase0"]["slot0"].items()}}
+
+
+def _tp_decode_on_card(tmp_path, arch, launches):
+    """``_tp_decode_rank_on_card`` on 2 ranks against one process: a
+    seeded prompt (4 x 16; whisper also seeded frames), both ranks'
+    whole logits within 1e-4 of one process's (fp32) and their launch set
+    ``launches``.  Returns the ranks' results and the smoke config."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm, steps
+    from _ranks import spawn_ranks
+    cfg = registry.get_smoke_config(arch).replace(use_kernels=True)
+    gen = np.random.default_rng(3)
+    inputs = {"tokens": gen.integers(0, cfg.vocab_size, (4, 16), dtype=np.int32)}
+    nxt = gen.integers(0, cfg.vocab_size, (4, 1), dtype=np.int32)
+    if cfg.family == "audio":
+        inputs["frames"] = gen.standard_normal((4, cfg.encoder_len, cfg.d_model),
+                                               dtype=np.float32)
+    ranks = spawn_ranks(_tp_decode_rank_on_card, 2, arch, inputs, nxt, out_dir=tmp_path,
+                        timeout_s=300)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    last, cache = steps.prefill(params, {k: torch.as_tensor(v, device="cuda")
+                                         for k, v in inputs.items()}, cfg=cfg, cache_len=17)
+    logits, _ = steps.serve_step(params, cache, torch.as_tensor(nxt, device="cuda"),
+                                 steps.start_positions(cfg, 4, 16, "cuda"), cfg=cfg)
+    for r in ranks:
+        assert r["launches"] == set(launches)
+        assert _rel(r["prefill"], last.cpu()) <= 1e-4
+        assert _rel(r["decode"], logits.cpu()) <= 1e-4
+    return ranks, cfg
 
 
 @pytest.mark.gpu
@@ -1271,55 +1305,10 @@ def test_tensor_parallel_decode_on_two_ranks_matches_one_process_on_gpu(cuda, tm
     block of the cache, run a prefill and one decode step through flash
     attention, decode attention and RMSNorm; both ranks' whole logits
     within 1e-4 of one process (fp32)."""
-    from repro_torch.configs import registry
-    from repro_torch.models import lm, steps
-    from _ranks import spawn_ranks
-    arch = "granite_3_8b"
-    cfg = registry.get_smoke_config(arch).replace(use_kernels=True)
-    gen = np.random.default_rng(3)
-    prompt = gen.integers(0, cfg.vocab_size, (4, 16), dtype=np.int32)
-    nxt = gen.integers(0, cfg.vocab_size, (4, 1), dtype=np.int32)
-    ranks = spawn_ranks(_tp_decode_rank_on_card, 2, arch, prompt, nxt, out_dir=tmp_path,
-                        timeout_s=300)
-    params = lm.init_params(cfg, seed=0, device="cuda")
-    tokens = torch.as_tensor(prompt, device="cuda")
-    last, cache = steps.prefill(params, {"tokens": tokens}, cfg=cfg, cache_len=17)
-    logits, _ = steps.serve_step(params, cache, torch.as_tensor(nxt, device="cuda"),
-                                 steps.start_positions(cfg, 4, 16, "cuda"), cfg=cfg)
+    ranks, cfg = _tp_decode_on_card(tmp_path, "granite_3_8b",
+                                    ("rmsnorm", "flash_attention", "decode_attention"))
     for r in ranks:
-        assert r["cache_heads"] == cfg.n_kv_heads // 2
-        assert r["launches"] == {"rmsnorm", "flash_attention", "decode_attention"}
-        assert _rel(r["prefill"], last.cpu()) <= 1e-4
-        assert _rel(r["decode"], logits.cpu()) <= 1e-4
-
-
-def _tp_ssm_rank_on_card(rank, arch, prompt, nxt):
-    """Prefill and one decode step of ``arch``'s fp32 smoke config on the
-    kernel path, over a gloo group of 2 ranks sharing ``cuda:0`` on a (1, 2)
-    mesh: each rank on its shards, its heads and its block of every state;
-    the whole logits, the launches and the state blocks' shapes."""
-    from repro_torch.configs import registry
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import lm, steps
-    from repro_torch.models import sharding as msh
-    from repro_torch.optim import adamw
-    mesh = make_mesh((1, 2), ("data", "model"), "cuda")
-    cfg = registry.get_smoke_config(arch).replace(use_kernels=True)
-    params = lm.init_params(cfg, seed=0, device="cuda")
-    prompt, nxt = torch.as_tensor(prompt, device="cuda"), torch.as_tensor(nxt, device="cuda")
-    with msh.use_mesh(mesh):
-        specs = msh.param_shardings(params, mesh)
-        local = adamw.tree_map(lambda t, s: msh.local_slice(t, s, mesh).clone(), params, specs)
-        native.reset_launches()
-        last, cache = steps.prefill(local, {"tokens": prompt}, cfg=cfg,
-                                    cache_len=prompt.shape[1] + 1)
-        pos = steps.start_positions(cfg, prompt.shape[0], prompt.shape[1], "cuda")
-        logits, cache = steps.serve_step(local, cache, nxt, pos, cfg=cfg)
-        torch.cuda.synchronize()
-    state = cache["phase0"]["slot0"]
-    return {"prefill": last.cpu(), "decode": logits.cpu(),
-            "launches": {k for k, n in native.LAUNCHES.items() if n},
-            "state": {k: tuple(t.shape) for k, t in state.items()}}
+        assert r["cache"]["k"][3] == cfg.n_kv_heads // 2
 
 
 @pytest.mark.gpu
@@ -1329,24 +1318,24 @@ def test_zamba2_tensor_parallel_decode_on_two_ranks_matches_one_process_on_gpu(c
     of every state, run a prefill and one decode step through ``ssm_scan``,
     flash attention, decode attention (the shared block) and RMSNorm; both
     ranks' whole logits within 1e-4 of one process (fp32)."""
-    from repro_torch.configs import registry
-    from repro_torch.models import lm, steps
-    from _ranks import spawn_ranks
-    arch = "zamba2_1_2b"
-    cfg = registry.get_smoke_config(arch).replace(use_kernels=True)
-    gen = np.random.default_rng(3)
-    prompt = gen.integers(0, cfg.vocab_size, (4, 16), dtype=np.int32)
-    nxt = gen.integers(0, cfg.vocab_size, (4, 1), dtype=np.int32)
-    ranks = spawn_ranks(_tp_ssm_rank_on_card, 2, arch, prompt, nxt, out_dir=tmp_path,
-                        timeout_s=300)
-    params = lm.init_params(cfg, seed=0, device="cuda")
-    tokens = torch.as_tensor(prompt, device="cuda")
-    last, cache = steps.prefill(params, {"tokens": tokens}, cfg=cfg, cache_len=17)
-    logits, _ = steps.serve_step(params, cache, torch.as_tensor(nxt, device="cuda"),
-                                 steps.start_positions(cfg, 4, 16, "cuda"), cfg=cfg)
+    ranks, cfg = _tp_decode_on_card(tmp_path, "zamba2_1_2b", ("rmsnorm", "flash_attention",
+                                                               "decode_attention", "ssm_scan"))
     conv = cfg.d_inner + 2 * cfg.ssm_state
     for r in ranks:
-        assert r["state"]["ssm"][2] == cfg.n_heads // 2 and r["state"]["conv"][3] == conv // 2
-        assert r["launches"] == {"rmsnorm", "flash_attention", "decode_attention", "ssm_scan"}
-        assert _rel(r["prefill"], last.cpu()) <= 1e-4
-        assert _rel(r["decode"], logits.cpu()) <= 1e-4
+        assert r["cache"]["ssm"][2] == cfg.n_heads // 2 and r["cache"]["conv"][3] == conv // 2
+
+
+@pytest.mark.gpu
+def test_whisper_tensor_parallel_decode_on_two_ranks_matches_one_process_on_gpu(cuda, tmp_path):
+    """Tensor parallelism of enc-dec on the card: 2 gloo ranks, each on 2 of
+    the smoke config's 4 heads in the encoder, the self-attention and the
+    cross-attention, and on its block of the cache (``cross_k``/``cross_v``
+    included), run a prefill over seeded frames and one decode step through
+    flash attention, decode attention and RMSNorm; both ranks' whole logits
+    within 1e-4 of one process (fp32)."""
+    ranks, cfg = _tp_decode_on_card(tmp_path, "whisper_base",
+                                    ("rmsnorm", "flash_attention", "decode_attention"))
+    for r in ranks:
+        assert r["cache"]["cross_k"] == (cfg.n_layers, 4, cfg.encoder_len, cfg.n_kv_heads // 2,
+                                         cfg.head_dim)
+        assert r["cache"]["k"][3] == cfg.n_kv_heads // 2

@@ -18,7 +18,7 @@ from repro_torch.examples import (continuous_batching, e2e_mnist_pipeline,  # no
                                   e2e_train_to_serve, multi_model_serving, quickstart,
                                   serve_llm, slo_failover, train_llm)
 from repro_torch.launch import dryrun, serve, train  # noqa: E402
-from repro_torch.models import blocks, lenet, lm, steps  # noqa: E402
+from repro_torch.models import blocks, lenet, lm, sharding, steps  # noqa: E402
 from repro_torch.models.sharding import abstract_mesh, use_mesh  # noqa: E402
 from repro_torch.modelci.profile import roofline_fields  # noqa: E402
 from repro_torch.models.transplant import transplant, transplant_lenet  # noqa: E402
@@ -126,9 +126,10 @@ def test_cuda_entry_points_raise_without_a_card(no_cuda, entry):
 
 def _train_main_on_a_sharding_mesh(monkeypatch, tmp_path):
     """``--mesh local`` with the local mesh swapped for one whose model axis
-    would shard the parameters of an arch outside tensor parallelism's
-    slice (whisper): the launcher hands it to ``LMTrainJob``, which refuses
-    it (the launcher makes no such decision itself)."""
+    would shard the parameters of an arch of a family that tensor
+    parallelism does not list (whisper's, taken out of ``TP_FAMILIES``):
+    the launcher hands it to ``LMTrainJob``, which refuses it (the launcher
+    makes no such decision itself)."""
     monkeypatch.setattr(train, "make_local_mesh",
                         lambda device_type: abstract_mesh((1, 2), ("data", "model")))
     train.main(["--arch", "whisper_base", "--smoke", "--device", "cpu", "--steps", "1",
@@ -159,23 +160,26 @@ def _serving_on_a_model_axis(arch: str, step: str) -> None:
 
 
 @pytest.mark.parametrize("entry,item", [
-    (lambda monkeypatch, tmp_path: _dryrun_refused("whisper_base", "multi"), "1.13d"),
-    (_train_main_on_a_sharding_mesh, "1.13d"),
+    (lambda monkeypatch, tmp_path: _dryrun_refused("whisper_base", "multi"), "1.13"),
+    (_train_main_on_a_sharding_mesh, "1.13"),
     (lambda monkeypatch, tmp_path: LMTrainJob(
         registry.get_smoke_config("whisper_base"), batch_size=1, seq_len=8, n_steps=1,
-        mesh=abstract_mesh((1, 2), ("data", "model")), device="cpu").run(), "1.13d"),
-    (lambda monkeypatch, tmp_path: _dryrun_refused("whisper_base", "pod"), "1.13d"),
+        mesh=abstract_mesh((1, 2), ("data", "model")), device="cpu").run(), "1.13"),
+    (lambda monkeypatch, tmp_path: _dryrun_refused("whisper_base", "pod"), "1.13"),
     (lambda monkeypatch, tmp_path: _serving_on_a_model_axis("whisper_base", "serve_step"),
-     "1.13d"),
+     "1.13"),
     (lambda monkeypatch, tmp_path: _serving_on_a_model_axis("whisper_base", "prefill"),
-     "1.13d"),
+     "1.13"),
 ], ids=["dryrun_multi_mesh", "train_main_mesh", "lm_trainjob_mesh", "dryrun_pod_mesh_whisper",
         "serve_step_mesh_whisper", "prefill_mesh_whisper"])
 def test_unported_entry_points_name_their_roadmap_item(entry, item, monkeypatch, tmp_path):
-    """What is left of the meshes: tensor parallelism of the one family
-    outside the dense, VLM, MoE, SSM and hybrid slice, enc-dec (1.13d), in
-    training, serving and the dry-run's production meshes."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 item {item}"):
+    """Every family of the registry runs tensor-parallel; a family named
+    nowhere (whisper's ``audio``, taken out of ``TP_FAMILIES`` here) is
+    refused under item 1.13 in training, serving and the dry-run's
+    production meshes."""
+    monkeypatch.setattr(sharding, "TP_FAMILIES",
+                        tuple(f for f in sharding.TP_FAMILIES if f != "audio"))
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP.md queue 1 item {item}\b"):
         entry(monkeypatch, tmp_path)
 
 

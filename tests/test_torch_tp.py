@@ -25,8 +25,10 @@ What is held:
   rank's parameters exactly ``local_slice`` of the whole under the fitted
   spec;
 - checkpoints between (1, 2) and one process, both ways;
-- the family outside the slice (whisper) refusing a (1, 2) mesh under ``tp``,
-  naming its item, and training under ``dp`` as one process does;
+- a family that tensor parallelism does not list (whisper's, taken out of
+  ``TP_FAMILIES`` in the rank) refusing a (1, 2) mesh under ``tp``, naming
+  item 1.13, and training under ``dp`` as one process does (whisper trains
+  under ``tp``: tests/test_torch_tp_encdec.py);
 - the reference's ``LMTrainJob`` on Auto-axes (1, 2) and (1, 4) meshes of
   4 fake CPU devices (a subprocess): the port's job from its init, within
   the trajectory tolerance of tests/test_torch_train.py, 1e-3.
@@ -37,6 +39,7 @@ import json
 import os
 import subprocess
 import sys
+from unittest import mock
 from pathlib import Path
 
 import numpy as np
@@ -62,7 +65,8 @@ ROOT = Path(__file__).resolve().parents[1]
 B, S, LR, REF_STEPS = 4, 32, 2e-3, 3
 TP_REL, TRAJ_REL, ZERO_LEAF, XENT_TOL = 1e-5, 1e-3, 1e-6, 1e-6
 SLICE = ["granite_3_8b", "h2o_danube_3_4b", "minitron_4b", "gemma3_4b", "qwen2_vl_7b"]
-OUTSIDE = {"whisper_base": "1.13d"}
+# an arch whose family is taken out of TP_FAMILIES -> the item it is refused under
+OUTSIDE = {"whisper_base": "1.13"}
 ODD_VOCAB = 509
 # granite's smoke config with 6 query heads over 3 kv heads: on (1, 2) the kv
 # heads do not divide the axis, and each rank's 3 query heads read kv heads
@@ -85,6 +89,11 @@ def _leaves(tree, prefix=""):
             yield from _leaves(v, f"{prefix}{k}/")
         else:
             yield f"{prefix}{k}", v
+
+
+def _unlisted(family: str):
+    """``TP_FAMILIES`` without ``family``: it becomes a family named nowhere."""
+    return mock.patch.object(msh, "TP_FAMILIES", tuple(f for f in msh.TP_FAMILIES if f != family))
 
 
 def _host(tree):
@@ -269,12 +278,13 @@ def _two_rank(rank, init, root):
     out["from_one"] = _job_out(job(n_steps=0).run(resume_from="one"), mesh)
     out["from_one_resumed"] = job(n_steps=2).run(resume_from="one")["history"]
     out["fresh"] = _job_out(job(n_steps=0).run(), mesh)
-    # the families outside the slice: refused under tp, trained under dp
+    # a family named nowhere: refused under tp, trained under dp
     out["outside"] = {}
     for arch in OUTSIDE:
         c = _cfg(arch)
         try:
-            LMTrainJob(c, batch_size=2, seq_len=16, n_steps=1, mesh=mesh, device="cpu").run()
+            with _unlisted(c.family):
+                LMTrainJob(c, batch_size=2, seq_len=16, n_steps=1, mesh=mesh, device="cpu").run()
             refused = None
         except NotImplementedError as e:
             refused = str(e)
@@ -368,14 +378,15 @@ def test_each_rank_holds_its_block_of_every_leaf(two_ranks):
 
 @pytest.mark.parametrize("arch", sorted(OUTSIDE))
 def test_families_outside_the_slice_refuse_tp_and_train_under_dp(two_ranks, arch):
-    """Under ``tp`` on (1, 2) the job raises before any work, naming the
-    family's item; under ``dp`` on the same mesh it trains as one process
-    does (loss rel 1e-5, both ranks equal)."""
+    """With its family taken out of ``TP_FAMILIES``, under ``tp`` on (1, 2)
+    the job raises before any work, naming item 1.13; under ``dp`` on the
+    same mesh it trains as one process does (loss rel 1e-5, both ranks
+    equal)."""
     cfg = _cfg(arch)
     one = LMTrainJob(cfg, batch_size=2, seq_len=16, n_steps=1, lr=LR, device="cpu").run()
     for res in two_ranks:
         refused, dp = res["outside"][arch]
-        assert refused is not None and f"ROADMAP.md queue 1 item {OUTSIDE[arch]}" in refused
+        assert refused is not None and f"ROADMAP.md queue 1 item {OUTSIDE[arch]}." in refused
         assert abs(dp[0] - one["history"][0]) <= TP_REL * abs(one["history"][0])
     assert two_ranks[0]["outside"][arch][1] == two_ranks[1]["outside"][arch][1]
 

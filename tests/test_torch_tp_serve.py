@@ -31,9 +31,11 @@ tokens (the port's init, drawn from a seed):
   process, ``meta`` tensors) equal to the count a real gloo rank takes of
   the same step: FLOPs, bytes, ops and collectives by kind and axis, on
   (1, 2) and (2, 2), every rank;
-- the family outside the slice (whisper: 1.13d) refusing the serving
-  steps under ``tp`` on (1, 2), and serving under ``dp`` as one process
-  does (zamba2 and xlstm serve under ``tp``: tests/test_torch_tp_ssm.py);
+- a family that tensor parallelism does not list (whisper's, taken out
+  of ``TP_FAMILIES`` in the rank: item 1.13) refusing the serving steps
+  under ``tp`` on (1, 2), and serving under ``dp`` as one process does
+  (zamba2 and xlstm serve under ``tp``: tests/test_torch_tp_ssm.py;
+  whisper: tests/test_torch_tp_encdec.py);
 - full-width dry-run records on the production meshes (``pod``, 16 x 16,
   and ``multi``, 2 x 16 x 16; a subprocess an arch, started with the
   ranks):
@@ -46,6 +48,7 @@ import json
 import os
 import subprocess
 import sys
+from unittest import mock
 from pathlib import Path
 
 import numpy as np
@@ -84,7 +87,8 @@ FOUR = {"2x2": ["granite_3_8b", "granite_moe_3b_a800m"],
         "2x1x2": ["granite_3_8b", "granite_moe_3b_a800m"]}
 MESHES = {"1x2": ((1, 2), ("data", "model")), "2x2": ((2, 2), ("data", "model")),
           "1x4": ((1, 4), ("data", "model")), "2x1x2": ((2, 1, 2), ("pod", "data", "model"))}
-OUTSIDE = {"whisper_base": "1.13d"}
+# an arch whose family is taken out of TP_FAMILIES -> the item it is refused under
+OUTSIDE = {"whisper_base": "1.13"}
 # the dry-run's count on a counting mesh against a real rank: (arch, kind)
 COUNTED = [("granite_3_8b", "decode"), ("granite_3_8b", "prefill"), ("granite_3_8b", "train"),
            ("granite_moe_3b_a800m", "decode")]
@@ -177,15 +181,17 @@ def _counts(mesh) -> dict:
 
 
 def _outside(mesh) -> dict:
-    """Each outside family's refusal under tp on ``mesh``, and its serving
-    under dp (its rows' last logits)."""
+    """Each outside arch's refusal under tp on ``mesh`` with its family
+    taken out of ``TP_FAMILIES``, and its serving under dp (its rows' last
+    logits)."""
     out = {}
     for arch in OUTSIDE:
         cfg = _cfg(arch)
         params = lm.init_params(cfg, seed=0, device="cpu")
         prompt, _ = _inputs(cfg)
         refused = []
-        with msh.use_mesh(mesh):
+        unlisted = tuple(f for f in msh.TP_FAMILIES if f != cfg.family)
+        with msh.use_mesh(mesh), mock.patch.object(msh, "TP_FAMILIES", unlisted):
             for name, fn in (("prefill", lambda: steps.prefill(
                     params, steps.batch_inputs(cfg, prompt), cfg=cfg)),
                     ("serve_step", lambda: steps.serve_step(
@@ -423,9 +429,10 @@ def test_counting_mesh_counts_what_a_real_rank_counts(two_ranks, four_ranks, key
 
 @pytest.mark.parametrize("arch", sorted(OUTSIDE))
 def test_families_outside_the_slice_refuse_tp_serving_and_serve_under_dp(two_ranks, arch):
-    """whisper (1.13d): ``steps.prefill`` and
-    ``steps.serve_step`` under ``tp`` on (1, 2) raise naming the item;
-    under ``dp`` each rank serves its rows as one process does."""
+    """whisper with its family taken out of ``TP_FAMILIES`` (1.13):
+    ``steps.prefill`` and ``steps.serve_step`` under ``tp`` on (1, 2)
+    raise naming the item; under ``dp`` each rank serves its rows as one
+    process does."""
     cfg = _cfg(arch)
     prompt, _ = _inputs(cfg)
     one, _ = steps.prefill(lm.init_params(cfg, seed=0, device="cpu"),
@@ -433,7 +440,7 @@ def test_families_outside_the_slice_refuse_tp_serving_and_serve_under_dp(two_ran
     for res in two_ranks:
         got = res["outside"][arch]
         for name, msg in got["refused"]:
-            assert msg is not None and f"ROADMAP.md queue 1 item {OUTSIDE[arch]}" in msg, name
+            assert msg is not None and f"ROADMAP.md queue 1 item {OUTSIDE[arch]}." in msg, name
         assert _rel(got["dp"], one[got["dp_rows"]]) <= TP_REL
 
 
@@ -459,13 +466,15 @@ def test_production_mesh_records(production, arch, shape):
         assert mem["fits"] == (mem["total_bytes"] <= mem["hbm_bytes"])
 
 
-def test_run_one_leaves_no_process_group():
-    """A counted mesh, an error record on one and a one-card count: no
-    process group remains in the calling process."""
+def test_run_one_leaves_no_process_group(monkeypatch):
+    """A counted mesh, an error record on one (whisper with its family
+    taken out of ``TP_FAMILIES``) and a one-card count: no process group
+    remains in the calling process."""
     assert dryrun.run_one("granite_3_8b", "decode_32k", "pod", smoke=True)["status"] == "ok"
     assert not dist.is_initialized()
+    monkeypatch.setattr(msh, "TP_FAMILIES", tuple(f for f in msh.TP_FAMILIES if f != "audio"))
     rec = dryrun.run_one("whisper_base", "decode_32k", "multi", smoke=True)
-    assert rec["status"] == "error" and "item 1.13d" in rec["error"]
+    assert rec["status"] == "error" and "item 1.13." in rec["error"]
     assert not dist.is_initialized()
     assert dryrun.run_one("whisper_base", "decode_32k", "multi", smoke=True,
                           profile="dp")["status"] == "ok"

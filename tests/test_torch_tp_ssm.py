@@ -505,16 +505,15 @@ def test_production_mesh_records(production, arch, shape):
 
 
 def test_only_enc_dec_and_unlisted_families_refuse_tp():
-    """The allow-list now holds the SSM and hybrid families: under ``tp``
-    on a model axis of 2 only audio (1.13d) and a family named nowhere
-    (1.13) refuse."""
+    """The allow-list holds the SSM and hybrid families, and since enc-dec
+    joined it every family of the registry: under ``tp`` on a model axis
+    of 2 none refuses, and no item is left in ``TP_ITEMS``; a family named
+    nowhere still refuses, under item 1.13."""
     mesh = msh.abstract_mesh((1, 2), ("data", "model"))
     with msh.use_mesh(mesh):
-        for arch in ARCHS:
+        for arch in registry.list_archs():
             msh.refuse_outside_tp(registry.get_smoke_config(arch), "test")
-        with pytest.raises(NotImplementedError, match=r"item 1\.13d"):
-            msh.refuse_outside_tp(registry.get_smoke_config("whisper_base"), "test")
         with pytest.raises(NotImplementedError, match=r"item 1\.13\b"):
             msh.refuse_outside_tp(registry.get_smoke_config("xlstm_1_3b").replace(
                 family="novel"), "test")
-    assert set(msh.TP_ITEMS) == {"audio"}
+    assert msh.TP_ITEMS == {}
