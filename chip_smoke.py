@@ -116,6 +116,21 @@ Run from the root of a checkout.  It imports only the port
    against autograd of their twins, beside autograd through SDPA and
    ``F.rms_norm``.  Steps/s, tokens/s, peak memory and a
    trace of one step are reported;
+5b. trains the archs whose attention is wider than 128 columns through the
+   same kernels (``_wide_train_leg``, WIDE_ARCHS): gemma3-4b (8/4 heads of
+   320) at 6 layers, one whole 5:1 pattern, batch 2 x 2048 so the 1024-key
+   window binds, and deepseek-v2-lite-16b (MLA: qk 192, v zero-padded from
+   128, scale 192^-0.5) at 2 layers, batch 4 x 1024.  Gated for each:
+   WIDE_STEPS bf16 steps of ``LMTrainJob.run`` with the launch set exactly
+   TRAIN_KERNELS, finite losses and the first batch's loss again below its
+   loss at the init; every kernel call of one recorded step against its
+   twin; one step, kernel path against plain path, at TRAIN_LIMITS (every
+   fp32 leaf at the same depth; deepseek's plain runs replaying the kernel
+   run's expert ids).  Phase 2 holds and times the training forward and
+   the backward at gemma3's shapes (windowed and global), deepseek's and a
+   tensor-parallel rank's (8 of its 16 heads), and the fp32 backward at D
+   320.  Steps/s, tokens/s and peak memory are reported, and the leg's and
+   the whole run's seconds;
 6. trains granite-3-8b data-parallel (``_dp_train_leg``): DP_RANKS ranks
    share the card through a gloo group (``torch.multiprocessing``, a file
    store), full width cut to DP_LAYERS layers, each on its rows of the
@@ -154,9 +169,9 @@ Run from the root of a checkout.  It imports only the port
    routing's expert ids equal on both ranks, whole leaves bit for bit, the
    first batch again below its init loss), every kernel call of one
    recorded step held to its twin; and deepseek-v2-lite-16b (a dense MLA
-   layer and an MoE layer of 64 experts, 2 shared) on the plain path,
-   gate (a) only, after its kernel path under grad raised the error that
-   names ROADMAP.md item 2.1 (no backward kernel at MLA's D 192).  The
+   layer and an MoE layer of 64 experts, 2 shared) on the kernel path,
+   gate (a) only, its MLA flash calls at D 192 forward and backward, every
+   one of the split run at a rank's 8/8 heads.  The
    expert leaves' fitted specs, the bytes and time of one MoE layer's
    collectives, a rank's parameter and moment bytes, peak memory and
    steps/s are reported; phase 2 holds flash forward and backward at
@@ -315,6 +330,20 @@ TRAIN_PATH, TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = \
     "granite-3-8b training", 8, 4, 1024, 20
 TRAIN_LIMITS = {"bf16_loss": 2e-2, "bf16_grad_norm": 2e-2, "fp32_grad_leaf": 1e-3}
 TRAIN_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_bwd", "flash_attention_bwd")
+# gemma3 and deepseek trained through the flash kernels past head dim 128
+# (``_wide_train_leg``; gemma3 320, deepseek's MLA 192 with v zero-padded
+# from 128): arch -> (layers, batch, sequence), full width.  gemma3's six
+# layers are one whole 5:1 pattern (five layers under the 1024-key window,
+# one global), and its 2048 tokens make the window bind; deepseek's two are
+# its dense MLA layer and one MoE layer (the tensor-parallel leg's depth).
+# WIDE_STEPS bf16 steps of ``LMTrainJob``: over so few steps a fresh
+# batch's loss stays within batch noise, so the first batch's loss is taken
+# again with the trained parameters and must fall below its loss at the
+# init.  One step, kernel path against plain path, at TRAIN_LIMITS, the
+# fp32 leaves at the same depth (gemma3's windowed and global layers both)
+WIDE_PATH = "wide-head training"
+WIDE_ARCHS = {"gemma3_4b": (6, 2, 2048), "deepseek_v2_lite_16b": (2, 4, 1024)}
+WIDE_STEPS = 5
 # granite-3-8b data-parallel training (``_dp_train_leg``): DP_RANKS gloo
 # ranks sharing the one card, full width, DP_LAYERS layers, the training
 # leg's global batch (TRAIN_BATCH / DP_RANKS rows a rank).  Gate (a), one
@@ -335,9 +364,9 @@ DP_LIMITS = {"fp32_loss": 1e-5, "fp32_grad_leaf": 1e-4}
 # ``LMTrainJob(mesh=...)``
 TP_PATH, TP_RANKS, TP_LAYERS, TP_STEPS = "granite-3-8b tensor-parallel training", 2, 2, 5
 # the MoE archs trained tensor-parallel (``_tp_moe_leg``) on the same ranks,
-# mesh, depth, batch and steps: granite-moe on the kernel path (gates (a)
-# and (b)), deepseek on the plain path (gate (a); its MLA flash call at D
-# 192 has no backward kernel, so the kernel path must raise under grad)
+# mesh, depth, batch and steps: granite-moe (gates (a) and (b)) and deepseek
+# (gate (a), its MLA flash calls at D 192 and a rank's 8/8 heads), both on
+# the kernel path
 TP_MOE_PATH = "granite-moe-3b-a800m tensor-parallel training"
 TP_MLA_PATH = "deepseek-v2-lite-16b tensor-parallel training"
 # tensor-parallel serving (``_tp_serve_leg``): TP_RANKS gloo ranks on the
@@ -633,15 +662,19 @@ def _flash_case(b: int, sq: int, skv: int, hq: int, hkv: int, d: int, gen, windo
 
 
 def _flash_bwd_case(b: int, s: int, hq: int, hkv: int, d: int, gen, window: int = 0,
-                    dtype=None, causal: bool = True, skv: int = 0):
+                    dtype=None, causal: bool = True, skv: int = 0, dv: int = 0):
     """The backward kernel alone on the training forward's log-sum-exp and
     fp32 output, against the twin's gradient (autograd in fp32); the
     library call is the backward of SDPA (autograd of one forward, kept).
     ``causal`` False (whisper's encoder, and with ``skv`` keys its
     cross-attention): every query sees every key, and SDPA runs with no
-    mask.  The bound counts the five Sq x Skv x D products over the visible
-    pairs, and each of q, k, v, dO, lse and the fp32 output read once and
-    dq, dk, dv written once."""
+    mask.  With ``dv``: MLA's call (``models/attention.mla_forward``), v of
+    dv columns zero-padded to D and dO zero past dv (the output is cut
+    there), the scale of D.  The bound counts the five Sq x Skv products
+    over the visible pairs (three of D columns, two of dv), and each of q,
+    k, v, dO, lse and the fp32 output read once and dq, dk, dv written
+    once, v, dO, dv and the output at dv columns (bf16 past head dim 128
+    reads no fp32 output)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
@@ -649,9 +682,12 @@ def _flash_bwd_case(b: int, s: int, hq: int, hkv: int, d: int, gen, window: int 
     dtype = dtype or torch.bfloat16
     skv = skv or s
     q = torch.randn(b, s, hq, d, device="cuda", generator=gen).to(dtype)
-    k, v = (torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
-            for _ in range(2))
-    do = torch.randn(b, s, hq, d, device="cuda", generator=gen).to(dtype)
+    k = torch.randn(b, skv, hkv, d, device="cuda", generator=gen).to(dtype)
+    v = torch.randn(b, skv, hkv, dv or d, device="cuda", generator=gen).to(dtype)
+    do = torch.randn(b, s, hq, dv or d, device="cuda", generator=gen).to(dtype)
+    dv = dv or d
+    if dv < d:
+        v, do = F.pad(v, (0, d - dv)), F.pad(do, (0, d - dv))
     _, lse, o32 = fa.forward_for_training(q, k, v, causal, window, d ** -0.5)
     qpos, kpos = torch.arange(s, device="cuda")[:, None], torch.arange(skv, device="cuda")[None, :]
     mask = kpos <= qpos if causal else torch.ones((s, skv), dtype=torch.bool, device="cuda")
@@ -664,17 +700,74 @@ def _flash_bwd_case(b: int, s: int, hq: int, hkv: int, d: int, gen, window: int 
     do_t = do.transpose(1, 2)
     kw = dict(causal=causal, window=window)
     size = 2 if dtype == torch.bfloat16 else 4
+    o32_cols = dv if o32 is not None else 0
     return dict(
         shape=f"q ({b},{s},{hq},{d}) kv {hkv}" + (f" x {skv} rows" if skv != s else "")
               + (" causal" if causal else " non-causal")
-              + (f" window {window}" if window else "") + (" bf16" if size == 2 else " fp32"),
+              + (f" window {window}" if window else "")
+              + (f" v {dv} zero-padded, scale {d}^-0.5" if dv < d else "")
+              + (" bf16" if size == 2 else " fp32"),
         kernel=lambda: ops.flash_attention_bwd(q, k, v, do, lse, o32, use_kernel=True, **kw),
         twin=lambda: ref.flash_attention_bwd_ref(q, k, v, do, **kw),
         library=lambda: torch.autograd.grad(o_lib, (qt, kt, vt), do_t, retain_graph=True),
         capturable=False,
-        nbytes=size * (3 * b * s * hq * d + 4 * b * skv * hkv * d) + 4 * b * hq * s * (d + 1),
-        flops=10 * d * b * hq * visible, peak="bf16" if size == 2 else "fp32",
+        nbytes=size * (b * s * hq * (2 * d + dv) + 2 * b * skv * hkv * (d + dv))
+        + 4 * b * hq * s * (o32_cols + 1),
+        flops=2 * (3 * d + 2 * dv) * b * hq * visible, peak="bf16" if size == 2 else "fp32",
         floor=BWD_FLOOR)
+
+
+def _flash_train_case(b: int, s: int, hq: int, hkv: int, d: int, gen, window: int = 0,
+                      dv: int = 0):
+    """The training forward (``flash_attention.forward_for_training``, the
+    LSE variant, causal, ``q_offset`` 0): its output, the rows' log-sum-exp
+    and (up to head dim 128) O32 against the twin's output, the log-sum-exp
+    of its scaled scores and its output from the inputs in fp32; with
+    ``dv`` MLA's call as in ``_flash_case``.  The library call is SDPA's
+    forward on the same inputs.  The bound counts ``_flash_case``'s bytes
+    plus lse and O32 written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    q = torch.randn(b, s, hq, d, device="cuda", generator=gen).to(torch.bfloat16)
+    k = torch.randn(b, s, hkv, d, device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.randn(b, s, hkv, dv or d, device="cuda", generator=gen).to(torch.bfloat16)
+    dv = dv or d
+    if dv < d:
+        v = F.pad(v, (0, d - dv))
+    scale = d ** -0.5
+    n_out = 3 if d <= fa.O32_MAX_HEAD_DIM else 2      # (out, lse, O32), or no O32
+    o32_cols = dv if n_out == 3 else 0
+    pos = torch.arange(s, device="cuda")
+    mask = pos[None, :] <= pos[:, None]
+    if window:
+        mask &= pos[:, None] - pos[None, :] < window
+    visible = int(mask.sum())
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib_kw = dict(attn_mask=mask) if window else dict(is_causal=True)
+
+    def twin():
+        out = ref.flash_attention_ref(q, k, v, window=window, scale=scale)
+        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                              k.float().repeat_interleave(hq // hkv, 2)) * scale
+        lse = torch.logsumexp(torch.where(mask, logits, -torch.inf), dim=-1)
+        del logits
+        if n_out == 2:
+            return out, lse
+        return out, lse, ref.flash_attention_ref(q.float(), k.float(), v.float(), window=window,
+                                                 scale=scale)
+    return dict(
+        shape=f"q ({b},{s},{hq},{d}) kv {hkv} causal" + (f" window {window}" if window else "")
+              + (f" v {dv} zero-padded, scale {d}^-0.5" if dv < d else "")
+              + f" bf16, training forward ({'lse, O32' if n_out == 3 else 'lse'})",
+        kernel=lambda: fa.forward_for_training(q, k, v, True, window, scale)[:n_out],
+        twin=twin,
+        library=lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, scale=scale,
+                                                       **lib_kw),
+        nbytes=2 * (b * s * hq * (d + dv) + b * s * hkv * (d + dv))
+        + 4 * b * hq * s * (o32_cols + 1),
+        flops=2 * (d + dv) * b * hq * visible, peak="bf16")
 
 
 def _rmsnorm_bwd_case(rows: int, d: int, gen):
@@ -883,6 +976,7 @@ def main() -> int:
     from repro_torch.configs import registry
     from repro_torch.kernels import native
 
+    t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     report: dict = {}
@@ -925,6 +1019,18 @@ def main() -> int:
     triton_s = time.perf_counter() - t0
     print(f"build: nvcc {build_s:.1f} s wall ({len(built)} sources built), "
           f"triton rmsnorm first call {triton_s:.1f} s")
+    report["phase_s"] = {}
+    last = [t_run]
+
+    def mark(phase: str) -> None:
+        """Print the seconds since the last mark: where the run's time goes."""
+        now = time.perf_counter()
+        report["phase_s"][phase] = now - last[0]
+        print(f"chip_smoke: {phase} {now - last[0]:.1f} s (the run at {now - t_run:.1f} s)  "
+              f"[{card}]")
+        last[0] = now
+
+    mark("phase 1, the card and the build")
 
     # -- phase 2: kernels vs twins -------------------------------------------
     g = registry.get_config("granite_3_8b")
@@ -998,6 +1104,32 @@ def main() -> int:
         # 320-column tile, v zero-padded, against SDPA's fused backends
         ("flash_attention", _flash_case(1, 2048, 2048, ds.n_heads, ds.n_kv_heads, ds_qk, gen,
                                         dv=ds.v_head_dim), 10),
+        # training past head dim 128 (the wide-head training leg's shapes):
+        # the training forward and the backward at gemma3's (2 x 2048, 8/4
+        # heads of 320) windowed and global, deepseek's MLA (4 x 1024, 16
+        # heads of 192, v zero-padded from 128) and its tensor-parallel
+        # rank's (8 of the 16 heads)
+        ("flash_attention", _flash_train_case(2, 2048, gm.n_heads, gm.n_kv_heads, gm.head_dim,
+                                              gen, window=gm.sliding_window), 5),
+        ("flash_attention", _flash_train_case(2, 2048, gm.n_heads, gm.n_kv_heads, gm.head_dim,
+                                              gen), 5),
+        ("flash_attention", _flash_train_case(TRAIN_BATCH, TRAIN_SEQ, ds.n_heads, ds.n_kv_heads,
+                                              ds_qk, gen, dv=ds.v_head_dim), 5),
+        ("flash_attention", _flash_train_case(TRAIN_BATCH, TRAIN_SEQ, ds.n_heads // TP_RANKS,
+                                              ds.n_kv_heads // TP_RANKS, ds_qk, gen,
+                                              dv=ds.v_head_dim), 5),
+        ("flash_attention_bwd", _flash_bwd_case(2, 2048, gm.n_heads, gm.n_kv_heads, gm.head_dim,
+                                                gen, window=gm.sliding_window), 5),
+        ("flash_attention_bwd", _flash_bwd_case(2, 2048, gm.n_heads, gm.n_kv_heads, gm.head_dim,
+                                                gen), 5),
+        ("flash_attention_bwd", _flash_bwd_case(TRAIN_BATCH, TRAIN_SEQ, ds.n_heads,
+                                                ds.n_kv_heads, ds_qk, gen,
+                                                dv=ds.v_head_dim), 5),
+        ("flash_attention_bwd", _flash_bwd_case(TRAIN_BATCH, TRAIN_SEQ, ds.n_heads // TP_RANKS,
+                                                ds.n_kv_heads // TP_RANKS, ds_qk, gen,
+                                                dv=ds.v_head_dim), 5),
+        ("flash_attention_bwd", _flash_bwd_case(1, 256, 8, 4, 320, gen, window=100,
+                                                dtype=torch.float32), 5),
         # whisper's decoder: its prompt's queries over the 1500 encoder rows
         # (non-causal cross-attention), and decode over its self-attention
         # cache (its path case below is decode over the encoder rows)
@@ -1132,6 +1264,7 @@ def main() -> int:
     report["cases"], report["path_cases"] = cases, path
     del long_cases, path_cases
     torch.cuda.empty_cache()
+    mark("phase 2, kernels vs twins")
 
     # -- phase 3: the paths, full width --------------------------------------
     report["paths"] = {}
@@ -1143,39 +1276,56 @@ def main() -> int:
         report["paths"][label] = res
         gc.collect()
         torch.cuda.empty_cache()
+    mark("phase 3, the paths")
 
     # -- the MNIST train-to-serve leg: no port kernel on its path ----------
     report["mnist_leg"] = _mnist_leg(card)
+    mark("mnist leg")
     gc.collect()
     torch.cuda.empty_cache()
 
     # -- LM training: both ways through the kernels --------------------------
     report["lm_train_leg"] = _lm_train_leg(card)
+    mark("lm train leg")
+
+    # -- training past head dim 128: gemma3 (320) and deepseek's MLA (192) ----
+    report["wide_train_leg"] = _wide_train_leg(card)
+    mark("wide train leg")
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- data-parallel LM training: two ranks on the card ---------------------
     report["dp_train_leg"] = _dp_train_leg(card)
+    mark("dp train leg")
 
     # -- tensor-parallel LM training: two ranks on the card -------------------
     report["tp_train_leg"] = _tp_train_leg(card)
+    mark("tp train leg")
 
     # -- tensor-parallel training of the MoE archs: two ranks on the card ------
     report["tp_moe_train_leg"] = _tp_moe_leg(card)
+    mark("tp moe train leg")
 
     # -- tensor-parallel serving: two ranks on the card ------------------------
     report["tp_serve_leg"] = _tp_serve_leg(card)
+    mark("tp serve leg")
 
     # -- tensor parallelism of the recurrent mixers: two ranks on the card ------
     report["tp_ssm_leg"] = _tp_ssm_leg(card)
+    mark("tp ssm leg")
 
     # -- tensor parallelism of enc-dec (whisper): two ranks on the card ---------
     report["tp_encdec_leg"] = _tp_encdec_leg(card)
+    mark("tp encdec leg")
 
     # -- the roofline: every timed phase at or above its bound ---------------
     report["roofline_phase"] = _roofline_phase(report, hw, card)
+    mark("roofline phase")
 
     # -- phase 4: report -----------------------------------------------------
     totals = {n: sum(r["launches_run"][n] for r in report["paths"].values())
               + report["mnist_leg"]["launches"][n] + report["lm_train_leg"]["launches"][n]
+              + report["wide_train_leg"]["launches"][n]
               + report["dp_train_leg"]["launches"][n] + report["tp_train_leg"]["launches"][n]
               + report["tp_moe_train_leg"]["launches"][n] + report["tp_serve_leg"]["launches"][n]
               + report["tp_ssm_leg"]["launches"][n] + report["tp_encdec_leg"]["launches"][n]
@@ -1193,6 +1343,8 @@ def main() -> int:
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     print("kernels launched on the paths' runs: " + ", ".join(f"{n} x{totals[n]}" for n in META))
+    report["total_s"] = time.perf_counter() - t_run
+    print(f"chip_smoke: the whole run {report['total_s']:.1f} s  [{card}]")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -2448,6 +2600,152 @@ def _lm_train_leg(card: str) -> dict:
             "leg_s": total_s, "launches": launches}
 
 
+def _wide_train_leg(card: str) -> dict:
+    """gemma3-4b (head dim 320, a 1024-key window on five layers of six) and
+    deepseek-v2-lite-16b (MLA: qk 192, v zero-padded from 128) at full
+    width, depth and batch cut as WIDE_ARCHS says, trained through the
+    flash kernels past head dim 128 (``use_kernels=True``):
+
+    - ``LMTrainJob.run`` (fp32 masters, bf16 compute) for WIDE_STEPS steps,
+      launch counts zeroed before and read after: RMSNorm and flash
+      attention forward and backward, no other; finite losses; the first
+      batch's loss taken again with the trained parameters below its loss
+      at the init;
+    - every kernel call of one recorded ``steps.train_step``, forward and
+      backward, held against its twin on the recorded inputs;
+    - one step on fresh masters and one batch, kernel path against plain
+      path: loss and global gradient norm in bf16, every gradient leaf in
+      fp32, at TRAIN_LIMITS; deepseek's plain runs replay the kernel run's
+      expert ids (``_routing``), the decisions they would have made
+      otherwise counted;
+    - steps/s, tokens/s and peak memory."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.core.trainjob import LMTrainJob
+    from repro_torch.data.tokens import lm_batches
+    from repro_torch.kernels import native
+    from repro_torch.models import lm, steps
+    from repro_torch.optim import adamw
+    from repro_torch.telemetry.events import EventLog
+
+    t_leg = time.perf_counter()
+    out: dict = {"archs": {}, "launches": {n: 0 for n in META}}
+    for arch, (layers, bsz, seq) in WIDE_ARCHS.items():
+        full = registry.get_config(arch)
+        cfg = full.replace(n_layers=layers, use_kernels=True)
+        label = f"{full.name} {WIDE_PATH}"
+        d = cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.use_mla else cfg.head_dim
+        print(f"{label}: full width (d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+              f"{d}" + (f", v {cfg.v_head_dim} zero-padded" if cfg.use_mla else "")
+              + (f", window {cfg.sliding_window} on its local layers"
+                 if "local" in cfg.block_pattern else "")
+              + f"), depth cut from {full.n_layers} to {layers} layers; batch {bsz} x {seq}, "
+              f"{WIDE_STEPS} steps, bf16 compute on fp32 masters, use_kernels=True  [{card}]")
+        t_arch = time.perf_counter()
+
+        # -- the job ------------------------------------------------------------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        native.reset_launches()
+        log = EventLog()
+        res = LMTrainJob(cfg, batch_size=bsz, seq_len=seq, n_steps=WIDE_STEPS, log=log,
+                         device="cuda").run()
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        launches = dict(native.LAUNCHES)
+        _expect(label, launches, TRAIN_KERNELS)
+        history = res["history"]
+        if not all(math.isfinite(v) for v in history):
+            raise AssertionError(f"{label}: losses not finite: {history}")
+        first = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in next(lm_batches(cfg, bsz, seq)).items()}
+        with torch.no_grad():
+            again = float(steps.loss_fn(res["params"], cfg, first)[0])
+        if not again < history[0]:
+            raise AssertionError(f"{label}: the first batch's loss with the trained parameters, "
+                                 f"{again}, is not below its loss at the init, {history[0]}")
+        n_params = sum(t.numel() for t in _leaves(res["params"]))
+        train_s = log.totals()["tfjob:train"]
+        tokens = WIDE_STEPS * bsz * seq
+        for n in META:
+            out["launches"][n] += launches[n]
+        del res, first
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"{label}: {WIDE_STEPS} steps in {train_s:.3f} s ({WIDE_STEPS / train_s:.3f} "
+              f"steps/s, {tokens / train_s:.0f} tokens/s), {n_params / 1e9:.4f} B parameters, "
+              f"peak {peak_gib:.2f} GiB; losses {[round(v, 4) for v in history]}, the first "
+              f"batch again {again:.4f}; launches {launches}  [{card}]")
+
+        # -- one recorded step: every kernel call against its twin --------------
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in next(lm_batches(cfg, bsz, seq, seed=3)).items()}
+        params = lm.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+        opt = adamw.init_opt_state(params)
+        with _recording(TRAIN_KERNELS) as calls:
+            steps.train_step(params, opt, batch, cfg=cfg)
+        recorded = _hold_recorded(label, cfg, calls)
+        del calls, opt, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- one step, kernel path against plain path, bf16 then fp32 -----------
+        def grads(p, c, replay=None):
+            leaves = adamw.tree_map(lambda t: t.detach().requires_grad_(), p)
+            with _routing(replay) as ids:
+                loss, _ = steps.loss_fn(leaves, c, batch)
+                g = torch.autograd.grad(loss, adamw.tree_leaves(leaves))
+            return loss.detach(), g, ids
+
+        rel, flips = {}, {}
+        for dtype in ("bfloat16", "float32"):
+            c = cfg.replace(dtype=dtype)
+            params = lm.init_params(c, seed=0, device="cuda", dtype=torch.float32)
+            names = [k for k, _ in _named(params)]
+            loss_k, g_k, ids = grads(params, c)
+            loss_p, g_p, own = grads(params, c.replace(use_kernels=False), replay=ids)
+            flips[dtype] = _flips(own, ids)
+            if dtype == "bfloat16":
+                norm_k = adamw.global_norm(dict(zip(names, g_k)))
+                norm_p = adamw.global_norm(dict(zip(names, g_p)))
+                rel["bf16"] = {
+                    "loss": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+                    "grad_norm": abs(float(norm_k) - float(norm_p)) / float(norm_p),
+                    "leaves": {n: _rel(a, b) for n, a, b in zip(names, g_k, g_p)}}
+            else:
+                rel["fp32"] = {n: _rel(a, b) for n, a, b in zip(names, g_k, g_p)}
+            del params, g_k, g_p, ids, own
+            gc.collect()
+            torch.cuda.empty_cache()
+        bf16, fp32 = rel["bf16"], rel["fp32"]
+        over = [f"bf16 {k} {bf16[k]} (limit {TRAIN_LIMITS['bf16_' + k]})"
+                for k in ("loss", "grad_norm") if bf16[k] > TRAIN_LIMITS["bf16_" + k]]
+        over += [f"fp32 {n} {r} (limit {TRAIN_LIMITS['fp32_grad_leaf']})" for n, r in fp32.items()
+                 if r > TRAIN_LIMITS["fp32_grad_leaf"]]
+        worst_bf16 = max(bf16["leaves"], key=bf16["leaves"].get)
+        worst_fp32 = max(fp32, key=fp32.get)
+        print(f"{label}, one step, kernel path vs plain path: bf16 loss rel {bf16['loss']:.4g} "
+              f"(limit {TRAIN_LIMITS['bf16_loss']}), global gradient norm rel "
+              f"{bf16['grad_norm']:.4g} (limit {TRAIN_LIMITS['bf16_grad_norm']}), per-leaf "
+              f"gradient rel up to {bf16['leaves'][worst_bf16]:.4g} ({worst_bf16}, reported); "
+              f"fp32 at {layers} layers: per-leaf gradient rel up to {fp32[worst_fp32]:.4g} "
+              f"({worst_fp32}; limit {TRAIN_LIMITS['fp32_grad_leaf']}); routing decisions the "
+              f"plain runs would have made otherwise (replayed): {flips}  [{card}]")
+        if over:
+            raise AssertionError(f"{label}: kernel vs plain over the limits: " + "; ".join(over))
+        arch_s = time.perf_counter() - t_arch
+        print(f"{label}: {arch_s:.2f} s  [{card}]")
+        out["archs"][arch] = {
+            "layers": layers, "batch": bsz, "seq": seq, "head_dim": d, "params": n_params,
+            "steps": WIDE_STEPS, "train_s": train_s, "steps_per_s": WIDE_STEPS / train_s,
+            "tokens_per_s": tokens / train_s, "peak_gib": peak_gib, "history": history,
+            "first_again": again, "recorded": recorded, "bf16_kernel_vs_plain": bf16,
+            "fp32_kernel_vs_plain": fp32, "flips": flips, "launches": launches, "s": arch_s}
+    out["leg_s"] = time.perf_counter() - t_leg
+    print(f"{WIDE_PATH}: the whole leg {out['leg_s']:.2f} s  [{card}]")
+    return out
+
+
 def _dp_train_leg(card: str) -> dict:
     """granite-3-8b at full width, DP_LAYERS layers, trained data-parallel
     by DP_RANKS ranks that share the card through a gloo group (processes
@@ -2866,8 +3164,9 @@ def _tp_moe_leg(card: str) -> dict:
     of every parameter (``_tp_moe_rank``): granite-moe on the kernel path,
     gates (a) and (b) of ``_tp_train_leg``, with every MoE routing's expert
     ids equal on both ranks, 20 of 40 experts a rank and every flash call
-    at 12/4 heads; deepseek on the plain path, gate (a), after its kernel
-    path under grad raised the error naming ROADMAP.md item 2.1.  Gate (a)
+    at 12/4 heads; deepseek on the kernel path, gate (a), with its MLA
+    flash calls at D 192 forward and backward, every one at 8/8 heads and
+    the launch set TRAIN_KERNELS on each rank.  Gate (a)
     runs the one process on the split run's expert ids (``_routing``): a
     near tie that the split run's summation order decides otherwise would
     move a token's whole gate; the decisions it would have made otherwise
@@ -2917,12 +3216,17 @@ def _tp_moe_leg(card: str) -> dict:
         if over:
             raise AssertionError(f"{label} (a): {TP_RANKS} ranks vs one process over the "
                                  "limits: " + "; ".join(over))
+    mla_heads = (ds.n_heads // TP_RANKS, ds.n_kv_heads // TP_RANKS)
     for r in ranks:
-        if "ROADMAP.md queue 2 item 2.1" not in (r["deepseek_kernel_raise"] or ""):
-            raise AssertionError(f"{TP_MLA_PATH}: rank {r['rank']}'s kernel path under grad did "
-                                 f"not raise item 2.1: {r['deepseek_kernel_raise']!r}")
-    print(f"{TP_MLA_PATH}: the kernel path under grad raised on every rank: "
-          f"{first['deepseek_kernel_raise']}  [{card}]")
+        _expect(f"{TP_MLA_PATH} (a), rank {r['rank']}", r["deepseek_launches"], TRAIN_KERNELS)
+        if set(r["deepseek_flash_heads"]) != {mla_heads}:
+            raise AssertionError(f"{TP_MLA_PATH} (a): rank {r['rank']}'s flash calls at (query, "
+                                 f"kv) heads {sorted(set(r['deepseek_flash_heads']))}, not "
+                                 f"{mla_heads}")
+    print(f"{TP_MLA_PATH} (a): the kernel path, MLA's flash forward and backward at D "
+          f"{ds.qk_nope_dim + ds.qk_rope_dim}, {len(first['deepseek_flash_heads'])} flash calls "
+          f"a rank at {mla_heads[0]}/{mla_heads[1]} heads; launches by rank "
+          + ", ".join(str(r["deepseek_launches"]) for r in ranks) + f"  [{card}]")
 
     label = TP_MOE_PATH
     history, again = first["history"], first["first_again"]
@@ -2975,7 +3279,7 @@ def _tp_moe_leg(card: str) -> dict:
     return {"ranks": TP_RANKS, "layers": TP_LAYERS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
             "steps": TP_STEPS, "specs": first["specs"], "granite_moe_a": first["granite_moe_a"],
             "deepseek_a": first["deepseek_a"],
-            "deepseek_kernel_raise": first["deepseek_kernel_raise"], "history": history,
+            "deepseek_launches": [r["deepseek_launches"] for r in ranks], "history": history,
             "first_again": again, "train_s": train_s, "steps_per_s": TP_STEPS / train_s,
             "tokens_per_s": tokens / train_s, "moe_layer": moe,
             "recorded": [r["recorded"] for r in ranks], "peak_gib": [r["peak_gib"] for r in ranks],
@@ -2985,14 +3289,16 @@ def _tp_moe_leg(card: str) -> dict:
             "launches": launches}
 
 
-def _tp_parity(rank: int, mesh, cfg32, params: dict) -> dict | None:
+def _tp_parity(rank: int, mesh, cfg32, params: dict, flash_spy=None) -> dict | None:
     """Gate (a) of the tensor-parallel legs on a MoE arch: one fp32 step of
     ``steps.dp_grads`` on this rank's shards of ``params`` and the whole
     batch, the gradients gathered whole, against one process on rank 0 run
-    on the split run's expert ids.  Returns rank 0's rel errors (None on
-    the others)."""
+    on the split run's expert ids.  ``flash_spy``, where given, stands for
+    ``ops._flash_kernel`` in the split run.  Returns rank 0's rel errors
+    (None on the others)."""
     import torch
     from repro_torch.data.tokens import lm_batches
+    from repro_torch.kernels import ops
     from repro_torch.models import sharding as msh
     from repro_torch.models import steps
     from repro_torch.optim import adamw
@@ -3002,8 +3308,13 @@ def _tp_parity(rank: int, mesh, cfg32, params: dict) -> dict | None:
     with msh.use_mesh(mesh):
         pspecs = msh.param_shardings(params, mesh)
         local = adamw.tree_map(lambda t, s: msh.local_slice(t, s, mesh).clone(), params, pspecs)
-        with _routing() as ids:
-            loss, _, grads = steps.dp_grads(local, whole, cfg=cfg32)
+        kernel = ops._flash_kernel
+        ops._flash_kernel = flash_spy or kernel
+        try:
+            with _routing() as ids:
+                loss, _, grads = steps.dp_grads(local, whole, cfg=cfg32)
+        finally:
+            ops._flash_kernel = kernel
         del local
         grads = adamw.tree_map(lambda t, s: msh.gather_leaf(t, s, mesh), grads, pspecs)
     out = None
@@ -3172,26 +3483,17 @@ def _tp_moe_rank(rank: int) -> dict:
     torch.cuda.empty_cache()
     dist.barrier()
 
-    # deepseek: the kernel path under grad raises (MLA's flash at D 192 has
-    # no backward kernel); gate (a) on the plain path
+    # deepseek (a) on the kernel path: MLA's flash forward and backward at
+    # D 192 on the rank's heads (the flash calls' heads recorded)
     ds = registry.get_config("deepseek_v2_lite_16b").replace(n_layers=TP_LAYERS,
-                                                             dtype="float32")
+                                                             dtype="float32", use_kernels=True)
     params = lm.init_params(ds, seed=0, device="cuda", dtype=torch.float32)
-    batch = {k: torch.as_tensor(v, device="cuda")
-             for k, v in next(lm_batches(ds, TRAIN_BATCH, TRAIN_SEQ, seed=3)).items()}
-    with msh.use_mesh(mesh):
-        local = adamw.tree_map(lambda t, s: msh.local_slice(t, s, mesh).clone(), params,
-                               msh.param_shardings(params, mesh))
-        try:
-            steps.dp_grads(local, batch, cfg=ds.replace(use_kernels=True))
-            out["deepseek_kernel_raise"] = None
-        except ValueError as e:
-            out["deepseek_kernel_raise"] = str(e)
-        del local, batch
-    gc.collect()
-    torch.cuda.empty_cache()
-    dist.barrier()
-    out["deepseek_a"] = _tp_parity(rank, mesh, ds.replace(use_kernels=False), params)
+    heads = []
+    native.reset_launches()
+    out["deepseek_a"] = _tp_parity(rank, mesh, ds, params, flash_spy=spy)
+    torch.cuda.synchronize()
+    out["deepseek_flash_heads"] = heads[:]
+    out["deepseek_launches"] = dict(native.LAUNCHES)
     out["peak_gib"] = max(out["peak_gib"], torch.cuda.max_memory_allocated() / 2**30)
     return out
 

@@ -21,8 +21,10 @@ Two flavours, as in the reference:
     over the data axis too (``steps.dp_train_step``).  A family that
     ``sharding.TP_FAMILIES`` does not list refuses a mesh that would shard
     one of its parameters, naming ROADMAP.md queue 1 item 1.13.
-    zamba2 and xlstm train on the card only with ``use_kernels=False``:
-    their scans have no backward kernel yet (items 2.2 and 2.3).
+    Every attention trains through the flash kernels both ways, at every
+    head dim (gemma3's 320 and deepseek's MLA 192 too); zamba2 and xlstm
+    train on the card only with ``use_kernels=False``: their scans have
+    no backward kernel yet (items 2.2 and 2.3).
 Both log through the EventLog, checkpoint into the ArtifactStore (PVC
 analog), and time their stages for the Tables 4/5 repro.
 """

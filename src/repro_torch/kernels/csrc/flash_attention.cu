@@ -58,11 +58,14 @@
 //   D <= 128 with 64-key tiles (115,968 bytes), and D <= 320 with 32-key
 //   tiles (174,720 bytes; 64 keys would need 264,960).
 //
-// Training: both kernels take a compile-time flag LSE.  With it they also
+// Training: both kernels take a compile-time flag LSE, at every tile (the
+// backward takes head dims up to 320 too).  With it they also
 // write each row's fp32 log-sum-exp of the scaled scores, lse (B,Hq,Sq) =
 // m + log(l) (natural log), which flash_attention_bwd.cu recomputes the
-// probabilities from.  The bf16 kernel with LSE also writes O32 (B,Sq,Hq,D)
-// fp32: the output before its bf16 rounding,
+// probabilities from.  The bf16 kernel with LSE at the 128-column tile and
+// below also writes O32 (B,Sq,Hq,D) fp32 (past 128 columns the backward
+// takes every row's Delta from its own first sweep, so none is written and
+// o32 may be null): the output before its bf16 rounding,
 // normalised by the sum of the bf16-rounded P that entered P V rather than
 // by l.  Its rows are an exact softmax average (weights summing to one) of
 // the rows of V, so the backward's Delta = rowsum(dO o O32) carries only
@@ -248,25 +251,17 @@ cudaError_t launch_tile(const void* q, const void* k, const void* v, void* o, fl
   return cudaGetLastError();
 }
 
-// LSE: the training variant, head dims up to 128 (the backward's range)
+// LSE: the training variant
 template <typename T, bool LSE>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
            int Skv, int Hq, int Hkv, int D, float scale, int causal, int window, int q_offset,
            int kv_len, void* stream) {
-  if (D < 1 || D > (LSE ? 128 : kMaxHeadDim) || Hkv < 1 || Hq % Hkv != 0)
-    return cudaErrorInvalidValue;
+  if (D < 1 || D > kMaxHeadDim || Hkv < 1 || Hq % Hkv != 0) return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
-  if constexpr (LSE) {
-    return launch_tile<T, 128, 64, true>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale, causal,
-                                         window, q_offset, kv_len, stream);
-  } else {
-    return D <= 128 ? launch_tile<T, 128, 64, false>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D,
-                                                     scale, causal, window, q_offset, kv_len,
-                                                     stream)
-                    : launch_tile<T, 320, 32, false>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D,
-                                                     scale, causal, window, q_offset, kv_len,
-                                                     stream);
-  }
+  return D <= 128 ? launch_tile<T, 128, 64, LSE>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale,
+                                                 causal, window, q_offset, kv_len, stream)
+                  : launch_tile<T, 320, 32, LSE>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, D, scale,
+                                                 causal, window, q_offset, kv_len, stream);
 }
 
 }  // namespace f32
@@ -329,6 +324,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
              int kv_len) {
   using C = Cfg<DP>;
   constexpr int BK = C::BK;
+  constexpr bool O32 = LSE && DP <= 128;   // past 128 columns the backward reads no O32
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   // the swizzle acts on shared-memory address bits: align the tiles to 1024
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -384,7 +380,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
 #pragma unroll
     for (int i = 0; i < C::NV / 2; ++i) acc[s][i] = 0.f;
   float m[2] = {rt::kNegInf, rt::kNegInf}, l[2] = {0.f, 0.f};
-  float lr[2] = {0.f, 0.f};   // LSE: the sum of the bf16-rounded P, O32's normaliser
+  float lr[2] = {0.f, 0.f};   // O32: the sum of the bf16-rounded P, O32's normaliser
 
   const uint32_t qw_addr = q_addr + 64 * wg * C::RB;   // this warpgroup's Q rows
   for (int it = 0; it < n_tiles; ++it) {
@@ -444,7 +440,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
         }
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + rsum[i];
-    if constexpr (LSE) {
+    if constexpr (O32) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) lr[i] *= alpha[i];
     }
@@ -466,7 +462,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
       pa[kk][1] = pack_bf16(p[2], p[3]);
       pa[kk][2] = pack_bf16(p[4], p[5]);
       pa[kk][3] = pack_bf16(p[6], p[7]);
-      if constexpr (LSE) {   // registers 0, 2 hold row g; 1, 3 row g + 8
+      if constexpr (O32) {   // registers 0, 2 hold row g; 1, 3 row g + 8
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const float2 f = sm90::unpack_bf16(pa[kk][e]);
@@ -490,7 +486,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    if constexpr (LSE) {
+    if constexpr (O32) {
       lr[i] += __shfl_xor_sync(0xffffffffu, lr[i], 1);
       lr[i] += __shfl_xor_sync(0xffffffffu, lr[i], 2);
     }
@@ -516,7 +512,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16*
           if (col + 1 < D) dst[1] = __float2bfloat16(x1);
         }
       }
-    if constexpr (LSE) {   // O32: the same sums over the rounded P's own total
+    if constexpr (O32) {   // the same sums over the rounded P's own total
       const float inv_r = 1.f / fmaxf(lr[i], 1e-30f);
       float* o32r = o32 + (static_cast<size_t>(b) * Sq + r) * q_row + static_cast<size_t>(h) * D;
 #pragma unroll
@@ -560,13 +556,12 @@ cudaError_t launch_dp(bool vec, const bf16* q, const bf16* k, const bf16* v, bf1
                                            causal, window, q_offset, kv_len, stream);
 }
 
-// LSE: the training variant, head dims up to 128 (the backward's range)
+// LSE: the training variant
 template <bool LSE>
 int launch(const void* q_, const void* k_, const void* v_, void* o_, float* lse, float* o32,
            int B, int Sq, int Skv, int Hq, int Hkv, int D, float scale, int causal, int window,
            int q_offset, int kv_len, void* stream_) {
-  if (D < 1 || D > (LSE ? 128 : kMaxHeadDim) || Hkv < 1 || Hq % Hkv != 0)
-    return cudaErrorInvalidValue;
+  if (D < 1 || D > kMaxHeadDim || Hkv < 1 || Hq % Hkv != 0) return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return cudaSuccess;
   const auto q = static_cast<const bf16*>(q_);
   const auto k = static_cast<const bf16*>(k_);
@@ -585,16 +580,11 @@ int launch(const void* q_, const void* k_, const void* v_, void* o_, float* lse,
   if (D <= 64)
     return launch_dp<64, LSE>(vec, q, k, v, o, lse, o32, B, Sq, Skv, Hq, Hkv, D, scale, causal,
                               window, q_offset, kv_len, stream);
-  if constexpr (LSE) {
-    return launch_dp<128, true>(vec, q, k, v, o, lse, o32, B, Sq, Skv, Hq, Hkv, D, scale, causal,
-                                window, q_offset, kv_len, stream);
-  } else {
-    if (D <= 128)
-      return launch_dp<128, false>(vec, q, k, v, o, lse, o32, B, Sq, Skv, Hq, Hkv, D, scale, causal,
-                                   window, q_offset, kv_len, stream);
-    return launch_dp<320, false>(vec, q, k, v, o, lse, o32, B, Sq, Skv, Hq, Hkv, D, scale, causal,
-                                 window, q_offset, kv_len, stream);
-  }
+  if (D <= 128)
+    return launch_dp<128, LSE>(vec, q, k, v, o, lse, o32, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+                               window, q_offset, kv_len, stream);
+  return launch_dp<320, LSE>(vec, q, k, v, o, lse, o32, B, Sq, Skv, Hq, Hkv, D, scale, causal,
+                             window, q_offset, kv_len, stream);
 }
 
 }  // namespace tc
@@ -616,13 +606,15 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, 
                                    window, q_offset, kv_len, stream);
 }
 
-// The training forward: also the rows' log-sum-exp (B,Hq,Sq) fp32 and the
-// fp32 output before its bf16 rounding (B,Sq,Hq,D), normalised by the sum of
-// the rounded P (the header says why); q_offset 0, every key valid, D <= 128.
+// The training forward: also the rows' log-sum-exp (B,Hq,Sq) fp32 and, for
+// D <= 128, the fp32 output before its bf16 rounding (B,Sq,Hq,D), normalised
+// by the sum of the rounded P (the header says why; past 128 o32 is not
+// written and may be null); q_offset 0, every key valid, D <= 320.
 extern "C" int flash_attention_lse_bf16(const void* q, const void* k, const void* v, void* o,
                                         float* lse, float* o32, int B, int Sq, int Skv, int Hq,
                                         int Hkv, int D, float scale, int causal, int window,
                                         void* stream) {
+  if (!o32 && D <= 128) return cudaErrorInvalidValue;
   return tc::launch<true>(q, k, v, o, lse, o32, B, Sq, Skv, Hq, Hkv, D, scale, causal, window, 0,
                           Skv, stream);
 }

@@ -7,7 +7,8 @@
 // by query i iff j < Skv, j <= i when causal, and i - j < window when
 // window > 0 (q_offset 0, every key valid).  Given q, k, v, the output's
 // gradient dO, and from the forward's LSE variant (flash_attention.cu) the
-// fp32 log-sum-exp lse (B,Hq,Sq) and the fp32 output O32 (B,Sq,Hq,D):
+// fp32 log-sum-exp lse (B,Hq,Sq) and the fp32 output O32 (B,Sq,Hq,D; bf16
+// reads it only up to 128 columns, below):
 //
 //   Delta_i = sum_d dO_id O32_id                     flash_bwd_dq, prologue
 //   P = exp(scale Q K^T - lse), recomputed, masked;  dP = dO V^T
@@ -16,8 +17,8 @@
 //   dV = P^T dO,  dK = scale dS^T Q                  flash_bwd_dkdv
 //
 // Layout: q, dO, dq (B,Sq,Hq,D); k, v, dk, dv (B,Skv,Hkv,D); contiguous,
-// bf16 or fp32; D <= 128.  dq, dk, dv are summed in fp32 and stored in the
-// input dtype.
+// bf16 or fp32; D <= 320 (gemma3's 2560 / 8; deepseek's MLA 192).  dq, dk,
+// dv are summed in fp32 and stored in the input dtype.
 //
 // Bound: at the training shape (S 1024, D 128, causal) five S x S x D
 // products over the visible pairs (Q K^T, dO V^T, P^T dO, dS^T Q, dS K),
@@ -54,8 +55,9 @@
 //   product: a row of O32 is an exact average of the rows of V under
 //   weights that sum to one, so Delta carries only the rounding of P's
 //   relative weights (normalised by l, the fp32 P's sum, the first rows
-//   read 977).  Where a dQ block's band of keys spans at most kExactTiles
-//   (4) tiles, its rows see few keys, Delta's error is largest against
+//   read 977).  Where a dQ block's band of keys spans at most kExactKeys
+//   (256, four 64-key tiles; every band past 128 columns, below), its rows
+//   see few keys, Delta's error is largest against
 //   their gradients, and the first row's exact dq is zero: there a first
 //   sweep takes Delta = sum_j P dP from the kernel's own dP (rows 0-255 of
 //   a causal head; two products a tile on 10 of 136 tile pairs a head at S
@@ -104,23 +106,64 @@
 // once each tile's wgmma descriptors are one base and 32-bit adds
 // (wgmma.cuh's desc_at; formed whole and hoisted out of the loop, the
 // loop-invariant descriptors spilled).
-// Head dims take a compile-time tile of 16, 32, 64 or 128 columns, D
-// zero-padded up to it; where D is not a whole number of 16-byte vectors or
-// a pointer is misaligned, the tiles are staged with plain loads.  Both
-// grids start longest first: the dQ kernel every head's last query block
-// (it sees the most keys under a causal mask), the dK/dV kernel every kv
-// head's first key block (seen by the most queries).
+// Head dims take a compile-time tile of 16, 32, 64, 128, 192 or 320
+// columns, D zero-padded up to it; where D is not a whole number of 16-byte
+// vectors or a pointer is misaligned, the tiles are staged with plain loads.
+// Both grids start longest first: the dQ kernel every head's last query
+// block (it sees the most keys under a causal mask), the dK/dV kernel every
+// kv head's first key block (seen by the most queries).
+// Past 128 columns (gemma3 320; MLA 192, v zero-padded from 128) the D 128
+// design would hold 2 D dK/dV accumulators a thread (640 registers at 320)
+// and pass 227 KB of shared memory with 64-row ring tiles (2 x 40 KB own
+// tiles and a 160 KB ring at 320).  So:
+// * the ring tiles hold 32 rows (the forward's 320-column K/V tiles do
+//   too): 163,840 bytes of tiles at 320, one block an SM; 98,304 at 192;
+// * a dK/dV block owns a chunk of the output columns, whole 64-column
+//   sub-tiles: every one at 192 (192 accumulators a thread; ptxas
+//   serialises its wgmma groups for want of registers and spills a few
+//   bytes, and it still ran 14 % faster than two chunks), two (128
+//   columns, the D 128 kernel's accumulators) at 320, three chunks side by
+//   side in the grid, each recomputing S^T and dP^T over the whole D: 1.9
+//   times the tensor work of unchunked blocks, the last chunk multiplying
+//   the tile's last sub-tile twice and storing it once.  Each gradient
+//   element keeps one owner, so the sums stay in a fixed order;
+// * a dQ block owns every column (160 accumulators a thread at 320): split
+//   in two chunks it ran 22 % slower at gemma3's training shape;
+// * every dQ block takes Delta = sum_j P dP from its first sweep, whatever
+//   its band (two products a tile more), so nothing reads O32 and the
+//   training forward writes none past 128 columns.  Delta from O32 carries
+//   ~1e-3 of Delta's size (P's bf16 relative weights), and where dP_ij falls within
+//   1 % of Delta_i by chance, that is 10 % of dS_ij: on a key that few
+//   queries see (the sequence's last) it is most of the key's dk row.
+//   deepseek's dense MLA layer at its init showed it: chip_smoke.py's
+//   recorded-call gate read 1.33 of the card's rule on dk (0.29 with the
+//   first sweep everywhere), and over the step's calls the two orders
+//   emulate to 0.855 and 0.581 of it (tools/flash_bwd_probe.py --arch
+//   deepseek_v2_lite_16b).  It costs 7-12 % of the backward's time at the
+//   training shapes.  The D <= 128 tiles keep their 256 keys of exact
+//   Delta and O32 beyond;
+// * the products whose N is D (dQ += dS K, dV += P^T dO, dK += dS^T Q) go
+//   out a 64-column sub-tile at a time, as every product here does, so
+//   wgmma's N <= 256 never binds.
+// (tools/kernel_variants.py with tools/kernel_variants_bwd_wide.json, on an
+// NVIDIA H100 80GB HBM3 at 700 W.)
 //
 // fp32 (f32::): exact CUDA-core FMAs (tensor cores would round the inputs),
 // for the parity checks that hold the port to 1e-3 and below.  Four warps
 // a block, each owning 16 rows of its side; P and dS pass through shared
 // memory between products; Delta from O32 (the fp32 output) as in bf16.
+// Past 128 columns (one tile of 320: the fp32 kernel serves parity checks,
+// not training): 32-row tiles and two warps, and half the output columns a
+// block (f32::Cfg says why); Delta summed in the
+// order of the dP products (a row that sees one key then gets dS = 0
+// exactly: at D 320 the four-lane order left 1.2e-6 of dq's largest value
+// there, past the card rule's floor).
 #include "common.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
-constexpr int kMaxHeadDim = 128;  // the wrapper's MAX_HEAD_DIM_BWD
+constexpr int kMaxHeadDim = 320;  // the wrapper's MAX_HEAD_DIM
 
 // Delta_i = sum_d dO_id O32_id for the row a lane's quad shares: the four
 // lanes t of a quad take the columns t, t + 4, ..., then sum across the
@@ -150,17 +193,26 @@ __device__ __forceinline__ bool visible(int qi, int kj, int Sq, int Skv, int cau
 // ---------------------------------------------------------------------------
 namespace f32 {
 
-constexpr int NT = 128;           // four warps
-constexpr int BR = 64;            // rows a block owns: keys (dK/dV) or queries (dQ)
-constexpr int BC = 64;            // rows of the other side a tile
-
-// Shared memory: four tiles of 64 rows x DP columns (their row stride LD),
-// one tile of 64 x 64 (P, then dS) and two vectors of 64 (lse, Delta).
-template <int DP> struct Smem {
+// Per padded head dim DP (64, 128 or 320): BR rows a block owns (keys
+// in dK/dV, queries in dQ), which is also the rows of the other side a tile
+// holds, one warp per 16 of them; COLS output columns a block owns, NCH
+// blocks side by side covering DP.  Past 128 columns four 64-row tiles
+// would pass 227 KB (320 KB at DP 320) and a dK/dV thread would hold 2 DP
+// / 8 accumulators: 32-row tiles, two warps, and half the columns a block,
+// each block recomputing S and dP over the whole D.
+template <int DP> struct Cfg {
+  static constexpr bool WIDE = DP > 128;
+  static constexpr int BR = WIDE ? 32 : 64;
+  static constexpr int NT = 2 * BR;
+  static constexpr int COLS = WIDE ? DP / 2 : DP;
+  static constexpr int NCH = DP / COLS;
+  // shared memory: four tiles of BR rows x DP columns (their row stride
+  // LD), one tile of BR x BR (P, then dS) and two vectors of BR (lse, Delta)
   static constexpr int LD = rt::stride_gq(DP);
-  static constexpr int LDP = rt::stride_gq(BC);
+  static constexpr int LDP = rt::stride_gq(BR);
   static constexpr int TILE = BR * LD;                     // elements of one tile
   static constexpr size_t BYTES = (4 * TILE + BR * LDP + 2 * BR) * sizeof(float);
+  static_assert(COLS % 8 == 0 && DP % COLS == 0, "whole 8-column tiles a block");
   static_assert(TILE * sizeof(float) % 16 == 0, "tiles stay 16-byte aligned");
   static_assert(BYTES <= 232448, "a block may use at most 227 KB of shared memory");
 };
@@ -197,20 +249,21 @@ __device__ __forceinline__ void zero(float (&acc)[NTILE][4]) {
 template <int DP>
 __device__ __forceinline__ void stage(float* dst, const float* src, size_t rs, int n, int D,
                                       bool vec) {
-  rt::stage_async(dst, Smem<DP>::LD, src, rs, n, D, BR, DP, vec);
+  rt::stage_async(dst, Cfg<DP>::LD, src, rs, n, D, Cfg<DP>::BR, DP, vec);
 }
 
-// dK, dV for 64 keys [n0, n0 + 64) of kv head blockIdx.y, batch row
-// blockIdx.z; warp w owns keys n0 + 16 w + [0, 16).
+// dK, dV, columns [c0, c0 + COLS), for BR keys [n0, n0 + BR) of kv head
+// blockIdx.y / NCH (c0 from blockIdx.y % NCH), batch row blockIdx.z; warp w
+// owns keys n0 + 16 w + [0, 16).
 template <int DP>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(Cfg<DP>::NT)
 flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ dout,
                const float* __restrict__ lse, const float* __restrict__ delta,
                float* __restrict__ dk, float* __restrict__ dv, int Sq, int Skv, int Hq, int Hkv,
                int D, float scale, int causal, int window, int vec) {
-  using M = Smem<DP>;
-  constexpr int LD = M::LD, LDP = M::LDP, NO = DP / 8, NS = BC / 8;
+  using M = Cfg<DP>;
+  constexpr int BR = M::BR, BC = M::BR, LD = M::LD, LDP = M::LDP, NO = M::COLS / 8, NS = BC / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* k_s = reinterpret_cast<float*>(smem_raw);
   float* v_s = k_s + M::TILE;
@@ -222,7 +275,8 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
 
   const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, qd = lane % 4;
   const int kw = (tid / 32) * 16;
-  const int n0 = blockIdx.x * BR, hk = blockIdx.y, b = blockIdx.z;
+  const int n0 = blockIdx.x * BR, hk = blockIdx.y / M::NCH, b = blockIdx.z;
+  const int c0 = (blockIdx.y % M::NCH) * M::COLS;
   const int group = Hq / Hkv;
   const size_t q_row = static_cast<size_t>(Hq) * D, kv_row = static_cast<size_t>(Hkv) * D;
   const size_t kv_off = (static_cast<size_t>(b) * Skv + n0) * kv_row + static_cast<size_t>(hk) * D;
@@ -272,7 +326,7 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
       __syncwarp();
       // dV += P^T dO
       mm(dv_acc, BC, [&](int r, int c) { return p_s[(kw + r) * LDP + c]; },
-         [&](int c, int n) { return do_s[c * LD + n]; });
+         [&](int c, int n) { return do_s[c * LD + c0 + n]; });
       // dP^T = V dO^T
       zero(s);
       mm(s, DP, [&](int r, int c) { return v_s[(kw + r) * LD + c]; },
@@ -290,7 +344,7 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
       __syncwarp();
       // dK += dS^T Q (scaled at the store)
       mm(dk_acc, BC, [&](int r, int c) { return p_s[(kw + r) * LDP + c]; },
-         [&](int c, int n) { return q_s[c * LD + n]; });
+         [&](int c, int n) { return q_s[c * LD + c0 + n]; });
     }
   }
 
@@ -300,7 +354,7 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < NO; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int r = kw + g + 8 * (e >> 1), col = 8 * j + 2 * qd + (e & 1);
+      const int r = kw + g + 8 * (e >> 1), col = c0 + 8 * j + 2 * qd + (e & 1);
       if (r < n_keys && col < D) {
         dkb[r * kv_row + col] = dk_acc[j][e] * scale;
         dvb[r * kv_row + col] = dv_acc[j][e];
@@ -308,17 +362,18 @@ flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
-// dQ, and Delta, for 64 query rows [i0, i0 + 64) of head blockIdx.y, batch
-// row blockIdx.z; warp w owns rows i0 + 16 w + [0, 16).
+// dQ, columns [c0, c0 + COLS), and Delta (the first chunk writes it), for
+// BR query rows [i0, i0 + BR) of head blockIdx.y / NCH, batch row
+// blockIdx.z; warp w owns rows i0 + 16 w + [0, 16).
 template <int DP>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(Cfg<DP>::NT)
 flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, const float* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ o32,
              float* __restrict__ delta, float* __restrict__ dq, int Sq, int Skv, int Hq, int Hkv,
              int D, float scale, int causal, int window, int vec) {
-  using M = Smem<DP>;
-  constexpr int LD = M::LD, LDP = M::LDP, NO = DP / 8, NS = BC / 8;
+  using M = Cfg<DP>;
+  constexpr int BR = M::BR, BC = M::BR, LD = M::LD, LDP = M::LDP, NO = M::COLS / 8, NS = BC / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* q_s = reinterpret_cast<float*>(smem_raw);
   float* do_s = q_s + M::TILE;
@@ -329,7 +384,8 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
 
   const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, qd = lane % 4;
   const int qw = (tid / 32) * 16;
-  const int i0 = blockIdx.x * BR, h = blockIdx.y, b = blockIdx.z;
+  const int i0 = blockIdx.x * BR, h = blockIdx.y / M::NCH, b = blockIdx.z;
+  const int c0 = (blockIdx.y % M::NCH) * M::COLS;
   const int hk = h / (Hq / Hkv);
   const size_t q_row = static_cast<size_t>(Hq) * D, kv_row = static_cast<size_t>(Hkv) * D;
   const size_t q_off = (static_cast<size_t>(b) * Sq + i0) * q_row + static_cast<size_t>(h) * D;
@@ -341,14 +397,25 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
                                          : 0.f;
   rt::cp_async_commit();
 
-  // Delta of this lane's two rows, from dO and O32 (the fp32 output)
+  // Delta of this lane's two rows, from dO and O32 (the fp32 output); past
+  // 128 columns one FMA chain over the columns by the quad's first lane,
+  // the order mm sums dP in, so a row that sees one key (its O32 that key's
+  // v row) gets Delta = dP bit for bit and dS = 0, as its exact gradient has
   float dl[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = qw + g + 8 * i;
     const size_t off = q_off + static_cast<size_t>(r) * q_row;
-    dl[i] = row_delta<float, DP>(dout + off, o32 + off, D, qd, r < n_rows);
-    if (qd == 0 && r < n_rows) delta[(static_cast<size_t>(b) * Hq + h) * Sq + i0 + r] = dl[i];
+    if constexpr (M::WIDE) {
+      float sum = 0.f;
+      if (qd == 0 && r < n_rows)
+        for (int c = 0; c < D; ++c) sum = fmaf(dout[off + c], o32[off + c], sum);
+      dl[i] = __shfl_sync(0xffffffffu, sum, lane & ~3);
+    } else {
+      dl[i] = row_delta<float, DP>(dout + off, o32 + off, D, qd, r < n_rows);
+    }
+    if (c0 == 0 && qd == 0 && r < n_rows)
+      delta[(static_cast<size_t>(b) * Hq + h) * Sq + i0 + r] = dl[i];
   }
   rt::cp_async_wait<0>();
 
@@ -385,7 +452,7 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
     __syncwarp();
     // dQ += dS K (scaled at the store)
     mm(dq_acc, BC, [&](int r, int c) { return p_s[(qw + r) * LDP + c]; },
-       [&](int c, int n) { return k_s[c * LD + n]; });
+       [&](int c, int n) { return k_s[c * LD + c0 + n]; });
   }
 
   float* dqb = dq + q_off;
@@ -393,7 +460,7 @@ flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
   for (int j = 0; j < NO; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int r = qw + g + 8 * (e >> 1), col = 8 * j + 2 * qd + (e & 1);
+      const int r = qw + g + 8 * (e >> 1), col = c0 + 8 * j + 2 * qd + (e & 1);
       if (r < n_rows && col < D) dqb[r * q_row + col] = dq_acc[j][e] * scale;
     }
 }
@@ -403,17 +470,18 @@ cudaError_t launch_dp(const float* q, const float* k, const float* v, const floa
                       const float* lse, const float* o32, float* delta, float* dq, float* dk,
                       float* dv, int B, int Sq, int Skv, int Hq, int Hkv, int D, float scale,
                       int causal, int window, int vec, cudaStream_t stream) {
-  constexpr int smem = static_cast<int>(Smem<DP>::BYTES);
+  using M = Cfg<DP>;
+  constexpr int smem = static_cast<int>(M::BYTES);
   static std::atomic<unsigned> set_kv{0}, set_q{0};
   cudaError_t err = rt::smem_limit_once(flash_bwd_dkdv<DP>, smem, set_kv);
   if (err != cudaSuccess) return err;
   err = rt::smem_limit_once(flash_bwd_dq<DP>, smem, set_q);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq<DP><<<dim3((Sq + BR - 1) / BR, Hq, B), NT, smem, stream>>>(
+  flash_bwd_dq<DP><<<dim3((Sq + M::BR - 1) / M::BR, Hq * M::NCH, B), M::NT, smem, stream>>>(
       q, k, v, dout, lse, o32, delta, dq, Sq, Skv, Hq, Hkv, D, scale, causal, window, vec);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv<DP><<<dim3((Skv + BR - 1) / BR, Hkv, B), NT, smem, stream>>>(
+  flash_bwd_dkdv<DP><<<dim3((Skv + M::BR - 1) / M::BR, Hkv * M::NCH, B), M::NT, smem, stream>>>(
       q, k, v, dout, lse, delta, dk, dv, Sq, Skv, Hq, Hkv, D, scale, causal, window, vec);
   return cudaGetLastError();
 }
@@ -425,10 +493,14 @@ int launch(const float* q, const float* k, const float* v, const float* dout, co
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout);
   const int vec = D % 4 == 0 && ptrs % 16 == 0;
-  return D <= 64 ? launch_dp<64>(q, k, v, dout, lse, o32, delta, dq, dk, dv, B, Sq, Skv, Hq, Hkv,
-                                 D, scale, causal, window, vec, stream)
-                 : launch_dp<128>(q, k, v, dout, lse, o32, delta, dq, dk, dv, B, Sq, Skv, Hq,
-                                  Hkv, D, scale, causal, window, vec, stream);
+  if (D <= 64)
+    return launch_dp<64>(q, k, v, dout, lse, o32, delta, dq, dk, dv, B, Sq, Skv, Hq, Hkv, D,
+                         scale, causal, window, vec, stream);
+  if (D <= 128)
+    return launch_dp<128>(q, k, v, dout, lse, o32, delta, dq, dk, dv, B, Sq, Skv, Hq, Hkv, D,
+                          scale, causal, window, vec, stream);
+  return launch_dp<320>(q, k, v, dout, lse, o32, delta, dq, dk, dv, B, Sq, Skv, Hq, Hkv, D,
+                        scale, causal, window, vec, stream);
 }
 
 }  // namespace f32
@@ -442,31 +514,62 @@ using bf16 = __nv_bfloat16;
 
 constexpr int NT = 128;           // one consumer warpgroup a block, two blocks an SM
 constexpr int BO = 64 * NT / 128; // rows a block owns: queries (dQ) or keys (dK/dV), 64 a warpgroup
-constexpr int BTK = 64;           // keys a ring tile of the dQ kernel holds
-constexpr int BTQ = 64;           // queries a ring tile of the dK/dV kernel holds
 constexpr int NSTAGE = 2;         // the ring: tile i+1 loads while tile i is used
 // The two SS products of a tile go out as two wgmma groups: P is formed
 // while dP is still being multiplied, and (dK/dV) dS while dV += P^T dO is.
 constexpr bool kOverlap = true;
-// dQ blocks whose band of keys spans at most this many tiles take Delta =
-// sum_j P dP from a first sweep (the header says why)
-constexpr int kExactTiles = 4;
+// dQ blocks whose band spans at most this many keys (4 tiles of 64) take
+// Delta = sum_j P dP from a first sweep (the header says why)
+constexpr int kExactKeys = 256;
 
+// Per padded head dim DP: the swizzled tile layout of wgmma.cuh; BT rows a
+// ring tile holds (keys in the dQ kernel, queries in the dK/dV kernel): 64,
+// or 32 past 128 columns (the header says why); KV_SUB, the NV-column
+// sub-tiles of dK and of dV a dK/dV block owns (every one up to 192
+// columns, two past it), KV_NCH blocks side by side covering the tile.  A
+// last chunk short of sub-tiles repeats the tile's last one, computed and
+// never stored.  A dQ block owns every column.
+//
 // Shared memory, from a 1024-byte aligned base: the block's two own tiles
-// (Q and dO; K and V) of BO rows, NSTAGE ring stages of two tiles (K and V
-// of BTK rows; Q and dO of BTQ), then fp32 vectors: the dQ kernel's partial
-// key column sums (8 a thread), the dK/dV kernel's lse and Delta of each
-// stage.
+// (Q and dO; K and V) of BO rows, NSTAGE ring stages of two tiles (K and V;
+// Q and dO) of BT rows, then fp32 vectors: the dQ kernel's partial key
+// column sums (8 a thread), the dK/dV kernel's lse and Delta of each stage.
 template <int DP> struct Cfg : sm90::Layout<DP> {
+  using L = sm90::Layout<DP>;
+  static constexpr bool WIDE = DP > 128;
+  static constexpr int BT = WIDE ? 32 : 64;
+  static constexpr int KV_SUB = DP > 192 ? 2 : L::NSUB;
+  static constexpr int KV_NCH = (L::NSUB + KV_SUB - 1) / KV_SUB;
   static constexpr int OWN = BO * DP * 2;
-  static constexpr int RING_K = BTK * DP * 2, RING_Q = BTQ * DP * 2;
-  static constexpr int DQ_TILES = 2 * OWN + NSTAGE * 2 * RING_K;
-  static constexpr int DKDV_TILES = 2 * OWN + NSTAGE * 2 * RING_Q;
-  static constexpr int DQ_SMEM = DQ_TILES + NT * 8 * 4 + 1024;      // + alignment slack
-  static constexpr int DKDV_SMEM = DKDV_TILES + NSTAGE * 2 * BTQ * 4 + 1024;
+  static constexpr int RING = BT * DP * 2;
+  static constexpr int TILES = 2 * OWN + NSTAGE * 2 * RING;
+  static constexpr int DQ_SMEM = TILES + NT * 8 * 4 + 1024;      // + alignment slack
+  static constexpr int DKDV_SMEM = TILES + NSTAGE * 2 * BT * 4 + 1024;
+  static_assert(OWN % 1024 == 0 && RING % 1024 == 0, "every tile on a swizzle period");
   static_assert(DQ_SMEM <= 232448 && DKDV_SMEM <= 232448,
                 "a block may use at most 227 KB of shared memory");
 };
+
+// acc (64 x NSC NV, fp32) += A B over the NSC sub-tiles of B from sub-tile
+// sb0 on: the chunk of a tile's columns a block owns (past the tile's last
+// sub-tile, that one again).  A whole tile takes wgmma.cuh's rs_product.
+template <int DP, int RBT, int KS, int NSC>
+__device__ __forceinline__ void rs_chunk(float (&acc)[NSC][sm90::Layout<DP>::NV / 2],
+                                         const uint32_t (&a)[KS][4], uint32_t b_addr, int sb0) {
+  using L = sm90::Layout<DP>;
+  if constexpr (NSC == L::NSUB) {
+    sm90::rs_product<DP, RBT>(acc, a, b_addr);
+  } else {
+    const uint64_t db = sm90::desc<DP>(b_addr);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int sb = 0; sb < NSC; ++sb) {
+        const int st = min(sb0 + sb, L::NSUB - 1);
+        sm90::wgmma_rs(acc[sb], a[kk], sm90::desc_at(db, st * RBT * L::RB + kk * 16 * L::RB));
+      }
+  }
+}
 
 // the swizzle acts on shared-memory address bits: align the tiles to 1024
 __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw, uint32_t& addr) {
@@ -487,10 +590,11 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 float* __restrict__ delta, bf16* __restrict__ dq, int Sq, int Skv, int Hq,
                 int Hkv, int D, float scale, int causal, int window) {
   using C = Cfg<DP>;
+  constexpr int BTK = C::BT;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   uint32_t base;
   unsigned char* smem = aligned_smem(smem_raw, base);
-  float* csum = reinterpret_cast<float*>(smem + C::DQ_TILES);
+  float* csum = reinterpret_cast<float*>(smem + C::TILES);
 
   const int tid = threadIdx.x, wgi = tid / 128, lane = tid % 32, warp = (tid % 128) / 32;
   const int g = lane / 4, t = lane % 4;
@@ -512,10 +616,10 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // one cp.async group per tile (empty past the end)
   auto load_kv = [&](int it) {
     if (it < n_tiles) {
-      unsigned char* st = smem + 2 * C::OWN + (it % NSTAGE) * 2 * C::RING_K;
+      unsigned char* st = smem + 2 * C::OWN + (it % NSTAGE) * 2 * C::RING;
       const int r0 = kv_begin + it * BTK;
       sm90::load_tile<DP, BTK, VEC, NT>(st, kb, kv_row, r0, Skv, D, tid);
-      sm90::load_tile<DP, BTK, VEC, NT>(st + C::RING_K, vb, kv_row, r0, Skv, D, tid);
+      sm90::load_tile<DP, BTK, VEC, NT>(st + C::RING, vb, kv_row, r0, Skv, D, tid);
     }
     if constexpr (VEC) rt::cp_async_commit();
   };
@@ -554,8 +658,8 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // skip a tile none of this warpgroup's rows can see
       if (!has_rows || (causal && n0 > hi) || (window > 0 && n0 + BTK - 1 <= lo - window))
         continue;
-      const uint32_t k_addr = base + 2 * C::OWN + (it % NSTAGE) * 2 * C::RING_K;
-      const uint32_t v_addr = k_addr + C::RING_K;
+      const uint32_t k_addr = base + 2 * C::OWN + (it % NSTAGE) * 2 * C::RING;
+      const uint32_t v_addr = k_addr + C::RING;
       float s[BTK / 2], dp[BTK / 2];
       sm90::wgmma_fence();
       sm90::ss_product<DP, BO, BTK>(s, q_addr, k_addr);
@@ -586,11 +690,11 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
   };
 
-  // Delta of this thread's two rows, written for the dK/dV kernel: where
-  // the band spans at most kExactTiles tiles, sum_j P dP from a first sweep
-  // (two products a tile); else rowsum(dO o O32)
+  // Delta of this thread's two rows, written for the dK/dV kernel: past 128
+  // columns, or where the band spans at most kExactKeys keys, sum_j P dP
+  // from a first sweep (two products a tile); else rowsum(dO o O32)
   float dl[2] = {0.f, 0.f};
-  if (n_tiles <= kExactTiles) {
+  if (C::WIDE || n_tiles <= kExactKeys / BTK) {
     sweep([](int) {}, [&](int, int n0, uint32_t, float (&s)[BTK / 2], float (&dp)[BTK / 2]) {
       probabilities(n0, s);
       sm90::wgmma_wait<0>();
@@ -603,7 +707,7 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       dl[i] += __shfl_xor_sync(0xffffffffu, dl[i], 1);
       dl[i] += __shfl_xor_sync(0xffffffffu, dl[i], 2);
     }
-  } else {
+  } else if constexpr (!C::WIDE) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const size_t off = q_head + static_cast<size_t>(row[i] < Sq ? row[i] : 0) * q_row;
@@ -616,9 +720,11 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // c, the keys' centre: the mean of the band's keys, summed in fp32 from
   // the K tiles as they pass; this thread sums 8 columns (one 16-byte chunk
-  // of a row) over every (NT / CPR)-th row
+  // of a row) over every RSTEP-th row (past 128 columns the last NT - RSTEP
+  // CPR threads idle)
   constexpr int CPR = DP / 8, RSTEP = NT / CPR;
-  static_assert(NT % CPR == 0, "whole chunks a thread");
+  static_assert(C::WIDE || NT % CPR == 0, "whole chunks a thread");
+  const bool sums = !C::WIDE || tid < RSTEP * CPR;
   float cs[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   float acc[C::NSUB][C::NV / 2];
 #pragma unroll
@@ -627,7 +733,8 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int e = 0; e < C::NV / 2; ++e) acc[sb][e] = 0.f;
   float rs[2] = {0.f, 0.f};   // row sums of the rounded dS (hi + lo)
   auto key_sums = [&](int it) {
-    const unsigned char* kt = smem + 2 * C::OWN + (it % NSTAGE) * 2 * C::RING_K;
+    if (!sums) return;
+    const unsigned char* kt = smem + 2 * C::OWN + (it % NSTAGE) * 2 * C::RING;
 #pragma unroll
     for (int u = 0; u < (BTK + RSTEP - 1) / RSTEP; ++u) {
       const int r = tid / CPR + u * RSTEP;
@@ -710,8 +817,9 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// dK, dV for keys [n0, n0 + BO) of kv head blockIdx.x, batch row
-// blockIdx.z; warpgroup w owns keys n0 + 64 w + [0, 64).
+// dK, dV, the KV_SUB sub-tiles of columns from sb0 on, for keys [n0, n0 +
+// BO) of kv head blockIdx.x / KV_NCH (sb0 from blockIdx.x % KV_NCH), batch
+// row blockIdx.z; warpgroup w owns keys n0 + 64 w + [0, 64).
 template <int DP, bool VEC>
 __global__ void __launch_bounds__(NT, 1)
 flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -720,17 +828,19 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Skv, int Hq, int Hkv,
                   int D, float scale, int causal, int window) {
   using C = Cfg<DP>;
+  constexpr int BTQ = C::BT, NSC = C::KV_SUB;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   uint32_t base;
   unsigned char* smem = aligned_smem(smem_raw, base);
-  float* lse_s = reinterpret_cast<float*>(smem + C::DKDV_TILES);   // [NSTAGE][BTQ]
+  float* lse_s = reinterpret_cast<float*>(smem + C::TILES);   // [NSTAGE][BTQ]
   float* dl_s = lse_s + NSTAGE * BTQ;                          // [NSTAGE][BTQ]
 
   const int tid = threadIdx.x, wgi = tid / 128, lane = tid % 32, warp = (tid % 128) / 32;
   const int g = lane / 4, t = lane % 4;
   // blocks start in launch order, x fastest: every kv head's first key
   // block (seen by the most queries under a causal mask) first
-  const int hk = blockIdx.x, n0 = blockIdx.y * BO, b = blockIdx.z;
+  const int hk = blockIdx.x / C::KV_NCH, n0 = blockIdx.y * BO, b = blockIdx.z;
+  const int sb0 = (blockIdx.x % C::KV_NCH) * NSC;
   const int group = Hq / Hkv;
   const size_t q_row = static_cast<size_t>(Hq) * D, kv_row = static_cast<size_t>(Hkv) * D;
   const size_t kv_head = static_cast<size_t>(b) * Skv * kv_row + static_cast<size_t>(hk) * D;
@@ -747,9 +857,9 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (it < n_tiles) {
       const int h = hk * group + it / n_qt, i0 = q_begin + (it % n_qt) * BTQ, st = it % NSTAGE;
       const size_t q_head = static_cast<size_t>(b) * Sq * q_row + static_cast<size_t>(h) * D;
-      unsigned char* qs = smem + 2 * C::OWN + st * 2 * C::RING_Q;
+      unsigned char* qs = smem + 2 * C::OWN + st * 2 * C::RING;
       sm90::load_tile<DP, BTQ, VEC, NT>(qs, q + q_head, q_row, i0, Sq, D, tid);
-      sm90::load_tile<DP, BTQ, VEC, NT>(qs + C::RING_Q, dout + q_head, q_row, i0, Sq, D, tid);
+      sm90::load_tile<DP, BTQ, VEC, NT>(qs + C::RING, dout + q_head, q_row, i0, Sq, D, tid);
       if (tid < BTQ) {
         const bool ok = i0 + tid < Sq;
         const size_t ro = (static_cast<size_t>(b) * Hq + h) * Sq + (ok ? i0 + tid : 0);
@@ -770,9 +880,9 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int key[2] = {key_lo + 16 * warp + g, key_lo + 16 * warp + g + 8};
   const float sl2 = scale * rt::kLog2e;
 
-  float dk_acc[C::NSUB][C::NV / 2], dv_acc[C::NSUB][C::NV / 2];
+  float dk_acc[NSC][C::NV / 2], dv_acc[NSC][C::NV / 2];
 #pragma unroll
-  for (int sb = 0; sb < C::NSUB; ++sb)
+  for (int sb = 0; sb < NSC; ++sb)
 #pragma unroll
     for (int e = 0; e < C::NV / 2; ++e) {
       dk_acc[sb][e] = 0.f;
@@ -789,7 +899,7 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (!has_keys || (causal && i0 + BTQ - 1 < key_lo) || (window > 0 && i0 - key_hi >= window))
       continue;
     const int st = it % NSTAGE;
-    const uint32_t q_addr = base + 2 * C::OWN + st * 2 * C::RING_Q, do_addr = q_addr + C::RING_Q;
+    const uint32_t q_addr = base + 2 * C::OWN + st * 2 * C::RING, do_addr = q_addr + C::RING;
     const float* lse_t = lse_s + st * BTQ;
     const float* dl_t = dl_s + st * BTQ;
 
@@ -827,7 +937,7 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e)
         pa[kk][e] = sm90::pack_bf16(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
     sm90::wgmma_fence();
-    sm90::rs_product<DP, BTQ>(dv_acc, pa, do_addr);
+    rs_chunk<DP, BTQ>(dv_acc, pa, do_addr, sb0);
     sm90::wgmma_commit();
 
     // dS^T = P^T (dP^T - Delta) as bf16 hi + lo; dK += dS^T Q
@@ -855,12 +965,12 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         dlo[kk][e] = sm90::pack_bf16(x0 - fh.x, x1 - fh.y);
       }
     sm90::wgmma_fence();
-    sm90::rs_product<DP, BTQ>(dk_acc, dh, q_addr);
-    sm90::rs_product<DP, BTQ>(dk_acc, dlo, q_addr);
+    rs_chunk<DP, BTQ>(dk_acc, dh, q_addr, sb0);
+    rs_chunk<DP, BTQ>(dk_acc, dlo, q_addr, sb0);
     sm90::wgmma_commit();
     sm90::wgmma_wait<0>();
 #pragma unroll
-    for (int sb = 0; sb < C::NSUB; ++sb) {
+    for (int sb = 0; sb < NSC; ++sb) {
       sm90::fence_regs(dv_acc[sb]);
       sm90::fence_regs(dk_acc[sb]);
     }
@@ -874,10 +984,11 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* dkr = dk + kv_head + static_cast<size_t>(key[i]) * kv_row;
     bf16* dvr = dv + kv_head + static_cast<size_t>(key[i]) * kv_row;
 #pragma unroll
-    for (int sb = 0; sb < C::NSUB; ++sb)
+    for (int sb = 0; sb < NSC; ++sb) {
+      if (C::WIDE && sb0 + sb >= C::NSUB) break;   // a repeated sub-tile
 #pragma unroll
       for (int j = 0; j < C::NV / 8; ++j) {
-        const int col = sb * C::NV + 8 * j + 2 * t;
+        const int col = (sb0 + sb) * C::NV + 8 * j + 2 * t;
         const float k0 = dk_acc[sb][4 * j + 2 * i] * scale;
         const float k1 = dk_acc[sb][4 * j + 2 * i + 1] * scale;
         const float v0 = dv_acc[sb][4 * j + 2 * i], v1 = dv_acc[sb][4 * j + 2 * i + 1];
@@ -897,6 +1008,7 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
           }
         }
       }
+    }
   }
 }
 
@@ -915,7 +1027,8 @@ cudaError_t launch_tile(const bf16* q, const bf16* k, const bf16* v, const bf16*
       q, k, v, dout, lse, o32, delta, dq, Sq, Skv, Hq, Hkv, D, scale, causal, window);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dkdv_tc<DP, VEC><<<dim3(Hkv, (Skv + BO - 1) / BO, B), NT, C::DKDV_SMEM, stream>>>(
+  flash_bwd_dkdv_tc<DP, VEC><<<dim3(Hkv * C::KV_NCH, (Skv + BO - 1) / BO, B), NT, C::DKDV_SMEM,
+                               stream>>>(
       q, k, v, dout, lse, delta, dk, dv, Sq, Skv, Hq, Hkv, D, scale, causal, window);
   return cudaGetLastError();
 }
@@ -948,7 +1061,13 @@ int launch(const bf16* q, const bf16* k, const bf16* v, const bf16* dout, const 
   if (D <= 64)
     return launch_dp<64>(vec, q, k, v, dout, lse, o32, delta, dq, dk, dv, B, Sq, Skv, Hq, Hkv, D,
                          scale, causal, window, stream);
-  return launch_dp<128>(vec, q, k, v, dout, lse, o32, delta, dq, dk, dv, B, Sq, Skv, Hq, Hkv, D,
+  if (D <= 128)
+    return launch_dp<128>(vec, q, k, v, dout, lse, o32, delta, dq, dk, dv, B, Sq, Skv, Hq, Hkv, D,
+                          scale, causal, window, stream);
+  if (D <= 192)
+    return launch_dp<192>(vec, q, k, v, dout, lse, o32, delta, dq, dk, dv, B, Sq, Skv, Hq, Hkv, D,
+                          scale, causal, window, stream);
+  return launch_dp<320>(vec, q, k, v, dout, lse, o32, delta, dq, dk, dv, B, Sq, Skv, Hq, Hkv, D,
                         scale, causal, window, stream);
 }
 
@@ -961,15 +1080,15 @@ bool shape_ok(int D, int Hq, int Hkv) {
 }  // namespace
 
 // o32: the forward's fp32 output (B,Sq,Hq,D) (flash_attention.cu's LSE
-// variant); delta: (B,Hq,Sq) fp32 scratch (Delta, from the dQ kernel to the
-// dK/dV one)
+// variant), not read (and may be null) past D 128 in bf16; delta: (B,Hq,Sq)
+// fp32 scratch (Delta, from the dQ kernel to the dK/dV one)
 extern "C" int flash_attention_bwd_bf16(const void* q, const void* k, const void* v,
                                         const void* dout, const float* lse, const float* o32,
                                         float* delta, void* dq, void* dk, void* dv, int B,
                                         int Sq, int Skv, int Hq, int Hkv, int D, float scale,
                                         int causal, int window, void* stream) {
   using bf16 = __nv_bfloat16;
-  if (!shape_ok(D, Hq, Hkv)) return cudaErrorInvalidValue;
+  if (!shape_ok(D, Hq, Hkv) || (!o32 && D <= 128)) return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || Skv == 0) return cudaSuccess;
   return tc::launch(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                     static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, o32, delta,
@@ -982,7 +1101,7 @@ extern "C" int flash_attention_bwd_f32(const void* q, const void* k, const void*
                                        float* delta, void* dq, void* dk, void* dv, int B, int Sq,
                                        int Skv, int Hq, int Hkv, int D, float scale, int causal,
                                        int window, void* stream) {
-  if (!shape_ok(D, Hq, Hkv)) return cudaErrorInvalidValue;
+  if (!shape_ok(D, Hq, Hkv) || !o32) return cudaErrorInvalidValue;
   if (B == 0 || Sq == 0 || Skv == 0) return cudaSuccess;
   return f32::launch(static_cast<const float*>(q), static_cast<const float*>(k),
                      static_cast<const float*>(v), static_cast<const float*>(dout), lse, o32,

@@ -81,14 +81,15 @@ def flash_attention_bwd_order_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
                                   do: torch.Tensor, *, causal: bool = True, window: int = 0,
                                   scale: float | None = None, delta: str = "o32",
                                   split_dq: bool = True, split_dk: bool = True,
-                                  centre: str = "band", exact_delta_tiles: int = 4):
+                                  centre: str = "band", exact_delta_tiles: int | None = None):
     """(dq, dk, dv) computed as the bf16 backward kernel computes them, for
     the tests (no path calls it): P recomputed in fp32, dP = dO V^T in fp32,
     dS = P o (dP - Delta); P rounded to the input dtype as the operand of
     dV = P^T dO; dS entering dQ and dK as two halves in the input dtype (hi
     + lo); every product summed in fp32.  Square masks (Sq = Skv).  The
-    kernel's 64-row query blocks: a block's band is the 64-key tiles from
-    the one holding its first visible key to its last.
+    kernel's 64-row query blocks: a block's band is the key tiles from the
+    one holding its first visible key to its last (the kernel's tiles: 64
+    keys up to head dim 128, 32 past it).
 
     ``delta``: "o32" (the kernel's) Delta_i = rowsum(dO o O32), O32 the
     forward's output before rounding, bf16(p) V / sum bf16(p) with p the
@@ -97,7 +98,9 @@ def flash_attention_bwd_order_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     fp32 (PR 20's kernel, from a first pass); "output" rowsum(dO o O) from
     the output rounded to the input dtype (the usual flash backward).
     ``exact_delta_tiles`` T: the rows of a block whose band spans at most T
-    tiles take Delta = sum_j P dP (the kernel's first sweep there).
+    tiles take Delta = sum_j P dP (the kernel's first sweep there; by
+    default the kernel's: 256 keys' worth up to head dim 128, every band
+    past it).
     ``split_dq`` / ``split_dk``: dS as hi + lo (else one rounding) in dQ,
     dK.  ``centre``: dq = scale (dS K - c rowsum(dS)) for the rounded dS,
     c the mean of the block's "band" of keys (the kernel's), of its "first"
@@ -106,6 +109,9 @@ def flash_attention_bwd_order_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     b, sq, hq, d = q.shape
     hkv = k.shape[2]
     scale = scale if scale is not None else d ** -0.5
+    key_tile = 64 if d <= 128 else 32
+    if exact_delta_tiles is None:       # sq tiles: every band
+        exact_delta_tiles = 256 // key_tile if d <= 128 else sq
     kf, vf = _gqa_expand(k, hq).float(), _gqa_expand(v, hq).float()
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * scale
     pos = torch.arange(sq, device=q.device)
@@ -130,8 +136,8 @@ def flash_attention_bwd_order_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
             out = torch.einsum("bhqk,bkhd->bqhd", pr / l, vf)
         dl = (do.float() * out).sum(-1).transpose(1, 2)[..., None]
         for q0 in range(0, sq, 64):
-            k0, k1 = _band(q0, sq, causal, window)
-            if -(-(k1 - k0) // 64) <= exact_delta_tiles:
+            k0, k1 = _band(q0, sq, causal, window, key_tile)
+            if -(-(k1 - k0) // key_tile) <= exact_delta_tiles:
                 dl[:, :, q0:q0 + 64] = exact[:, :, q0:q0 + 64]
     ds = p * (dp - dl)
     hi = ds.to(q.dtype).float()
@@ -141,8 +147,9 @@ def flash_attention_bwd_order_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     if centre != "none":
         c = torch.empty_like(q, dtype=torch.float32)
         for q0 in range(0, sq, 64):
-            k0, k1 = _band(q0, sq, causal, window)
-            k0, k1 = {"first": (k0, k0 + 64), "diagonal": (q0, q0 + 64)}.get(centre, (k0, k1))
+            k0, k1 = _band(q0, sq, causal, window, key_tile)
+            k0, k1 = {"first": (k0, k0 + key_tile),
+                      "diagonal": (q0, q0 + 64)}.get(centre, (k0, k1))
             c[:, q0:q0 + 64] = kf[:, k0:k1].mean(1, keepdim=True)
         if centre == "weighted":
             c = torch.einsum("bhqk,bkhd->bqhd", p, kf)
@@ -154,11 +161,11 @@ def flash_attention_bwd_order_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
     return tuple(t.to(q.dtype) for t in (dq, dk, dv))
 
 
-def _band(q0: int, s: int, causal: bool, window: int) -> tuple[int, int]:
+def _band(q0: int, s: int, causal: bool, window: int, tile: int) -> tuple[int, int]:
     """The keys [begin, end) the backward kernel's dQ block of query rows
-    [q0, q0 + 64) walks (square masks): from the 64-key tile holding its
-    first visible key to its last visible key."""
-    begin = max(0, q0 - window + 1) // 64 * 64 if window and window > 0 else 0
+    [q0, q0 + 64) walks (square masks): from the ``tile``-key tile holding
+    its first visible key to its last visible key."""
+    begin = max(0, q0 - window + 1) // tile * tile if window and window > 0 else 0
     return begin, min(s, q0 + 64) if causal else s
 
 

@@ -797,7 +797,7 @@ def test_flash_backward_kernel_holds_where_the_usual_orders_miss_on_gpu(cuda, ca
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [16, 64, 120, 128])
+@pytest.mark.parametrize("d", [16, 64, 120, 128, 192, 320])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_flash_lse_variant_output_equals_the_serving_variant_on_gpu(cuda, d, dtype):
     """The training forward writes the same output, bit for bit, as the
@@ -820,17 +820,19 @@ def test_flash_lse_variant_output_equals_the_serving_variant_on_gpu(cuda, d, dty
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", list(DTYPES))
-def test_flash_backward_kernel_repeats_bit_for_bit_on_gpu(cuda, dtype):
+@pytest.mark.parametrize("dtype,d", [pytest.param(t, 128, id=t) for t in DTYPES]
+                         + [pytest.param(t, d, id=f"{t}-{d}") for d in (192, 320) for t in DTYPES])
+def test_flash_backward_kernel_repeats_bit_for_bit_on_gpu(cuda, dtype, d):
     """Each gradient has one owner block and sums in a fixed order (no
-    atomics): two calls give the same bits."""
+    atomics; past head dim 128 one column chunk of one head's keys owns a
+    dK/dV element): two calls give the same bits."""
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device=cuda).manual_seed(2)
     td = DTYPES[dtype]
-    q = torch.randn(2, 300, 8, 128, device=cuda, generator=g).to(td)
-    k, v = (torch.randn(2, 300, 2, 128, device=cuda, generator=g).to(td) for _ in range(2))
-    do = torch.randn(2, 300, 8, 128, device=cuda, generator=g).to(td)
-    _, lse, o32 = fa.forward_for_training(q, k, v, True, 100, 128 ** -0.5)
+    q = torch.randn(2, 300, 8, d, device=cuda, generator=g).to(td)
+    k, v = (torch.randn(2, 300, 2, d, device=cuda, generator=g).to(td) for _ in range(2))
+    do = torch.randn(2, 300, 8, d, device=cuda, generator=g).to(td)
+    _, lse, o32 = fa.forward_for_training(q, k, v, True, 100, d ** -0.5)
     first = fa.flash_attention_bwd(q, k, v, do, lse, o32, window=100)
     again = fa.flash_attention_bwd(q, k, v, do, lse, o32, window=100)
     torch.cuda.synchronize()
@@ -853,15 +855,74 @@ def test_flash_backward_kernel_training_scale_on_gpu(cuda, window):
     assert max(rule_share(a, b) for a, b in zip(got, want)) <= 1.0
 
 
+# (d, dv, window) past head dim 128: gemma3's 320 (global, and under a
+# window that binds), MLA's 192 with v zero-padded from 128 (the scale of
+# 192), 200 (no 16-byte vector: plain loads) and 192 under a window
+FLASH_WIDE_CASES = [(320, 0, 0), (320, 0, 40), (192, 128, 0), (192, 0, 40), (200, 0, 0)]
+
+
+def _wide_inputs(cuda, td, d, dv, s=150, hq=4, hkv=2, seed=5):
+    """q, k, v, dO (B 2, ``s`` rows, GQA 2:1): with ``dv`` < d, v and dO are
+    MLA's, zero past dv (v padded, the output cut there)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(2, s, hq, d, device=cuda, generator=g).to(td)
+    k = torch.randn(2, s, hkv, d, device=cuda, generator=g).to(td)
+    v = torch.randn(2, s, hkv, dv or d, device=cuda, generator=g).to(td)
+    do = torch.randn(2, s, hq, dv or d, device=cuda, generator=g).to(td)
+    pad = d - (dv or d)
+    return q, k, torch.nn.functional.pad(v, (0, pad)), torch.nn.functional.pad(do, (0, pad))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("d", [16, 64, 120, 128])
+@pytest.mark.parametrize("d,dv,window", FLASH_WIDE_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_backward_kernel_wide_matches_twin_on_gpu(cuda, d, dv, window, dtype):
+    """Past head dim 128 autograd runs the training forward and the backward
+    kernel (their 192- and 320-column tiles: 32-row ring tiles, the output
+    columns in chunks a block): dq, dk, dv against the twin's gradient, in
+    bf16 under the rule chip_smoke.py holds the backward kernel to, in fp32
+    within 3e-4; MLA's padded columns of dv come out zero."""
+    td = DTYPES[dtype]
+    q, k, v, do = _wide_inputs(cuda, td, d, dv)
+    native.reset_launches()
+    out, got = _flash_grads(q, k, v, do, True, causal=True, window=window, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["flash_attention"] == native.LAUNCHES["flash_attention_bwd"] == 1
+    want = ref.flash_attention_bwd_ref(q, k, v, do, causal=True, window=window)
+    for a, b in zip(got, want):
+        assert a.dtype == td and bool(torch.isfinite(a).all())
+        if dtype == "bfloat16":
+            assert rule_share(a, b) <= 1.0
+        else:
+            _close(a, b, dtype)
+    if dv:
+        assert not got[2][..., dv:].any()
+    _close(out.detach(), ref.flash_attention_ref(q, k, v, causal=True, window=window), dtype)
+
+
+@pytest.mark.gpu
+def test_flash_past_the_widest_tile_raises_on_gpu(cuda):
+    """Head dim 321 has no tile, forward or backward: the wrappers raise
+    (under grad too) instead of launching."""
+    from repro_torch.kernels import flash_attention as fa
+    x = torch.randn(1, 16, 2, 321, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="head_dim 321 unsupported"):
+        ops.flash_attention(x, x, x, use_kernel=True)
+    lse = torch.zeros(1, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 321 unsupported"):
+        fa.flash_attention_bwd(x, x, x, x, lse, x.detach().float())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [16, 64, 120, 128, 192, 320])
 def test_flash_training_forward_o32_matches_twin_on_gpu(cuda, d):
     """The bf16 training forward's O32 (the output before rounding, over
     the rounded P's own sum): against the twin's output in fp32 within the
     rule the forward is held to (it carries P's bf16 rounding: an H100 read
     0.29-0.35 of it); over rows of V that are all ones, 1 to fp32 rounding
     (its weights sum to one, where l, the fp32 P's sum, leaves ~1e-3); its
-    bf16 output stays the serving output's bits."""
+    bf16 output stays the serving output's bits.  Past head dim 128 the
+    backward reads no O32, and none is made."""
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device=cuda).manual_seed(4)
     q = torch.randn(2, 150, 8, d, device=cuda, generator=g).to(torch.bfloat16)
@@ -871,8 +932,11 @@ def test_flash_training_forward_o32_matches_twin_on_gpu(cuda, d):
         out, _, o32 = fa.forward_for_training(q, k, v, True, window, d ** -0.5)
         serve, _ = fa._forward(q, k, v, True, window, d ** -0.5, 0, False)
         torch.cuda.synchronize()
-        assert o32.dtype == torch.float32 and o32.shape == q.shape
         assert torch.equal(out, serve)
+        if d > fa.O32_MAX_HEAD_DIM:
+            assert o32 is None
+            continue
+        assert o32.dtype == torch.float32 and o32.shape == q.shape
         want = ref.flash_attention_ref(q.float(), k.float(), v.float(), window=window)
         assert rule_share(o32, want) <= 1.0
         _, _, ones = fa.forward_for_training(q, k, torch.ones_like(v), True, window, d ** -0.5)
@@ -905,19 +969,25 @@ def test_rmsnorm_backward_kernel_matches_twin_on_gpu(cuda, shape, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["granite_3_8b", "h2o_danube_3_4b", "minitron_4b",
-                                  "whisper_base", "qwen2_vl_7b"])
-def test_smoke_model_gradients_kernel_path_match_plain_path_on_gpu(cuda, arch):
+@pytest.mark.parametrize("arch,wide", [
+    *(pytest.param(a, {}, id=a) for a in ("granite_3_8b", "h2o_danube_3_4b", "minitron_4b",
+                                          "whisper_base", "qwen2_vl_7b")),
+    pytest.param("gemma3_4b", {"head_dim": 320}, id="gemma3_4b_d320"),
+    pytest.param("deepseek_v2_lite_16b", {"n_layers": 1, "qk_nope_dim": 128, "qk_rope_dim": 64,
+                                          "v_head_dim": 128}, id="deepseek_mla_d192")])
+def test_smoke_model_gradients_kernel_path_match_plain_path_on_gpu(cuda, arch, wide):
     """fp32 smoke config, 2 layers: every parameter leaf gets a gradient
     through the kernels (attention and norms both ways), within 3e-4 of the
     plain path's, and a training step launches the four kernels and no other
     (whisper: the encoder's and the cross sub-layer's non-causal flash both
     ways, over frames drawn from the seed; qwen2-vl: M-RoPE and its vision
-    rows, drawn too)."""
+    rows, drawn too; ``wide``: the full archs' head dims on the smoke widths,
+    gemma3's 320 over a windowed and a global layer, deepseek's MLA 192 with
+    v 128 in its dense layer alone, so no routing can flip)."""
     from repro_torch.configs import registry
     from repro_torch.models import lm, steps
     from repro_torch.optim import adamw
-    cfg = registry.get_smoke_config(arch)
+    cfg = registry.get_smoke_config(arch).replace(**wide)
     params = lm.init_params(cfg, seed=0, device=cuda, dtype=torch.float32)
     gen = torch.Generator(device=cuda).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (2, 48), device=cuda, generator=gen)
@@ -943,9 +1013,10 @@ def test_smoke_model_gradients_kernel_path_match_plain_path_on_gpu(cuda, arch):
 
 @pytest.mark.gpu
 def test_kernels_without_a_backward_raise_under_grad_on_gpu(cuda):
-    """decode attention, the two scans and flash at D 320 refuse a call
-    under grad, naming their ROADMAP item, instead of returning an output
-    with no gradient; under no_grad they run."""
+    """decode attention and the two scans refuse a call under grad, naming
+    their ROADMAP item, instead of returning an output with no gradient;
+    under no_grad they run.  Flash attention at D 320 has its backward
+    kernel: under grad its output carries the gradient function."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn(2, 8, 64, device=cuda, generator=g, requires_grad=True)
     kc = torch.randn(2, 16, 2, 64, device=cuda, generator=g)
@@ -962,8 +1033,7 @@ def test_kernels_without_a_backward_raise_under_grad_on_gpu(cuda):
         ops.mlstm_scan(qm, km.requires_grad_(), vm, li, torch.nn.functional.logsigmoid(fp),
                        use_kernel=True)
     wide = torch.randn(1, 16, 2, 320, device=cuda, generator=g, requires_grad=True)
-    with pytest.raises(ValueError, match="ROADMAP.md queue 2 item 2.1"):
-        ops.flash_attention(wide, wide, wide, use_kernel=True)
+    assert ops.flash_attention(wide, wide, wide, use_kernel=True).grad_fn is not None
     with torch.no_grad():
         ops.decode_attention(q, kc, kc, lens, use_kernel=True)
         ops.flash_attention(wide, wide, wide, use_kernel=True)

@@ -1,21 +1,24 @@
 #!/usr/bin/env python3
 """The flash attention backward kernel on the card, beyond ``chip_smoke.py``.
 
-    python3 tools/flash_bwd_probe.py
+    python3 tools/flash_bwd_probe.py [--arch granite_3_8b]
 
 Prints, for the card it runs on:
 
 - the device time of each of the backward's two kernels (dQ, dK/dV) at
-  granite's training shape and at h2o's window, from a ``torch.profiler``
-  trace of five calls;
+  granite's training shape and at h2o's window (with ``--arch`` gemma3_4b
+  or deepseek_v2_lite_16b: at that arch's training shape), from a
+  ``torch.profiler`` trace of five calls;
 - the share of the card's rule (``chip_smoke._check``: |kernel - twin| <=
   2e-2 (|twin| + rms of the twin's row), the row's rms floored at
   ``BWD_FLOOR`` of the twin's largest) that dq, dk and dv use on each of the
-  eight recorded calls of one granite training step (8 layers, 4 x 1024
-  tokens, the seeded weights and batch of ``chip_smoke.py``'s training
-  leg), with the worst element, beside the share of each rounding order of
-  ``ORDERS`` emulated on the same inputs by
-  ``ref.flash_attention_bwd_order_ref`` (the kernel's first).
+  recorded calls of one training step (granite: 8 layers, 4 x 1024 tokens,
+  the seeded weights and batch of ``chip_smoke.py``'s training leg; gemma3
+  and deepseek: their ``WIDE_ARCHS`` depth and batch, as the wide-head
+  training leg), with the worst element, beside the share of each rounding
+  order of ``ORDERS`` (past head dim 128 also ``WIDE_ORDERS``) emulated on
+  the same inputs by ``ref.flash_attention_bwd_order_ref`` (the kernel's
+  first).
 
 Run it on the machine with the card.
 """
@@ -47,6 +50,9 @@ ORDERS = {
     "the first build (O32 everywhere, first tile, one bf16 dS in dK)":
         {"exact_delta_tiles": 0, "centre": "first", "split_dk": False},
 }
+# past head dim 128 (32-key tiles), where the kernel takes Delta from its
+# first sweep in every block: the D <= 128 tiles' rule instead
+WIDE_ORDERS = {"Delta from O32 past 256 keys": {"exact_delta_tiles": 8}}
 
 
 def _share(got, want) -> tuple:
@@ -79,15 +85,16 @@ def kernel_split(case: dict, iters: int = 5) -> dict:
     return by
 
 
-def recorded_calls():
+def recorded_calls(arch: str):
     """The flash backward's calls in one training step's backward."""
     import torch
     from repro_torch.configs import registry
     from repro_torch.data.tokens import lm_batches
     from repro_torch.models import lm, steps
     from repro_torch.optim import adamw
-    cfg = registry.get_config("granite_3_8b").replace(n_layers=cs.TRAIN_LAYERS, use_kernels=True)
-    batch = next(lm_batches(cfg, cs.TRAIN_BATCH, cs.TRAIN_SEQ, seed=3))
+    layers, b, s = cs.WIDE_ARCHS.get(arch, (cs.TRAIN_LAYERS, cs.TRAIN_BATCH, cs.TRAIN_SEQ))
+    cfg = registry.get_config(arch).replace(n_layers=layers, use_kernels=True)
+    batch = next(lm_batches(cfg, b, s, seed=3))
     batch = {k: torch.as_tensor(batch[k], device="cuda") for k in ("tokens", "labels")}
     params = lm.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
     with cs._recording(("flash_attention_bwd",)) as calls:
@@ -97,35 +104,53 @@ def recorded_calls():
     return calls["flash_attention_bwd"]
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    import argparse
+
     import torch
     if not torch.cuda.is_available():
         print("flash_bwd_probe: no CUDA device", file=sys.stderr)
         return 1
+    from repro_torch.configs import registry
     from repro_torch.kernels import ref
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--arch", default="granite_3_8b")
+    arch = parser.parse_args(argv).arch
     torch.backends.cuda.matmul.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for label, case in (("granite training (4,1024), D 128, 32/8 heads",
-                         cs._flash_bwd_case(4, 1024, 32, 8, 128, gen)),
-                        ("h2o (1,2048), D 120, window 512",
-                         cs._flash_bwd_case(1, 2048, 32, 8, 120, gen, window=512))):
+    cfg = registry.get_config(arch)
+    if arch in cs.WIDE_ARCHS:
+        _, b, s = cs.WIDE_ARCHS[arch]
+        d = cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.use_mla else cfg.head_dim
+        wide = dict(window=cfg.sliding_window) if "local" in cfg.block_pattern else \
+            dict(dv=cfg.v_head_dim)
+        cases = ((f"{arch} training ({b},{s}), D {d}, {cfg.n_heads}/{cfg.n_kv_heads} heads, {wide}",
+                  cs._flash_bwd_case(b, s, cfg.n_heads, cfg.n_kv_heads, d, gen, **wide)),)
+    else:
+        cases = (("granite training (4,1024), D 128, 32/8 heads",
+                  cs._flash_bwd_case(4, 1024, 32, 8, 128, gen)),
+                 ("h2o (1,2048), D 120, window 512",
+                  cs._flash_bwd_case(1, 2048, 32, 8, 120, gen, window=512)))
+    for label, case in cases:
         split = kernel_split(case)
         print(f"{label}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
               + f", total {sum(split.values()):.4f} ms  [{card}]", flush=True)
         del case
+    del cases
     torch.cuda.empty_cache()
-    worst = {n: 0.0 for n in ORDERS}
-    for i, (args, kw, got) in enumerate(recorded_calls()):
+    orders = {**ORDERS, **(WIDE_ORDERS if arch in cs.WIDE_ARCHS else {})}
+    worst = {n: 0.0 for n in orders}
+    for i, (args, kw, got) in enumerate(recorded_calls(arch)):
         q, k, v, do = args[:4]
         want = ref.flash_attention_bwd_ref(q, k, v, do, **kw)
         print(f"call {i}: kernel " + "; ".join(
             f"{n} {s[0]:.3f} at {s[1]} (kernel {s[2]:.3g}, twin {s[3]:.3g}, row rms {s[4]:.3g})"
             for n, s in zip(("dq", "dk", "dv"), (_share(g, w) for g, w in zip(got, want)))),
             flush=True)
-        for name, flags in ORDERS.items():
+        for name, flags in orders.items():
             emu = ref.flash_attention_bwd_order_ref(q, k, v, do, **kw, **flags)
             shares = [_share(g, w)[0] for g, w in zip(emu, want)]
             worst[name] = max(worst[name], *shares)
@@ -140,4 +165,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

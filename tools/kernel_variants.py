@@ -3,6 +3,7 @@
 
     python3 tools/kernel_variants.py tools/kernel_variants_attention.json
     python3 tools/kernel_variants.py tools/kernel_variants_scans.json
+    python3 tools/kernel_variants.py tools/kernel_variants_bwd_wide.json
 
 A spec names, per source in ``src/repro_torch/kernels/csrc``, a list of
 variants: each is a name and a list of ``[old, new]`` text substitutions
@@ -15,7 +16,8 @@ marked so and still timed) and timed by device time per call
 (``chip_smoke._device_ms``) at the long and serving cases of
 ``chip_smoke.py`` (attention, and the two scans: their serving shapes and
 S 4096 and 1000; the attention backward at granite's training shape and
-h2o's window).  The library call's device time is printed beside each
+h2o's window, and past head dim 128 at gemma3's and deepseek's training
+shapes).  The library call's device time is printed beside each
 case (the backward's, autograd of SDPA, by CUDA events: a trace of it
 may see no device activity and a CUDA graph cannot capture it).  Run it
 on the machine with the card; compare variants only within one run.
@@ -115,7 +117,11 @@ def cases(gen) -> dict:
             ("q (4,1024), D 128, 32/8 heads, granite training",
              cs._flash_bwd_case(4, 1024, 32, 8, 128, gen), 5),
             ("q (1,2048), D 120, window 512, h2o",
-             cs._flash_bwd_case(1, 2048, 32, 8, 120, gen, window=512), 5)],
+             cs._flash_bwd_case(1, 2048, 32, 8, 120, gen, window=512), 5),
+            ("q (2,2048), D 320, 8/4 heads, window 1024, gemma3 training",
+             cs._flash_bwd_case(2, 2048, 8, 4, 320, gen, window=1024), 5),
+            ("q (4,1024), D 192, v 128 padded, 16/16 heads, deepseek training",
+             cs._flash_bwd_case(4, 1024, 16, 16, 192, gen, dv=128), 5)],
         "decode_attention.cu": [
             ("B 8 x 4096, D 128, 32/8 heads", cs._decode_case(long_lens, 4096, 32, 8, 128, gen), 20),
             ("B 8 x 4096, D 64, 32/32 heads", cs._decode_case(long_lens, 4096, 32, 32, 64, gen), 20),
