@@ -131,6 +131,13 @@ Run from the root of a checkout.  It imports only the port
    tensor-parallel rank's (8 of its 16 heads), and the fp32 backward at D
    320.  Steps/s, tokens/s and peak memory are reported, and the leg's and
    the whole run's seconds;
+5c. trains zamba2-1.2b through the SSD scan's forward and backward kernels
+   (``_ssm_train_leg``, SSM_TRAIN): full width, 7 layers (a group of six
+   Mamba2 layers with the shared attention block, and one more), batch 4 x
+   1024, gated as 5b with the launch set RMSNorm, flash attention and
+   ``ssm_scan``, each both ways, at TRAIN_LIMITS.  Phase 2
+   holds and times the backward at zamba2's training shape, a tensor-
+   parallel rank's (16 of its 32 heads) and a ragged S;
 6. trains granite-3-8b data-parallel (``_dp_train_leg``): DP_RANKS ranks
    share the card through a gloo group (``torch.multiprocessing``, a file
    store), full width cut to DP_LAYERS layers, each on its rows of the
@@ -204,9 +211,10 @@ Run from the root of a checkout.  It imports only the port
    with the shared block, and the remainder phase) and xlstm at 8 (one
    sLSTM): every rank's prefill and GEN decode steps' logits against one
    process within TP_SERVE_REL, the tokens equal, and xlstm's scoring loss;
-   one fp32 training step of each on the plain path, the loss and every
-   gathered gradient leaf at TP_SSM_LIMITS, after the kernel path under
-   grad raised items 2.2 and 2.3; (b) bf16 at full depth (38 and 48
+   one fp32 training step of each, zamba2's on the kernel path (the SSD
+   scan's kernels both ways on every rank) and xlstm's on the plain path
+   after its kernel path under grad raised item 2.3, the loss and every
+   gathered gradient leaf at TP_SSM_LIMITS; (b) bf16 at full depth (38 and 48
    layers): zamba2's serving launch set exactly RMSNorm, flash attention,
    decode attention and ``ssm_scan``, every scan at 16 heads, a rank's
    cache half the one process's; xlstm's scoring launch set exactly RMSNorm
@@ -344,6 +352,13 @@ TRAIN_KERNELS = ("rmsnorm", "flash_attention", "rmsnorm_bwd", "flash_attention_b
 WIDE_PATH = "wide-head training"
 WIDE_ARCHS = {"gemma3_4b": (6, 2, 2048), "deepseek_v2_lite_16b": (2, 4, 1024)}
 WIDE_STEPS = 5
+# zamba2 trained through the SSD scan's forward and backward kernels
+# (``_ssm_train_leg``): full width, 7 layers (a group of 6 Mamba2 layers with
+# the shared attention block, and one more), batch 4 x 1024, WIDE_STEPS bf16
+# steps, gated as the wide-head leg, its launch set SSM_TRAIN_KERNELS
+SSM_TRAIN_PATH = "zamba2-1.2b training"
+SSM_TRAIN = ("zamba2_1_2b", 7, 4, 1024)
+SSM_TRAIN_KERNELS = TRAIN_KERNELS + ("ssm_scan", "ssm_scan_bwd")
 # granite-3-8b data-parallel training (``_dp_train_leg``): DP_RANKS gloo
 # ranks sharing the one card, full width, DP_LAYERS layers, the training
 # leg's global batch (TRAIN_BATCH / DP_RANKS rows a rank).  Gate (a), one
@@ -388,9 +403,10 @@ TP_SERVE_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
 # kernel path at TP_SSM_LAYERS layers (zamba2: a group of 6 with its shared
 # block, and the one-layer remainder phase; xlstm: 7 mLSTM and its sLSTM),
 # serving held as TP_SERVE_ARCHS' is, plus xlstm's scoring loss; one fp32
-# training step of each at TRAIN_BATCH x TP_SSM_SEQ on the plain path (the
-# scans have no backward kernel: under grad the kernel path must raise
-# items 2.2 and 2.3), the loss at TP_SSM_LIMITS and every gathered gradient
+# training step of each at TRAIN_BATCH x TP_SSM_SEQ, zamba2's on the kernel
+# path (the SSD scan's backward kernel), xlstm's on the plain path (the mLSTM
+# scan has no backward kernel: under grad its kernel path must raise item
+# 2.3), the loss at TP_SSM_LIMITS and every gathered gradient
 # leaf at the larger of TP_SSM_LIMITS and SENS_RATIO times the leaf's own
 # sensitivity: how far one process's gradient moves when every weight moves
 # by one ulp (the larger of two random nudges, ``_nudged``), measured in the
@@ -480,6 +496,8 @@ META = {
                             "flash_attention.flash_attention_bwd"),
     "rmsnorm_bwd": ("triton", "src/repro_torch/kernels/_rmsnorm_triton.py",
                     "src/repro/models/steps.py:44", TRAIN_PATH, "rmsnorm.rmsnorm_bwd"),
+    "ssm_scan_bwd": ("cuda", "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+                     "src/repro/models/steps.py:44", SSM_TRAIN_PATH, "ssm_scan.ssm_scan_bwd"),
 }
 
 
@@ -852,6 +870,33 @@ def _ssm_case(b: int, s: int, h: int, p: int, n: int, chunk: int, gen):
         flops=5 * b * s * h * p * n, peak="bf16")
 
 
+def _ssm_bwd_case(b: int, s: int, h: int, p: int, n: int, chunk: int, gen):
+    """The scan's backward kernel on ``_ssm_case``'s inputs and a bf16 dy
+    (h_final's gradient None, as in training: the loss reads y alone),
+    against the twin's gradient (autograd of ``ops.ssd_chunked`` in fp32 at
+    the inputs' values).  No PyTorch call computes it.  The bound counts
+    the sequential recurrence's backward state work, ~10 P N flops per
+    token and head (the forward's 5 P N, twice: the state and its
+    gradient), at the bf16 tensor-core rate, and each input (x, dt, A, B,
+    C, dy) read once and each gradient written once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    x = (torch.randn(b, s, h, p, device="cuda", generator=gen) * 0.5).to(torch.bfloat16)
+    dt = F.softplus(torch.randn(b, s, h, device="cuda", generator=gen)).to(torch.bfloat16)
+    A = -torch.linspace(1.0, 16.0, h, device="cuda")
+    bm = (torch.randn(b, s, n, device="cuda", generator=gen) * 0.3).to(torch.bfloat16)
+    cm = (torch.randn(b, s, n, device="cuda", generator=gen) * 0.3).to(torch.bfloat16)
+    dy = torch.randn(b, s, h, p, device="cuda", generator=gen).to(torch.bfloat16)
+    return dict(
+        shape=f"x ({b},{s},{h},{p}) N {n} chunk {chunk} bf16, backward (dh_final None)",
+        kernel=lambda: ops.ssm_scan_bwd(x, dt, A, bm, cm, dy, use_kernel=True),
+        twin=lambda: ops.ssm_scan_bwd(x, dt, A, bm, cm, dy, chunk=chunk, use_kernel=False),
+        library=None,           # no single PyTorch call computes the scan's gradient
+        nbytes=2 * (3 * b * s * h * p + 2 * b * s * h + 4 * b * s * n) + 2 * 4 * h,
+        flops=10 * b * s * h * p * n, peak="bf16", floor=BWD_FLOOR)
+
+
 def _mlstm_case(b: int, s: int, h: int, d: int, chunk: int, gen):
     """xlstm's scan inputs (bf16 q/k/v, fp32 log gates, forget bias 3).  The
     bound counts the carried state's work, ~4 D^2 flops per token and head
@@ -1130,6 +1175,9 @@ def main() -> int:
                                                 dv=ds.v_head_dim), 5),
         ("flash_attention_bwd", _flash_bwd_case(1, 256, 8, 4, 320, gen, window=100,
                                                 dtype=torch.float32), 5),
+        # the scan's backward at a ragged S (1000: the last chunk 40 rows)
+        ("ssm_scan_bwd", _ssm_bwd_case(1, 1000, z.n_heads, zp, z.ssm_state, z.ssm_chunk, gen),
+         5),
         # whisper's decoder: its prompt's queries over the 1500 encoder rows
         # (non-causal cross-attention), and decode over its self-attention
         # cache (its path case below is decode over the encoder rows)
@@ -1215,6 +1263,11 @@ def main() -> int:
             "flash_attention_bwd": (_flash_bwd_case(TRAIN_BATCH, TRAIN_SEQ, g.n_heads,
                                                     g.n_kv_heads, g.head_dim, gen), 5),
             "rmsnorm_bwd": (_rmsnorm_bwd_case(TRAIN_BATCH * TRAIN_SEQ, g.d_model, gen), 20)},
+        SSM_TRAIN_PATH: {                         # zamba2's training shape, both ways
+            "ssm_scan": (_ssm_case(TRAIN_BATCH, TRAIN_SEQ, z.n_heads, zp, z.ssm_state,
+                                   z.ssm_chunk, gen), 10),
+            "ssm_scan_bwd": (_ssm_bwd_case(TRAIN_BATCH, TRAIN_SEQ, z.n_heads, zp, z.ssm_state,
+                                           z.ssm_chunk, gen), 5)},
         TP_PATH: {                                # a rank's heads: Hq / TP_RANKS, Hkv / TP_RANKS
             "flash_attention": (_flash_case(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ,
                                             g.n_heads // TP_RANKS, g.n_kv_heads // TP_RANKS,
@@ -1230,7 +1283,9 @@ def main() -> int:
             "ssm_scan": (_ssm_case(BATCH, PROMPT, z.n_heads // TP_RANKS, zp, z.ssm_state,
                                    z.ssm_chunk, gen), 20),
             "mlstm_scan": (_mlstm_case(BATCH, PROMPT, xl.n_heads // TP_RANKS, xhd, xl.ssm_chunk,
-                                       gen), 20)},
+                                       gen), 20),
+            "ssm_scan_bwd": (_ssm_bwd_case(TRAIN_BATCH, TRAIN_SEQ, z.n_heads // TP_RANKS, zp,
+                                           z.ssm_state, z.ssm_chunk, gen), 5)},
         TP_ENCDEC_PATH: {                         # a rank's heads: 4 of 8, the encoder's rows
             "flash_attention": (_flash_case(BATCH, wb.encoder_len, wb.encoder_len,
                                             wb.n_heads // TP_RANKS, wb.n_kv_heads // TP_RANKS,
@@ -1294,6 +1349,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- zamba2 training through the SSD scan's forward and backward kernels ----
+    report["ssm_train_leg"] = _ssm_train_leg(card)
+    mark("ssm train leg")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- data-parallel LM training: two ranks on the card ---------------------
     report["dp_train_leg"] = _dp_train_leg(card)
     mark("dp train leg")
@@ -1325,7 +1386,7 @@ def main() -> int:
     # -- phase 4: report -----------------------------------------------------
     totals = {n: sum(r["launches_run"][n] for r in report["paths"].values())
               + report["mnist_leg"]["launches"][n] + report["lm_train_leg"]["launches"][n]
-              + report["wide_train_leg"]["launches"][n]
+              + report["wide_train_leg"]["launches"][n] + report["ssm_train_leg"]["launches"][n]
               + report["dp_train_leg"]["launches"][n] + report["tp_train_leg"]["launches"][n]
               + report["tp_moe_train_leg"]["launches"][n] + report["tp_serve_leg"]["launches"][n]
               + report["tp_ssm_leg"]["launches"][n] + report["tp_encdec_leg"]["launches"][n]
@@ -1431,7 +1492,8 @@ def _hold_recorded(label: str, cfg, calls: dict) -> dict:
     out = {}
     for n, recs in calls.items():
         twin = getattr(ops, n)
-        extra = {"chunk": cfg.ssm_chunk} if n in ("ssm_scan", "mlstm_scan") else {}
+        scans = ("ssm_scan", "mlstm_scan", "ssm_scan_bwd")
+        extra = {"chunk": cfg.ssm_chunk} if n in scans else {}
         errs, shares = [], []
         for i, (args, kw, got) in enumerate(recs):
             want = twin(*args, **kw, **extra, use_kernel=False)
@@ -2604,19 +2666,50 @@ def _wide_train_leg(card: str) -> dict:
     """gemma3-4b (head dim 320, a 1024-key window on five layers of six) and
     deepseek-v2-lite-16b (MLA: qk 192, v zero-padded from 128) at full
     width, depth and batch cut as WIDE_ARCHS says, trained through the
-    flash kernels past head dim 128 (``use_kernels=True``):
+    flash kernels past head dim 128 (``use_kernels=True``), each gated by
+    ``_train_arch`` with the launch set TRAIN_KERNELS; steps/s, tokens/s
+    and peak memory."""
+    t_leg = time.perf_counter()
+    out: dict = {"archs": {}, "launches": {n: 0 for n in META}}
+    for arch, (layers, bsz, seq) in WIDE_ARCHS.items():
+        res = _train_arch(arch, layers, bsz, seq, WIDE_PATH, TRAIN_KERNELS, card)
+        out["archs"][arch] = res
+        for n in META:
+            out["launches"][n] += res["launches"][n]
+    out["leg_s"] = time.perf_counter() - t_leg
+    print(f"{WIDE_PATH}: the whole leg {out['leg_s']:.2f} s  [{card}]")
+    return out
+
+
+def _ssm_train_leg(card: str) -> dict:
+    """zamba2-1.2b at full width, cut as SSM_TRAIN says, trained through
+    the SSD scan's forward and backward kernels beside RMSNorm's and flash
+    attention's (its shared block), gated by ``_train_arch`` with the launch
+    set SSM_TRAIN_KERNELS."""
+    arch, layers, bsz, seq = SSM_TRAIN
+    t_leg = time.perf_counter()
+    res = _train_arch(arch, layers, bsz, seq, SSM_TRAIN_PATH, SSM_TRAIN_KERNELS, card)
+    out = {"archs": {arch: res}, "launches": res["launches"],
+           "leg_s": time.perf_counter() - t_leg}
+    print(f"{SSM_TRAIN_PATH}: the whole leg {out['leg_s']:.2f} s  [{card}]")
+    return out
+
+
+def _train_arch(arch: str, layers: int, bsz: int, seq: int, path: str, kernels: tuple,
+                card: str) -> dict:
+    """``arch`` at full width, ``layers`` layers, batch ``bsz`` x ``seq``,
+    trained through the kernels (``use_kernels=True``):
 
     - ``LMTrainJob.run`` (fp32 masters, bf16 compute) for WIDE_STEPS steps,
-      launch counts zeroed before and read after: RMSNorm and flash
-      attention forward and backward, no other; finite losses; the first
-      batch's loss taken again with the trained parameters below its loss
-      at the init;
+      launch counts zeroed before and read after: exactly ``kernels``;
+      finite losses; the first batch's loss taken again with the trained
+      parameters below its loss at the init;
     - every kernel call of one recorded ``steps.train_step``, forward and
       backward, held against its twin on the recorded inputs;
     - one step on fresh masters and one batch, kernel path against plain
       path: loss and global gradient norm in bf16, every gradient leaf in
-      fp32, at TRAIN_LIMITS; deepseek's plain runs replay the kernel run's
-      expert ids (``_routing``), the decisions they would have made
+      fp32, at TRAIN_LIMITS; the MoE archs' plain runs replay the kernel
+      run's expert ids (``_routing``), the decisions they would have made
       otherwise counted;
     - steps/s, tokens/s and peak memory."""
     import torch
@@ -2628,122 +2721,116 @@ def _wide_train_leg(card: str) -> dict:
     from repro_torch.optim import adamw
     from repro_torch.telemetry.events import EventLog
 
-    t_leg = time.perf_counter()
-    out: dict = {"archs": {}, "launches": {n: 0 for n in META}}
-    for arch, (layers, bsz, seq) in WIDE_ARCHS.items():
-        full = registry.get_config(arch)
-        cfg = full.replace(n_layers=layers, use_kernels=True)
-        label = f"{full.name} {WIDE_PATH}"
-        d = cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.use_mla else cfg.head_dim
-        print(f"{label}: full width (d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
-              f"{d}" + (f", v {cfg.v_head_dim} zero-padded" if cfg.use_mla else "")
-              + (f", window {cfg.sliding_window} on its local layers"
-                 if "local" in cfg.block_pattern else "")
-              + f"), depth cut from {full.n_layers} to {layers} layers; batch {bsz} x {seq}, "
-              f"{WIDE_STEPS} steps, bf16 compute on fp32 masters, use_kernels=True  [{card}]")
-        t_arch = time.perf_counter()
+    full = registry.get_config(arch)
+    cfg = full.replace(n_layers=layers, use_kernels=True)
+    label = f"{full.name} {path}" if path == WIDE_PATH else path
+    d = cfg.qk_nope_dim + cfg.qk_rope_dim if cfg.use_mla else cfg.head_dim
+    print(f"{label}: full width (d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{d}" + (f", v {cfg.v_head_dim} zero-padded" if cfg.use_mla else "")
+          + (f", window {cfg.sliding_window} on its local layers"
+             if "local" in cfg.block_pattern else "")
+          + (f", Mamba2 {cfg.n_heads} heads of {cfg.d_inner // cfg.n_heads}, state "
+             f"{cfg.ssm_state}, the shared block every {cfg.shared_attn_every}"
+             if cfg.family == "hybrid" else "")
+          + f"), depth cut from {full.n_layers} to {layers} layers; batch {bsz} x {seq}, "
+          f"{WIDE_STEPS} steps, bf16 compute on fp32 masters, use_kernels=True  [{card}]")
+    t_arch = time.perf_counter()
 
-        # -- the job ------------------------------------------------------------
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        native.reset_launches()
-        log = EventLog()
-        res = LMTrainJob(cfg, batch_size=bsz, seq_len=seq, n_steps=WIDE_STEPS, log=log,
-                         device="cuda").run()
-        torch.cuda.synchronize()
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        launches = dict(native.LAUNCHES)
-        _expect(label, launches, TRAIN_KERNELS)
-        history = res["history"]
-        if not all(math.isfinite(v) for v in history):
-            raise AssertionError(f"{label}: losses not finite: {history}")
-        first = {k: torch.as_tensor(v, device="cuda")
-                 for k, v in next(lm_batches(cfg, bsz, seq)).items()}
-        with torch.no_grad():
-            again = float(steps.loss_fn(res["params"], cfg, first)[0])
-        if not again < history[0]:
-            raise AssertionError(f"{label}: the first batch's loss with the trained parameters, "
-                                 f"{again}, is not below its loss at the init, {history[0]}")
-        n_params = sum(t.numel() for t in _leaves(res["params"]))
-        train_s = log.totals()["tfjob:train"]
-        tokens = WIDE_STEPS * bsz * seq
-        for n in META:
-            out["launches"][n] += launches[n]
-        del res, first
+    # -- the job ----------------------------------------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    log = EventLog()
+    res = LMTrainJob(cfg, batch_size=bsz, seq_len=seq, n_steps=WIDE_STEPS, log=log,
+                     device="cuda").run()
+    torch.cuda.synchronize()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(native.LAUNCHES)
+    _expect(label, launches, kernels)
+    history = res["history"]
+    if not all(math.isfinite(v) for v in history):
+        raise AssertionError(f"{label}: losses not finite: {history}")
+    first = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(lm_batches(cfg, bsz, seq)).items()}
+    with torch.no_grad():
+        again = float(steps.loss_fn(res["params"], cfg, first)[0])
+    if not again < history[0]:
+        raise AssertionError(f"{label}: the first batch's loss with the trained parameters, "
+                             f"{again}, is not below its loss at the init, {history[0]}")
+    n_params = sum(t.numel() for t in _leaves(res["params"]))
+    train_s = log.totals()["tfjob:train"]
+    tokens = WIDE_STEPS * bsz * seq
+    del res, first
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{label}: {WIDE_STEPS} steps in {train_s:.3f} s ({WIDE_STEPS / train_s:.3f} "
+          f"steps/s, {tokens / train_s:.0f} tokens/s), {n_params / 1e9:.4f} B parameters, "
+          f"peak {peak_gib:.2f} GiB; losses {[round(v, 4) for v in history]}, the first "
+          f"batch again {again:.4f}; launches {launches}  [{card}]")
+
+    # -- one recorded step: every kernel call against its twin ------------------
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(lm_batches(cfg, bsz, seq, seed=3)).items()}
+    params = lm.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    opt = adamw.init_opt_state(params)
+    with _recording(kernels) as calls:
+        steps.train_step(params, opt, batch, cfg=cfg)
+    recorded = _hold_recorded(label, cfg, calls)
+    del calls, opt, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- one step, kernel path against plain path, bf16 then fp32 ---------------
+    def grads(p, c, replay=None):
+        leaves = adamw.tree_map(lambda t: t.detach().requires_grad_(), p)
+        with _routing(replay) as ids:
+            loss, _ = steps.loss_fn(leaves, c, batch)
+            g = torch.autograd.grad(loss, adamw.tree_leaves(leaves))
+        return loss.detach(), g, ids
+
+    rel, flips = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        c = cfg.replace(dtype=dtype)
+        params = lm.init_params(c, seed=0, device="cuda", dtype=torch.float32)
+        names = [k for k, _ in _named(params)]
+        loss_k, g_k, ids = grads(params, c)
+        loss_p, g_p, own = grads(params, c.replace(use_kernels=False), replay=ids)
+        flips[dtype] = _flips(own, ids)
+        if dtype == "bfloat16":
+            norm_k = adamw.global_norm(dict(zip(names, g_k)))
+            norm_p = adamw.global_norm(dict(zip(names, g_p)))
+            rel["bf16"] = {
+                "loss": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+                "grad_norm": abs(float(norm_k) - float(norm_p)) / float(norm_p),
+                "leaves": {n: _rel(a, b) for n, a, b in zip(names, g_k, g_p)}}
+        else:
+            rel["fp32"] = {n: _rel(a, b) for n, a, b in zip(names, g_k, g_p)}
+        del params, g_k, g_p, ids, own
         gc.collect()
         torch.cuda.empty_cache()
-        print(f"{label}: {WIDE_STEPS} steps in {train_s:.3f} s ({WIDE_STEPS / train_s:.3f} "
-              f"steps/s, {tokens / train_s:.0f} tokens/s), {n_params / 1e9:.4f} B parameters, "
-              f"peak {peak_gib:.2f} GiB; losses {[round(v, 4) for v in history]}, the first "
-              f"batch again {again:.4f}; launches {launches}  [{card}]")
-
-        # -- one recorded step: every kernel call against its twin --------------
-        batch = {k: torch.as_tensor(v, device="cuda")
-                 for k, v in next(lm_batches(cfg, bsz, seq, seed=3)).items()}
-        params = lm.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
-        opt = adamw.init_opt_state(params)
-        with _recording(TRAIN_KERNELS) as calls:
-            steps.train_step(params, opt, batch, cfg=cfg)
-        recorded = _hold_recorded(label, cfg, calls)
-        del calls, opt, params
-        gc.collect()
-        torch.cuda.empty_cache()
-
-        # -- one step, kernel path against plain path, bf16 then fp32 -----------
-        def grads(p, c, replay=None):
-            leaves = adamw.tree_map(lambda t: t.detach().requires_grad_(), p)
-            with _routing(replay) as ids:
-                loss, _ = steps.loss_fn(leaves, c, batch)
-                g = torch.autograd.grad(loss, adamw.tree_leaves(leaves))
-            return loss.detach(), g, ids
-
-        rel, flips = {}, {}
-        for dtype in ("bfloat16", "float32"):
-            c = cfg.replace(dtype=dtype)
-            params = lm.init_params(c, seed=0, device="cuda", dtype=torch.float32)
-            names = [k for k, _ in _named(params)]
-            loss_k, g_k, ids = grads(params, c)
-            loss_p, g_p, own = grads(params, c.replace(use_kernels=False), replay=ids)
-            flips[dtype] = _flips(own, ids)
-            if dtype == "bfloat16":
-                norm_k = adamw.global_norm(dict(zip(names, g_k)))
-                norm_p = adamw.global_norm(dict(zip(names, g_p)))
-                rel["bf16"] = {
-                    "loss": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
-                    "grad_norm": abs(float(norm_k) - float(norm_p)) / float(norm_p),
-                    "leaves": {n: _rel(a, b) for n, a, b in zip(names, g_k, g_p)}}
-            else:
-                rel["fp32"] = {n: _rel(a, b) for n, a, b in zip(names, g_k, g_p)}
-            del params, g_k, g_p, ids, own
-            gc.collect()
-            torch.cuda.empty_cache()
-        bf16, fp32 = rel["bf16"], rel["fp32"]
-        over = [f"bf16 {k} {bf16[k]} (limit {TRAIN_LIMITS['bf16_' + k]})"
-                for k in ("loss", "grad_norm") if bf16[k] > TRAIN_LIMITS["bf16_" + k]]
-        over += [f"fp32 {n} {r} (limit {TRAIN_LIMITS['fp32_grad_leaf']})" for n, r in fp32.items()
-                 if r > TRAIN_LIMITS["fp32_grad_leaf"]]
-        worst_bf16 = max(bf16["leaves"], key=bf16["leaves"].get)
-        worst_fp32 = max(fp32, key=fp32.get)
-        print(f"{label}, one step, kernel path vs plain path: bf16 loss rel {bf16['loss']:.4g} "
-              f"(limit {TRAIN_LIMITS['bf16_loss']}), global gradient norm rel "
-              f"{bf16['grad_norm']:.4g} (limit {TRAIN_LIMITS['bf16_grad_norm']}), per-leaf "
-              f"gradient rel up to {bf16['leaves'][worst_bf16]:.4g} ({worst_bf16}, reported); "
-              f"fp32 at {layers} layers: per-leaf gradient rel up to {fp32[worst_fp32]:.4g} "
-              f"({worst_fp32}; limit {TRAIN_LIMITS['fp32_grad_leaf']}); routing decisions the "
-              f"plain runs would have made otherwise (replayed): {flips}  [{card}]")
-        if over:
-            raise AssertionError(f"{label}: kernel vs plain over the limits: " + "; ".join(over))
-        arch_s = time.perf_counter() - t_arch
-        print(f"{label}: {arch_s:.2f} s  [{card}]")
-        out["archs"][arch] = {
-            "layers": layers, "batch": bsz, "seq": seq, "head_dim": d, "params": n_params,
+    bf16, fp32 = rel["bf16"], rel["fp32"]
+    over = [f"bf16 {k} {bf16[k]} (limit {TRAIN_LIMITS['bf16_' + k]})"
+            for k in ("loss", "grad_norm") if bf16[k] > TRAIN_LIMITS["bf16_" + k]]
+    over += [f"fp32 {n} {r} (limit {TRAIN_LIMITS['fp32_grad_leaf']})" for n, r in fp32.items()
+             if r > TRAIN_LIMITS["fp32_grad_leaf"]]
+    worst_bf16 = max(bf16["leaves"], key=bf16["leaves"].get)
+    worst_fp32 = max(fp32, key=fp32.get)
+    print(f"{label}, one step, kernel path vs plain path: bf16 loss rel {bf16['loss']:.4g} "
+          f"(limit {TRAIN_LIMITS['bf16_loss']}), global gradient norm rel "
+          f"{bf16['grad_norm']:.4g} (limit {TRAIN_LIMITS['bf16_grad_norm']}), per-leaf "
+          f"gradient rel up to {bf16['leaves'][worst_bf16]:.4g} ({worst_bf16}, reported); "
+          f"fp32 at {layers} layers: per-leaf gradient rel up to {fp32[worst_fp32]:.4g} "
+          f"({worst_fp32}; limit {TRAIN_LIMITS['fp32_grad_leaf']}); routing decisions the "
+          f"plain runs would have made otherwise (replayed): {flips}  [{card}]")
+    if over:
+        raise AssertionError(f"{label}: kernel vs plain over the limits: " + "; ".join(over))
+    arch_s = time.perf_counter() - t_arch
+    print(f"{label}: {arch_s:.2f} s  [{card}]")
+    return {"layers": layers, "batch": bsz, "seq": seq, "head_dim": d, "params": n_params,
             "steps": WIDE_STEPS, "train_s": train_s, "steps_per_s": WIDE_STEPS / train_s,
             "tokens_per_s": tokens / train_s, "peak_gib": peak_gib, "history": history,
             "first_again": again, "recorded": recorded, "bf16_kernel_vs_plain": bf16,
             "fp32_kernel_vs_plain": fp32, "flips": flips, "launches": launches, "s": arch_s}
-    out["leg_s"] = time.perf_counter() - t_leg
-    print(f"{WIDE_PATH}: the whole leg {out['leg_s']:.2f} s  [{card}]")
-    return out
 
 
 def _dp_train_leg(card: str) -> dict:
@@ -3785,10 +3872,11 @@ def _tp_ssm_leg(card: str) -> dict:
     at TP_SSM_LAYERS layers, every rank's prefill logits and GEN greedy
     decode steps' logits against one process on rank 0 within
     TP_SERVE_REL, the tokens equal, and xlstm's scoring loss
-    (``steps.loss_fn``); under grad the kernel path raises items 2.2 and
-    2.3, and one fp32 training step on the plain path holds the loss at
-    TP_SSM_LIMITS and every gathered gradient leaf at the larger of
-    TP_SSM_LIMITS and SENS_RATIO times its one-ulp sensitivity
+    (``steps.loss_fn``); one fp32 training step, zamba2's on the kernel
+    path (the scan's kernels launched both ways on every rank) and xlstm's
+    on the plain path after its kernel path under grad raised item 2.3,
+    holds the loss at TP_SSM_LIMITS and every gathered gradient leaf at the
+    larger of TP_SSM_LIMITS and SENS_RATIO times its one-ulp sensitivity
     (``_tp_sens_parity``); (b) bf16 at full depth:
     zamba2's serving launches exactly TP_SSM_SERVE_KERNELS on each rank,
     every ``ssm_scan`` call at H / TP_RANKS heads, a rank's cache bytes
@@ -3835,7 +3923,7 @@ def _tp_ssm_leg(card: str) -> dict:
     leg_s = time.perf_counter() - t0
 
     res = {}
-    for arch, cfg, item in (("zamba2_1_2b", z, "2.2"), ("xlstm_1_3b", xl, "2.3")):
+    for arch, cfg, item in (("zamba2_1_2b", z, None), ("xlstm_1_3b", xl, "2.3")):
         one = ranks[0][arch]["one"]
         # (a) fp32 serving (and xlstm's scoring) on the kernel path
         a = {}
@@ -3854,20 +3942,30 @@ def _tp_ssm_leg(card: str) -> dict:
             if max(rel.values()) > TP_SERVE_REL or not a[r["rank"]]["tokens_equal"]:
                 raise AssertionError(f"{label} {arch} (a): rank {r['rank']} vs one process: "
                                      f"{a[r['rank']]} (limit {TP_SERVE_REL})")
-            if f"ROADMAP.md queue 2 item {item}" not in (r[arch]["kernel_raise"] or ""):
+            if item is None:
+                got = r[arch]["train_launches"]
+                if r[arch]["kernel_raise"] is not None or not (got["ssm_scan"]
+                                                               and got["ssm_scan_bwd"]):
+                    raise AssertionError(f"{label} {arch}: rank {r['rank']}'s training step did "
+                                         f"not run the scan's kernels both ways: launches "
+                                         f"{got}, raised {r[arch]['kernel_raise']!r}")
+            elif f"ROADMAP.md queue 2 item {item}" not in (r[arch]["kernel_raise"] or ""):
                 raise AssertionError(f"{label} {arch}: rank {r['rank']}'s kernel path under grad "
                                      f"did not raise item {item}: {r[arch]['kernel_raise']!r}")
         train = ranks[0][arch]["train"]
+        path = "the plain path" if item else "the kernel path"
         worst = max(train["leaves"], key=train["leaves"].get)
         ratio = max(train["leaves"], key=lambda n: train["leaves"][n] / train["limits"][n])
-        print(f"{label} {arch} (a), one fp32 training step at {TRAIN_BATCH} x {TP_SSM_SEQ} on the "
-              f"plain path, {TP_RANKS} ranks vs one process: loss rel {train['loss']:.4g} (limit "
+        print(f"{label} {arch} (a), one fp32 training step at {TRAIN_BATCH} x {TP_SSM_SEQ} on "
+              f"{path}, {TP_RANKS} ranks vs one process: loss rel {train['loss']:.4g} (limit "
               f"{TP_SSM_LIMITS['fp32_loss']}), gathered gradient leaf rel up to "
               f"{train['leaves'][worst]:.4g} ({worst}: its limit {train['limits'][worst]:.4g}; "
               f"the one process's one-ulp sensitivity up to {max(train['sens'].values()):.4g}); "
               f"nearest its limit {ratio}, {train['leaves'][ratio]:.4g} of "
               f"{train['limits'][ratio]:.4g}; {len(train['floored'])} leaves held at the floor; "
-              f"the kernel path under grad raised: {ranks[0][arch]['kernel_raise']}  [{card}]")
+              + (f"the kernel path under grad raised: {ranks[0][arch]['kernel_raise']}" if item
+                 else f"launches of rank 0's step: {ranks[0][arch]['train_launches']}")
+              + f"  [{card}]")
         over = ([f"loss {train['loss']}"] if train["loss"] > TP_SSM_LIMITS["fp32_loss"] else []) \
             + [f"{n} {v} (limit {train['limits'][n]})" for n, v in train["leaves"].items()
                if v > train["limits"][n]]
@@ -4053,19 +4151,26 @@ def _tp_ssm_rank(rank: int) -> dict:
                 one = _tp_serve_run(params, cfg32, prompts, cache_len)
                 if arch == "xlstm_1_3b":
                     one["score"] = float(steps.loss_fn(params, cfg32, scoring)[0])
-        # the kernel path under grad raises; one training step on the plain path
-        batch = {k: torch.as_tensor(v, device="cuda")
-                 for k, v in next(lm_batches(cfg32, TRAIN_BATCH, TP_SSM_SEQ, seed=3)).items()}
-        with msh.use_mesh(mesh):
-            try:
-                steps.dp_grads(local, batch, cfg=cfg32)
-                res["kernel_raise"] = None
-            except RuntimeError as e:
-                res["kernel_raise"] = str(e)
-        del local, batch
+        # one training step: zamba2's on the kernel path (the SSD scan's
+        # backward kernel); xlstm's kernel path under grad raises item 2.3, so
+        # its step runs on the plain path
+        res["kernel_raise"], train_cfg = None, cfg32
+        if arch == "xlstm_1_3b":
+            batch = {k: torch.as_tensor(v, device="cuda")
+                     for k, v in next(lm_batches(cfg32, TRAIN_BATCH, TP_SSM_SEQ,
+                                                 seed=3)).items()}
+            with msh.use_mesh(mesh):
+                try:
+                    steps.dp_grads(local, batch, cfg=cfg32)
+                except RuntimeError as e:
+                    res["kernel_raise"] = str(e)
+            del batch
+            train_cfg = cfg32.replace(use_kernels=False)
+        del local
         settle()
-        res["train"] = _tp_sens_parity(rank, mesh, cfg32.replace(use_kernels=False), params,
-                                       TP_SSM_SEQ, TP_SSM_LIMITS)
+        native.reset_launches()
+        res["train"] = _tp_sens_parity(rank, mesh, train_cfg, params, TP_SSM_SEQ, TP_SSM_LIMITS)
+        res["train_launches"] = dict(native.LAUNCHES)
         del params
         settle()
 

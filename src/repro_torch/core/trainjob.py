@@ -22,9 +22,10 @@ Two flavours, as in the reference:
     ``sharding.TP_FAMILIES`` does not list refuses a mesh that would shard
     one of its parameters, naming ROADMAP.md queue 1 item 1.13.
     Every attention trains through the flash kernels both ways, at every
-    head dim (gemma3's 320 and deepseek's MLA 192 too); zamba2 and xlstm
-    train on the card only with ``use_kernels=False``: their scans have
-    no backward kernel yet (items 2.2 and 2.3).
+    head dim (gemma3's 320 and deepseek's MLA 192 too), and zamba2's
+    Mamba2 scan through ``ssm_scan`` and its backward kernel; xlstm
+    trains on the card only with ``use_kernels=False``: its mLSTM scan has
+    no backward kernel yet (item 2.3).
 Both log through the EventLog, checkpoint into the ArtifactStore (PVC
 analog), and time their stages for the Tables 4/5 repro.
 """

@@ -7,12 +7,14 @@ the tensor lies on the CPU (where no kernel exists); otherwise the call goes
 to the kernel's wrapper and nothing else, which launches the kernel or
 raises.  No path catches a build or launch error.
 
-The attention and norm twins live in ``ref``.  ``flash_attention`` and
-``rmsnorm`` are differentiable on both sides: the twins by autograd, the
-kernels through their ``autograd.Function`` and backward kernels, which
-``flash_attention_bwd`` and ``rmsnorm_bwd`` below also expose (the
-twins: ``ref.flash_attention_bwd_ref``, ``ref.rmsnorm_bwd_ref``).  The
-other kernels raise under grad.  ``flash_chunked`` is the reference's
+The attention and norm twins live in ``ref``.  ``flash_attention``,
+``rmsnorm`` and ``ssm_scan`` are differentiable on both sides: the twins
+by autograd, the kernels through their ``autograd.Function`` and backward
+kernels, which ``flash_attention_bwd``, ``rmsnorm_bwd`` and
+``ssm_scan_bwd`` below also expose (the twins:
+``ref.flash_attention_bwd_ref``, ``ref.rmsnorm_bwd_ref``,
+``ref.ssm_scan_bwd_ref``).  Decode attention and ``mlstm_scan`` raise
+under grad.  ``flash_chunked`` is the reference's
 "fused attention" twin (``ops.flash_chunked_jnp``): plain code that the
 plain path runs when ``chunked`` is asked for (``cfg.fused_attention``), so
 that a long prefill counted on the plain path (``launch/count.py``) never
@@ -34,6 +36,7 @@ from .mlstm_scan import mlstm_scan as _mlstm_kernel
 from .rmsnorm import rmsnorm as _rmsnorm_kernel
 from .rmsnorm import rmsnorm_bwd as _rmsnorm_bwd_kernel
 from .ssm_scan import ssm_scan as _ssm_kernel
+from .ssm_scan import ssm_scan_bwd as _ssm_bwd_kernel
 
 NEG_INF = ref.NEG_INF
 
@@ -139,6 +142,17 @@ def ssm_scan(x, dt, A, Bm, Cm, *, chunk: int = 256, use_kernel: bool = False):
     if _plain(use_kernel, x):
         return ssd_chunked(x, dt, A, Bm, Cm, chunk=chunk)
     return _ssm_kernel(x, dt, A, Bm, Cm)
+
+
+def ssm_scan_bwd(x, dt, A, Bm, Cm, dy, dh_final=None, *, chunk: int = 256,
+                 use_kernel: bool = False):
+    """(dx, ddt, dA, dB, dC) of ``ssm_scan`` for the output gradients ``dy``
+    and ``dh_final`` (None: zero).  ``chunk`` is the twin's chunk length
+    (autograd of ``ssd_chunked`` in fp32); the kernel's result does not
+    depend on it."""
+    if _plain(use_kernel, x):
+        return ref.ssm_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dh_final, chunk=chunk)
+    return _ssm_bwd_kernel(x, dt, A, Bm, Cm, dy, dh_final)
 
 
 def _pad_seq(t: torch.Tensor, pad: int, value: float = 0.0) -> torch.Tensor:

@@ -255,6 +255,112 @@ def ssm_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.T
     return y.to(x.dtype), hs
 
 
+def ssm_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+                     Cm: torch.Tensor, dy: torch.Tensor, dh_final: torch.Tensor | None = None,
+                     *, chunk: int = 256):
+    """(dx, ddt, dA, dB, dC): autograd of the chunked twin ``ops.ssd_chunked``
+    at the fp32 values of the inputs, for the output gradient ``dy`` and
+    the final state's ``dh_final`` (None: zero) -- the gradient the
+    backward kernel computes.  Each in its input's dtype."""
+    from .ops import ssd_chunked
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+        y, h_final = ssd_chunked(*leaves, chunk=chunk)
+        outs, grads = [y], [dy.float()]
+        if dh_final is not None:
+            outs.append(h_final)
+            grads.append(dh_final.float())
+        got = torch.autograd.grad(outs, leaves, grads)
+    return tuple(g.to(t.dtype) for g, t in zip(got, (x, dt, A, Bm, Cm)))
+
+
+def ssm_scan_bwd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                             Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
+                             dh_final: torch.Tensor | None = None, *, chunk: int = 64):
+    """``ssm_scan_bwd_ref`` computed pass by pass as the backward kernel
+    computes it, no autograd, fp32 (for the tests: no path calls it).
+
+    Per (row, chunk, head), cum = cumsum(A dt) in the chunk, L[t,s] =
+    exp(cum_t - cum_s) (s <= t, the exponent masked before exp), h_in the
+    chunk's incoming state and dh_out its outgoing state's gradient:
+      1. every chunk's own state S_c = sum_s w_s x_s outer B_s, w_s = dt_s
+         exp(cum_T - cum_s) (the forward's rerun), and its local state
+         gradient D_c = sum_t exp(cum_t) dy_t outer C_t;
+      2. the carries: h_in forward, h_c = exp(cum_T) h_{c-1} + S_c, and
+         dh_out in reverse from dh_final, dh_{c-1} = exp(cum_T) dh_c + D_c;
+      3. per chunk, with G = C B^T, dG = dy x^T (over P, per head) and
+         M = dG o L o dt (s <= t):
+         U = (G o L)^T dy + exp(cum_T - cum) B dh_out^T, dx = dt U,
+         ddt (direct) = rowsum(x o U);
+         dC = M B + exp(cum) dy h_in, dB = M^T C + w x dh_out (per head);
+         dcum_t = rowsum(G o M)_t - colsum(G o M)_t + R_t, R_t = exp(cum_t)
+         dy_t . (C_t h_in^T); da = the reverse cumsum of dcum in the chunk,
+         plus sum_{s<r} V_s, V_s = w_s x_s . (dh_out B_s) (w's exponent
+         cum_T - cum_s, without the cancelling pair at s = T), plus
+         exp(cum_T) <dh_out, h_in> (the decay, through cum_T) on every row;
+         ddt = ddt (direct) + A da, dA = sum dt da;
+      4. dB, dC summed over the heads, dA over rows and positions.
+    Rows past S are identity steps (dt = 0, x = B = C = dy = 0)."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    f = [_pad_chunks(a.float(), chunk) for a in (x, dt, Bm, Cm, dy)]
+    nc = f[0].shape[1] // chunk
+    xf, dyf = (a.reshape(b, nc, chunk, h, p) for a in (f[0], f[4]))
+    dtf = f[1].reshape(b, nc, chunk, h)
+    bf, cf = (a.reshape(b, nc, chunk, n) for a in (f[2], f[3]))
+    af = A.float()
+    cum = torch.cumsum(af * dtf, dim=2)                                   # (B,nc,T,H)
+    last = cum[:, :, -1]                                                  # (B,nc,H)
+    ef = torch.exp(last[:, :, None] - cum)                                # exp(cum_T - cum_s)
+    ecum = torch.exp(cum)
+    w = dtf * ef
+    # pass 1: every chunk's own state and local state gradient
+    own = torch.einsum("bcthp,bcth,bctn->bchpn", xf, w, bf)
+    local = torch.einsum("bcthp,bcth,bctn->bchpn", dyf, ecum, cf)
+    # pass 2: the carries, forward (h_in) and in reverse (dh_out)
+    h_in, dh_out = torch.empty_like(own), torch.empty_like(local)
+    hc = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    for c in range(nc):
+        h_in[:, c] = hc
+        hc = hc * torch.exp(last[:, c])[..., None, None] + own[:, c]
+    dh = (torch.zeros_like(hc) if dh_final is None else dh_final.float())
+    for c in reversed(range(nc)):
+        dh_out[:, c] = dh
+        dh = dh * torch.exp(last[:, c])[..., None, None] + local[:, c]
+    # pass 3: per chunk and head
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    L = torch.exp(torch.where(tri[None, None, :, :, None],
+                              cum[:, :, :, None] - cum[:, :, None], NEG_INF))  # (B,nc,t,s,H)
+    G = torch.einsum("bctn,bcsn->bcts", cf, bf)[..., None]                # (B,nc,t,s,1)
+    dG = torch.einsum("bcthp,bcshp->bctsh", dyf, xf)
+    M = dG * L * dtf[:, :, None]
+    U = torch.einsum("bctsh,bcthp->bcshp", G * L, dyf) \
+        + ef[..., None] * torch.einsum("bcsn,bchpn->bcshp", bf, dh_out)
+    dx = dtf[..., None] * U
+    ddt = (xf * U).sum(-1)
+    Z = torch.einsum("bcshp,bchpn->bcshn", xf, dh_out)
+    W = torch.einsum("bcthp,bchpn->bcthn", dyf, h_in)
+    dC = torch.einsum("bctsh,bcsn->bcthn", M, bf) + ecum[..., None] * W
+    dB = torch.einsum("bctsh,bctn->bcshn", M, cf) + w[..., None] * Z
+    Q = G * M
+    R = ecum * torch.einsum("bcthn,bctn->bcth", W, cf)
+    V = w * torch.einsum("bcshn,bcsn->bcsh", Z, bf)
+    dcum = Q.sum(3) - Q.sum(2) + R
+    da = torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])
+    # the weights w_s enter cum_T and -cum_s: da_r takes V_s for s < r (an
+    # exclusive prefix sum, so V_T never cancels against itself), and the
+    # decay of h_in enters cum_T, which every row of the chunk moves
+    before = torch.nn.functional.pad(torch.cumsum(V, dim=2)[:, :, :-1], (0, 0, 1, 0))
+    da = da + before + (torch.exp(last) * (dh_out * h_in).sum((-2, -1)))[:, :, None]
+    ddt = ddt + af * da
+    dA = (dtf * da).sum((0, 1, 2))
+    # pass 4: the sums over heads, cut to S
+    dB, dC = dB.sum(3), dC.sum(3)
+    cut = [t.reshape(b, nc * chunk, *t.shape[3:])[:, :s] for t in (dx, ddt, dB, dC)]
+    return (cut[0].to(x.dtype), cut[1].to(dt.dtype), dA.to(A.dtype), cut[2].to(Bm.dtype),
+            cut[3].to(Cm.dtype))
+
+
 def mlstm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    i_gate: torch.Tensor, f_gate: torch.Tensor) -> torch.Tensor:
     """Sequential stabilised mLSTM oracle (xLSTM matrix memory).

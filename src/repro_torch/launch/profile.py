@@ -9,6 +9,7 @@ forward, or a continuous batcher's prefill chunk and step.
     PYTHONPATH=src python -m repro_torch.launch.profile --arch deepseek_v2_lite_16b
     PYTHONPATH=src python -m repro_torch.launch.profile --arch whisper_base
     PYTHONPATH=src python -m repro_torch.launch.profile --arch qwen2_vl_7b --prompt 384
+    PYTHONPATH=src python -m repro_torch.launch.profile --arch zamba2_1_2b --train --prompt 1024
 
 Builds the model with random weights on the card (``use_kernels=True``),
 warms it up, then, at batch 4 x prompt 128 (``--prompt``), traces one
@@ -20,7 +21,9 @@ with ``torch.profiler`` (CPU and CUDA activity).  With
 cache) instead; with ``--batcher``, for a ``ContinuousBatcher`` of 4
 slots over 4608 cache rows, one 256-row ``lm.prefill_chunk`` on a one-row
 cache at positions 4352-4607 (the last chunk the cache takes; a 4096-row
-ring has wrapped) and one engine step with all four slots decoding.  For
+ring has wrapped) and one engine step with all four slots decoding; with
+``--train``, one ``steps.train_step`` (bf16 compute on fp32 masters,
+AdamW) on a batch of 4 x ``--prompt`` tokens.  For
 each it prints the host wall time, the device busy time (union of kernel
 intervals), the device's idle share of the span between its first and
 last kernel, and device time by kernel group (the port's kernels, matrix
@@ -42,8 +45,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ..configs import registry
+from ..data.tokens import lm_batches
 from ..models import lm, steps
 from ..models.modules import require_device
+from ..optim import adamw
 from ..serving.continuous import ContinuousBatcher
 
 BATCH, PROMPT = 4, 128          # chip_smoke.py's serving shape
@@ -54,6 +59,7 @@ GROUPS = (("flash_attention", ("flash_fwd",)), ("decode_attention", ("decode_fwd
           ("flash_attention_bwd", ("flash_bwd",)),
           ("rmsnorm_bwd", ("_rmsnorm_bwd_kernel", "_rmsnorm_dscale_kernel")),
           ("rmsnorm", ("_rmsnorm_kernel",)),
+          ("ssm_scan_bwd", ("bwd_states", "bwd_carry", "bwd_chunk", "bwd_reduce", "bwd_dA")),
           ("ssm_scan", ("ssd_scan", "ssd_states", "ssd_carry", "ssd_output", "ssd_fused")),
           ("mlstm_scan", ("mlstm_scan_kernel", "mlstm_gates", "mlstm_scores", "mlstm_walk")),
           ("matmul", ("gemm", "gemv", "cutlass", "sm90_xmma", "cublas", "nvjet")),
@@ -127,6 +133,8 @@ def main(argv=None):
                     help="trace the scoring forward instead of prefill and decode")
     ap.add_argument("--batcher", action="store_true",
                     help="trace a continuous batcher's prefill chunk and step instead")
+    ap.add_argument("--train", action="store_true",
+                    help="trace one training step instead")
     ap.add_argument("--prompt", type=int, default=PROMPT)
     ap.add_argument("--out", default="chiprun_out/profile")
     args = ap.parse_args(argv)
@@ -134,6 +142,13 @@ def main(argv=None):
     dev = require_device("cuda")
     cfg = (registry.get_smoke_config if args.smoke else registry.get_config)(args.arch)
     cfg = cfg.replace(use_kernels=True)
+    if args.train:
+        params = lm.init_params(cfg, seed=0, device=dev, dtype=torch.float32)
+        opt = adamw.init_opt_state(params)
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in next(lm_batches(cfg, BATCH, args.prompt, seed=3)).items()}
+        return _report(cfg, args, {"train_step": lambda: steps.train_step(params, opt, batch,
+                                                                          cfg=cfg)})
     params = lm.init_params(cfg, seed=0, device=dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (BATCH, args.prompt), device=dev,
@@ -168,17 +183,21 @@ def main(argv=None):
                 "batcher_step": cb.step}
 
     with torch.inference_mode():
-        runs = {"forward": run_score} if args.score else batcher_runs() if args.batcher \
-            else {"prefill": run_prefill, "decode_step": run_decode}
-        for _ in range(2):                      # warm-up: kernel builds, allocator
-            for fn in runs.values():
-                fn()
-        out = Path(args.out)
-        res = {"arch": cfg.name, "batch": BATCH, "prompt": args.prompt,
-               "device": torch.cuda.get_device_name(dev),
-               **{label: trace(fn, out, label) for label, fn in runs.items()}}
-        for label, fn in runs.items():
-            res[label]["untraced"] = host_times(fn, UNTRACED)
+        _report(cfg, args, {"forward": run_score} if args.score else batcher_runs()
+                if args.batcher else {"prefill": run_prefill, "decode_step": run_decode})
+
+
+def _report(cfg, args, runs: dict) -> None:
+    """Warm each run up, trace it, time it untraced; print the summary."""
+    for _ in range(2):                          # warm-up: kernel builds, allocator
+        for fn in runs.values():
+            fn()
+    out = Path(args.out)
+    res = {"arch": cfg.name, "batch": BATCH, "prompt": args.prompt,
+           "device": torch.cuda.get_device_name(),
+           **{label: trace(fn, out, label) for label, fn in runs.items()}}
+    for label, fn in runs.items():
+        res[label]["untraced"] = host_times(fn, UNTRACED)
     print(json.dumps(res, indent=1))
 
 

@@ -8,10 +8,11 @@ no JAX, so it also runs where only PyTorch is installed:
 The shapes are those of tests/test_kernels.py, which test_torch_kernels.py
 also uses to hold the twins to the JAX reference; the tolerances are the
 reference's (tests/test_kernels.py:17-19): 3e-4 in fp32, 2e-2 in bf16.
-The backward kernels (flash attention, RMSNorm) are held to autograd of
-their twins at the same tolerances, and a smoke model's gradients through
-the kernels to its plain path's; the kernels without a backward must
-raise under grad.
+The backward kernels (flash attention, RMSNorm, the SSD scan) are held to
+autograd of their twins at the same tolerances (the scan's fp32 gradients
+within 3e-4 of each one's largest value), and a smoke model's gradients
+through the kernels to its plain path's; the kernels without a backward
+must raise under grad.
 """
 import ctypes
 
@@ -483,7 +484,7 @@ def test_wrappers_count_launches_and_reject_wide_heads(cuda):
     ops.rmsnorm(q, torch.zeros(64, device=cuda, dtype=torch.bfloat16), use_kernel=True)
     assert native.LAUNCHES == {"rmsnorm": 1, "flash_attention": 1, "decode_attention": 1,
                                "ssm_scan": 0, "mlstm_scan": 0, "flash_attention_bwd": 0,
-                               "rmsnorm_bwd": 0}
+                               "rmsnorm_bwd": 0, "ssm_scan_bwd": 0}
     wide = torch.randn(1, 8, 2, 336, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim 336"):
         ops.flash_attention(wide, wide, wide, use_kernel=True)
@@ -1011,12 +1012,169 @@ def test_smoke_model_gradients_kernel_path_match_plain_path_on_gpu(cuda, arch, w
         "rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd"}
 
 
+# (b, s, h, p, n, extreme) for the scan's backward kernel: a ragged S with
+# H 3, P 8, N 16; P 64 and N 64 across chunks; one head; S below a chunk at
+# N 64; extreme decay (A = -16, dt ~ 5: every decay underflows); a P no
+# 16-byte vector divides with N 12 (plain loads); zamba2's widths (P 128,
+# N 64) across chunks; a tensor-parallel rank's 16 heads at those widths
+SSM_BWD_GPU_CASES = [(2, 100, 3, 8, 16, False), (1, 130, 4, 64, 64, False),
+                     (2, 64, 1, 64, 16, False), (2, 40, 4, 8, 64, False),
+                     (1, 128, 4, 8, 16, True), (1, 100, 2, 100, 12, False),
+                     (2, 300, 4, 128, 64, False), (2, 200, 16, 128, 64, False)]
+
+
+def ssm_bwd_inputs(seed: int, b: int, s: int, h: int, p: int, n: int, extreme: bool = False):
+    """``ssm_inputs`` (with ``extreme``: A = -16 and dt ~ 5 on every head)
+    and the cotangents dy (B,S,H,P) and dh_final (B,H,P,N), fp32 numpy:
+    ``tests/test_torch_ssm_bwd.py``'s draw."""
+    rng = np.random.default_rng(seed)
+    x, dt, A, Bm, Cm = ssm_inputs(rng, b, s, h, p, n)
+    if extreme:
+        dt = 5.0 + 0.1 * rng.standard_normal((b, s, h), dtype=np.float32)
+        A = np.full(h, -16.0, dtype=np.float32)
+    dy = rng.standard_normal((b, s, h, p), dtype=np.float32)
+    dh = rng.standard_normal((b, h, p, n), dtype=np.float32)
+    return x, dt, A, Bm, Cm, dy, dh
+
+
+def _ssm_bwd_on(arrays, device, dtype):
+    """x, dt, B, C, dy in ``dtype``; A and dh_final fp32."""
+    x, dt, A, Bm, Cm, dy, dh = arrays
+    x, dt, Bm, Cm, dy = _on((x, dt, Bm, Cm, dy), device, dtype)
+    A, dh = _on((A, dh), device, torch.float32)
+    return x, dt, A, Bm, Cm, dy, dh
+
+
+def _close_bwd(got, want, dtype):
+    """bf16: the reference's 2e-2 + 2e-2 |t|; fp32: within 3e-4 of each
+    gradient's largest value (dA and dB, dC sum over many positions and
+    heads: the twin's own fp32 error there is ~2e-5 of the largest value,
+    the kernel's smaller), a largest value below 1e-20 taken as 1e-20 (it
+    moves no weight; extreme decay's dA is ~1e-33, which the twin rounds to
+    0), as ``tests/test_torch_ssm_bwd.py`` holds them."""
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if dtype == "bfloat16":
+            _close(g, w, dtype)
+        else:
+            err = float((g.float() - w.float()).abs().max())
+            assert err <= 3e-4 * max(float(w.float().abs().max()), 1e-20), err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,n,extreme", SSM_BWD_GPU_CASES)
+@pytest.mark.parametrize("with_dh", [False, True], ids=["dh_none", "dh_final"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ssm_scan_backward_kernel_matches_twin_on_gpu(cuda, b, s, h, p, n, extreme, with_dh,
+                                                      dtype):
+    """The backward kernel against ``ref.ssm_scan_bwd_ref`` (autograd of the
+    chunked twin at the inputs' fp32 values), with and without h_final's
+    gradient; no value is lost to overflow under extreme decay."""
+    x, dt, A, Bm, Cm, dy, dh = _ssm_bwd_on(ssm_bwd_inputs(9, b, s, h, p, n, extreme), cuda,
+                                           DTYPES[dtype])
+    dh = dh if with_dh else None
+    native.reset_launches()
+    got = ops.ssm_scan_bwd(x, dt, A, Bm, Cm, dy, dh, use_kernel=True)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["ssm_scan_bwd"] == 1
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    _close_bwd(got, ref.ssm_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dh), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ssm_scan_backward_kernel_repeats_bit_for_bit_on_gpu(cuda, dtype):
+    """Two calls on the same inputs give bit-equal gradients: every sum
+    (dB and dC over heads, dA over rows and chunks) runs in a fixed order."""
+    x, dt, A, Bm, Cm, dy, dh = _ssm_bwd_on(ssm_bwd_inputs(10, 2, 300, 4, 128, 64), cuda,
+                                           DTYPES[dtype])
+    first = ops.ssm_scan_bwd(x, dt, A, Bm, Cm, dy, dh, use_kernel=True)
+    again = ops.ssm_scan_bwd(x, dt, A, Bm, Cm, dy, dh, use_kernel=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_h_final", [False, True], ids=["y_only", "y_and_h_final"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_ssm_scan_autograd_through_the_kernels_on_gpu(cuda, use_h_final, dtype):
+    """``torch.autograd.grad`` through ``ops.ssm_scan(use_kernel=True)``: the
+    outputs carry a ``grad_fn``, one forward and one backward launch, each
+    gradient in its input's dtype and within the tolerance of autograd
+    through the twin (``ops.ssd_chunked``) on the same leaves; with h_final
+    unused its gradient enters as None."""
+    td = DTYPES[dtype]
+    x, dt, A, Bm, Cm, gy, gh = _ssm_bwd_on(ssm_bwd_inputs(11, 2, 150, 4, 64, 16), cuda, td)
+    grads = {}
+    for use in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (x, dt, A, Bm, Cm)]
+        native.reset_launches()
+        y, hf = ops.ssm_scan(*leaves, chunk=64, use_kernel=use)
+        assert y.grad_fn is not None and hf.grad_fn is not None
+        loss = (y.float() * gy.float()).sum() + ((hf * gh).sum() if use_h_final else 0.0)
+        grads[use] = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        if use:
+            assert native.LAUNCHES["ssm_scan"] == native.LAUNCHES["ssm_scan_bwd"] == 1
+    assert [g.dtype for g in grads[True]] == [td, td, torch.float32, td, td]
+    _close_bwd(grads[True], grads[False], "float32" if dtype == "float32" else "bfloat16")
+
+
+@pytest.mark.gpu
+def test_ssm_scan_backward_raises_past_its_tiles_on_gpu(cuda):
+    """Off the card, and at a head width and state size whose chunk-pass
+    tiles exceed a block's shared memory, the wrapper raises before any
+    launch: no path falls back to the twin."""
+    from repro_torch.kernels import ssm_scan as sk
+    x, dt, A, Bm, Cm, dy, _ = _ssm_bwd_on(ssm_bwd_inputs(12, 1, 64, 2, 256, 64), cuda,
+                                          torch.bfloat16)
+    native.reset_launches()
+    with pytest.raises(ValueError, match="head width P 256 with state size 64"):
+        sk.ssm_scan_bwd(x, dt, A, Bm, Cm, dy)
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        sk.ssm_scan_bwd(*(t.cpu() for t in (x, dt, A, Bm, Cm, dy)))
+    assert native.LAUNCHES["ssm_scan_bwd"] == 0
+
+
+@pytest.mark.gpu
+def test_zamba2_smoke_gradients_through_the_scan_kernels_on_gpu(cuda):
+    """zamba2's fp32 smoke config (4 Mamba2 layers, the shared attention
+    block after every second): every parameter leaf's gradient through the
+    kernels within 3e-4 of the plain path's, and a training step launches
+    RMSNorm, flash attention and ``ssm_scan``, each both ways, and no other."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm, steps
+    from repro_torch.optim import adamw
+    cfg = registry.get_smoke_config("zamba2_1_2b")
+    params = lm.init_params(cfg, seed=0, device=cuda, dtype=torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 100), device=cuda, generator=gen)
+    batch = {**steps.batch_inputs(cfg, toks), "labels": toks}
+    grads = {}
+    for use in (True, False):
+        leaves = adamw.tree_map(lambda p: p.clone().requires_grad_(), params)
+        loss, _ = steps.loss_fn(leaves, cfg.replace(use_kernels=use), batch)
+        grads[use] = torch.autograd.grad(loss, adamw.tree_leaves(leaves))
+    assert len(grads[True]) == len(adamw.tree_leaves(params))
+    for a, b in zip(grads[True], grads[False]):
+        assert _rel(a, b) <= 3e-4
+    native.reset_launches()
+    steps.train_step(params, adamw.init_opt_state(params), batch,
+                     cfg=cfg.replace(use_kernels=True))
+    torch.cuda.synchronize()
+    assert {k for k, n in native.LAUNCHES.items() if n} == {
+        "rmsnorm", "rmsnorm_bwd", "flash_attention", "flash_attention_bwd", "ssm_scan",
+        "ssm_scan_bwd"}
+
+
 @pytest.mark.gpu
 def test_kernels_without_a_backward_raise_under_grad_on_gpu(cuda):
-    """decode attention and the two scans refuse a call under grad, naming
+    """decode attention and the mLSTM scan refuse a call under grad, naming
     their ROADMAP item, instead of returning an output with no gradient;
-    under no_grad they run.  Flash attention at D 320 has its backward
-    kernel: under grad its output carries the gradient function."""
+    under no_grad they run.  Flash attention at D 320 and the SSD scan have
+    their backward kernels: under grad their outputs carry the gradient
+    function."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn(2, 8, 64, device=cuda, generator=g, requires_grad=True)
     kc = torch.randn(2, 16, 2, 64, device=cuda, generator=g)
@@ -1025,8 +1183,8 @@ def test_kernels_without_a_backward_raise_under_grad_on_gpu(cuda):
         ops.decode_attention(q, kc, kc, lens, use_kernel=True)
     x, dt, A, Bm, Cm = _on(ssm_inputs(np.random.default_rng(0), 1, 32, 2, 8, 16), cuda,
                            torch.float32)
-    with pytest.raises(RuntimeError, match="ROADMAP.md queue 2 item 2.2"):
-        ops.ssm_scan(x.requires_grad_(), dt, A, Bm, Cm, use_kernel=True)
+    y, hf = ops.ssm_scan(x.requires_grad_(), dt, A, Bm, Cm, use_kernel=True)
+    assert y.grad_fn is not None and hf.grad_fn is not None
     qm, km, vm, li, fp = _on(mlstm_inputs(np.random.default_rng(0), 1, 32, 2, 16), cuda,
                              torch.float32)
     with pytest.raises(RuntimeError, match="ROADMAP.md queue 2 item 2.3"):
@@ -1037,6 +1195,7 @@ def test_kernels_without_a_backward_raise_under_grad_on_gpu(cuda):
     with torch.no_grad():
         ops.decode_attention(q, kc, kc, lens, use_kernel=True)
         ops.flash_attention(wide, wide, wide, use_kernel=True)
+        assert ops.ssm_scan(x, dt, A, Bm, Cm, use_kernel=True)[0].grad_fn is None
 
 
 @pytest.mark.gpu
