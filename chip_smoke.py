@@ -1178,6 +1178,9 @@ def main() -> int:
         # the scan's backward at a ragged S (1000: the last chunk 40 rows)
         ("ssm_scan_bwd", _ssm_bwd_case(1, 1000, z.n_heads, zp, z.ssm_state, z.ssm_chunk, gen),
          5),
+        # and one row past S 1024: 64 chunks, the state walks' length
+        ("ssm_scan_bwd", _ssm_bwd_case(1, 4096, z.n_heads, zp, z.ssm_state, z.ssm_chunk, gen),
+         5),
         # whisper's decoder: its prompt's queries over the 1500 encoder rows
         # (non-causal cross-attention), and decode over its self-attention
         # cache (its path case below is decode over the encoder rows)

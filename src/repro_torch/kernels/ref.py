@@ -361,6 +361,97 @@ def ssm_scan_bwd_chunked_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             cut[3].to(Cm.dtype))
 
 
+def _split(t: torch.Tensor) -> torch.Tensor:
+    """An fp32 operand as the bf16 kernels feed it to a product: bf16 hi
+    plus bf16 lo (16 mantissa bits)."""
+    hi = t.to(torch.bfloat16).float()
+    return hi + (t - hi).to(torch.bfloat16).float()
+
+
+def ssm_scan_bwd_walk_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                          Bm: torch.Tensor, Cm: torch.Tensor, dy: torch.Tensor,
+                          dh_final: torch.Tensor | None = None, *, chunk: int = 64,
+                          heads: int = 4):
+    """``ssm_scan_bwd_ref`` in the order of the bf16 kernel's wgmma passes
+    (``csrc/ssm_scan_bwd.cu``), fp32, no autograd (for the tests: no path
+    calls it).  ``ssm_scan_bwd_chunked_ref`` states the terms; here:
+
+      1. the walks: h_in forward, h_c = exp(cum_T) h_{c-1} + (x o w)^T B,
+         and dh_out in reverse from dh_final, dh_{c-1} = exp(cum_T) dh_c +
+         (dy o exp(cum))^T C, each stored as bf16 hi + lo;
+      2. per (row, chunk), the heads in groups of ``heads`` (the last group
+         short where they do not divide), in order: dC and dB summed over
+         a group's heads in order, the groups' sums then added in order;
+         dA per head over rows and chunks.
+
+    Every fp32 operand of a product (x o w, dy o exp(cum), the stored
+    states, M, (G o L)^T) is rounded as the kernel feeds it: bf16 hi + lo.
+    Rows past S are identity steps (dt = 0, x = B = C = dy = 0)."""
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    f = [_pad_chunks(a.float(), chunk) for a in (x, dt, Bm, Cm, dy)]
+    nc = f[0].shape[1] // chunk
+    xf, dyf = (a.reshape(b, nc, chunk, h, p) for a in (f[0], f[4]))
+    dtf = f[1].reshape(b, nc, chunk, h)
+    bf, cf = (a.reshape(b, nc, chunk, n) for a in (f[2], f[3]))
+    af = A.float()
+    cum = torch.cumsum(af * dtf, dim=2)                                   # (B,nc,T,H)
+    last = cum[:, :, -1]                                                  # (B,nc,H)
+    ef = torch.exp(last[:, :, None] - cum)
+    ecum = torch.exp(cum)
+    w = dtf * ef
+    # 1. the walks
+    h_in = torch.empty((b, nc, h, p, n), dtype=torch.float32, device=x.device)
+    dh_out = torch.empty_like(h_in)
+    hc = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    for c in range(nc):
+        h_in[:, c] = _split(hc)
+        hc = hc * torch.exp(last[:, c])[..., None, None] + torch.einsum(
+            "bthp,btn->bhpn", _split(xf[:, c] * w[:, c, :, :, None]), bf[:, c])
+    dh = torch.zeros_like(hc) if dh_final is None else dh_final.float()
+    for c in reversed(range(nc)):
+        dh_out[:, c] = _split(dh)
+        dh = dh * torch.exp(last[:, c])[..., None, None] + torch.einsum(
+            "bthp,btn->bhpn", _split(dyf[:, c] * ecum[:, c, :, :, None]), cf[:, c])
+    # 2. per (row, chunk), head by head
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    G = torch.einsum("bctn,bcsn->bcts", cf, bf)
+    dx, ddt = torch.empty_like(xf), torch.empty_like(dtf)
+    dA = torch.empty(h, dtype=torch.float32, device=x.device)
+    groups = []
+    for g0 in range(0, h, heads):
+        sum_b = torch.zeros_like(bf)
+        sum_c = torch.zeros_like(cf)
+        for hh in range(g0, min(g0 + heads, h)):
+            xh, dyh, cu = xf[..., hh, :], dyf[..., hh, :], cum[..., hh]
+            hi, dho = h_in[:, :, hh], dh_out[:, :, hh]
+            L = torch.exp(torch.where(tri, cu[..., :, None] - cu[..., None, :], NEG_INF))
+            M = torch.einsum("bctp,bcsp->bcts", dyh, xh) * L * dtf[:, :, None, :, hh]
+            W = torch.einsum("bctp,bcpn->bctn", dyh, hi)
+            Z = torch.einsum("bcsp,bcpn->bcsn", xh, dho)
+            sum_c = sum_c + (ecum[..., hh, None] * W + torch.einsum("bcts,bcsn->bctn", _split(M), bf))
+            sum_b = sum_b + (w[..., hh, None] * Z + torch.einsum("bcts,bctn->bcsn", _split(M), cf))
+            U = ef[..., hh, None] * torch.einsum("bcsn,bcpn->bcsp", bf, dho) \
+                + torch.einsum("bcts,bctp->bcsp", _split(G * L), dyh)
+            dx[..., hh, :] = dtf[..., hh, None] * U
+            Q = G * M
+            R = ecum[..., hh] * (W * cf).sum(-1)
+            V = w[..., hh] * (Z * bf).sum(-1)
+            dcum = Q.sum(3) - Q.sum(2) + R
+            da = torch.flip(torch.cumsum(torch.flip(dcum, [2]), dim=2), [2])
+            da = da + torch.nn.functional.pad(torch.cumsum(V, dim=2)[:, :, :-1], (1, 0)) \
+                + (torch.exp(last[..., hh]) * (dho * hi).sum((-2, -1)))[..., None]
+            ddt[..., hh] = (xh * U).sum(-1) + af[hh] * da
+            dA[hh] = (dtf[..., hh] * da).sum()
+        groups.append((sum_b, sum_c))
+    dB, dC = groups[0]
+    for gb, gc in groups[1:]:
+        dB, dC = dB + gb, dC + gc
+    cut = [t.reshape(b, nc * chunk, *t.shape[3:])[:, :s] for t in (dx, ddt, dB, dC)]
+    return (cut[0].to(x.dtype), cut[1].to(dt.dtype), dA.to(A.dtype), cut[2].to(Bm.dtype),
+            cut[3].to(Cm.dtype))
+
+
 def mlstm_scan_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    i_gate: torch.Tensor, f_gate: torch.Tensor) -> torch.Tensor:
     """Sequential stabilised mLSTM oracle (xLSTM matrix memory).

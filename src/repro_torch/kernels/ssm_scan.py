@@ -5,8 +5,10 @@ Pallas kernel ``repro/kernels/ssm_scan.py:ssm_scan``, and of its backward
 in ``csrc/ssm_scan_bwd.cu`` (no TPU kernel: the reference differentiates
 its plain chunked form).  The sources' headers say how they are laid out
 and what bounds them: bf16 inputs take the tensor-core paths (three
-launches forward, five backward, with scratch this wrapper allocates),
-fp32 inputs the CUDA-core kernels.  The wrappers launch the kernels on
+launches forward on ``mma.sync``; three backward on ``wgmma``: the state
+walks, the chunk pass over head groups, the sums; four, the mma.sync
+passes, past P 128), with scratch this wrapper allocates, fp32 inputs the
+CUDA-core kernels.  The wrappers launch the kernels on
 CUDA tensors and raise on anything else; ``ops.ssm_scan`` and
 ``ops.ssm_scan_bwd`` choose the plain twins (``ops.ssd_chunked`` and
 autograd of it, ``ref.ssm_scan_bwd_ref``) where no kernel runs.  Under
@@ -140,8 +142,8 @@ def ssm_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.T
     dA = torch.empty(h, dtype=torch.float32, device=x.device)
     fn = native.function(SOURCE_BWD, _ENTRY_BWD[x.dtype], _ARGTYPES_BWD)
     with torch.cuda.device(x.device):
-        size = native.function(SOURCE_BWD, "ssm_scan_bwd_scratch", [ctypes.c_int] * 5,
-                               ctypes.c_longlong)(b, s, h, p, n)
+        size = native.function(SOURCE_BWD, "ssm_scan_bwd_scratch", [ctypes.c_int] * 6,
+                               ctypes.c_longlong)(b, s, h, p, n, bf16)
         scratch = torch.empty(size, dtype=torch.float32, device=x.device)
         err = fn(x.data_ptr(), dt.data_ptr(), a32.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
                  dy.data_ptr(), None if dhf is None else dhf.data_ptr(), dx.data_ptr(),

@@ -1096,6 +1096,62 @@ def test_ssm_scan_backward_kernel_repeats_bit_for_bit_on_gpu(cuda, dtype):
 
 
 @pytest.mark.gpu
+def test_ssm_scan_backward_kernel_repeats_bit_for_bit_at_the_training_shape_on_gpu(cuda):
+    """zamba2's training shape, x (4,1024,32,128) N 64 in bf16: two calls
+    give bit-equal gradients (the head groups' and chunks' sums in order,
+    no atomics)."""
+    x, dt, A, Bm, Cm, dy, _ = _ssm_bwd_on(ssm_bwd_inputs(13, 4, 1024, 32, 128, 64), cuda,
+                                          torch.bfloat16)
+    first = ops.ssm_scan_bwd(x, dt, A, Bm, Cm, dy, use_kernel=True)
+    again = ops.ssm_scan_bwd(x, dt, A, Bm, Cm, dy, use_kernel=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+def test_ssm_scan_backward_kernel_long_row_with_dh_final_on_gpu(cuda):
+    """One row of 4096 tokens (64 chunks: the walks' length) at zamba2's
+    widths in bf16, with h_final's gradient, against the twin."""
+    x, dt, A, Bm, Cm, dy, dh = _ssm_bwd_on(ssm_bwd_inputs(14, 1, 4096, 32, 128, 64), cuda,
+                                           torch.bfloat16)
+    got = ops.ssm_scan_bwd(x, dt, A, Bm, Cm, dy, dh, use_kernel=True)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    _close_bwd(got, ref.ssm_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dh), "bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,n", [(2, 300, 3, 128, 64), (1, 200, 5, 64, 128)])
+@pytest.mark.parametrize("with_dh", [False, True], ids=["dh_none", "dh_final"])
+def test_ssm_scan_backward_kernel_short_head_group_on_gpu(cuda, b, s, h, p, n, with_dh):
+    """Head counts no group of four divides (3: one short group; 5: a
+    second group of one head) in bf16, against the twin."""
+    x, dt, A, Bm, Cm, dy, dh = _ssm_bwd_on(ssm_bwd_inputs(15, b, s, h, p, n), cuda,
+                                           torch.bfloat16)
+    dh = dh if with_dh else None
+    got = ops.ssm_scan_bwd(x, dt, A, Bm, Cm, dy, dh, use_kernel=True)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    _close_bwd(got, ref.ssm_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dh), "bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,p,n", [(1, 100, 2, 256, 16), (2, 130, 3, 136, 16)])
+@pytest.mark.parametrize("with_dh", [False, True], ids=["dh_none", "dh_final"])
+def test_ssm_scan_backward_kernel_past_the_wgmma_widths_on_gpu(cuda, b, s, h, p, n, with_dh):
+    """bf16 head widths past the wgmma passes' 128 (P 256; P 136, ragged,
+    across chunks) take the mma.sync passes and their shared sums pass;
+    against the twin, one counted launch."""
+    x, dt, A, Bm, Cm, dy, dh = _ssm_bwd_on(ssm_bwd_inputs(16, b, s, h, p, n), cuda,
+                                           torch.bfloat16)
+    dh = dh if with_dh else None
+    native.reset_launches()
+    got = ops.ssm_scan_bwd(x, dt, A, Bm, Cm, dy, dh, use_kernel=True)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["ssm_scan_bwd"] == 1
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    _close_bwd(got, ref.ssm_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dh), "bfloat16")
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("use_h_final", [False, True], ids=["y_only", "y_and_h_final"])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 def test_ssm_scan_autograd_through_the_kernels_on_gpu(cuda, use_h_final, dtype):

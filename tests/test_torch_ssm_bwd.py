@@ -16,7 +16,13 @@ are held:
   same tolerance, at a ragged S, with and without ``dh_final``, at N 16
   and 64, P 8 and 64, H 1, 3 and 4, under extreme decay (A = -16, dt ~ 5:
   there dA is zero to ~1e-33, held below 3e-4 of ``ZERO``),
-  and on a tensor-parallel rank's block of heads with B and C whole.
+  and on a tensor-parallel rank's block of heads with B and C whole;
+* the order of the bf16 kernel's wgmma passes (``ref.ssm_scan_bwd_walk_ref``:
+  the forward and reverse walks over the chunks, states stored as bf16 hi
+  + lo, dB and dC summed in head groups of 4 and then over the groups)
+  against the plain backward at the same tolerance, at the cases above,
+  at H 3 and 5 (a group short), over 18 chunks at P 8 and N 16 (the
+  walks' length), and on a rank's block of heads.
 
 One zamba2 training step against the reference is
 ``tests/test_torch_train.py``'s.  Inputs come from numpy with a seed.  Run:
@@ -142,6 +148,50 @@ def test_kernel_passes_on_a_rank_of_heads():
         for g, w in zip(got[:2], whole[:2]):
             _assert_close([g.numpy()], [w[:, :, blk].numpy()], f"rank block {h0}")
         _assert_close([got[2].numpy()], [whole[2][blk].numpy()], f"rank block {h0}")
+        parts.append(got)
+    for i in (3, 4):
+        _assert_close([(parts[0][i] + parts[1][i]).numpy()], [whole[i].numpy()], "B, C summed")
+
+
+# (name, b, s, h, p, n, extreme): the wgmma passes' head groups and walks
+WALK_CASES = CHUNKED_CASES + [
+    ("H 3, one short group", 2, 100, 3, 8, 16, False),
+    ("H 5, a second group of one head", 1, 130, 5, 16, 16, False),
+    ("18 chunks, P 8, N 16", 1, 1100, 2, 8, 16, False),
+]
+
+
+@pytest.mark.parametrize("case", WALK_CASES, ids=[c[0] for c in WALK_CASES])
+@pytest.mark.parametrize("with_dh", [False, True], ids=["dh_none", "dh_final"])
+def test_walk_order_matches_the_plain_backward(case, with_dh):
+    """The wgmma passes' order (walks, head groups of 4, the operands'
+    bf16 hi + lo) at 64-row chunks against autograd of the twin at 256."""
+    _, b, s, h, p, n, extreme = case
+    x, dt, A, Bm, Cm, dy, dh = _torch(_draw(4, b, s, h, p, n, extreme))
+    dh = dh if with_dh else None
+    want = ref.ssm_scan_bwd_ref(x, dt, A, Bm, Cm, dy, dh, chunk=256)
+    got = ref.ssm_scan_bwd_walk_ref(x, dt, A, Bm, Cm, dy, dh, chunk=64, heads=4)
+    for g in got:
+        assert bool(torch.isfinite(g).all())
+    _assert_close([g.numpy() for g in got], [w.numpy() for w in want], case[0])
+
+
+def test_walk_order_on_a_rank_of_heads():
+    """A rank's block of 3 of 6 heads (one group of 3) in the wgmma passes'
+    order: its gradients match the plain backward on the block, and the two
+    ranks' dB and dC add up to the whole call's (two groups, 4 + 2)."""
+    x, dt, A, Bm, Cm, dy, dh = _torch(_draw(5, 2, 100, 6, 8, 16))
+    whole = ref.ssm_scan_bwd_walk_ref(x, dt, A, Bm, Cm, dy, dh, chunk=64, heads=4)
+    parts = []
+    for h0 in (0, 3):
+        blk = slice(h0, h0 + 3)
+        args = (x[:, :, blk], dt[:, :, blk], A[blk], Bm, Cm, dy[:, :, blk], dh[:, blk])
+        got = ref.ssm_scan_bwd_walk_ref(*args, chunk=64, heads=4)
+        _assert_close([g.numpy() for g in got],
+                      [w.numpy() for w in ref.ssm_scan_bwd_ref(*args, chunk=256)],
+                      f"rank block {h0}")
+        for g, w in zip(got[:2], whole[:2]):
+            _assert_close([g.numpy()], [w[:, :, blk].numpy()], f"rank block {h0}")
         parts.append(got)
     for i in (3, 4):
         _assert_close([(parts[0][i] + parts[1][i]).numpy()], [whole[i].numpy()], "B, C summed")

@@ -4,11 +4,16 @@
     python3 tools/kernel_variants.py tools/kernel_variants_attention.json
     python3 tools/kernel_variants.py tools/kernel_variants_scans.json
     python3 tools/kernel_variants.py tools/kernel_variants_bwd_wide.json
+    python3 tools/kernel_variants.py tools/kernel_variants_ssm_bwd.json
 
 A spec names, per source in ``src/repro_torch/kernels/csrc``, a list of
 variants: each is a name and a list of ``[old, new]`` text substitutions
 applied to a copy of the source (an empty list is the source as it
-stands), and for decode attention the wrapper's ``SPLIT_KEYS``.  Every
+stands), and for decode attention the wrapper's ``SPLIT_KEYS``, or an
+object ``{"git": revision}``: the source as that commit has it (``git
+show``, kept under ``.torch_ext_build/variants/git/``; run ``--prepare``
+where git is, before a run on a machine without the repository's
+history), so an older design is timed in the same run.  Every
 variant is built with the port's own nvcc flags into
 ``.torch_ext_build/variants/``, loaded in place of the source's
 library, held against its plain twin (a variant whose result is wrong is
@@ -17,7 +22,8 @@ marked so and still timed) and timed by device time per call
 ``chip_smoke.py`` (attention, and the two scans: their serving shapes and
 S 4096 and 1000; the attention backward at granite's training shape and
 h2o's window, and past head dim 128 at gemma3's and deepseek's training
-shapes).  The library call's device time is printed beside each
+shapes; the scan's backward at zamba2's training shape, a tensor-parallel
+rank's 16 heads, S 1000 and S 4096).  The library call's device time is printed beside each
 case (the backward's, autograd of SDPA, by CUDA events: a trace of it
 may see no device activity and a CUDA graph cannot capture it).  Run it
 on the machine with the card; compare variants only within one run.
@@ -46,8 +52,20 @@ def variant_dir(name: str) -> Path:
     return OUT / re.sub(r"[^A-Za-z0-9]+", "_", name).strip("_")
 
 
-def make_variant(src: str, name: str, subs: list) -> Path:
-    text = (native.CSRC / src).read_text()
+def git_source(src: str, rev: str) -> Path:
+    """``src`` as commit ``rev`` has it, fetched once with ``git show``."""
+    path = OUT / "git" / rev / src
+    if not path.is_file():
+        rel = (native.CSRC / src).relative_to(ROOT).as_posix()
+        text = subprocess.run(["git", "show", f"{rev}:{rel}"], cwd=ROOT, capture_output=True,
+                              text=True, check=True).stdout
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(text)
+    return path
+
+
+def make_variant(src: str, name: str, subs: list, rev: str | None = None) -> Path:
+    text = (git_source(src, rev) if rev else native.CSRC / src).read_text()
     for old, new in subs:
         if old not in text:
             raise SystemExit(f"{name}: text not found in {src}: {old!r}")
@@ -99,7 +117,15 @@ def cases(gen) -> dict:
     serve = [cs.PROMPT + 1] * cs.BATCH
     ssm = dict(h=32, p=128, n=64, chunk=256)        # zamba2-1.2b
     mlstm = dict(h=4, d=512, chunk=256)             # xlstm-1.3b
+    half = dict(ssm, h=16)                          # a tensor-parallel rank's heads
     return {
+        "ssm_scan_bwd.cu": [
+            ("x (4,1024), zamba2 training",
+             cs._ssm_bwd_case(cs.TRAIN_BATCH, cs.TRAIN_SEQ, gen=gen, **ssm), 5),
+            ("x (4,1024), 16 heads", cs._ssm_bwd_case(cs.TRAIN_BATCH, cs.TRAIN_SEQ, gen=gen,
+                                                      **half), 5),
+            ("x (1,1000)", cs._ssm_bwd_case(1, 1000, gen=gen, **ssm), 5),
+            ("x (1,4096)", cs._ssm_bwd_case(1, 4096, gen=gen, **ssm), 5)],
         "ssm_scan.cu": [
             ("x (4,128), zamba2", cs._ssm_case(cs.BATCH, cs.PROMPT, gen=gen, **ssm), 20),
             ("x (1,4096)", cs._ssm_case(1, 4096, gen=gen, **ssm), 10),
@@ -131,15 +157,22 @@ def cases(gen) -> dict:
 
 def main(argv: list[str]) -> int:
     import torch
-    if not torch.cuda.is_available():
+    if not torch.cuda.is_available() and argv[1:] != ["--prepare"]:
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 1
     spec = json.loads(Path(argv[0]).read_text())
+    revs = [(src, v[2]["git"]) for src, vs in spec.items() for v in vs
+            if len(v) > 2 and isinstance(v[2], dict)]
+    if argv[1:] == ["--prepare"]:
+        for src, rev in revs:
+            print(git_source(src, rev))
+        return 0
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
     print(card)
     runs = [(src, v[0], v[1], v[2] if len(v) > 2 else None) for src, vs in spec.items() for v in vs]
-    build([make_variant(src, name, subs) for src, name, subs, _ in runs])
+    build([make_variant(src, name, subs, opt["git"] if isinstance(opt, dict) else None)
+           for src, name, subs, opt in runs])
     table = {src: per for src, per in cases(torch.Generator(device="cuda").manual_seed(0)).items()
              if src in spec}
     for src, per in table.items():
@@ -148,7 +181,8 @@ def main(argv: list[str]) -> int:
                 cs._device_ms(case["library"], iters, case.get("capturable", True))[0]
                 if case["library"] is not None else None)
     split_default = decode_mod.SPLIT_KEYS
-    for src, name, _, split_keys in runs:
+    for src, name, _, opt in runs:
+        split_keys = None if isinstance(opt, dict) else opt
         real = load(variant_dir(name) / src, src)
         if split_keys is not None:
             decode_mod.SPLIT_KEYS = split_keys
