@@ -138,6 +138,14 @@ Run from the root of a checkout.  It imports only the port
    ``ssm_scan``, each both ways, at TRAIN_LIMITS.  Phase 2
    holds and times the backward at zamba2's training shape, a tensor-
    parallel rank's (16 of its 32 heads) and a ragged S;
+5d. trains xlstm-1.3b through the mLSTM scan's forward and backward kernels
+   (``_xlstm_train_leg``, XLSTM_TRAIN): full width, 8 layers (7 mLSTM and
+   the sLSTM layer), batch 4 x 512, gated as 5b with the launch set RMSNorm
+   and ``mlstm_scan``, each both ways; the bf16 gradient norm and every fp32
+   leaf at the larger of TRAIN_LIMITS' and SENS_RATIO times their one-ulp
+   sensitivity; XLSTM_TIMED steps timed on each path.  Phase 2 holds and
+   times the backward at xlstm's training shape, a tensor-parallel rank's
+   (2 of its 4 heads at 4 x TP_SSM_SEQ) and over one row of 4096;
 6. trains granite-3-8b data-parallel (``_dp_train_leg``): DP_RANKS ranks
    share the card through a gloo group (``torch.multiprocessing``, a file
    store), full width cut to DP_LAYERS layers, each on its rows of the
@@ -211,13 +219,12 @@ Run from the root of a checkout.  It imports only the port
    with the shared block, and the remainder phase) and xlstm at 8 (one
    sLSTM): every rank's prefill and GEN decode steps' logits against one
    process within TP_SERVE_REL, the tokens equal, and xlstm's scoring loss;
-   one fp32 training step of each, zamba2's on the kernel path (the SSD
-   scan's kernels both ways on every rank) and xlstm's on the plain path
-   after its kernel path under grad raised item 2.3, the loss and every
-   gathered gradient leaf at TP_SSM_LIMITS; (b) bf16 at full depth (38 and 48
-   layers): zamba2's serving launch set exactly RMSNorm, flash attention,
-   decode attention and ``ssm_scan``, every scan at 16 heads, a rank's
-   cache half the one process's; xlstm's scoring launch set exactly RMSNorm
+   one fp32 training step of each on the kernel path (each scan's kernels
+   both ways on every rank), the loss and every gathered gradient leaf at
+   TP_SSM_LIMITS (or SENS_RATIO times its one-ulp sensitivity); (b) bf16
+   at full depth (38 and 48 layers): zamba2's serving launch set exactly
+   RMSNorm, flash attention, decode attention and ``ssm_scan``, every scan
+   at 16 heads, a rank's cache half the one process's; xlstm's scoring launch set exactly RMSNorm
    and ``mlstm_scan``, every scan at 2 heads; every recorded kernel call of
    one prefill, one decode step and one scoring forward under the phase-2
    rule; (c) one zamba2 bf16 decode step's collectives equal by kind to the
@@ -359,6 +366,21 @@ WIDE_STEPS = 5
 SSM_TRAIN_PATH = "zamba2-1.2b training"
 SSM_TRAIN = ("zamba2_1_2b", 7, 4, 1024)
 SSM_TRAIN_KERNELS = TRAIN_KERNELS + ("ssm_scan", "ssm_scan_bwd")
+# xlstm trained through the mLSTM scan's forward and backward kernels
+# (``_xlstm_train_leg``): full width (4 heads of 512), 8 layers (one period:
+# 7 mLSTM layers and the sLSTM layer, as TP_SSM_LAYERS cuts it), batch 4 x
+# 512 (the sLSTM layer steps one token at a time both ways; 512 tokens give
+# the scan 8 chunks of 64), WIDE_STEPS bf16 steps, gated as the wide-head
+# leg, its launch set XLSTM_TRAIN_KERNELS; every fp32 leaf of the kernel vs
+# plain step at the larger of TRAIN_LIMITS' and SENS_RATIO times its one-ulp
+# sensitivity, as the recurrent-mixer leg holds xlstm's leaves, and the bf16
+# gradient norm likewise (an H100 read the two paths' bf16 norms 5.1 %
+# apart, and moving every master by one ulp moved a path's own norm by up to
+# 4.6 %: bf16 rounding, amplified through the eight layers)
+XLSTM_TRAIN_PATH = "xlstm-1.3b training"
+XLSTM_TRAIN = ("xlstm_1_3b", 8, 4, 512)
+XLSTM_TRAIN_KERNELS = ("rmsnorm", "rmsnorm_bwd", "mlstm_scan", "mlstm_scan_bwd")
+XLSTM_TIMED = 2             # steps timed on each path, kernel and plain
 # granite-3-8b data-parallel training (``_dp_train_leg``): DP_RANKS gloo
 # ranks sharing the one card, full width, DP_LAYERS layers, the training
 # leg's global batch (TRAIN_BATCH / DP_RANKS rows a rank).  Gate (a), one
@@ -403,10 +425,9 @@ TP_SERVE_KERNELS = ("rmsnorm", "flash_attention", "decode_attention")
 # kernel path at TP_SSM_LAYERS layers (zamba2: a group of 6 with its shared
 # block, and the one-layer remainder phase; xlstm: 7 mLSTM and its sLSTM),
 # serving held as TP_SERVE_ARCHS' is, plus xlstm's scoring loss; one fp32
-# training step of each at TRAIN_BATCH x TP_SSM_SEQ, zamba2's on the kernel
-# path (the SSD scan's backward kernel), xlstm's on the plain path (the mLSTM
-# scan has no backward kernel: under grad its kernel path must raise item
-# 2.3), the loss at TP_SSM_LIMITS and every gathered gradient
+# training step of each at TRAIN_BATCH x TP_SSM_SEQ on the kernel path (the
+# scans' backward kernels on every rank), the loss at TP_SSM_LIMITS and every
+# gathered gradient
 # leaf at the larger of TP_SSM_LIMITS and SENS_RATIO times the leaf's own
 # sensitivity: how far one process's gradient moves when every weight moves
 # by one ulp (the larger of two random nudges, ``_nudged``), measured in the
@@ -498,6 +519,9 @@ META = {
                     "src/repro/models/steps.py:44", TRAIN_PATH, "rmsnorm.rmsnorm_bwd"),
     "ssm_scan_bwd": ("cuda", "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
                      "src/repro/models/steps.py:44", SSM_TRAIN_PATH, "ssm_scan.ssm_scan_bwd"),
+    "mlstm_scan_bwd": ("cuda", "src/repro_torch/kernels/csrc/mlstm_scan_bwd.cu",
+                       "src/repro/models/steps.py:44", XLSTM_TRAIN_PATH,
+                       "mlstm_scan.mlstm_scan_bwd"),
 }
 
 
@@ -515,7 +539,7 @@ def _cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_ms(fn, iters: int, capturable: bool = True) -> tuple[float, str, float | None, list]:
+def _device_ms(fn, iters: int, capturable: bool = True) -> tuple[float, str, float | None, dict]:
     """Mean device time per call of ``fn``: the durations of the device
     activity (kernels, copies) a ``torch.profiler`` trace of ``iters`` calls
     records, summed, so host issue gaps between launches do not count.
@@ -526,8 +550,9 @@ def _device_ms(fn, iters: int, capturable: bool = True) -> tuple[float, str, flo
     replays the calls, or, for a function that cannot be captured
     (``capturable`` False: autograd's backward runs on its own thread),
     of the calls themselves.  Returns (ms, which of the three, device
-    activities per call in the median trace, None otherwise, the names of
-    the device activities in that trace, longest first; empty otherwise)."""
+    activities per call in the median trace, None otherwise, the device
+    activities of that trace by name, ms per call, longest first; empty
+    otherwise)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -545,14 +570,15 @@ def _device_ms(fn, iters: int, capturable: bool = True) -> tuple[float, str, flo
         for e in device:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
         readings.append((sum(by_name.values()) / 1e3 / iters, len(device) / iters,
-                         sorted(by_name, key=by_name.get, reverse=True)))
+                         {n: by_name[n] / 1e3 / iters
+                          for n in sorted(by_name, key=by_name.get, reverse=True)}))
         if len(readings) == 3:
             break
     if readings:
         ms, per_call, names = sorted(readings, key=lambda r: r[0])[len(readings) // 2]
         return ms, "profiler", per_call, names
     if not capturable:
-        return _cuda_ms(fn, iters), "cuda events", None, []
+        return _cuda_ms(fn, iters), "cuda events", None, {}
     graph = torch.cuda.CUDAGraph()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
@@ -562,10 +588,10 @@ def _device_ms(fn, iters: int, capturable: bool = True) -> tuple[float, str, flo
     with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
-    return _cuda_ms(graph.replay, 3, warmup=1) / iters, "cuda graph", None, []
+    return _cuda_ms(graph.replay, 3, warmup=1) / iters, "cuda graph", None, {}
 
 
-def _sdpa_backend(names: list) -> str:
+def _sdpa_backend(names) -> str:
     """Which of SDPA's backends ran, from its device kernels' names."""
     low = " ".join(names).lower()
     for backend, keys in (("cudnn", ("cudnn",)), ("flash", ("flash",)),
@@ -918,6 +944,31 @@ def _mlstm_case(b: int, s: int, h: int, d: int, chunk: int, gen):
         flops=4 * b * s * h * d * d, peak="bf16")
 
 
+def _mlstm_bwd_case(b: int, s: int, h: int, d: int, chunk: int, gen):
+    """The scan's backward kernel on ``_mlstm_case``'s inputs and a bf16 dy,
+    against the twin's gradient (autograd of ``ops.mlstm_chunked`` in fp32 at
+    the inputs' values).  No PyTorch call computes it.  The bound counts the
+    sequential recurrence's backward state work, ~10 D^2 flops per token and
+    head (the state's rerun, its gradient's update, and dq from the state,
+    dk and dv from its gradient), at the bf16 tensor-core rate, and each
+    input (q, k, v, dy, the two gates) read once and each gradient written
+    once."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    q, k, v, dy = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
+    li = torch.randn(b, s, h, device="cuda", generator=gen) * 0.5
+    lf = F.logsigmoid(torch.randn(b, s, h, device="cuda", generator=gen) + 3.0)
+    return dict(
+        shape=f"q ({b},{s},{h},{d}) chunk {chunk} bf16, backward",
+        kernel=lambda: ops.mlstm_scan_bwd(q, k, v, li, lf, dy, use_kernel=True),
+        twin=lambda: ops.mlstm_scan_bwd(q, k, v, li, lf, dy, chunk=chunk, use_kernel=False),
+        library=None,           # no single PyTorch call computes the scan's gradient
+        nbytes=2 * 7 * b * s * h * d + 4 * 4 * b * s * h,
+        flops=10 * b * s * h * d * d, peak="bf16", floor=BWD_FLOOR)
+
+
 def _run_case(name: str, case: dict, iters: int, hw) -> dict:
     got, want = case["kernel"](), case["twin"]()
     if not isinstance(got, tuple):
@@ -926,7 +977,7 @@ def _run_case(name: str, case: dict, iters: int, hw) -> dict:
               for i, (g, w) in enumerate(zip(got, want))]
     bound, by = _bound_ms(case["nbytes"], case["flops"], case["peak"], hw)
     lib = case["library"]
-    device_ms, source, per_call, _ = _device_ms(case["kernel"], iters)
+    device_ms, source, per_call, passes = _device_ms(case["kernel"], iters)
     lib_dev = _device_ms(lib, iters, case.get("capturable", True)) if lib is not None else None
     backend = None
     if lib is not None and name in ("flash_attention", "decode_attention", "flash_attention_bwd"):
@@ -938,7 +989,8 @@ def _run_case(name: str, case: dict, iters: int, hw) -> dict:
             "library_ms": _cuda_ms(lib, iters) if lib is not None else None,
             "library_device_ms": lib_dev[0] if lib is not None else None,
             "library_backend": backend,
-            "library_kernels": lib_dev[3][:3] if lib is not None else None,
+            "library_kernels": list(lib_dev[3])[:3] if lib is not None else None,
+            "device_kernels": passes,
             "device_ms_from": source, "bound_ms": bound, "bound_by": by}
 
 
@@ -952,6 +1004,12 @@ def _kernel_name(mangled: str) -> str:
         names.append(mangled[j:j + int(mangled[i:j])])
         i = j + int(mangled[i:j])
     return names[-1] if names else mangled
+
+
+def _pass_name(name: str) -> str:
+    """A profiler's demangled kernel name without its namespace, return type
+    and arguments: ``mlstm_bwd_walk<__nv_bfloat16, true>``."""
+    return name.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
 
 
 def _mma_counts(lib: Path) -> dict | None:
@@ -1181,6 +1239,9 @@ def main() -> int:
         # and one row past S 1024: 64 chunks, the state walks' length
         ("ssm_scan_bwd", _ssm_bwd_case(1, 4096, z.n_heads, zp, z.ssm_state, z.ssm_chunk, gen),
          5),
+        # the mLSTM scan's backward over one row of 4096: 64 chunks, the
+        # walks' length and dlogf's longest reverse sum
+        ("mlstm_scan_bwd", _mlstm_bwd_case(1, 4096, xl.n_heads, xhd, xl.ssm_chunk, gen), 5),
         # whisper's decoder: its prompt's queries over the 1500 encoder rows
         # (non-causal cross-attention), and decode over its self-attention
         # cache (its path case below is decode over the encoder rows)
@@ -1271,6 +1332,11 @@ def main() -> int:
                                    z.ssm_chunk, gen), 10),
             "ssm_scan_bwd": (_ssm_bwd_case(TRAIN_BATCH, TRAIN_SEQ, z.n_heads, zp, z.ssm_state,
                                            z.ssm_chunk, gen), 5)},
+        XLSTM_TRAIN_PATH: {                       # xlstm's training shape, both ways
+            "mlstm_scan": (_mlstm_case(XLSTM_TRAIN[2], XLSTM_TRAIN[3], xl.n_heads, xhd,
+                                       xl.ssm_chunk, gen), 10),
+            "mlstm_scan_bwd": (_mlstm_bwd_case(XLSTM_TRAIN[2], XLSTM_TRAIN[3], xl.n_heads, xhd,
+                                               xl.ssm_chunk, gen), 5)},
         TP_PATH: {                                # a rank's heads: Hq / TP_RANKS, Hkv / TP_RANKS
             "flash_attention": (_flash_case(TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ,
                                             g.n_heads // TP_RANKS, g.n_kv_heads // TP_RANKS,
@@ -1288,7 +1354,9 @@ def main() -> int:
             "mlstm_scan": (_mlstm_case(BATCH, PROMPT, xl.n_heads // TP_RANKS, xhd, xl.ssm_chunk,
                                        gen), 20),
             "ssm_scan_bwd": (_ssm_bwd_case(TRAIN_BATCH, TRAIN_SEQ, z.n_heads // TP_RANKS, zp,
-                                           z.ssm_state, z.ssm_chunk, gen), 5)},
+                                           z.ssm_state, z.ssm_chunk, gen), 5),
+            "mlstm_scan_bwd": (_mlstm_bwd_case(TRAIN_BATCH, TP_SSM_SEQ, xl.n_heads // TP_RANKS,
+                                               xhd, xl.ssm_chunk, gen), 5)},
         TP_ENCDEC_PATH: {                         # a rank's heads: 4 of 8, the encoder's rows
             "flash_attention": (_flash_case(BATCH, wb.encoder_len, wb.encoder_len,
                                             wb.n_heads // TP_RANKS, wb.n_kv_heads // TP_RANKS,
@@ -1319,6 +1387,9 @@ def main() -> int:
               f"library {_fmt_ms(r['library_ms'])} (device {_fmt_ms(r['library_device_ms'])}"
               + (f", SDPA backend {r['library_backend']}" if r["library_backend"] else "")
               + f"), bound {r['bound_ms']:.4f} ms ({r['bound_by']})  [{card}]")
+        if r["kernel"].endswith("_bwd") and len(r["device_kernels"]) > 1:
+            print("  its device kernels, ms a call: " + "; ".join(
+                f"{_pass_name(n)} {ms:.4f}" for n, ms in r["device_kernels"].items()))
     report["cases"], report["path_cases"] = cases, path
     del long_cases, path_cases
     torch.cuda.empty_cache()
@@ -1358,6 +1429,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # -- xlstm training through the mLSTM scan's forward and backward kernels --
+    report["xlstm_train_leg"] = _xlstm_train_leg(card)
+    mark("xlstm train leg")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- data-parallel LM training: two ranks on the card ---------------------
     report["dp_train_leg"] = _dp_train_leg(card)
     mark("dp train leg")
@@ -1390,6 +1467,7 @@ def main() -> int:
     totals = {n: sum(r["launches_run"][n] for r in report["paths"].values())
               + report["mnist_leg"]["launches"][n] + report["lm_train_leg"]["launches"][n]
               + report["wide_train_leg"]["launches"][n] + report["ssm_train_leg"]["launches"][n]
+              + report["xlstm_train_leg"]["launches"][n]
               + report["dp_train_leg"]["launches"][n] + report["tp_train_leg"]["launches"][n]
               + report["tp_moe_train_leg"]["launches"][n] + report["tp_serve_leg"]["launches"][n]
               + report["tp_ssm_leg"]["launches"][n] + report["tp_encdec_leg"]["launches"][n]
@@ -1495,7 +1573,7 @@ def _hold_recorded(label: str, cfg, calls: dict) -> dict:
     out = {}
     for n, recs in calls.items():
         twin = getattr(ops, n)
-        scans = ("ssm_scan", "mlstm_scan", "ssm_scan_bwd")
+        scans = ("ssm_scan", "mlstm_scan", "ssm_scan_bwd", "mlstm_scan_bwd")
         extra = {"chunk": cfg.ssm_chunk} if n in scans else {}
         errs, shares = [], []
         for i, (args, kw, got) in enumerate(recs):
@@ -2489,7 +2567,8 @@ def _mnist_leg(card: str) -> dict:
               f"{t['device_busy_ms']:.4f} ms in a span of {t['device_span_ms']:.4f} ms (idle "
               f"{t['idle_share_of_span']:.3f}), {t['kernels']} kernels; by group "
               + ", ".join(f"{g} {v['ms']:.4f} ms x{v['n']}" for g, v in t["by_group_ms"].items())
-              + f"  [{card}]")
+              + f"; traces taken {t['traces']} (a trace with no device activity is taken "
+              f"again)  [{card}]")
     total_s = time.perf_counter() - t0
     print(f"{label}: the whole leg {total_s:.2f} s; launches {launches}  [{card}]")
     return {"leg_s": leg_s, "total_s": total_s, "train": {"lr": trained["lr"], "steps": MNIST_STEPS,
@@ -2698,8 +2777,56 @@ def _ssm_train_leg(card: str) -> dict:
     return out
 
 
+def _xlstm_train_leg(card: str) -> dict:
+    """xlstm-1.3b at full width, cut as XLSTM_TRAIN says, trained through
+    the mLSTM scan's forward and backward kernels beside RMSNorm's, gated by
+    ``_train_arch`` with the launch set XLSTM_TRAIN_KERNELS, its bf16
+    gradient norm and fp32 leaves under the sensitivity rule; then
+    XLSTM_TIMED steps of ``steps.train_step`` timed on each path."""
+    import torch
+    from repro_torch.configs import registry
+    from repro_torch.data.tokens import lm_batches
+    from repro_torch.models import lm, steps
+    from repro_torch.optim import adamw
+
+    arch, layers, bsz, seq = XLSTM_TRAIN
+    t_leg = time.perf_counter()
+    res = _train_arch(arch, layers, bsz, seq, XLSTM_TRAIN_PATH, XLSTM_TRAIN_KERNELS, card,
+                      sens=True)
+    # the training rate on each path: XLSTM_TIMED bf16 steps of
+    # ``steps.train_step`` on the same masters and batch, after one warm-up
+    cfg = registry.get_config(arch).replace(n_layers=layers, use_kernels=True)
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(lm_batches(cfg, bsz, seq, seed=3)).items()}
+    params = lm.init_params(cfg, seed=0, device="cuda", dtype=torch.float32)
+    opt = adamw.init_opt_state(params)
+    rate = {}
+    for path, use in (("kernel", True), ("plain", False)):
+        c = cfg.replace(use_kernels=use)
+        steps.train_step(params, opt, batch, cfg=c)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(XLSTM_TIMED):
+            steps.train_step(params, opt, batch, cfg=c)
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t0) / XLSTM_TIMED
+        rate[path] = {"step_ms": step_s * 1e3, "steps_per_s": 1.0 / step_s,
+                      "tokens_per_s": bsz * seq / step_s}
+    del params, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{XLSTM_TRAIN_PATH}, {XLSTM_TIMED} timed steps of steps.train_step a path: "
+          + "; ".join(f"{k} path {v['step_ms']:.1f} ms a step ({v['steps_per_s']:.3f} steps/s, "
+                      f"{v['tokens_per_s']:.0f} tokens/s)" for k, v in rate.items())
+          + f"  [{card}]")
+    out = {"archs": {arch: res}, "launches": res["launches"], "rate": rate,
+           "leg_s": time.perf_counter() - t_leg}
+    print(f"{XLSTM_TRAIN_PATH}: the whole leg {out['leg_s']:.2f} s  [{card}]")
+    return out
+
+
 def _train_arch(arch: str, layers: int, bsz: int, seq: int, path: str, kernels: tuple,
-                card: str) -> dict:
+                card: str, sens: bool = False) -> dict:
     """``arch`` at full width, ``layers`` layers, batch ``bsz`` x ``seq``,
     trained through the kernels (``use_kernels=True``):
 
@@ -2711,8 +2838,14 @@ def _train_arch(arch: str, layers: int, bsz: int, seq: int, path: str, kernels: 
       backward, held against its twin on the recorded inputs;
     - one step on fresh masters and one batch, kernel path against plain
       path: loss and global gradient norm in bf16, every gradient leaf in
-      fp32, at TRAIN_LIMITS; the MoE archs' plain runs replay the kernel
-      run's expert ids (``_routing``), the decisions they would have made
+      fp32, at TRAIN_LIMITS (with ``sens``, each fp32 leaf at the larger of
+      that and SENS_RATIO times its one-ulp sensitivity: how far the plain
+      path's gradient moves when every master moves by one ulp, the larger
+      of two random nudges, ``_nudged``; and the bf16 gradient norm at the
+      larger of its limit and SENS_RATIO times the norm's own one-ulp
+      sensitivity, the largest move of either path's bf16 norm under the
+      same two nudges); the MoE archs' plain runs replay the kernel run's
+      expert ids (``_routing``), the decisions they would have made
       otherwise counted;
     - steps/s, tokens/s and peak memory."""
     import torch
@@ -2735,6 +2868,8 @@ def _train_arch(arch: str, layers: int, bsz: int, seq: int, path: str, kernels: 
           + (f", Mamba2 {cfg.n_heads} heads of {cfg.d_inner // cfg.n_heads}, state "
              f"{cfg.ssm_state}, the shared block every {cfg.shared_attn_every}"
              if cfg.family == "hybrid" else "")
+          + (f", mLSTM {cfg.n_heads} heads of {cfg.d_model // cfg.n_heads}, the sLSTM layer "
+             f"every {cfg.slstm_every}" if cfg.family == "ssm" else "")
           + f"), depth cut from {full.n_layers} to {layers} layers; batch {bsz} x {seq}, "
           f"{WIDE_STEPS} steps, bf16 compute on fp32 masters, use_kernels=True  [{card}]")
     t_arch = time.perf_counter()
@@ -2800,31 +2935,53 @@ def _train_arch(arch: str, layers: int, bsz: int, seq: int, path: str, kernels: 
         loss_p, g_p, own = grads(params, c.replace(use_kernels=False), replay=ids)
         flips[dtype] = _flips(own, ids)
         if dtype == "bfloat16":
-            norm_k = adamw.global_norm(dict(zip(names, g_k)))
-            norm_p = adamw.global_norm(dict(zip(names, g_p)))
+            norm_k = float(adamw.global_norm(dict(zip(names, g_k))))
+            norm_p = float(adamw.global_norm(dict(zip(names, g_p))))
             rel["bf16"] = {
                 "loss": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
-                "grad_norm": abs(float(norm_k) - float(norm_p)) / float(norm_p),
+                "grad_norm": abs(norm_k - norm_p) / norm_p,
                 "leaves": {n: _rel(a, b) for n, a, b in zip(names, g_k, g_p)}}
+            # the norm's own one-ulp sensitivity on each path
+            norm_sens = 0.0
+            for seed in (1, 2) if sens else ():
+                for use, norm in ((True, norm_k), (False, norm_p)):
+                    _, g_n, _ = grads(_nudged(params, seed), c.replace(use_kernels=use))
+                    moved = float(adamw.global_norm(dict(zip(names, g_n))))
+                    norm_sens = max(norm_sens, abs(moved - norm) / norm)
+                    del g_n
+            norm_limit = max(TRAIN_LIMITS["bf16_grad_norm"], SENS_RATIO * norm_sens)
         else:
             rel["fp32"] = {n: _rel(a, b) for n, a, b in zip(names, g_k, g_p)}
+            sensitivity = {n: 0.0 for n in names}
+            for seed in (1, 2) if sens else ():
+                _, g_n, _ = grads(_nudged(params, seed), c.replace(use_kernels=False))
+                for n, a, b in zip(names, g_n, g_p):
+                    sensitivity[n] = max(sensitivity[n], _rel(a, b))
+                del g_n
+            limits = {n: max(TRAIN_LIMITS["fp32_grad_leaf"], SENS_RATIO * v)
+                      for n, v in sensitivity.items()}
         del params, g_k, g_p, ids, own
         gc.collect()
         torch.cuda.empty_cache()
     bf16, fp32 = rel["bf16"], rel["fp32"]
-    over = [f"bf16 {k} {bf16[k]} (limit {TRAIN_LIMITS['bf16_' + k]})"
-            for k in ("loss", "grad_norm") if bf16[k] > TRAIN_LIMITS["bf16_" + k]]
-    over += [f"fp32 {n} {r} (limit {TRAIN_LIMITS['fp32_grad_leaf']})" for n, r in fp32.items()
-             if r > TRAIN_LIMITS["fp32_grad_leaf"]]
+    over = [f"bf16 {k} {bf16[k]} (limit {lim})"
+            for k, lim in (("loss", TRAIN_LIMITS["bf16_loss"]), ("grad_norm", norm_limit))
+            if bf16[k] > lim]
+    over += [f"fp32 {n} {r} (limit {limits[n]})" for n, r in fp32.items() if r > limits[n]]
     worst_bf16 = max(bf16["leaves"], key=bf16["leaves"].get)
     worst_fp32 = max(fp32, key=fp32.get)
+    nearest = max(fp32, key=lambda n: fp32[n] / limits[n])
     print(f"{label}, one step, kernel path vs plain path: bf16 loss rel {bf16['loss']:.4g} "
           f"(limit {TRAIN_LIMITS['bf16_loss']}), global gradient norm rel "
-          f"{bf16['grad_norm']:.4g} (limit {TRAIN_LIMITS['bf16_grad_norm']}), per-leaf "
+          f"{bf16['grad_norm']:.4g} (limit {norm_limit:.4g}"
+          + (f"; its one-ulp sensitivity {norm_sens:.4g}" if sens else "") + "), per-leaf "
           f"gradient rel up to {bf16['leaves'][worst_bf16]:.4g} ({worst_bf16}, reported); "
           f"fp32 at {layers} layers: per-leaf gradient rel up to {fp32[worst_fp32]:.4g} "
-          f"({worst_fp32}; limit {TRAIN_LIMITS['fp32_grad_leaf']}); routing decisions the "
-          f"plain runs would have made otherwise (replayed): {flips}  [{card}]")
+          f"({worst_fp32}; limit {limits[worst_fp32]:.4g}"
+          + (f"; the one-ulp sensitivity up to {max(sensitivity.values()):.4g}, nearest its "
+             f"limit {nearest} at {fp32[nearest]:.4g} of {limits[nearest]:.4g}" if sens else "")
+          + f"); routing decisions the plain runs would have made otherwise (replayed): "
+          f"{flips}  [{card}]")
     if over:
         raise AssertionError(f"{label}: kernel vs plain over the limits: " + "; ".join(over))
     arch_s = time.perf_counter() - t_arch
@@ -2833,7 +2990,11 @@ def _train_arch(arch: str, layers: int, bsz: int, seq: int, path: str, kernels: 
             "steps": WIDE_STEPS, "train_s": train_s, "steps_per_s": WIDE_STEPS / train_s,
             "tokens_per_s": tokens / train_s, "peak_gib": peak_gib, "history": history,
             "first_again": again, "recorded": recorded, "bf16_kernel_vs_plain": bf16,
-            "fp32_kernel_vs_plain": fp32, "flips": flips, "launches": launches, "s": arch_s}
+            "fp32_kernel_vs_plain": fp32, "fp32_limits": limits,
+            "sensitivity": sensitivity if sens else None,
+            "bf16_grad_norm_sensitivity": norm_sens if sens else None,
+            "bf16_grad_norm_limit": norm_limit, "flips": flips,
+            "launches": launches, "s": arch_s}
 
 
 def _dp_train_leg(card: str) -> dict:
@@ -3875,10 +4036,9 @@ def _tp_ssm_leg(card: str) -> dict:
     at TP_SSM_LAYERS layers, every rank's prefill logits and GEN greedy
     decode steps' logits against one process on rank 0 within
     TP_SERVE_REL, the tokens equal, and xlstm's scoring loss
-    (``steps.loss_fn``); one fp32 training step, zamba2's on the kernel
-    path (the scan's kernels launched both ways on every rank) and xlstm's
-    on the plain path after its kernel path under grad raised item 2.3,
-    holds the loss at TP_SSM_LIMITS and every gathered gradient leaf at the
+    (``steps.loss_fn``); one fp32 training step of each on the kernel path
+    (each scan's kernels launched both ways on every rank) holds the loss
+    at TP_SSM_LIMITS and every gathered gradient leaf at the
     larger of TP_SSM_LIMITS and SENS_RATIO times its one-ulp sensitivity
     (``_tp_sens_parity``); (b) bf16 at full depth:
     zamba2's serving launches exactly TP_SSM_SERVE_KERNELS on each rank,
@@ -3926,7 +4086,7 @@ def _tp_ssm_leg(card: str) -> dict:
     leg_s = time.perf_counter() - t0
 
     res = {}
-    for arch, cfg, item in (("zamba2_1_2b", z, None), ("xlstm_1_3b", xl, "2.3")):
+    for arch, cfg, scan in (("zamba2_1_2b", z, "ssm_scan"), ("xlstm_1_3b", xl, "mlstm_scan")):
         one = ranks[0][arch]["one"]
         # (a) fp32 serving (and xlstm's scoring) on the kernel path
         a = {}
@@ -3945,30 +4105,22 @@ def _tp_ssm_leg(card: str) -> dict:
             if max(rel.values()) > TP_SERVE_REL or not a[r["rank"]]["tokens_equal"]:
                 raise AssertionError(f"{label} {arch} (a): rank {r['rank']} vs one process: "
                                      f"{a[r['rank']]} (limit {TP_SERVE_REL})")
-            if item is None:
-                got = r[arch]["train_launches"]
-                if r[arch]["kernel_raise"] is not None or not (got["ssm_scan"]
-                                                               and got["ssm_scan_bwd"]):
-                    raise AssertionError(f"{label} {arch}: rank {r['rank']}'s training step did "
-                                         f"not run the scan's kernels both ways: launches "
-                                         f"{got}, raised {r[arch]['kernel_raise']!r}")
-            elif f"ROADMAP.md queue 2 item {item}" not in (r[arch]["kernel_raise"] or ""):
-                raise AssertionError(f"{label} {arch}: rank {r['rank']}'s kernel path under grad "
-                                     f"did not raise item {item}: {r[arch]['kernel_raise']!r}")
+            got = r[arch]["train_launches"]
+            if not (got[scan] and got[scan + "_bwd"]):
+                raise AssertionError(f"{label} {arch}: rank {r['rank']}'s training step did not "
+                                     f"run the scan's kernels both ways: launches {got}")
         train = ranks[0][arch]["train"]
-        path = "the plain path" if item else "the kernel path"
         worst = max(train["leaves"], key=train["leaves"].get)
         ratio = max(train["leaves"], key=lambda n: train["leaves"][n] / train["limits"][n])
         print(f"{label} {arch} (a), one fp32 training step at {TRAIN_BATCH} x {TP_SSM_SEQ} on "
-              f"{path}, {TP_RANKS} ranks vs one process: loss rel {train['loss']:.4g} (limit "
+              f"the kernel path, {TP_RANKS} ranks vs one process: loss rel {train['loss']:.4g} "
+              f"(limit "
               f"{TP_SSM_LIMITS['fp32_loss']}), gathered gradient leaf rel up to "
               f"{train['leaves'][worst]:.4g} ({worst}: its limit {train['limits'][worst]:.4g}; "
               f"the one process's one-ulp sensitivity up to {max(train['sens'].values()):.4g}); "
               f"nearest its limit {ratio}, {train['leaves'][ratio]:.4g} of "
               f"{train['limits'][ratio]:.4g}; {len(train['floored'])} leaves held at the floor; "
-              + (f"the kernel path under grad raised: {ranks[0][arch]['kernel_raise']}" if item
-                 else f"launches of rank 0's step: {ranks[0][arch]['train_launches']}")
-              + f"  [{card}]")
+              f"launches of rank 0's step: {ranks[0][arch]['train_launches']}  [{card}]")
         over = ([f"loss {train['loss']}"] if train["loss"] > TP_SSM_LIMITS["fp32_loss"] else []) \
             + [f"{n} {v} (limit {train['limits'][n]})" for n, v in train["leaves"].items()
                if v > train["limits"][n]]
@@ -4025,8 +4177,7 @@ def _tp_ssm_leg(card: str) -> dict:
                   + f"; one process: loss {one['bf16_loss']:.5f}, forward "
                   f"{one['forward_ms']:.2f} ms; loss rel to one process {agree:.4g} (reported)  "
                   f"[{card}]")
-        res[arch] = {"a": a, "train": train, "kernel_raise": ranks[0][arch]["kernel_raise"],
-                     "b": b, "bf16_agreement": agree,
+        res[arch] = {"a": a, "train": train, "b": b, "bf16_agreement": agree,
                      "bf16_prefill_logits_rel": logits_rel if arch == "zamba2_1_2b" else None,
                      "one_process": {k: v for k, v in one.items()
                                      if k in ("prefill_ms", "decode_ms_per_token", "forward_ms",
@@ -4117,7 +4268,6 @@ def _tp_ssm_rank(rank: int) -> dict:
     import torch
     import torch.distributed as dist
     from repro_torch.configs import registry
-    from repro_torch.data.tokens import lm_batches
     from repro_torch.kernels import native, ops
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import lm, steps
@@ -4154,25 +4304,11 @@ def _tp_ssm_rank(rank: int) -> dict:
                 one = _tp_serve_run(params, cfg32, prompts, cache_len)
                 if arch == "xlstm_1_3b":
                     one["score"] = float(steps.loss_fn(params, cfg32, scoring)[0])
-        # one training step: zamba2's on the kernel path (the SSD scan's
-        # backward kernel); xlstm's kernel path under grad raises item 2.3, so
-        # its step runs on the plain path
-        res["kernel_raise"], train_cfg = None, cfg32
-        if arch == "xlstm_1_3b":
-            batch = {k: torch.as_tensor(v, device="cuda")
-                     for k, v in next(lm_batches(cfg32, TRAIN_BATCH, TP_SSM_SEQ,
-                                                 seed=3)).items()}
-            with msh.use_mesh(mesh):
-                try:
-                    steps.dp_grads(local, batch, cfg=cfg32)
-                except RuntimeError as e:
-                    res["kernel_raise"] = str(e)
-            del batch
-            train_cfg = cfg32.replace(use_kernels=False)
+        # one training step on the kernel path (the scans' backward kernels)
         del local
         settle()
         native.reset_launches()
-        res["train"] = _tp_sens_parity(rank, mesh, train_cfg, params, TP_SSM_SEQ, TP_SSM_LIMITS)
+        res["train"] = _tp_sens_parity(rank, mesh, cfg32, params, TP_SSM_SEQ, TP_SSM_LIMITS)
         res["train_launches"] = dict(native.LAUNCHES)
         del params
         settle()

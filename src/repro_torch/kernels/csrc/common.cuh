@@ -13,6 +13,7 @@
 #include <atomic>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace rt {
 
@@ -140,6 +141,68 @@ __device__ __forceinline__ void warp_mma(float (&acc)[NT][4], int k0, int k1, FA
         mma_tf32(acc[j], af, to_tf32(b(c, 8 * j + g)), to_tf32(b(c + 4, 8 * j + g)));
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// The backward kernels' products, over warp_mma's fragment layout.
+// ---------------------------------------------------------------------------
+// acc += A (16 x [k0,k1)) . B ([k0,k1) x 8 NT) by fp32 FMAs, in mma.sync's
+// accumulator layout (warp_mma above): acc[j][0..1] row g, columns
+// 8j + 2q and 8j + 2q + 1; acc[j][2..3] row g + 8.
+template <int NT, class FA, class FB>
+__device__ __forceinline__ void warp_fma(float (&acc)[NT][4], int k0, int k1, FA a, FB b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll 4
+  for (int k = k0; k < k1; ++k) {
+    const float a0 = a(g, k), a1 = a(g + 8, k);
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const float b0 = b(k, 8 * j + 2 * q), b1 = b(k, 8 * j + 2 * q + 1);
+      acc[j][0] = fmaf(a0, b0, acc[j][0]);
+      acc[j][1] = fmaf(a0, b1, acc[j][1]);
+      acc[j][2] = fmaf(a1, b0, acc[j][2]);
+      acc[j][3] = fmaf(a1, b1, acc[j][3]);
+    }
+  }
+}
+
+// One warp's product of bf16 values (bf16 inputs: mma.sync with bf16
+// operands and fp32 sums, exact products), or of fp32 inputs by FMAs.  k0
+// and k1 are multiples of 16.
+template <typename E, int NT, class FA, class FB>
+__device__ __forceinline__ void prod(float (&acc)[NT][4], int k0, int k1, FA a, FB b) {
+  if constexpr (std::is_same<E, float>::value)
+    warp_fma<NT>(acc, k0, k1, a, b);
+  else
+    warp_mma<true, NT>(acc, k0, k1, a, b);
+}
+
+__device__ __forceinline__ float bf_hi(float v) { return __bfloat162float(__float2bfloat16(v)); }
+
+// The same with A (SPLIT_A) or B an fp32 operand: with bf16 inputs it
+// enters as two bf16 halves, hi = bf16(v) and lo = bf16(v - hi) (16 of
+// fp32's 24 bits, a relative error below 2^-17), two products; the other
+// operand is bf16 already.  With fp32 inputs, one FMA product.
+template <typename E, bool SPLIT_A, int NT, class FA, class FB>
+__device__ __forceinline__ void prod_split(float (&acc)[NT][4], int k0, int k1, FA a, FB b) {
+  if constexpr (std::is_same<E, float>::value) {
+    warp_fma<NT>(acc, k0, k1, a, b);
+  } else if constexpr (SPLIT_A) {
+    warp_mma<true, NT>(acc, k0, k1, [&](int r, int k) { return bf_hi(a(r, k)); }, b);
+    warp_mma<true, NT>(
+        acc, k0, k1, [&](int r, int k) { const float v = a(r, k); return v - bf_hi(v); }, b);
+  } else {
+    warp_mma<true, NT>(acc, k0, k1, a, [&](int k, int n) { return bf_hi(b(k, n)); });
+    warp_mma<true, NT>(
+        acc, k0, k1, a, [&](int k, int n) { const float v = b(k, n); return v - bf_hi(v); });
+  }
+}
+
+// The sums over the four lanes of a fragment row (lanes 4g .. 4g + 3), in
+// a fixed order.
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
 // Shared-memory row strides that keep the fragment reads above free of bank

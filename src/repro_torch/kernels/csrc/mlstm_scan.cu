@@ -55,7 +55,7 @@
 //
 // fp32 keeps the CUDA-core kernel below unchanged: a block per (row, head,
 // 16 rows of C) steps 64 rows at a time and recomputes the chunk's q.k^T.
-#include "common.cuh"
+#include "mlstm.cuh"
 
 namespace {
 
@@ -271,8 +271,10 @@ using bf16 = __nv_bfloat16;
 using rt::stage_async;
 using rt::stride_bf16;
 using rt::stride_gq;
-using rt::warp_cumsum;
 using rt::warp_mma;
+using mlstm::chunk_stabilisers;
+using mlstm::warp_gates;
+using mlstm::warp_row_stab;
 
 constexpr int TM = 64;                 // chunk length of the bf16 path
 constexpr int DR = 16;                 // rows of C per walk block
@@ -302,87 +304,15 @@ struct MlstmArgs {
 
 __device__ __forceinline__ float f32(bf16 v) { return __bfloat162float(v); }
 
-// Chunk c's gates, by one warp, from li/lf (rows at stride `stride`, `rows`
-// of them valid): lis = logi (-1e30 past S, as the reference pads) and
-// bcum = cumsum(logf) (logf 0 past S).
-template <int T>
-__device__ __forceinline__ void warp_gates(const float* li, const float* lf, size_t stride,
-                                           int rows, float* lis, float* bcum) {
-  constexpr int E = T / 32;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int i = 0; i < E; ++i) {
-    const int r = lane * E + i;
-    lis[r] = r < rows ? li[r * stride] : rt::kNegInf;
-    bcum[r] = r < rows ? lf[r * stride] : 0.f;
-  }
-  warp_cumsum<T>(bcum);                 // each lane reads back only what it wrote
-  __syncwarp();
-}
-
-// Every row's stabiliser, by one warp: m_row_t = max(bcum_t + m_in, max_{s <= t}
-// w[t,s]), with max_s w[t,s] = bcum_t + max_{s <= t}(li_s - bcum_s), a
-// prefix max (each lane reads only the rows its warp_gates call wrote).
-template <int T>
-__device__ __forceinline__ void warp_row_stab(const float* bcum, const float* lis, float m_in,
-                                              float* mrow) {
-  constexpr int E = T / 32;
-  constexpr float kLowest = -3.0e38f;
-  const int lane = threadIdx.x & 31;
-  float loc[E], run = kLowest;
-#pragma unroll
-  for (int i = 0; i < E; ++i) loc[i] = run = fmaxf(run, lis[lane * E + i] - bcum[lane * E + i]);
-  float incl = run;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float u = __shfl_up_sync(0xffffffffu, incl, off);
-    if (lane >= off) incl = fmaxf(incl, u);
-  }
-  float before = __shfl_up_sync(0xffffffffu, incl, 1);
-  if (lane == 0) before = kLowest;
-#pragma unroll
-  for (int i = 0; i < E; ++i) {
-    const float bt = bcum[lane * E + i];
-    mrow[lane * E + i] = fmaxf(fmaxf(bt + m_in, bt + fmaxf(before, loc[i])), rt::kNegInf);
-  }
-  __syncwarp();
-}
-
-// Pass 1: the stabiliser entering every chunk, from the gates alone.  A warp
-// per chunk gives its cumsum F and tail max_s(li_s + F - bcum_s); one thread
-// then walks m_next = max(F + m, tail) over the chunks.
+// Pass 1: the stabiliser entering every chunk, from the gates alone
+// (mlstm.cuh).
 __global__ void __launch_bounds__(MNT) mlstm_gates(MlstmArgs a) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
-  const int h = blockIdx.x, b = blockIdx.y, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float* ft = reinterpret_cast<float*>(tc_smem);     // [nc][2] F, tail
-  float* lis = ft + 2 * a.nc + warp * 2 * TM;       // this warp's chunk
-  float* bcum = lis + TM;
-  constexpr int E = TM / 32;
+  const int h = blockIdx.x, b = blockIdx.y;
   const size_t base = static_cast<size_t>(b) * a.S * a.H + h;
-  for (int c = warp; c < a.nc; c += MNT / 32) {
-    const size_t off = base + static_cast<size_t>(c) * TM * a.H;
-    warp_gates<TM>(a.li + off, a.lf + off, a.H, min(TM, a.S - c * TM), lis, bcum);
-    const float F = bcum[TM - 1];
-    float tail = rt::kNegInf;
-#pragma unroll
-    for (int i = 0; i < E; ++i) tail = fmaxf(tail, lis[lane * E + i] + (F - bcum[lane * E + i]));
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) tail = fmaxf(tail, __shfl_xor_sync(0xffffffffu, tail, o));
-    if (lane == 0) {
-      ft[2 * c] = F;
-      ft[2 * c + 1] = tail;
-    }
-    __syncwarp();
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float* mo = a.m_in + (static_cast<size_t>(b) * a.H + h) * a.nc;
-    float m = rt::kNegInf;
-    for (int c = 0; c < a.nc; ++c) {
-      mo[c] = m;
-      m = fmaxf(ft[2 * c] + m, ft[2 * c + 1]);
-    }
-  }
+  chunk_stabilisers<TM>(a.li + base, a.lf + base, a.S, a.H, a.nc,
+                        a.m_in + (static_cast<size_t>(b) * a.H + h) * a.nc, false,
+                        reinterpret_cast<float*>(tc_smem));
 }
 
 // Pass 2, every (row, head, chunk) in parallel: the scores (q k^T) D^-1/2 o

@@ -123,7 +123,12 @@ using bf16 = __nv_bfloat16;
 using rt::stage_async;
 using rt::stride_bf16;
 using rt::stride_gq;
+using rt::bf_hi;
+using rt::prod;
+using rt::prod_split;
+using rt::quad_sum;
 using rt::to_f;
+using rt::warp_fma;
 
 constexpr int T = 64;          // chunk rows
 constexpr int NTH = 256;       // threads of the two chunk passes (eight warps)
@@ -143,56 +148,6 @@ __host__ __device__ constexpr int tile_stride(int w) {
   return sizeof(E) == 2 ? stride_bf16(w) : stride_gq(w);
 }
 
-// acc += A (16 x [k0,k1)) . B ([k0,k1) x 8 NT) by fp32 FMAs, in mma.sync's
-// accumulator layout (common.cuh, warp_mma): acc[j][0..1] row g, columns
-// 8j + 2q and 8j + 2q + 1; acc[j][2..3] row g + 8.
-template <int NT, class FA, class FB>
-__device__ __forceinline__ void warp_fma(float (&acc)[NT][4], int k0, int k1, FA a, FB b) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll 4
-  for (int k = k0; k < k1; ++k) {
-    const float a0 = a(g, k), a1 = a(g + 8, k);
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      const float b0 = b(k, 8 * j + 2 * q), b1 = b(k, 8 * j + 2 * q + 1);
-      acc[j][0] = fmaf(a0, b0, acc[j][0]);
-      acc[j][1] = fmaf(a0, b1, acc[j][1]);
-      acc[j][2] = fmaf(a1, b0, acc[j][2]);
-      acc[j][3] = fmaf(a1, b1, acc[j][3]);
-    }
-  }
-}
-
-// One warp's product of bf16 values (bf16 inputs: mma.sync with bf16
-// operands and fp32 sums, exact products), or of fp32 inputs by FMAs.  k0
-// and k1 are multiples of 16.
-template <typename E, int NT, class FA, class FB>
-__device__ __forceinline__ void prod(float (&acc)[NT][4], int k0, int k1, FA a, FB b) {
-  if constexpr (std::is_same<E, float>::value)
-    warp_fma<NT>(acc, k0, k1, a, b);
-  else
-    rt::warp_mma<true, NT>(acc, k0, k1, a, b);
-}
-
-__device__ __forceinline__ float bf_hi(float v) { return __bfloat162float(__float2bfloat16(v)); }
-
-// The same with A (SPLIT_A) or B an fp32 operand: with bf16 inputs it
-// enters as two bf16 halves, hi = bf16(v) and lo = bf16(v - hi) (16 of
-// fp32's 24 bits, a relative error below 2^-17), two products; the other
-// operand is bf16 already.  With fp32 inputs, one FMA product.
-template <typename E, bool SPLIT_A, int NT, class FA, class FB>
-__device__ __forceinline__ void prod_split(float (&acc)[NT][4], int k0, int k1, FA a, FB b) {
-  if constexpr (std::is_same<E, float>::value) {
-    warp_fma<NT>(acc, k0, k1, a, b);
-  } else if constexpr (SPLIT_A) {
-    rt::warp_mma<true, NT>(acc, k0, k1, [&](int r, int k) { return bf_hi(a(r, k)); }, b);
-    rt::warp_mma<true, NT>(acc, k0, k1, [&](int r, int k) { const float v = a(r, k); return v - bf_hi(v); }, b);
-  } else {
-    rt::warp_mma<true, NT>(acc, k0, k1, a, [&](int k, int n) { return bf_hi(b(k, n)); });
-    rt::warp_mma<true, NT>(acc, k0, k1, a, [&](int k, int n) { const float v = b(k, n); return v - bf_hi(v); });
-  }
-}
-
 // acc's rows times scale[r0 + row]
 template <int NT>
 __device__ __forceinline__ void scale_rows(float (&acc)[NT][4], const float* scale, int r0) {
@@ -207,12 +162,6 @@ __device__ __forceinline__ void scale_rows(float (&acc)[NT][4], const float* sca
   }
 }
 
-// The sums over the four lanes of a fragment row (lanes 4g .. 4g + 3), in
-// a fixed order.
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -11,8 +11,8 @@ every module of the port.
 ``LAUNCHES`` counts kernel launches by kernel name, the backward kernels
 under their own.  Each wrapper adds one where it launches its
 kernel and nowhere else, so a run can show that it went through the
-kernels.  ``refuse_grad`` is the guard of the kernels that have no
-backward.
+kernels.  ``refuse_grad`` is the guard of a kernel that has no backward
+(decode attention).
 """
 from __future__ import annotations
 
@@ -29,12 +29,13 @@ import torch
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / ".torch_ext_build"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "decode_attention.cu", "ssm_scan.cu",
-           "ssm_scan_bwd.cu", "mlstm_scan.cu")
+           "ssm_scan_bwd.cu", "mlstm_scan.cu", "mlstm_scan_bwd.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
 LAUNCHES = {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0, "ssm_scan": 0,
-            "mlstm_scan": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssm_scan_bwd": 0}
+            "mlstm_scan": 0, "flash_attention_bwd": 0, "rmsnorm_bwd": 0, "ssm_scan_bwd": 0,
+            "mlstm_scan_bwd": 0}
 
 _FUNCS: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 

@@ -8,13 +8,13 @@ to the kernel's wrapper and nothing else, which launches the kernel or
 raises.  No path catches a build or launch error.
 
 The attention and norm twins live in ``ref``.  ``flash_attention``,
-``rmsnorm`` and ``ssm_scan`` are differentiable on both sides: the twins
-by autograd, the kernels through their ``autograd.Function`` and backward
-kernels, which ``flash_attention_bwd``, ``rmsnorm_bwd`` and
-``ssm_scan_bwd`` below also expose (the twins:
-``ref.flash_attention_bwd_ref``, ``ref.rmsnorm_bwd_ref``,
-``ref.ssm_scan_bwd_ref``).  Decode attention and ``mlstm_scan`` raise
-under grad.  ``flash_chunked`` is the reference's
+``rmsnorm``, ``ssm_scan`` and ``mlstm_scan`` are differentiable on both
+sides: the twins by autograd, the kernels through their
+``autograd.Function`` and backward kernels, which ``flash_attention_bwd``,
+``rmsnorm_bwd``, ``ssm_scan_bwd`` and ``mlstm_scan_bwd`` below also expose
+(the twins: ``ref.flash_attention_bwd_ref``, ``ref.rmsnorm_bwd_ref``,
+``ref.ssm_scan_bwd_ref``, ``ref.mlstm_scan_bwd_ref``).  Decode attention
+raises under grad.  ``flash_chunked`` is the reference's
 "fused attention" twin (``ops.flash_chunked_jnp``): plain code that the
 plain path runs when ``chunked`` is asked for (``cfg.fused_attention``), so
 that a long prefill counted on the plain path (``launch/count.py``) never
@@ -33,6 +33,7 @@ from .decode_attention import decode_attention as _decode_kernel
 from .flash_attention import flash_attention as _flash_kernel
 from .flash_attention import flash_attention_bwd as _flash_bwd_kernel
 from .mlstm_scan import mlstm_scan as _mlstm_kernel
+from .mlstm_scan import mlstm_scan_bwd as _mlstm_bwd_kernel
 from .rmsnorm import rmsnorm as _rmsnorm_kernel
 from .rmsnorm import rmsnorm_bwd as _rmsnorm_bwd_kernel
 from .ssm_scan import ssm_scan as _ssm_kernel
@@ -209,6 +210,15 @@ def mlstm_scan(q, k, v, logi, logf, *, chunk: int = 256, use_kernel: bool = Fals
     if _plain(use_kernel, q):
         return mlstm_chunked(q, k, v, logi, logf, chunk)[0].to(q.dtype)
     return _mlstm_kernel(q, k, v, logi, logf)
+
+
+def mlstm_scan_bwd(q, k, v, logi, logf, dy, *, chunk: int = 256, use_kernel: bool = False):
+    """(dq, dk, dv, dlogi, dlogf) of ``mlstm_scan`` for the output gradient
+    ``dy``.  ``chunk`` is the twin's chunk length (autograd of
+    ``mlstm_chunked`` in fp32); the kernel's result does not depend on it."""
+    if _plain(use_kernel, q):
+        return ref.mlstm_scan_bwd_ref(q, k, v, logi, logf, dy, chunk=chunk)
+    return _mlstm_bwd_kernel(q, k, v, logi, logf, dy)
 
 
 def mlstm_chunked(q, k, v, logi, logf, chunk: int):

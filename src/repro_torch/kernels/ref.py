@@ -576,3 +576,146 @@ def mlstm_chunk_parallel_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     denom = torch.maximum((rowsum + gexp * qn).abs(), torch.exp(-m_row))
     y = (y_intra + gexp[..., None] * state) / denom[..., None]
     return y.reshape(b, nc * chunk, h, d)[:, :s].to(q.dtype)
+
+
+def mlstm_scan_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logi: torch.Tensor,
+                       logf: torch.Tensor, dy: torch.Tensor, *, chunk: int = 256):
+    """(dq, dk, dv, dlogi, dlogf): autograd of the chunked twin
+    ``ops.mlstm_chunked`` at the fp32 values of the inputs, for the output
+    gradient ``dy`` -- the gradient the backward kernel computes.  Each in
+    its input's dtype."""
+    from .ops import mlstm_chunked
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_() for t in (q, k, v, logi, logf)]
+        y, _ = mlstm_chunked(*leaves, chunk)
+        got = torch.autograd.grad(y, leaves, dy.float())
+    return tuple(g.to(t.dtype) for g, t in zip(got, (q, k, v, logi, logf)))
+
+
+def mlstm_scan_bwd_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               logi: torch.Tensor, logf: torch.Tensor, dy: torch.Tensor, *,
+                               chunk: int = 64):
+    """``mlstm_scan_bwd_ref`` computed pass by pass as the backward kernel
+    (``csrc/mlstm_scan_bwd.cu``) computes it, no autograd, fp32 (for the
+    tests: no path calls it).
+
+    y is invariant to the stabiliser, so every m is a constant here: the
+    forward's gates pass gives m_in per chunk, and per chunk, with qs = q
+    D^-1/2, bcum = cumsum(logf), W[t,s] = exp(bcum_t - bcum_s + li_s -
+    m_row_t) (s <= t), gexp = exp(bcum + m_in - m_row), inj_s = exp(li_s +
+    F - bcum_s - m_out) and the decay exp(F + m_in - m_out) (F = bcum_T):
+      1. the forward walk: every chunk's incoming (C, n);
+      2. per chunk P = (qs k^T) o W and DV = dy v^T (T x T), nq = rowsum P
+         + gexp qs.n_in, and yd = dy . (P v + gexp qs C_in^T);
+      3. per row den = max(|nq|, exp(-m_row)), r = 1/den and the
+         denominator's gradient dnq = -yd r^2 sign(nq) where |nq| >
+         exp(-m_row), else 0 (the floor binds: no gradient);
+      4. the reverse walk: every chunk's outgoing (dC, dn), from zero,
+         dC_in = decay dC_out + (dy o gexp r)^T qs, dn_in = decay dn_out +
+         (gexp dnq)^T qs;
+      5. per chunk dP = (r DV + dnq) o W, and
+         dq = D^-1/2 (dP k + gexp (r dy C_in + dnq n_in)),
+         dk = dP^T qs + inj (v dC_out + dn_out),
+         dv = (P o r)^T dy + inj k dC_out^T;
+      6. the gates by their identities, dlogi_s = <k_s, dk_s> and dlogf_j =
+         sum_{t >= j} dF_t, dF_t = <q_t, dq_t> - <k_t, dk_t>, a reverse
+         cumulative sum over the whole sequence (for the first S // 2 rows
+         minus the sum before j: the dF sum to zero), each dot taken apart
+         as the sums of G = (r DV + dnq) o P (a pair's log weight's
+         gradient) and the state parts' dots, G's diagonal left out of dF.
+    Rows past S enter with logi = -1e30 and logf = 0, as the forward pads,
+    and q = k = v = dy = 0: they add to no gradient."""
+    b, s, h, d = q.shape
+    scale = d ** -0.5
+    qf, kf, vf, dyf = (_pad_chunks(a.float(), chunk).reshape(b, -1, chunk, h, d)
+                       .permute(0, 3, 1, 2, 4) for a in (q, k, v, dy))        # (B,H,nc,T,D)
+    li = _pad_chunks(logi.float(), chunk, NEG_INF).reshape(b, -1, chunk, h).permute(0, 3, 1, 2)
+    lf = _pad_chunks(logf.float(), chunk).reshape(b, -1, chunk, h).permute(0, 3, 1, 2)
+    nc = qf.shape[2]
+    bcum = torch.cumsum(lf, dim=3)                                        # (B,H,nc,T)
+    F = bcum[..., -1]                                                     # (B,H,nc)
+    tail = (li + (F[..., None] - bcum)).amax(dim=3)
+    m_in = torch.empty_like(F)
+    m = torch.full((b, h), NEG_INF, dtype=torch.float32, device=q.device)
+    for c in range(nc):                                                   # the gates pass
+        m_in[..., c] = m
+        m = torch.maximum(F[..., c] + m, tail[..., c])
+    m_out = torch.cat([m_in[..., 1:], m[..., None]], dim=-1)
+    # the kernels' row stabiliser: bcum_t + the prefix max of li_s - bcum_s
+    m_row = torch.maximum(bcum + m_in[..., None],
+                          bcum + torch.cummax(li - bcum, dim=3).values).clamp_min(NEG_INF)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
+    W = torch.exp(torch.where(tri, bcum[..., :, None] - bcum[..., None, :] + li[..., None, :]
+                              - m_row[..., None], NEG_INF))               # (B,H,nc,t,s)
+    gexp = torch.exp(bcum + m_in[..., None] - m_row)
+    inj = torch.exp(li + (F[..., None] - bcum) - m_out[..., None])
+    decay = torch.exp(F + m_in - m_out)
+    # 1. the forward walk
+    C_in = torch.empty((b, h, nc, d, d), dtype=torch.float32, device=q.device)
+    n_in = torch.empty((b, h, nc, d), dtype=torch.float32, device=q.device)
+    C = torch.zeros((b, h, d, d), dtype=torch.float32, device=q.device)
+    nv = torch.zeros((b, h, d), dtype=torch.float32, device=q.device)
+    for c in range(nc):
+        C_in[:, :, c], n_in[:, :, c] = C, nv
+        C = decay[..., c, None, None] * C + torch.einsum(
+            "bhtd,bhte->bhde", vf[:, :, c] * inj[:, :, c, :, None], kf[:, :, c])
+        nv = decay[..., c, None] * nv + torch.einsum("bht,bhte->bhe", inj[:, :, c], kf[:, :, c])
+    # 2. the chunks' matrices and the read-out's dot with dy
+    P = torch.einsum("bhctd,bhcsd->bhcts", qf, kf) * scale * W
+    DV = torch.einsum("bhctd,bhcsd->bhcts", dyf, vf)
+    nq = P.sum(-1) + gexp * scale * torch.einsum("bhctd,bhcd->bhct", qf, n_in)
+    num = torch.einsum("bhcts,bhcsd->bhctd", P, vf) \
+        + (gexp * scale)[..., None] * torch.einsum("bhcde,bhcte->bhctd", C_in, qf)
+    yd = (dyf * num).sum(-1)
+    # 3. the rows
+    floor = torch.exp(-m_row)
+    r = 1.0 / torch.maximum(nq.abs(), floor)
+    dnq = torch.where(nq.abs() > floor, -yd * r * r * torch.sign(nq), 0.0)
+    # 4. the reverse walk
+    dC_out = torch.empty_like(C_in)
+    dn_out = torch.empty_like(n_in)
+    dC = torch.zeros((b, h, d, d), dtype=torch.float32, device=q.device)
+    dn = torch.zeros((b, h, d), dtype=torch.float32, device=q.device)
+    for c in reversed(range(nc)):
+        dC_out[:, :, c], dn_out[:, :, c] = dC, dn
+        g = gexp[:, :, c] * r[:, :, c] * scale
+        dC = decay[..., c, None, None] * dC + torch.einsum(
+            "bhtd,bhte->bhde", dyf[:, :, c] * g[..., None], qf[:, :, c])
+        dn = decay[..., c, None] * dn + torch.einsum(
+            "bht,bhte->bhe", gexp[:, :, c] * dnq[:, :, c] * scale, qf[:, :, c])
+    # 5. the chunks' gradients; the state parts apart, for the gates
+    dP = (r[..., None] * DV + dnq[..., None]) * W
+    dq_state = scale * ((gexp * r)[..., None] * torch.einsum("bhctd,bhcde->bhcte", dyf, C_in)
+                        + (gexp * dnq)[..., None] * n_in[:, :, :, None])
+    dk_state = inj[..., None] * (torch.einsum("bhcsd,bhcde->bhcse", vf, dC_out)
+                                 + dn_out[:, :, :, None])
+    dq = scale * torch.einsum("bhcts,bhcse->bhcte", dP, kf) + dq_state
+    dk = scale * torch.einsum("bhcts,bhcte->bhcse", dP, qf) + dk_state
+    dv = torch.einsum("bhcts,bhctd->bhcsd", P * r[..., None], dyf) \
+        + inj[..., None] * torch.einsum("bhcse,bhcde->bhcsd", kf, dC_out)
+    # 6. the gates: with G = (r DV + dnq) o P, the gradient of each pair's
+    # log weight, <k_s, dk_s> = colsum(G)_s + V_s and <q_t, dq_t> = rowsum(G)_t
+    # + R_t, V and R the state parts' dots; the diagonal of G enters both
+    # sums of dF and is left out of them (under strong forgetting it is
+    # nearly all of each, and its two roundings would not cancel)
+    G = (r[..., None] * DV + dnq[..., None]) * P
+    R = (qf * dq_state).sum(-1)
+    V = (kf * dk_state).sum(-1)
+    diag = torch.diagonal(G, dim1=-2, dim2=-1)
+    below = G.sum(-1) - diag                                              # sum_{s<t} G[t,s]
+    above = G.sum(-2) - diag                                              # sum_{t>s} G[t,s]
+    dlogi = (diag + above + V).reshape(b, h, -1)
+    dF = (below + R - above - V).reshape(b, h, -1)
+    # the dF of a row sum to zero (a shift of every cumulative forget gate
+    # moves no weight), so dlogf_j is also minus the sum before j: the rows
+    # of the first half take that form, the others the sum from j (each sum
+    # then runs over at most half the rows; dlogf_0 is exactly zero)
+    after = torch.flip(torch.cumsum(torch.flip(dF, [2]), dim=2), [2])
+    before = torch.cumsum(dF, dim=2) - dF
+    dlogf = torch.where(torch.arange(dF.shape[2], device=q.device) < s // 2, -before, after)
+
+    def cut(t):
+        return t.reshape(b, h, nc * chunk, *t.shape[4:]).transpose(1, 2)[:, :s]
+    return (cut(dq).to(q.dtype), cut(dk).to(k.dtype), cut(dv).to(v.dtype),
+            dlogi.transpose(1, 2)[:, :s].to(logi.dtype),
+            dlogf.transpose(1, 2)[:, :s].to(logf.dtype))

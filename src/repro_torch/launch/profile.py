@@ -59,6 +59,8 @@ GROUPS = (("flash_attention", ("flash_fwd",)), ("decode_attention", ("decode_fwd
           ("flash_attention_bwd", ("flash_bwd",)),
           ("rmsnorm_bwd", ("_rmsnorm_bwd_kernel", "_rmsnorm_dscale_kernel")),
           ("rmsnorm", ("_rmsnorm_kernel",)),
+          # before the SSD scan's backward, whose names its own contain
+          ("mlstm_scan_bwd", ("mlstm_bwd_",)),
           ("ssm_scan_bwd", ("bwd_states", "bwd_carry", "bwd_chunk", "bwd_walk", "bwd_groups",
                             "bwd_finish")),
           ("ssm_scan", ("ssd_scan", "ssd_states", "ssd_carry", "ssd_output", "ssd_fused")),
@@ -80,8 +82,8 @@ def _group(name: str) -> str:
 def trace(fn, out: Path, label: str) -> dict:
     """Run ``fn`` once under the profiler; summarise its device activity.
     A trace that records no device activity at all (seen on the H100) is
-    taken again, up to three traces in all."""
-    for _ in range(3):
+    taken again, up to three traces in all; ``traces`` counts those taken."""
+    for taken in range(1, 4):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -110,7 +112,8 @@ def trace(fn, out: Path, label: str) -> dict:
         g = by_group[_group(e.name)]
         g[0] += e.time_range.elapsed_us() / 1e3
         g[1] += 1
-    return {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3, "device_span_ms": span / 1e3,
+    return {"traces": taken, "wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
+            "device_span_ms": span / 1e3,
             "idle_share_of_span": 1.0 - busy / span if span else 0.0,
             "kernels": len(kernels),
             "by_group_ms": {k: {"ms": v[0], "n": v[1]}

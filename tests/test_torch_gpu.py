@@ -8,11 +8,11 @@ no JAX, so it also runs where only PyTorch is installed:
 The shapes are those of tests/test_kernels.py, which test_torch_kernels.py
 also uses to hold the twins to the JAX reference; the tolerances are the
 reference's (tests/test_kernels.py:17-19): 3e-4 in fp32, 2e-2 in bf16.
-The backward kernels (flash attention, RMSNorm, the SSD scan) are held to
-autograd of their twins at the same tolerances (the scan's fp32 gradients
-within 3e-4 of each one's largest value), and a smoke model's gradients
-through the kernels to its plain path's; the kernels without a backward
-must raise under grad.
+The backward kernels (flash attention, RMSNorm, the SSD and mLSTM scans)
+are held to autograd of their twins at the same tolerances (the scans' fp32
+gradients within 3e-4 of each one's largest value), and a smoke model's
+gradients through the kernels to its plain path's; decode attention, which
+has no backward, must raise under grad.
 """
 import ctypes
 
@@ -484,7 +484,7 @@ def test_wrappers_count_launches_and_reject_wide_heads(cuda):
     ops.rmsnorm(q, torch.zeros(64, device=cuda, dtype=torch.bfloat16), use_kernel=True)
     assert native.LAUNCHES == {"rmsnorm": 1, "flash_attention": 1, "decode_attention": 1,
                                "ssm_scan": 0, "mlstm_scan": 0, "flash_attention_bwd": 0,
-                               "rmsnorm_bwd": 0, "ssm_scan_bwd": 0}
+                               "rmsnorm_bwd": 0, "ssm_scan_bwd": 0, "mlstm_scan_bwd": 0}
     wide = torch.randn(1, 8, 2, 336, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim 336"):
         ops.flash_attention(wide, wide, wide, use_kernel=True)
@@ -1224,12 +1224,156 @@ def test_zamba2_smoke_gradients_through_the_scan_kernels_on_gpu(cuda):
         "ssm_scan_bwd"}
 
 
+# (b, s, d): S around one chunk of 64 and a ragged 1000 (the last chunk 40
+# rows), at D 16 (the smoke configs) and 512 (xlstm's)
+MLSTM_BWD_GPU_CASES = [(2, s, d) for s in (1, 63, 64, 65, 1000) for d in (16, 512)]
+
+
+def mlstm_bwd_inputs(seed: int, b: int, s: int, h: int, d: int):
+    """q, k, v, logi, logf (log-sigmoid of the preactivation) and dy, fp32
+    numpy; head 0's logi shifted by -30, so the denominator's floor binds in
+    its rows (|n . q| far below exp(-m_row))."""
+    rng = np.random.default_rng(seed)
+    q, k, v, logi, fpre = mlstm_inputs(rng, b, s, h, d)
+    logi[:, :, 0] -= 30.0
+    logf = -np.logaddexp(0.0, -fpre).astype(np.float32)
+    dy = rng.standard_normal((b, s, h, d), dtype=np.float32)
+    return q, k, v, logi, logf, dy
+
+
+def _mlstm_bwd_on(arrays, device, dtype):
+    """q, k, v, dy in ``dtype``; the gates fp32."""
+    q, k, v, logi, logf, dy = arrays
+    q, k, v, dy = _on((q, k, v, dy), device, dtype)
+    logi, logf = _on((logi, logf), device, torch.float32)
+    return q, k, v, logi, logf, dy
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,d", MLSTM_BWD_GPU_CASES)
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_mlstm_scan_backward_kernel_matches_twin_on_gpu(cuda, b, s, d, dtype):
+    """The backward kernel against ``ref.mlstm_scan_bwd_ref`` (autograd of
+    the chunked twin at the inputs' fp32 values), one head's rows under the
+    floor, a padded last chunk where S is no multiple of 64; one counted
+    launch a call."""
+    q, k, v, li, lf, dy = _mlstm_bwd_on(mlstm_bwd_inputs(20, b, s, 3, d), cuda, DTYPES[dtype])
+    native.reset_launches()
+    got = ops.mlstm_scan_bwd(q, k, v, li, lf, dy, use_kernel=True)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["mlstm_scan_bwd"] == 1
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    _close_bwd(got, ref.mlstm_scan_bwd_ref(q, k, v, li, lf, dy, chunk=64), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 300, 4, 512), (4, 512, 4, 512)],
+                         ids=["ragged", "training_shape"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_mlstm_scan_backward_kernel_repeats_bit_for_bit_on_gpu(cuda, shape, dtype):
+    """Two calls on the same inputs give bit-equal gradients: every sum (the
+    slabs', the chunks', dlogf's reverse sum) runs in a fixed order."""
+    q, k, v, li, lf, dy = _mlstm_bwd_on(mlstm_bwd_inputs(21, *shape), cuda, DTYPES[dtype])
+    first = ops.mlstm_scan_bwd(q, k, v, li, lf, dy, use_kernel=True)
+    again = ops.mlstm_scan_bwd(q, k, v, li, lf, dy, use_kernel=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+def test_mlstm_scan_backward_kernel_long_row_on_gpu(cuda):
+    """One row of 4096 tokens at xlstm's widths (4 heads of 512; 64 chunks,
+    the walks' length and dlogf's longest reverse sum) in bf16, against the
+    twin."""
+    q, k, v, li, lf, dy = _mlstm_bwd_on(mlstm_bwd_inputs(22, 1, 4096, 4, 512), cuda,
+                                        torch.bfloat16)
+    got = ops.mlstm_scan_bwd(q, k, v, li, lf, dy, use_kernel=True)
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    _close_bwd(got, ref.mlstm_scan_bwd_ref(q, k, v, li, lf, dy), "bfloat16")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_mlstm_scan_autograd_through_the_kernels_on_gpu(cuda, dtype):
+    """``torch.autograd.grad`` through ``ops.mlstm_scan(use_kernel=True)``:
+    the output carries a ``grad_fn``, one forward and one backward launch,
+    each gradient in its input's dtype and within the tolerance of autograd
+    through the twin (``ops.mlstm_chunked``) on the same leaves."""
+    td = DTYPES[dtype]
+    q, k, v, li, lf, gy = _mlstm_bwd_on(mlstm_bwd_inputs(23, 2, 150, 4, 64), cuda, td)
+    grads = {}
+    for use in (True, False):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v, li, lf)]
+        native.reset_launches()
+        y = ops.mlstm_scan(*leaves, chunk=64, use_kernel=use)
+        assert y.grad_fn is not None
+        grads[use] = torch.autograd.grad((y.float() * gy.float()).sum(), leaves)
+        torch.cuda.synchronize()
+        if use:
+            assert native.LAUNCHES["mlstm_scan"] == native.LAUNCHES["mlstm_scan_bwd"] == 1
+    assert [g.dtype for g in grads[True]] == [td, td, td, torch.float32, torch.float32]
+    _close_bwd(grads[True], grads[False], "float32" if dtype == "float32" else "bfloat16")
+
+
+@pytest.mark.gpu
+def test_mlstm_scan_backward_raises_off_its_shapes_on_gpu(cuda):
+    """Off the card, and at a head dim past the kernels' 1024, the wrapper
+    raises before any launch: no path falls back to the twin."""
+    from repro_torch.kernels import mlstm_scan as mk
+    q, k, v, li, lf, dy = _mlstm_bwd_on(mlstm_bwd_inputs(24, 1, 64, 2, 1025), cuda,
+                                        torch.bfloat16)
+    native.reset_launches()
+    with pytest.raises(ValueError, match="head_dim 1025"):
+        mk.mlstm_scan_bwd(q, k, v, li, lf, dy)
+    with pytest.raises(ValueError, match="no kernel for device cpu"):
+        mk.mlstm_scan_bwd(*(t[..., :16].cpu() if t.ndim == 4 else t.cpu()
+                            for t in (q, k, v, li, lf, dy)))
+    assert native.LAUNCHES["mlstm_scan_bwd"] == 0
+
+
+@pytest.mark.gpu
+def test_xlstm_smoke_gradients_through_the_scan_kernels_on_gpu(cuda):
+    """xlstm's fp32 smoke config: every parameter leaf's gradient through the
+    kernels within 1e-3 of the plain path's (the training legs' fp32 leaf
+    limit: random-weight xlstm amplifies rounding), a leaf whose gradient is
+    below 1e-6 of the tree's largest on the plain path below that floor on
+    the kernel path too (the sLSTM's input-gate bias: ~7e-10, rounding
+    alone; ``chip_smoke.py``'s ZERO_LEAF), and a training step launches
+    RMSNorm and ``mlstm_scan``, each both ways, and no other."""
+    from repro_torch.configs import registry
+    from repro_torch.models import lm, steps
+    from repro_torch.optim import adamw
+    cfg = registry.get_smoke_config("xlstm_1_3b")
+    params = lm.init_params(cfg, seed=0, device=cuda, dtype=torch.float32)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 100), device=cuda, generator=gen)
+    batch = {**steps.batch_inputs(cfg, toks), "labels": toks}
+    grads = {}
+    for use in (True, False):
+        leaves = adamw.tree_map(lambda p: p.clone().requires_grad_(), params)
+        loss, _ = steps.loss_fn(leaves, cfg.replace(use_kernels=use), batch)
+        grads[use] = torch.autograd.grad(loss, adamw.tree_leaves(leaves))
+    assert len(grads[True]) == len(adamw.tree_leaves(params))
+    floor = 1e-6 * max(float(b.abs().max()) for b in grads[False])
+    for a, b in zip(grads[True], grads[False]):
+        if float(b.abs().max()) < floor:
+            assert float(a.abs().max()) < floor
+        else:
+            assert _rel(a, b) <= 1e-3
+    native.reset_launches()
+    steps.train_step(params, adamw.init_opt_state(params), batch,
+                     cfg=cfg.replace(use_kernels=True))
+    torch.cuda.synchronize()
+    assert {k for k, n in native.LAUNCHES.items() if n} == {
+        "rmsnorm", "rmsnorm_bwd", "mlstm_scan", "mlstm_scan_bwd"}
+
+
 @pytest.mark.gpu
 def test_kernels_without_a_backward_raise_under_grad_on_gpu(cuda):
-    """decode attention and the mLSTM scan refuse a call under grad, naming
-    their ROADMAP item, instead of returning an output with no gradient;
-    under no_grad they run.  Flash attention at D 320 and the SSD scan have
-    their backward kernels: under grad their outputs carry the gradient
+    """decode attention refuses a call under grad, naming its ROADMAP item,
+    instead of returning an output with no gradient; under no_grad it runs.
+    Flash attention at D 320 and the SSD and mLSTM scans have their
+    backward kernels: under grad their outputs carry the gradient
     function."""
     g = torch.Generator(device=cuda).manual_seed(0)
     q = torch.randn(2, 8, 64, device=cuda, generator=g, requires_grad=True)
@@ -1243,15 +1387,16 @@ def test_kernels_without_a_backward_raise_under_grad_on_gpu(cuda):
     assert y.grad_fn is not None and hf.grad_fn is not None
     qm, km, vm, li, fp = _on(mlstm_inputs(np.random.default_rng(0), 1, 32, 2, 16), cuda,
                              torch.float32)
-    with pytest.raises(RuntimeError, match="ROADMAP.md queue 2 item 2.3"):
-        ops.mlstm_scan(qm, km.requires_grad_(), vm, li, torch.nn.functional.logsigmoid(fp),
-                       use_kernel=True)
+    ym = ops.mlstm_scan(qm, km.requires_grad_(), vm, li, torch.nn.functional.logsigmoid(fp),
+                        use_kernel=True)
+    assert ym.grad_fn is not None
     wide = torch.randn(1, 16, 2, 320, device=cuda, generator=g, requires_grad=True)
     assert ops.flash_attention(wide, wide, wide, use_kernel=True).grad_fn is not None
     with torch.no_grad():
         ops.decode_attention(q, kc, kc, lens, use_kernel=True)
         ops.flash_attention(wide, wide, wide, use_kernel=True)
         assert ops.ssm_scan(x, dt, A, Bm, Cm, use_kernel=True)[0].grad_fn is None
+        assert ops.mlstm_scan(qm, km, vm, li, fp, use_kernel=True).grad_fn is None
 
 
 @pytest.mark.gpu

@@ -293,9 +293,10 @@ def test_cpu_wrappers_run_the_twin_and_count_nothing():
     ops.ssm_scan_bwd(torch.randn(1, 4, 2, 8), torch.rand(1, 4, 2), -torch.rand(2),
                      torch.randn(1, 4, 4), torch.randn(1, 4, 4), torch.randn(1, 4, 2, 8),
                      use_kernel=True)
+    ops.mlstm_scan_bwd(q, q, q, torch.zeros(1, 4, 2), torch.zeros(1, 4, 2), q, use_kernel=True)
     assert native.LAUNCHES == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
                                "ssm_scan": 0, "mlstm_scan": 0, "flash_attention_bwd": 0,
-                               "rmsnorm_bwd": 0, "ssm_scan_bwd": 0}
+                               "rmsnorm_bwd": 0, "ssm_scan_bwd": 0, "mlstm_scan_bwd": 0}
 
 
 @pytest.mark.parametrize("fn,args", [
@@ -313,6 +314,9 @@ def test_cpu_wrappers_run_the_twin_and_count_nothing():
                               torch.empty(1, 4, 4, device="meta"),
                               torch.empty(1, 4, 4, device="meta"),
                               torch.empty(1, 4, 2, 8, device="meta"))),
+    ("mlstm_scan_bwd", lambda: tuple(torch.empty(1, 4, 2, 8, device="meta") for _ in range(3))
+     + tuple(torch.empty(1, 4, 2, device="meta") for _ in range(2))
+     + (torch.empty(1, 4, 2, 8, device="meta"),)),
 ])
 def test_wrappers_refuse_other_devices(fn, args):
     """Only the CPU selects the twin: any other device launches or raises."""
