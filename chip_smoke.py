@@ -1115,6 +1115,12 @@ def main() -> int:
             "not counted (no cuobjdump)" if counts is None else "; ".join(
                 f"{k} " + ", ".join(f"{i} x{n}" for i, n in sorted(c.items()))
                 for k, c in sorted(counts.items())) or "none"))
+    # the mLSTM backward's bf16 passes at head dim 512 multiply on wgmma
+    mlstm_sass = report["sass"].get("mlstm_scan_bwd.cu")
+    for k in ("mlstm_bwd_tc_walk", "mlstm_bwd_tc_chunk"):
+        if mlstm_sass is not None and not any(i.startswith("HGMMA")
+                                              for i in mlstm_sass.get(k, {})):
+            raise AssertionError(f"mlstm_scan_bwd.cu: no HGMMA in {k}'s SASS")
     gen = torch.Generator(device="cuda").manual_seed(0)
     warm = _rmsnorm_case(8, 4096, gen)
     t0 = time.perf_counter()

@@ -685,64 +685,17 @@ constexpr int STAGES = 2;     // per-head tile stages of the chunk pass (1: no p
 constexpr int WSTAGES = 4;    // the walk's ring of chunks (WSTAGES - 1 in flight)
 constexpr int XW = 72;        // row stride (bf16) of the walk's plain 64-column x / dy slice
 
-// the swizzle acts on shared-memory address bits: tiles start on 1024 bytes
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw, uint32_t& addr) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
-  const uint32_t shift = (1024 - (s & 1023)) & 1023;
-  addr = s + shift;
-  return raw + shift;
-}
+using sm90::aligned_smem;
+using sm90::frags;
+using sm90::split2;
+using sm90::wgmma_ss_mn;
+using sm90::zero;
 
 // element (r, c) of a swizzled bf16 tile of ROWS rows and DP columns
 template <int DP, int ROWS>
 __device__ __forceinline__ float at(const unsigned char* tile, int r, int c) {
   return __bfloat162float(*reinterpret_cast<const bf16*>(
       tile + sm90::chunk_offset<DP, ROWS>(r, c >> 3) + (c & 7) * 2));
-}
-
-// x0, x1 as bf16 pairs hi = bf16(x) and lo = bf16(x - hi) (16 mantissa bits)
-__device__ __forceinline__ void split2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  hi = sm90::pack_bf16(x0, x1);
-  const float2 h = sm90::unpack_bf16(hi);
-  lo = sm90::pack_bf16(x0 - h.x, x1 - h.y);
-}
-
-// the hi and lo A fragments (K 64, four k-steps) of a 64 x 64 fp32
-// accumulator (wgmma.cuh's layout)
-__device__ __forceinline__ void frags(const float (&v)[32], uint32_t (&hi)[4][4],
-                                      uint32_t (&lo)[4][4]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) split2(v[8 * kk + 2 * e], v[8 * kk + 2 * e + 1], hi[kk][e], lo[kk][e]);
-}
-
-template <int NR>
-__device__ __forceinline__ void zero(float (&v)[NR]) {
-#pragma unroll
-  for (int e = 0; e < NR; ++e) v[e] = 0.f;
-}
-
-// D (64 x 64, fp32) += A (64 x 16, shared, K-major) B (16 x 64, shared, MN-major)
-__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
 }
 
 // acc (64 x 64) += A B^T over KP columns, both K-major (Layout<KP>): A the

@@ -5,9 +5,10 @@ Pallas kernel ``repro/kernels/mlstm_scan.py:mlstm_scan``, and of its
 backward in ``csrc/mlstm_scan_bwd.cu`` (no TPU kernel: the reference
 differentiates its plain chunked form).  The sources' headers say how they
 are laid out and what bounds them: bf16 inputs take the tensor-core paths
-(three launches forward, eight backward, with scratch this wrapper
-allocates), fp32 inputs the CUDA-core kernel forward and fp32 products
-backward.  Like the TPU kernel the forward returns y only, no carried
+(three launches forward, with scratch this wrapper allocates; backward
+five launches on ``wgmma`` at head dim 512, eight on ``mma.sync`` at every
+other head dim), fp32 inputs the CUDA-core kernel forward and fp32
+products backward.  Like the TPU kernel the forward returns y only, no carried
 state.  The wrappers launch the kernels on CUDA tensors and raise on
 anything else; ``ops.mlstm_scan`` and ``ops.mlstm_scan_bwd`` choose the
 plain twins (``ops.mlstm_chunked`` and autograd of it,
@@ -114,7 +115,10 @@ def mlstm_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logi: torc
     """The gradients of ``mlstm_scan`` at (q, k, v, logi, logf) for y's
     gradient ``dy``.  Returns (dq, dk, dv, dlogi, dlogf), each in its input's
     dtype, summed in fp32.  One launch counted, whatever passes the kernel
-    runs."""
+    runs.  The passes follow from the shape alone: bf16 at head dim 512
+    (xlstm's) takes the ``wgmma`` passes (``mlstm_bwd_tc_*``), every other
+    bf16 head dim and fp32 the mma.sync / FMA passes (``mlstm_bwd_*``); an input whose
+    storage is not 16-byte aligned is copied first."""
     _check(q, k, v, logi, logf, "mlstm_scan_bwd")
     b, s, h, d = q.shape
     if dy.shape != q.shape:
@@ -123,15 +127,16 @@ def mlstm_scan_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logi: torc
     if not (b and s):
         return (torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v),
                 torch.zeros_like(logi), torch.zeros_like(logf))
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    dy = dy.to(q.dtype).contiguous()
+    q, k, v, dy = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (q.contiguous(), k.contiguous(), v.contiguous(),
+                             dy.to(q.dtype).contiguous()))
     li, lf = logi.float().contiguous(), logf.float().contiguous()
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     dli, dlf = torch.empty_like(li), torch.empty_like(lf)
     fn = native.function(SOURCE_BWD, _ENTRY_BWD[q.dtype], _ARGTYPES_BWD)
     with torch.cuda.device(q.device):
-        size = native.function(SOURCE_BWD, "mlstm_scan_bwd_scratch", [ctypes.c_int] * 4,
-                               ctypes.c_longlong)(b, s, h, d)
+        size = native.function(SOURCE_BWD, "mlstm_scan_bwd_scratch", [ctypes.c_int] * 5,
+                               ctypes.c_longlong)(b, s, h, d, int(q.dtype == torch.bfloat16))
         scratch = torch.empty(size, dtype=torch.float32, device=q.device)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), li.data_ptr(), lf.data_ptr(),
                  dy.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dli.data_ptr(),

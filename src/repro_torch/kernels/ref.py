@@ -627,29 +627,9 @@ def mlstm_scan_bwd_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     and q = k = v = dy = 0: they add to no gradient."""
     b, s, h, d = q.shape
     scale = d ** -0.5
-    qf, kf, vf, dyf = (_pad_chunks(a.float(), chunk).reshape(b, -1, chunk, h, d)
-                       .permute(0, 3, 1, 2, 4) for a in (q, k, v, dy))        # (B,H,nc,T,D)
-    li = _pad_chunks(logi.float(), chunk, NEG_INF).reshape(b, -1, chunk, h).permute(0, 3, 1, 2)
-    lf = _pad_chunks(logf.float(), chunk).reshape(b, -1, chunk, h).permute(0, 3, 1, 2)
+    qf, kf, vf, dyf = _mlstm_bwd_tiles(chunk, q, k, v, dy)
     nc = qf.shape[2]
-    bcum = torch.cumsum(lf, dim=3)                                        # (B,H,nc,T)
-    F = bcum[..., -1]                                                     # (B,H,nc)
-    tail = (li + (F[..., None] - bcum)).amax(dim=3)
-    m_in = torch.empty_like(F)
-    m = torch.full((b, h), NEG_INF, dtype=torch.float32, device=q.device)
-    for c in range(nc):                                                   # the gates pass
-        m_in[..., c] = m
-        m = torch.maximum(F[..., c] + m, tail[..., c])
-    m_out = torch.cat([m_in[..., 1:], m[..., None]], dim=-1)
-    # the kernels' row stabiliser: bcum_t + the prefix max of li_s - bcum_s
-    m_row = torch.maximum(bcum + m_in[..., None],
-                          bcum + torch.cummax(li - bcum, dim=3).values).clamp_min(NEG_INF)
-    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device))
-    W = torch.exp(torch.where(tri, bcum[..., :, None] - bcum[..., None, :] + li[..., None, :]
-                              - m_row[..., None], NEG_INF))               # (B,H,nc,t,s)
-    gexp = torch.exp(bcum + m_in[..., None] - m_row)
-    inj = torch.exp(li + (F[..., None] - bcum) - m_out[..., None])
-    decay = torch.exp(F + m_in - m_out)
+    W, gexp, inj, decay, m_row = _mlstm_bwd_gates(logi, logf, chunk)
     # 1. the forward walk
     C_in = torch.empty((b, h, nc, d, d), dtype=torch.float32, device=q.device)
     n_in = torch.empty((b, h, nc, d), dtype=torch.float32, device=q.device)
@@ -704,18 +684,154 @@ def mlstm_scan_bwd_chunked_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     diag = torch.diagonal(G, dim1=-2, dim2=-1)
     below = G.sum(-1) - diag                                              # sum_{s<t} G[t,s]
     above = G.sum(-2) - diag                                              # sum_{t>s} G[t,s]
-    dlogi = (diag + above + V).reshape(b, h, -1)
-    dF = (below + R - above - V).reshape(b, h, -1)
-    # the dF of a row sum to zero (a shift of every cumulative forget gate
-    # moves no weight), so dlogf_j is also minus the sum before j: the rows
-    # of the first half take that form, the others the sum from j (each sum
-    # then runs over at most half the rows; dlogf_0 is exactly zero)
+    return _mlstm_bwd_finish((q, k, v, logi, logf), (dq, dk, dv), diag + above + V,
+                             below + R - above - V)
+
+
+def _mlstm_bwd_tiles(chunk: int, *ts: torch.Tensor):
+    """(B,S,H,D) tensors as fp32 (B,H,nc,T,D) chunks, zero past S."""
+    b, _, h, d = ts[0].shape
+    return tuple(_pad_chunks(a.float(), chunk).reshape(b, -1, chunk, h, d).permute(0, 3, 1, 2, 4)
+                 for a in ts)
+
+
+def _mlstm_bwd_gates(logi: torch.Tensor, logf: torch.Tensor, chunk: int):
+    """The backward passes' gates, (B,H,nc,...): the forward's gates pass
+    gives m_in per chunk; W[t,s] = exp(bcum_t - bcum_s + li_s - m_row_t) (s <=
+    t), gexp = exp(bcum + m_in - m_row), inj_s = exp(li_s + F - bcum_s -
+    m_out), the decay exp(F + m_in - m_out) and m_row (F = bcum_T).  Rows past
+    S enter with logi = -1e30 and logf = 0."""
+    b, _, h = logi.shape
+    li = _pad_chunks(logi.float(), chunk, NEG_INF).reshape(b, -1, chunk, h).permute(0, 3, 1, 2)
+    lf = _pad_chunks(logf.float(), chunk).reshape(b, -1, chunk, h).permute(0, 3, 1, 2)
+    bcum = torch.cumsum(lf, dim=3)                                        # (B,H,nc,T)
+    F = bcum[..., -1]                                                     # (B,H,nc)
+    tail = (li + (F[..., None] - bcum)).amax(dim=3)
+    m_in = torch.empty_like(F)
+    m = torch.full((b, h), NEG_INF, dtype=torch.float32, device=logi.device)
+    for c in range(F.shape[2]):                                           # the gates pass
+        m_in[..., c] = m
+        m = torch.maximum(F[..., c] + m, tail[..., c])
+    m_out = torch.cat([m_in[..., 1:], m[..., None]], dim=-1)
+    # the kernels' row stabiliser: bcum_t + the prefix max of li_s - bcum_s
+    m_row = torch.maximum(bcum + m_in[..., None],
+                          bcum + torch.cummax(li - bcum, dim=3).values).clamp_min(NEG_INF)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=logi.device))
+    W = torch.exp(torch.where(tri, bcum[..., :, None] - bcum[..., None, :] + li[..., None, :]
+                              - m_row[..., None], NEG_INF))               # (B,H,nc,t,s)
+    gexp = torch.exp(bcum + m_in[..., None] - m_row)
+    inj = torch.exp(li + (F[..., None] - bcum) - m_out[..., None])
+    return W, gexp, inj, torch.exp(F + m_in - m_out), m_row
+
+
+def _mlstm_bwd_finish(inputs, grads, dlogi: torch.Tensor, dF: torch.Tensor):
+    """(dq, dk, dv, dlogi, dlogf) cut to S in the inputs' dtypes from the
+    chunked (B,H,nc,T,...) gradients, dlogi and dF = <q, dq> - <k, dk>.  The
+    dF of a row sum to zero (a shift of every cumulative forget gate moves no
+    weight), so dlogf_j is also minus the sum before j: the rows of the first
+    half take that form, the others the sum from j (each sum then runs over
+    at most half the rows; dlogf_0 is exactly zero)."""
+    q, k, v, logi, logf = inputs
+    b, s, h, _ = q.shape
+    n = dF.shape[2] * dF.shape[3]
+    dlogi, dF = dlogi.reshape(b, h, n), dF.reshape(b, h, n)
     after = torch.flip(torch.cumsum(torch.flip(dF, [2]), dim=2), [2])
     before = torch.cumsum(dF, dim=2) - dF
-    dlogf = torch.where(torch.arange(dF.shape[2], device=q.device) < s // 2, -before, after)
+    dlogf = torch.where(torch.arange(n, device=q.device) < s // 2, -before, after)
 
     def cut(t):
-        return t.reshape(b, h, nc * chunk, *t.shape[4:]).transpose(1, 2)[:, :s]
-    return (cut(dq).to(q.dtype), cut(dk).to(k.dtype), cut(dv).to(v.dtype),
-            dlogi.transpose(1, 2)[:, :s].to(logi.dtype),
-            dlogf.transpose(1, 2)[:, :s].to(logf.dtype))
+        return t.reshape(b, h, n, *t.shape[4:]).transpose(1, 2)[:, :s]
+    return tuple(cut(g).to(t.dtype) for g, t in zip(grads, (q, k, v))) + (
+        dlogi.transpose(1, 2)[:, :s].to(logi.dtype), dlogf.transpose(1, 2)[:, :s].to(logf.dtype))
+
+
+def mlstm_scan_bwd_walk_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            logi: torch.Tensor, logf: torch.Tensor, dy: torch.Tensor, *,
+                            chunk: int = 64, slab: int = 64):
+    """``mlstm_scan_bwd_ref`` in the order of the bf16 kernel's wgmma passes
+    (``csrc/mlstm_scan_bwd.cu``, head dim 512), fp32, no autograd (for the
+    tests: no path calls it).  ``mlstm_scan_bwd_chunked_ref`` states the
+    terms; here, per chunk:
+
+      1. the forward walk: u = dy C_in and n_in, with C_in as bf16 hi + lo,
+         and the dots q . u and q . n_in per ``slab`` columns, the slabs
+         summed in order; C <- decay C + (k o inj)^T v with k o inj as hi +
+         lo;
+      2. the chunk pass: P and DV, nq = rowsum P + gexp D^-1/2 q . n_in, yd
+         = rowsum(P o DV) + gexp D^-1/2 q . u, r, dnq, R from the same dots;
+         dq = D^-1/2 (dP k + gexp (r u + dnq n_in)), dk's and dv's chunk
+         parts D^-1/2 dP^T q and (P o r)^T dy, dP and P o r as hi + lo;
+      3. the reverse walk in both orientations, each its own dC: dC^T <-
+         decay dC^T + (q o g)^T dy and dC <- decay dC + (dy o g)^T q (g =
+         gexp r D^-1/2, the fp32 operand as hi + lo); dk = its chunk part +
+         inj (v dC_out + dn_out) and V = k . that state part per slab, in
+         order; dv = its chunk part + inj k dC_out^T, dC_out as hi + lo;
+      4. the gates from G's sums below, above and on the diagonal, R and V.
+    Rows past S enter with logi = -1e30 and logf = 0, and q = k = v = dy =
+    0: they add to no gradient."""
+    b, s, h, d = q.shape
+    scale = d ** -0.5
+    qf, kf, vf, dyf = _mlstm_bwd_tiles(chunk, q, k, v, dy)
+    nc = qf.shape[2]
+    W, gexp, inj, decay, m_row = _mlstm_bwd_gates(logi, logf, chunk)
+
+    def by_slab(x):                     # sums over each slab of the last axis, then in order
+        parts = [x[..., e0:e0 + slab].sum(-1) for e0 in range(0, d, slab)]
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        return total
+    # 1. the forward walk
+    u = torch.empty_like(qf)
+    n_in = torch.empty((b, h, nc, d), dtype=torch.float32, device=q.device)
+    C = torch.zeros((b, h, d, d), dtype=torch.float32, device=q.device)
+    nv = torch.zeros((b, h, d), dtype=torch.float32, device=q.device)
+    for c in range(nc):
+        u[:, :, c] = torch.einsum("bhtd,bhde->bhte", dyf[:, :, c], _split(C))
+        n_in[:, :, c] = nv
+        C = decay[..., c, None, None] * C + torch.einsum(
+            "bhtd,bhte->bhde", vf[:, :, c], _split(kf[:, :, c] * inj[:, :, c, :, None]))
+        nv = decay[..., c, None] * nv + torch.einsum("bht,bhte->bhe", inj[:, :, c], kf[:, :, c])
+    QU = by_slab(qf * u)
+    QN = by_slab(qf * n_in[:, :, :, None])
+    # 2. the chunk pass
+    P = torch.einsum("bhctd,bhcsd->bhcts", qf, kf) * (scale * W)
+    DV = torch.einsum("bhctd,bhcsd->bhcts", dyf, vf)
+    nq = P.sum(-1) + gexp * scale * QN
+    yd = (P * DV).sum(-1) + gexp * scale * QU
+    floor = torch.exp(-m_row)
+    r = 1.0 / torch.maximum(nq.abs(), floor)
+    dnq = torch.where(nq.abs() > floor, -yd * r * r * torch.sign(nq), 0.0)
+    X = r[..., None] * DV + dnq[..., None]
+    dP, G = X * W, X * P
+    R = scale * gexp * (r * QU + dnq * QN)
+    dq = scale * torch.einsum("bhcts,bhcse->bhcte", _split(dP), kf) \
+        + (scale * gexp)[..., None] * (r[..., None] * u + dnq[..., None] * n_in[:, :, :, None])
+    dkc = scale * torch.einsum("bhcts,bhcte->bhcse", _split(dP), qf)
+    dvc = torch.einsum("bhcts,bhctd->bhcsd", _split(P * r[..., None]), dyf)
+    # 3. the reverse walk, both orientations
+    dk, dv = torch.empty_like(dkc), torch.empty_like(dvc)
+    V = torch.empty_like(r)
+    dCt = torch.zeros((b, h, d, d), dtype=torch.float32, device=q.device)
+    dCn = torch.zeros_like(dCt)
+    dn = torch.zeros((b, h, d), dtype=torch.float32, device=q.device)
+    for c in reversed(range(nc)):
+        kst = inj[:, :, c, :, None] * (torch.einsum("bhsd,bhde->bhse", vf[:, :, c], _split(dCt))
+                                       + dn[:, :, None])
+        dk[:, :, c] = dkc[:, :, c] + kst
+        V[:, :, c] = by_slab(kf[:, :, c] * kst)
+        dv[:, :, c] = dvc[:, :, c] + inj[:, :, c, :, None] * torch.einsum(
+            "bhse,bhde->bhsd", kf[:, :, c], _split(dCn))
+        g = (gexp[:, :, c] * r[:, :, c] * scale)[..., None]
+        dCt = decay[..., c, None, None] * dCt + torch.einsum(
+            "bhtd,bhte->bhde", dyf[:, :, c], _split(qf[:, :, c] * g))
+        dCn = decay[..., c, None, None] * dCn + torch.einsum(
+            "bhtd,bhte->bhde", _split(dyf[:, :, c] * g), qf[:, :, c])
+        dn = decay[..., c, None] * dn + torch.einsum(
+            "bht,bhte->bhe", gexp[:, :, c] * dnq[:, :, c] * scale, qf[:, :, c])
+    # 4. the gates
+    lower = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=q.device), -1)
+    Gl = torch.where(lower, G, 0.0)
+    diag = torch.diagonal(G, dim1=-2, dim2=-1)
+    return _mlstm_bwd_finish((q, k, v, logi, logf), (dq, dk, dv), diag + Gl.sum(-2) + V,
+                             Gl.sum(-1) + R - Gl.sum(-2) - V)

@@ -1315,6 +1315,53 @@ def test_mlstm_scan_autograd_through_the_kernels_on_gpu(cuda, dtype):
     _close_bwd(grads[True], grads[False], "float32" if dtype == "float32" else "bfloat16")
 
 
+def _device_kernel_names(fn) -> set:
+    """The device kernels a ``torch.profiler`` trace of one call of ``fn``
+    sees, by name (namespace, template arguments and parameters dropped)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name.replace("(anonymous namespace)::", "").replace("tc::", "")
+            .split("(")[0].split("<")[0].removeprefix("void ")
+            for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [448, 512])
+def test_mlstm_scan_backward_passes_by_head_dim_on_gpu(cuda, d):
+    """The shape rule: bf16 at head dim 512 runs the wgmma passes (gates,
+    the forward walk, the chunk pass, the reverse walk, the gates' sums:
+    five device kernels), any other bf16 head dim (448) the eight
+    mma.sync passes, by the device kernels a profiler sees."""
+    q, k, v, li, lf, dy = _mlstm_bwd_on(mlstm_bwd_inputs(25, 2, 150, 2, d), cuda, torch.bfloat16)
+    names = _device_kernel_names(lambda: ops.mlstm_scan_bwd(q, k, v, li, lf, dy, use_kernel=True))
+    names = {n for n in names if n.startswith("mlstm_bwd")}
+    if d == 512:
+        assert names == {"mlstm_bwd_tc_gates", "mlstm_bwd_tc_walk", "mlstm_bwd_tc_chunk",
+                         "mlstm_bwd_gsum"}, names
+    else:
+        assert names == {"mlstm_bwd_gates", "mlstm_bwd_walk", "mlstm_bwd_chunk", "mlstm_bwd_num",
+                         "mlstm_bwd_rows", "mlstm_bwd_grads", "mlstm_bwd_gsum"}, names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,s,h,d", [(2, 200, 3, 448), (2, 200, 3, 512), (1, 70, 1, 512)])
+def test_mlstm_scan_backward_either_side_of_the_shape_rule_on_gpu(cuda, b, s, h, d):
+    """bf16 on each side of the shape rule (head dim 448: the mma.sync
+    passes; 512: the wgmma passes, also at one head and a ragged two
+    chunks) against the twin, one head's rows under the floor."""
+    q, k, v, li, lf, dy = _mlstm_bwd_on(mlstm_bwd_inputs(26, b, s, h, d), cuda, torch.bfloat16)
+    native.reset_launches()
+    got = ops.mlstm_scan_bwd(q, k, v, li, lf, dy, use_kernel=True)
+    torch.cuda.synchronize()
+    assert native.LAUNCHES["mlstm_scan_bwd"] == 1
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    _close_bwd(got, ref.mlstm_scan_bwd_ref(q, k, v, li, lf, dy, chunk=64), "bfloat16")
+
+
 @pytest.mark.gpu
 def test_mlstm_scan_backward_raises_off_its_shapes_on_gpu(cuda):
     """Off the card, and at a head dim past the kernels' 1024, the wrapper

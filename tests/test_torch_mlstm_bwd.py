@@ -10,13 +10,17 @@ stand-ins are held:
   (``models/ssm._mlstm_chunked``) and of its sequential oracle
   (``ref.mlstm_scan_ref``, which takes the forget gate's preactivation),
   at a ragged S, within 3e-4 of each gradient's largest value;
-* the kernel's passes (``ref.mlstm_scan_bwd_chunked_ref`` at the kernel's
-  64-row chunks: the gates, the forward walk, the chunks' matrices, the
-  rows' denominators, the reverse walk, the per-chunk gradients, the gates'
-  sums) against the plain backward at the same tolerance: at H 1 and 3, D
-  16 and 64, where the denominator's floor binds (logi near -30) and where
-  it does not, under strong forgetting (logf near -10), over 18 chunks and
-  over 1200 rows (dlogf's long reverse sum);
+* the kernel's passes against the plain backward at the same tolerance,
+  in both of its orders: ``ref.mlstm_scan_bwd_chunked_ref`` (the mma.sync
+  passes at the kernel's 64-row chunks: the gates, the forward walk, the
+  chunks' matrices, the rows' denominators, the reverse walk, the
+  per-chunk gradients, the gates' sums) and ``ref.mlstm_scan_bwd_walk_ref``
+  (the wgmma passes of head dim 512: dy C_in taken in the forward walk,
+  the slabs' dots summed in order, the reverse walk in both orientations,
+  fp32 operands as bf16 hi + lo); at H 1 and 3, D 16 and 64, where the
+  denominator's floor binds (logi near -30) and where it does not, under
+  strong forgetting (logf near -10), over 18 chunks and over 1200 rows
+  (dlogf's long reverse sum);
 * the identities the kernel takes the gate gradients from, on autograd's
   own gradients: dlogi_s = <k_s, dk_s> and dlogf_j = sum_{t >= j} (<q_t,
   dq_t> - <k_t, dk_t>).
@@ -108,14 +112,16 @@ CHUNKED_CASES = [
 
 
 @pytest.mark.parametrize("case", CHUNKED_CASES, ids=[c[0] for c in CHUNKED_CASES])
-def test_kernel_passes_match_the_plain_backward(case):
-    """The kernel's passes at its 64-row chunks against autograd of the twin
-    at the config's 256: the same gradient up to rounding."""
+@pytest.mark.parametrize("passes", ["mlstm_scan_bwd_chunked_ref", "mlstm_scan_bwd_walk_ref"])
+def test_kernel_passes_match_the_plain_backward(passes, case):
+    """The kernel's passes at its 64-row chunks, in either order, against
+    autograd of the twin at the config's 256: the same gradient up to
+    rounding."""
     _, b, s, h, d, li_shift, f_bias = case
     q, k, v, logi, fpre, dy = _draw(1, b, s, h, d, li_shift=li_shift, f_bias=f_bias)
     args = [torch.from_numpy(t) for t in (q, k, v, logi)] + [_logf(fpre), torch.from_numpy(dy)]
     want = ref.mlstm_scan_bwd_ref(*args, chunk=256)
-    got = ref.mlstm_scan_bwd_chunked_ref(*args, chunk=64)
+    got = getattr(ref, passes)(*args, chunk=64)
     for g in got:
         assert bool(torch.isfinite(g).all())
     _assert_close([g.numpy() for g in got], [w.numpy() for w in want], case[0])

@@ -5,6 +5,7 @@
     python3 tools/kernel_variants.py tools/kernel_variants_scans.json
     python3 tools/kernel_variants.py tools/kernel_variants_bwd_wide.json
     python3 tools/kernel_variants.py tools/kernel_variants_ssm_bwd.json
+    python3 tools/kernel_variants.py tools/kernel_variants_mlstm_bwd.json
 
 A spec names, per source in ``src/repro_torch/kernels/csrc``, a list of
 variants: each is a name and a list of ``[old, new]`` text substitutions
@@ -23,7 +24,8 @@ marked so and still timed) and timed by device time per call
 S 4096 and 1000; the attention backward at granite's training shape and
 h2o's window, and past head dim 128 at gemma3's and deepseek's training
 shapes; the scan's backward at zamba2's training shape, a tensor-parallel
-rank's 16 heads, S 1000 and S 4096).  The library call's device time is printed beside each
+rank's 16 heads, S 1000 and S 4096; the mLSTM scan's backward at xlstm's
+training shape, a rank's 2 heads and S 4096).  The library call's device time is printed beside each
 case (the backward's, autograd of SDPA, by CUDA events: a trace of it
 may see no device activity and a CUDA graph cannot capture it).  Run it
 on the machine with the card; compare variants only within one run.
@@ -113,33 +115,40 @@ def load(path: Path, src: str):
 
 
 def cases(gen) -> dict:
+    """Per source, a function that makes its cases (only the sources a spec
+    names are made)."""
     long_lens = [4096, 2048, 1, 3000, 17, 4095, 64, 1024]
     serve = [cs.PROMPT + 1] * cs.BATCH
     ssm = dict(h=32, p=128, n=64, chunk=256)        # zamba2-1.2b
     mlstm = dict(h=4, d=512, chunk=256)             # xlstm-1.3b
     half = dict(ssm, h=16)                          # a tensor-parallel rank's heads
     return {
-        "ssm_scan_bwd.cu": [
+        "mlstm_scan_bwd.cu": lambda: [
+            ("q (4,512,4,512), xlstm training", cs._mlstm_bwd_case(4, 512, gen=gen, **mlstm), 5),
+            ("q (4,256,2,512), 2 heads", cs._mlstm_bwd_case(4, 256, gen=gen, **dict(mlstm, h=2)),
+             5),
+            ("q (1,4096,4,512)", cs._mlstm_bwd_case(1, 4096, gen=gen, **mlstm), 3)],
+        "ssm_scan_bwd.cu": lambda: [
             ("x (4,1024), zamba2 training",
              cs._ssm_bwd_case(cs.TRAIN_BATCH, cs.TRAIN_SEQ, gen=gen, **ssm), 5),
             ("x (4,1024), 16 heads", cs._ssm_bwd_case(cs.TRAIN_BATCH, cs.TRAIN_SEQ, gen=gen,
                                                       **half), 5),
             ("x (1,1000)", cs._ssm_bwd_case(1, 1000, gen=gen, **ssm), 5),
             ("x (1,4096)", cs._ssm_bwd_case(1, 4096, gen=gen, **ssm), 5)],
-        "ssm_scan.cu": [
+        "ssm_scan.cu": lambda: [
             ("x (4,128), zamba2", cs._ssm_case(cs.BATCH, cs.PROMPT, gen=gen, **ssm), 20),
             ("x (1,4096)", cs._ssm_case(1, 4096, gen=gen, **ssm), 10),
             ("x (1,1000)", cs._ssm_case(1, 1000, gen=gen, **ssm), 10)],
-        "mlstm_scan.cu": [
+        "mlstm_scan.cu": lambda: [
             ("q (4,128), xlstm", cs._mlstm_case(cs.BATCH, cs.PROMPT, gen=gen, **mlstm), 20),
             ("q (1,4096)", cs._mlstm_case(1, 4096, gen=gen, **mlstm), 5),
             ("q (1,1000)", cs._mlstm_case(1, 1000, gen=gen, **mlstm), 5)],
-        "flash_attention.cu": [
+        "flash_attention.cu": lambda: [
             ("q 2048, D 128, 32/8 heads", cs._flash_case(1, 2048, 2048, 32, 8, 128, gen), 10),
             ("q 1000 / kv 1500, D 128", cs._flash_case(1, 1000, 1500, 32, 8, 128, gen), 10),
             ("q 2048, D 64, 32/32 heads", cs._flash_case(1, 2048, 2048, 32, 32, 64, gen), 10),
             ("q (4,128), D 128", cs._flash_case(4, 128, 128, 32, 8, 128, gen), 20)],
-        "flash_attention_bwd.cu": [
+        "flash_attention_bwd.cu": lambda: [
             ("q (4,1024), D 128, 32/8 heads, granite training",
              cs._flash_bwd_case(4, 1024, 32, 8, 128, gen), 5),
             ("q (1,2048), D 120, window 512, h2o",
@@ -148,7 +157,7 @@ def cases(gen) -> dict:
              cs._flash_bwd_case(2, 2048, 8, 4, 320, gen, window=1024), 5),
             ("q (4,1024), D 192, v 128 padded, 16/16 heads, deepseek training",
              cs._flash_bwd_case(4, 1024, 16, 16, 192, gen, dv=128), 5)],
-        "decode_attention.cu": [
+        "decode_attention.cu": lambda: [
             ("B 8 x 4096, D 128, 32/8 heads", cs._decode_case(long_lens, 4096, 32, 8, 128, gen), 20),
             ("B 8 x 4096, D 64, 32/32 heads", cs._decode_case(long_lens, 4096, 32, 32, 64, gen), 20),
             ("B 4 x 145, D 128", cs._decode_case(serve, 145, 32, 8, 128, gen), 50),
@@ -173,7 +182,7 @@ def main(argv: list[str]) -> int:
     runs = [(src, v[0], v[1], v[2] if len(v) > 2 else None) for src, vs in spec.items() for v in vs]
     build([make_variant(src, name, subs, opt["git"] if isinstance(opt, dict) else None)
            for src, name, subs, opt in runs])
-    table = {src: per for src, per in cases(torch.Generator(device="cuda").manual_seed(0)).items()
+    table = {src: make() for src, make in cases(torch.Generator(device="cuda").manual_seed(0)).items()
              if src in spec}
     for src, per in table.items():
         for label, case, iters in per:
